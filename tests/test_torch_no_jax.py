@@ -1,0 +1,41 @@
+"""The port and chip_smoke.py run where JAX is not installed."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import video_llava_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# Makes `import jax` raise ImportError, as on a machine without JAX.
+BLOCK_JAX = "import sys; sys.modules['jax'] = None; "
+
+
+def _run(code: str, *args: str) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run(
+        [sys.executable, "-c", code, *args], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, imports with JAX
+    unimportable, and none pulls JAX in; the chat CLI's --help runs."""
+    modules = [m.name for m in pkgutil.walk_packages(
+        video_llava_tpu_torch.__path__, "video_llava_tpu_torch.")]
+    assert "video_llava_tpu_torch.runtime.chat" in modules
+    code = (BLOCK_JAX + "import importlib\n"
+            f"for m in {modules + ['chip_smoke']!r}: "
+            "importlib.import_module(m)\n"
+            "assert sys.modules['jax'] is None\n"
+            "assert not [m for m in sys.modules if m.startswith('jax.')]\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+
+    proc = _run(BLOCK_JAX + "import runpy; sys.argv = ['chat', '--help']; "
+                "runpy.run_module('video_llava_tpu_torch.runtime.chat', "
+                "run_name='__main__')")
+    assert proc.returncode == 0, proc.stderr
+    assert "--model_size" in proc.stdout

@@ -1,0 +1,212 @@
+// Decode attention for one query token against one layer of the stacked
+// KV cache (NL, b, L, h, d), bf16 or int8 with per-(position, head) f32
+// scales (NL, b, L, h).
+//
+// Replaces video_llava_tpu/ops/attention.py::decode_attention_mxu_stacked
+// (Pallas body _decode_attn_mxu_stacked_kernel), reached through
+// decode_attention_stacked. For row bi, head hh, with n = lengths[bi]:
+//     s_p = (q . k_p) * scale [* k_scale_p]            p < n
+//     o   = sum_p softmax(s)_p [* v_scale_p] v_p        (bf16 out)
+// Positions at or past a row's length are never read. The layer select
+// that the TPU kernel did with scalar prefetch is a pointer offset here.
+//
+// What bounds it on Hopper: device-memory bandwidth on the cache stream
+// (2 * n * h * d bytes per layer and row in bf16, half that in int8); the
+// arithmetic is a few flops per byte. One block per (head, row) with 8 warps;
+// lanes split d so each cache row is one coalesced 256-byte (bf16, d = 128)
+// read, and each warp keeps kUnroll rows in flight to hide latency. Scores
+// go to shared memory (n floats), so the softmax is exact two-pass, not
+// online. At b = 1 the grid is h = 32 blocks, which fills 32 of 132 SMs:
+// splitting L across blocks (flash-decoding) is later work. Any L works.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kUnroll = 8;
+
+template <int E>
+__device__ inline void load_row(const __nv_bfloat16* p, float (&f)[E]) {
+  if constexpr (E == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+  } else {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    f[0] = a.x; f[1] = a.y;
+  }
+}
+
+template <int E>
+__device__ inline void load_row(const int8_t* p, float (&f)[E]) {
+  if constexpr (E == 4) {
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    f[0] = c.x; f[1] = c.y; f[2] = c.z; f[3] = c.w;
+  } else {
+    const char2 c = *reinterpret_cast<const char2*>(p);
+    f[0] = c.x; f[1] = c.y;
+  }
+}
+
+__device__ inline float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ inline float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// Reduce across the block's warps; every thread gets the result.
+template <bool kMax>
+__device__ inline float block_reduce(float x, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  x = kMax ? warp_max(x) : warp_sum(x);
+  __syncthreads();
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float r = red[0];
+  for (int w = 1; w < kWarps; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
+  return r;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
+                   const T* __restrict__ kc, const T* __restrict__ vc,
+                   const float* __restrict__ ks, const float* __restrict__ vs,
+                   const int* __restrict__ lengths, __nv_bfloat16* __restrict__ o,
+                   int layer, int b, int L, int h, float scale) {
+  constexpr int E = D / 32;
+  extern __shared__ float smem[];
+  float* sc = smem;                 // (L,) scores, then weights
+  float* acc_s = smem + L;          // (kWarps, D) partial outputs
+  float* red = acc_s + kWarps * D;  // (kWarps,) reduction scratch
+
+  const int hh = blockIdx.x, bi = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = min(lengths[bi], L);
+  __nv_bfloat16* orow = o + ((size_t)bi * h + hh) * D;
+  if (n <= 0) {
+    for (int c = threadIdx.x; c < D; c += kThreads) orow[c] = __float2bfloat16(0.f);
+    return;
+  }
+
+  const size_t row0 = ((size_t)layer * b + bi) * L;  // position 0 of (layer, bi)
+  const size_t pstride = (size_t)h * D;               // elements between positions
+  const T* kbase = kc + row0 * pstride + (size_t)hh * D + lane * E;
+  const T* vbase = vc + row0 * pstride + (size_t)hh * D + lane * E;
+  const float* ksb = ks ? ks + row0 * h + hh : nullptr;
+  const float* vsb = vs ? vs + row0 * h + hh : nullptr;
+
+  float qf[E];
+  load_row<E>(q + ((size_t)bi * h + hh) * D + lane * E, qf);
+
+  // Pass 1: scores.
+  for (int base = warp * kUnroll; base < n; base += kWarps * kUnroll) {
+    float part[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      part[u] = 0.f;
+      if (base + u < n) {
+        float kf[E];
+        load_row<E>(kbase + (size_t)(base + u) * pstride, kf);
+#pragma unroll
+        for (int e = 0; e < E; ++e) part[u] += qf[e] * kf[e];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const float dot = warp_sum(part[u]);
+      const int p = base + u;
+      if (lane == 0 && p < n) sc[p] = dot * scale * (ksb ? ksb[(size_t)p * h] : 1.f);
+    }
+  }
+  __syncthreads();
+
+  // Softmax: max, weights, sum (the sum excludes the v scales).
+  float mx = -INFINITY;
+  for (int p = threadIdx.x; p < n; p += kThreads) mx = fmaxf(mx, sc[p]);
+  mx = block_reduce<true>(mx, red);
+  float sum = 0.f;
+  for (int p = threadIdx.x; p < n; p += kThreads) {
+    const float w = __expf(sc[p] - mx);
+    sum += w;
+    sc[p] = vsb ? w * vsb[(size_t)p * h] : w;
+  }
+  sum = block_reduce<false>(sum, red);  // also orders the sc writes
+
+  // Pass 2: weighted sum of values.
+  float acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  for (int base = warp * kUnroll; base < n; base += kWarps * kUnroll) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int p = base + u;
+      if (p < n) {
+        float vf[E];
+        load_row<E>(vbase + (size_t)p * pstride, vf);
+        const float w = sc[p];
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] += w * vf[e];
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc_s[warp * D + lane * E + e] = acc[e];
+  __syncthreads();
+  const float inv = 1.f / sum;
+  for (int c = threadIdx.x; c < D; c += kThreads) {
+    float r = 0.f;
+    for (int w = 0; w < kWarps; ++w) r += acc_s[w * D + c];
+    orow[c] = __float2bfloat16(r * inv);
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* lengths, void* o, int layer, int b,
+           int L, int h, float scale, cudaStream_t stream) {
+  auto kern = decode_attn_kernel<T, D>;
+  const size_t smem = ((size_t)L + kWarps * D + kWarps) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(h, b), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(o), layer, b, L, h, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// int8: 0 for a bf16 cache (ks/vs ignored, pass null), 1 for int8 + scales.
+// d must be 64 or 128 (the wrapper checks).
+extern "C" int vlt_decode_attention(const void* q, const void* k,
+                                    const void* v, const void* ks,
+                                    const void* vs, const void* lengths,
+                                    void* o, int layer, int b, int L, int h,
+                                    int d, int int8, float scale,
+                                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (int8) {
+    if (d == 128)
+      return launch<int8_t, 128>(q, k, v, ks, vs, lengths, o, layer, b, L, h, scale, st);
+    return launch<int8_t, 64>(q, k, v, ks, vs, lengths, o, layer, b, L, h, scale, st);
+  }
+  if (d == 128)
+    return launch<__nv_bfloat16, 128>(q, k, v, nullptr, nullptr, lengths, o, layer, b, L, h, scale, st);
+  return launch<__nv_bfloat16, 64>(q, k, v, nullptr, nullptr, lengths, o, layer, b, L, h, scale, st);
+}

@@ -1,0 +1,205 @@
+"""Attention: plain PyTorch reference + two hand-written CUDA kernels.
+
+Counterpart of video_llava_tpu/ops/attention.py for the chat path:
+
+  * :func:`attention_reference` -- plain torch, f32 softmax. Prefill
+    attention into the KV cache runs here, as it runs on XLA in the JAX
+    package (``kv_valid_len``/``q_offset`` keep it off the kernels).
+  * :func:`flash_attention_bhsd` -- CLIP encoder attention over
+    head-major, once-padded operands (csrc/flash_bhsd.cu).
+  * :func:`decode_attention_stacked` -- one query token against one
+    layer of the stacked (NL, b, L, h, d) KV cache, bf16 or int8
+    (csrc/decode_attention.cu).
+
+Each kernel wrapper takes its plain version (``*_plain``) only for a
+tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
+Layouts are the JAX package's: BSHD at :func:`attention_reference`,
+(b, h, s_pad, d) for CLIP, (b, 1, h, d) queries for decode.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from video_llava_tpu_torch.ops import cuda_lib
+
+DEFAULT_MASK_VALUE = -1e30
+
+
+def _repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(b, s, h_kv, d) -> (b, s, h, d) by repeating each kv head."""
+    h_kv = k.shape[2]
+    if h_kv == num_heads:
+        return k
+    return torch.repeat_interleave(k, num_heads // h_kv, dim=2)
+
+
+def attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    kv_valid_len: Optional[torch.Tensor] = None,
+    q_offset: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention with an f32 softmax. q: (b, sq, h, d); k/v: (b, skv,
+    h_kv, d) -> (b, sq, h, d) in q's dtype.
+
+    kv_valid_len: optional (b,) int -- keys at positions >= len are
+    masked out. q_offset: optional (b,) int absolute position of each
+    row's first query among the keys (prefill into a cache); default
+    right-aligned (skv - sq). Probabilities are rounded to v's dtype
+    before the second product, as in the JAX reference.
+    """
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    scale = scale if scale is not None else 1.0 / (d**0.5)
+    k = _repeat_kv(k, h)
+    v = _repeat_kv(v, h)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        if q_offset is None:
+            q_offset = torch.full((b,), skv - sq, dtype=torch.int32,
+                                  device=q.device)
+        qpos = (torch.arange(sq, device=q.device)[None, :, None]
+                + q_offset.to(q.device)[:, None, None])  # (b, sq, 1)
+        kpos = torch.arange(skv, device=q.device)[None, None, :]
+        logits = logits.masked_fill(~(qpos >= kpos)[:, None],
+                                    DEFAULT_MASK_VALUE)
+    if kv_valid_len is not None:
+        kmask = (torch.arange(skv, device=q.device)[None, :]
+                 < kv_valid_len.to(q.device)[:, None])  # (b, skv)
+        logits = logits.masked_fill(~kmask[:, None, None, :],
+                                    DEFAULT_MASK_VALUE)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1: CLIP encoder attention
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_bhsd_plain(q, k, v, *, kv_len=None, scale=None):
+    """Plain version of :func:`flash_attention_bhsd`: the masked
+    reference over the transposed operands."""
+    b, h, s, d = q.shape
+    kv_len = s if kv_len is None else kv_len
+    lens = torch.full((b,), kv_len, dtype=torch.int32, device=q.device)
+    out = attention_reference(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        kv_valid_len=lens, scale=scale,
+    )
+    return out.transpose(1, 2)
+
+
+def flash_attention_bhsd(
+    q: torch.Tensor,  # (b, h, s_pad, d)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kv_len: Optional[int] = None,  # true kv length (masks the pad tail)
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Non-causal attention over head-major, pre-padded operands ->
+    (b, h, s_pad, d); keys at or past `kv_len` are masked. On CUDA:
+    bf16 in and out, any s_pad and kv_len, d a multiple of 16 up to
+    128 (csrc/flash_bhsd.cu)."""
+    b, h, s, d = q.shape
+    kv_len = s if kv_len is None else int(kv_len)
+    scale = scale if scale is not None else 1.0 / (d**0.5)
+    if q.device.type == "cpu":
+        return flash_attention_bhsd_plain(q, k, v, kv_len=kv_len,
+                                          scale=scale)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        cuda_lib.require(t, name, torch.bfloat16, (b, h, s, d), q.device)
+    if d % 16 or not 16 <= d <= 128:
+        raise ValueError(f"head dim {d}: must be a multiple of 16 <= 128")
+    if not 1 <= kv_len <= s:
+        raise ValueError(f"kv_len {kv_len} outside [1, {s}]")
+    if b * h > 65535:
+        raise ValueError(f"b*h = {b * h} exceeds the grid's y limit")
+    out = torch.empty_like(q)
+    cuda_lib.launch(
+        "flash_attention_bhsd", "vlt_flash_bhsd", q.device,
+        cuda_lib.ptr(q), cuda_lib.ptr(k), cuda_lib.ptr(v), cuda_lib.ptr(out),
+        b * h, s, d, kv_len, float(scale),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: decode attention over the stacked KV cache
+# ---------------------------------------------------------------------------
+
+
+def decode_attention_stacked_plain(q, k_cache, v_cache, layer, cache_len,
+                                   k_scale=None, v_scale=None, scale=None):
+    """Plain version of :func:`decode_attention_stacked`: slice the
+    layer, dequantize to q's dtype, masked reference attention (the JAX
+    package's XLA path)."""
+    k, v = k_cache[layer], v_cache[layer]
+    if k_scale is not None:
+        k = (k.float() * k_scale[layer][..., None]).to(q.dtype)
+        v = (v.float() * v_scale[layer][..., None]).to(q.dtype)
+    return attention_reference(q, k, v, kv_valid_len=cache_len, scale=scale)
+
+
+def decode_attention_stacked(
+    q: torch.Tensor,  # (b, 1, h, d)
+    k_cache: torch.Tensor,  # (NL, b, L, h, d) bf16, or int8 with scales
+    v_cache: torch.Tensor,
+    layer: int,
+    cache_len: torch.Tensor,  # (b,) int32
+    k_scale: Optional[torch.Tensor] = None,  # (NL, b, L, h) f32 when int8
+    v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One decode step's attention against layer `layer` of the stacked
+    cache -> (b, 1, h, d). Positions at or past a row's length are never
+    read. On CUDA: MHA only (h == h_kv), d in {64, 128}, bf16 query
+    (csrc/decode_attention.cu)."""
+    b, _, h, d = q.shape
+    nl, _, L, h_kv = k_cache.shape[:4]
+    scale = scale if scale is not None else 1.0 / (d**0.5)
+    if q.device.type == "cpu":
+        return decode_attention_stacked_plain(
+            q, k_cache, v_cache, layer, cache_len, k_scale, v_scale, scale)
+    if h_kv != h:
+        raise NotImplementedError("decode kernel is MHA-only (h == h_kv)")
+    if d not in (64, 128):
+        raise ValueError(f"head dim {d}: the decode kernel takes 64 or 128")
+    if not 0 <= layer < nl:
+        raise IndexError(f"layer {layer} outside [0, {nl})")
+    quantized = k_scale is not None
+    cdtype = torch.int8 if quantized else torch.bfloat16
+    dev = q.device
+    cuda_lib.require(q, "q", torch.bfloat16, (b, 1, h, d))
+    cuda_lib.require(k_cache, "k_cache", cdtype, (nl, b, L, h, d), dev)
+    cuda_lib.require(v_cache, "v_cache", cdtype, (nl, b, L, h, d), dev)
+    cuda_lib.require(cache_len, "cache_len", torch.int32, (b,), dev)
+    if quantized:
+        cuda_lib.require(k_scale, "k_scale", torch.float32, (nl, b, L, h),
+                         dev)
+        cuda_lib.require(v_scale, "v_scale", torch.float32, (nl, b, L, h),
+                         dev)
+        ks, vs = cuda_lib.ptr(k_scale), cuda_lib.ptr(v_scale)
+    else:
+        ks = vs = None
+    if (L + 9 * d) * 4 > 227 * 1024:
+        raise ValueError(f"cache length {L} exceeds the kernel's shared "
+                         "memory for its scores")
+    out = torch.empty_like(q)
+    cuda_lib.launch(
+        "decode_attention_stacked", "vlt_decode_attention", q.device,
+        cuda_lib.ptr(q), cuda_lib.ptr(k_cache), cuda_lib.ptr(v_cache),
+        ks, vs, cuda_lib.ptr(cache_len), cuda_lib.ptr(out),
+        int(layer), b, L, h, d, int(quantized), float(scale),
+    )
+    return out
