@@ -1,8 +1,6 @@
 """Port parity: the CLIP vision tower and video encode, with the JAX
 parameters carried over by engine.convert.params_from_jax."""
 
-import dataclasses
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -13,7 +11,6 @@ from video_llava_tpu.models import clip as jax_clip
 from video_llava_tpu.models import video_llava as jax_vl
 from video_llava_tpu.ops.image import preprocess_frames as jax_preprocess
 from video_llava_tpu_torch.engine.convert import params_from_jax
-from video_llava_tpu_torch.models.clip import padded_length
 from video_llava_tpu_torch.ops.image import preprocess_frames
 
 
@@ -44,22 +41,3 @@ def test_encode_frames_and_video_match_jax():
     got = model.encode_video(tp, num_valid_frames=5).numpy()
     assert got.shape == (cfg.video_token_len, cfg.vision.hidden_size)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
-
-
-def test_padded_length_rule():
-    """257 -> 272 at 224 px and 577 -> 640 at 336 px."""
-    assert padded_length(257) == 272
-    assert padded_length(577) == 640
-    assert padded_length(17) == 32
-
-
-def test_bf16_tree_carries_the_same_bytes():
-    cfg = dataclasses.replace(VideoLLaVAConfig.tiny())
-    params = jax_vl.init_params(jax.random.PRNGKey(1), cfg, jnp.bfloat16)
-    tree = jax.tree.map(np.asarray, params)
-    model = params_from_jax(tree, cfg)
-    want = tree["vision"]["layers"]["q"]["kernel"][1]
-    got = model.vision.layers[1].q.kernel
-    assert got.dtype == torch.bfloat16
-    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
-                                  want.view(np.int16))

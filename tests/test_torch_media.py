@@ -26,11 +26,3 @@ def test_load_video_matches_jax_loader(tmp_path):
         assert got.dtype == np.uint8 and got.shape[1:] == (56, 56, 3)
         np.testing.assert_array_equal(got, want)
     assert len(loader.load_video(long_path)) == 100
-
-
-def test_get_seq_frames_matches_jax():
-    from video_llava_tpu.ops.sampling import get_seq_frames as jax_seq
-    from video_llava_tpu_torch.ops.sampling import get_seq_frames
-
-    for total, want in ((1000, 100), (130, 100), (12, 12), (101, 100)):
-        assert get_seq_frames(total, want) == jax_seq(total, want)

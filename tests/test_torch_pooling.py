@@ -7,7 +7,6 @@ card.
 
 import numpy as np
 import jax.numpy as jnp
-import pytest
 import torch
 
 from video_llava_tpu.ops.pooling import spatio_temporal_pool_pallas
@@ -36,8 +35,3 @@ def test_pool_matches_jax_interpret():
         np.testing.assert_array_equal(
             spatio_temporal_pool_fused(tx, n, out_dtype=torch.float32)
             .numpy(), got)
-
-
-def test_pool_rejects_too_many_frames():
-    with pytest.raises(ValueError):
-        spatio_temporal_pool(torch.zeros((101, 4, 8)))

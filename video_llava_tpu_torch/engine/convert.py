@@ -8,6 +8,10 @@ onto ``VideoLLaVA.state_dict()`` by path once each stacked ``layers``
 dict is split. Leaves arrive as numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``), so nothing here imports JAX;
 bfloat16 leaves (numpy's ml_dtypes bfloat16) are carried bit for bit.
+A quantized LLM tree (quantize_params / quantize_params_int4, then
+optionally fuse_layer_kernels) carries across as it is: the model is
+built in the layout the tree's leaves name, and the {qvalues_packed,
+scales} / {qvalues, scales} leaves keep their bytes and dtypes.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from video_llava_tpu.config import VideoLLaVAConfig
+from video_llava_tpu_torch.config import VideoLLaVAConfig
+from video_llava_tpu_torch.models.llama import FUSED
 from video_llava_tpu_torch.models.video_llava import VideoLLaVA
 
 
@@ -52,14 +57,36 @@ def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+_QUANT_LEAVES = ("qvalues_packed", "qvalues", "scales")
+
+
+def llm_layout(flat: Dict[str, np.ndarray]):
+    """(llm_quant, group_size, llm_fuse) of a flattened tree's LLM."""
+    keys = [k for k in flat if k.startswith("llm.")]
+    packed = [k for k in keys if k.endswith(".qvalues_packed")]
+    quant = ("int4" if packed else
+             "int8" if any(k.endswith(".qvalues") for k in keys) else None)
+    group_size = 128
+    if packed:
+        d = 2 * np.shape(flat[packed[0]])[-2]
+        g = np.shape(flat[packed[0][:-len("qvalues_packed")] + "scales"])[-2]
+        group_size = d // g if g > 1 else None
+    fuse = any(f".{name}." in k for k in keys for name in FUSED)
+    return quant, group_size, fuse
+
+
 def params_from_jax(tree_np, cfg: VideoLLaVAConfig, device=None,
                     dtype: Optional[torch.dtype] = None) -> VideoLLaVA:
-    """Build a VideoLLaVA holding the JAX tree's values (cast to `dtype`
-    when given, else each leaf keeps its own dtype). Every module
-    parameter must be present in the tree and every tree leaf used."""
+    """Build a VideoLLaVA holding the JAX tree's values (floating leaves
+    cast to `dtype` when given, else each leaf keeps its own dtype;
+    quantized leaves always keep theirs). Every module parameter must be
+    present in the tree and every tree leaf used."""
     flat = flatten_tree(tree_np)
     model_dtype = dtype or _to_tensor(flat["llm.final_norm.scale"]).dtype
-    model = VideoLLaVA(cfg, device="meta", dtype=model_dtype)
+    quant, group_size, fuse = llm_layout(flat)
+    model = VideoLLaVA(cfg, device="meta", dtype=model_dtype,
+                       llm_quant=quant, group_size=group_size,
+                       llm_fuse=fuse)
     expected = dict(model.named_parameters())
     missing = sorted(set(expected) - set(flat))
     unexpected = sorted(set(flat) - set(expected))
@@ -72,7 +99,8 @@ def params_from_jax(tree_np, cfg: VideoLLaVAConfig, device=None,
         if tuple(t.shape) != tuple(param.shape):
             raise ValueError(f"{name}: tree shape {tuple(t.shape)} != "
                              f"model shape {tuple(param.shape)}")
-        state[name] = t.to(device=device, dtype=dtype or t.dtype)
+        keep = dtype is None or name.rsplit(".", 1)[-1] in _QUANT_LEAVES
+        state[name] = t.to(device=device, dtype=t.dtype if keep else dtype)
     model.load_state_dict(state, assign=True)
     for p in model.parameters():
         p.requires_grad_(False)

@@ -15,7 +15,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from video_llava_tpu.config import GenerationConfig
+from video_llava_tpu_torch.config import GenerationConfig
 from video_llava_tpu_torch.models.llama import KVCache
 
 

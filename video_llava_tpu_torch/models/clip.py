@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from video_llava_tpu.config import CLIPVisionConfig
+from video_llava_tpu_torch.config import CLIPVisionConfig
 from video_llava_tpu_torch.models.layers import (
     ACTIVATIONS,
     LayerNorm,

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from video_llava_tpu.config import ProjectorConfig
+from video_llava_tpu_torch.config import ProjectorConfig
 from video_llava_tpu_torch.models.layers import Linear
 
 _MLP_RE = re.compile(r"^mlp(\d+)x_gelu$")

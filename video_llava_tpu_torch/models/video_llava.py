@@ -13,7 +13,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from video_llava_tpu.config import VideoLLaVAConfig
+from video_llava_tpu_torch.config import VideoLLaVAConfig
 from video_llava_tpu_torch.models.clip import CLIPVisionTower
 from video_llava_tpu_torch.models.llama import KVCache, Llama
 from video_llava_tpu_torch.models.projector import Projector
@@ -42,14 +42,20 @@ def splice_video_embeddings(token_embeds, input_ids, video_features,
 
 
 class VideoLLaVA(nn.Module):
+    """llm_quant (None, "int8", "int4"), group_size and llm_fuse set the
+    LLM's layout (models/llama.py); CLIP and the projector stay in
+    `dtype`."""
+
     def __init__(self, cfg: VideoLLaVAConfig, *, device=None,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, llm_quant: Optional[str] = None,
+                 group_size: Optional[int] = 128, llm_fuse: bool = False):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.vision = CLIPVisionTower(cfg.vision, **kw)
         self.projector = Projector(cfg.projector, **kw)
-        self.llm = Llama(cfg.llm, **kw)
+        self.llm = Llama(cfg.llm, quant=llm_quant, group_size=group_size,
+                         fuse=llm_fuse, **kw)
 
     def encode_video(self, pixels: torch.Tensor,
                      num_valid_frames: Optional[int] = None) -> torch.Tensor:

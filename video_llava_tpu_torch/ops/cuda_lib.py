@@ -1,8 +1,9 @@
 """Build, load and launch the port's CUDA kernels.
 
-All sources under ``video_llava_tpu_torch/csrc`` compile with ``nvcc``
-into one shared library with a plain C interface, bound with ctypes.
-Without PyTorch's headers the build takes seconds. The library is built
+Each source under ``video_llava_tpu_torch/csrc`` compiles with its own
+``nvcc`` process, all started together, and the objects link into one
+shared library with a plain C interface, bound with ctypes. Without
+PyTorch's headers the build takes seconds. The library is built
 at first use into ``video_llava_tpu_torch/build/`` under a name that
 hashes the sources and flags, so an edited source rebuilds and nothing
 stale is loaded. ``ptxas -v`` output (registers, shared memory, spills
@@ -31,7 +32,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # kernel name -> successful launches since the last reset_launch_counts()
@@ -48,6 +49,8 @@ _SIGNATURES = {
     "vlt_decode_attention": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
+    "vlt_w4a8_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "vlt_w4a8_block": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -86,15 +89,31 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in sources if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    nvcc = _nvcc()
+    cu = [s for s in sources if s.endswith(".cu")]
+    objs, procs = [], []
+    for src in cu:
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate()[0] for p in procs]  # every build runs to its end
+    failed = [(src, log) for src, log, p in zip(cu, logs, procs)
+              if p.returncode != 0]
+    link = None
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed or link.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{src}:\n{log}" for src, log in failed) + (
+                "" if link is None else link.stdout + link.stderr))
     with open(out[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("".join(logs) + link.stdout + link.stderr)
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return out
 

@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from video_llava_tpu.constants import MAX_TEMPORAL_TOKENS
+from video_llava_tpu_torch.constants import MAX_TEMPORAL_TOKENS
 from video_llava_tpu_torch.ops import cuda_lib
 
 

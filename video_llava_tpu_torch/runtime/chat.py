@@ -7,6 +7,7 @@ injection on the first turn), answer (prompt replace, generate,
 code-block post-processing) and the interact() REPL.
 
 Run: python -m video_llava_tpu_torch.runtime.chat --model_size 7b
+[--quant int4]
 """
 
 from __future__ import annotations
@@ -18,18 +19,19 @@ from typing import Optional
 
 import torch
 
-from video_llava_tpu.constants import (
+from video_llava_tpu_torch.constants import (
     DEFAULT_VID_END_TOKEN,
     DEFAULT_VID_START_TOKEN,
     DEFAULT_VIDEO_PATCH_TOKEN,
     DEFAULT_VIDEO_TOKEN,
 )
-from video_llava_tpu.runtime.conversation import (
+from video_llava_tpu_torch.engine.generate import generate_with_keywords
+from video_llava_tpu_torch.engine.quant_select import resolve_quant
+from video_llava_tpu_torch.media.loader import load_video
+from video_llava_tpu_torch.runtime.conversation import (
     conv_templates,
     default_conversation,
 )
-from video_llava_tpu_torch.engine.generate import generate_with_keywords
-from video_llava_tpu_torch.media.loader import load_video
 from video_llava_tpu_torch.runtime.inference import InferenceEngine
 from video_llava_tpu_torch.runtime.model_init import initialize_model
 
@@ -178,11 +180,17 @@ def main(argv=None):
     p.add_argument("--conv_mode", default="pg-video-llava")
     p.add_argument("--temperature", type=float, default=0.2)
     p.add_argument("--max_output_tokens", type=int, default=1024)
+    p.add_argument("--quant", default=None, choices=("int8", "int4", "auto"),
+                   help="weights-only LLM quantization (int4: the W4A8 "
+                   "kernels); resolved against the checkpoint's "
+                   "quant_preflight.json as in the JAX package")
     args = p.parse_args(argv)
     if args.projection_path or args.clip_path:
         raise NotImplementedError("checkpoint loading is not ported yet")
+    quant = resolve_quant(args.quant, args.model_name)
     engine = initialize_model(args.model_name, model_size=args.model_size,
-                              device="cuda")
+                              device="cuda", llm_quant=quant,
+                              llm_fuse=bool(quant))
     VideoChatGPTInterface(
         engine, conv_mode=args.conv_mode, temperature=args.temperature,
         max_output_tokens=args.max_output_tokens,

@@ -15,18 +15,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from video_llava_tpu.config import GenerationConfig, VideoLLaVAConfig
-from video_llava_tpu.constants import (
+from video_llava_tpu_torch.config import GenerationConfig, VideoLLaVAConfig
+from video_llava_tpu_torch.constants import (
     DEFAULT_TRANSCRIPT_START,
     DEFAULT_VID_END_TOKEN,
     DEFAULT_VID_START_TOKEN,
     DEFAULT_VIDEO_PATCH_TOKEN,
 )
-from video_llava_tpu.runtime.conversation import conv_templates
-from video_llava_tpu.runtime.tokenizer import Tokenizer
 from video_llava_tpu_torch.engine.generate import generate_with_keywords
 from video_llava_tpu_torch.models.video_llava import VideoLLaVA
 from video_llava_tpu_torch.ops.image import preprocess_frames
+from video_llava_tpu_torch.runtime.conversation import conv_templates
+from video_llava_tpu_torch.runtime.tokenizer import Tokenizer
 
 
 def build_video_question(question: str, video_token_len: int,
@@ -58,7 +58,7 @@ class InferenceEngine:
 
     @property
     def device(self) -> torch.device:
-        return self.model.llm.lm_head.kernel.device
+        return self.model.llm.final_norm.scale.device
 
     def padded_prompt(self, prompt: str):
         """Tokenize and right-pad to seq_pad_multiple -> (input_ids (1,
