@@ -7,31 +7,41 @@ Phases, each of which raises on failure (exit code != 0):
   1. print the card (nvidia-smi name, power limit) and torch/CUDA versions;
   2. build the CUDA kernels from video_llava_tpu_torch/csrc;
   3. check each kernel against its plain PyTorch version at the chat
-     path's shapes (plus the 336 px CLIP shape, the 12-frame pool, the
-     int8 cache, and for the W4A8 kernels Vicuna-7B's decode and
-     prefill linears in the bf16-out build the path launches and in
-     f32 out, a flat per-layer weight and a 1100-row prompt), timing
-     both with CUDA events;
+     and serving paths' shapes (plus the 336 px CLIP shape, the 12-frame
+     pool, the int8 caches, the paged pool with bf16 and int8 values,
+     and for the W4A8 kernels Vicuna-7B's decode and prefill linears in
+     the bf16-out build the path launches and in f32 out, a flat
+     per-layer weight and a 1100-row prompt), timing the kernel, the
+     plain version and, where one PyTorch call computes the same
+     function, that call, each beside the kernel's bound;
   4. check a small model end to end, in bf16 and with int4 W4A8 LLM
      weights: the CUDA path in bf16 against the plain path on the CPU
      in f32;
   5. build Vicuna-7B + CLIP ViT-L/14-224 with random bf16 weights and
      answer three chat requests through VideoChatGPTInterface (a
      100-frame clip at temperature 0, a second turn, a 12-frame clip at
-     temperature 0.2; frames from a seed), with every kernel's launch
-     count taken over exactly that run; then profile the 100-frame
-     request once more (see profile_request);
+     temperature 0.2; frames from a seed; no speculation, as in the chat
+     CLI), with every kernel's launch count taken over exactly that
+     run; then profile the 100-frame request once more (see
+     profile_request);
   6. free it, build the same model with int4 W4A8 LLM weights (fused
      wqkv/gate_up, int8 lm_head and embedding: --quant int4) and answer
      the 100-frame request and a second turn, launch counts again taken
      over exactly that run, and profile the 100-frame request;
-  7. print stage times, the kernels' JSON line, the card line and, last,
+  7. serve those weights as `python -m video_llava_tpu_torch.serving
+     --model_size 7b --quant int4 --continuous --paged --prefix_cache`
+     would, on 127.0.0.1: 8 concurrent HTTP requests and a video
+     request through continuous batching, one request through the
+     serialized mode (see serving_phase), launch counts over that run;
+     the continuous traffic again under the profiler;
+  8. print stage times, the kernels' JSON line, the card line and, last,
      {"ok": true, "device": {...}}.
 It needs a CUDA card and the repository beside it, and imports no JAX.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import gc
 import json
@@ -39,9 +49,11 @@ import statistics
 import subprocess
 import sys
 import time
+import urllib.request
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -53,16 +65,19 @@ from video_llava_tpu_torch.constants import (
     DEFAULT_VIDEO_PATCH_TOKEN,
     DEFAULT_VIDEO_TOKEN,
 )
+from video_llava_tpu_torch.engine.continuous import SlotRequest
 from video_llava_tpu_torch.models.video_llava import VideoLLaVA
 from video_llava_tpu_torch.ops import attention, cuda_lib, pooling, quant4
 from video_llava_tpu_torch.runtime.chat import VideoChatGPTInterface
 from video_llava_tpu_torch.runtime.conversation import conv_templates
+from video_llava_tpu_torch.runtime.inference import build_video_question
 from video_llava_tpu_torch.runtime.model_init import (
     initialize_model,
     random_init_,
     random_init_quantized_llm_,
 )
 from video_llava_tpu_torch.runtime.tokenizer import load_tokenizer
+from video_llava_tpu_torch.serving.server import ChatModel, serve
 
 MAX_NEW_TOKENS = 64
 QUESTION = "What is happening in this video?"
@@ -78,16 +93,26 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                     "video_llava_tpu/ops/quant4.py:870"),
     "w4a8_block": ("video_llava_tpu_torch/csrc/w4a8_block.cu",
                    "video_llava_tpu/ops/quant4.py:931"),
+    "decode_attention_paged": (
+        "video_llava_tpu_torch/csrc/decode_attention.cu",
+        "video_llava_tpu/ops/attention.py:1360"),
 }
 BF16_PATH = ("flash_attention_bhsd", "spatio_temporal_pool",
              "decode_attention_stacked")
+INT4_PATH = BF16_PATH + ("w4a8_matvec", "w4a8_block")
+SERVING_PATH = ("decode_attention_paged", "w4a8_matvec", "w4a8_block")
 # Kernel vs plain on the card, both bf16 out. flash: the kernel rounds P
 # to bf16 for its second product and accumulates in another order;
 # decode: the plain version dequantizes int8 to bf16, the kernel keeps
 # f32; pool: f32 sums in another order. Each differs from the plain
 # version by a few bf16 ulps of outputs of magnitude < 2.
 TOL = {"flash_attention_bhsd": 2e-2, "spatio_temporal_pool": 1e-2,
-       "decode_attention_stacked": 2e-2}
+       "decode_attention_stacked": 2e-2, "decode_attention_paged": 2e-2}
+# Kernel 10 also row by row (row_rel_err): a row of 2048 positions
+# averages them, so its outputs are small (~0.01 in the int8 pool) and
+# the absolute limit would pass a wrong block there; a few bf16 ulps of
+# each row's own scale do not (paged_checks plants such faults).
+ROW_TOL = {"decode_attention_paged": 2 ** -6}
 # W4A8 as max|err| / max|ref|: kernel and plain version quantize the
 # activations by the same rule and form exact integer partials, so in f32
 # out only the order of the f32 sums over groups differs. In bf16 out
@@ -95,6 +120,12 @@ TOL = {"flash_attention_bhsd": 2e-2, "spatio_temporal_pool": 1e-2,
 # ulp apart, and an ulp is at most 2^-7 of the value.
 REL_TOL = {"w4a8_matvec": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7},
            "w4a8_block": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}}
+# Published peaks of one H100 SXM (dense): the bound of a kernel is the
+# larger of its bytes over HBM_RATE and its operations over the peak of
+# their type.
+HBM_RATE = 3.35e12  # bytes/s
+BF16_PEAK = 989e12  # FLOP/s
+INT8_PEAK = 1979e12  # OP/s
 
 
 def card_line() -> str:
@@ -132,10 +163,30 @@ def median_ms(fn, calls: int = 10, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def check(results, name, shape, fn, plain):
+def bound(nbytes: float, ops: float = 0.0, peak: float = BF16_PEAK):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes the call must move over HBM_RATE and its
+    operations over `peak`."""
+    t_bytes, t_ops = nbytes / HBM_RATE, ops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def row_rel_err(got, want) -> float:
+    """The largest over rows (the first axis) of max|got - want| /
+    max|want| within the row."""
+    err = (got.float() - want.float()).abs().flatten(1).amax(1)
+    return (err / want.float().abs().flatten(1).amax(1)).max().item()
+
+
+def check(results, name, shape, fn, plain, nbytes, ops=0.0,
+          peak=BF16_PEAK, library=None):
     """Kernel vs plain on the same inputs; raise past the tolerance
     (absolute, or relative to max |ref| for the REL_TOL kernels, by the
-    output's dtype)."""
+    output's dtype; for the ROW_TOL kernels also relative to each row's
+    max |ref|). Time the kernel, the plain version and `library`
+    (one PyTorch call computing the same function, or None), and put
+    them beside the bound from `nbytes`/`ops` (see bound)."""
     got, want = fn(), plain()
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -151,15 +202,26 @@ def check(results, name, shape, fn, plain):
         tol = TOL[name]
         rel = err
         note = f"max|err| {err:.3e} (tol {tol})"
-    if not np.isfinite(rel) or rel > tol:
+    bad = not np.isfinite(rel) or rel > tol
+    if name in ROW_TOL:
+        row = row_rel_err(got, want)
+        note += (f", rows' max|err|/max|ref| {row:.3e} "
+                 f"(tol {ROW_TOL[name]:.4g})")
+        bad = bad or not np.isfinite(row) or row > ROW_TOL[name]
+    if bad:
         raise AssertionError(f"{name} {shape}: {note}")
     r = results.setdefault(name, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
     ms, plain_ms = median_ms(fn), median_ms(plain)
-    if "ms" not in r:  # the first shape listed is the chat path's
-        r["ms"], r["plain_ms"] = ms, plain_ms
+    library_ms = None if library is None else median_ms(library)
+    bound_ms, bound_by = bound(nbytes, ops, peak)
+    if "ms" not in r:  # the first shape listed is the main path's
+        r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=library_ms)
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
     print(f"check {name} {shape}: {note}, max|err| {err:.3e}, "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
+          f"{bound_ms:.4f} ms by {bound_by}", flush=True)
 
 
 def chat_cache_len(cfg: VideoLLaVAConfig, seq_pad_multiple: int = 128):
@@ -181,30 +243,43 @@ def kernel_checks(dev) -> dict:
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(  # noqa
         torch.bfloat16)
     results: dict = {}
-    # CLIP attention: 100 frames x 16 heads, 224 px then 336 px
+    # CLIP attention: 100 frames x 16 heads, 224 px then 336 px; the
+    # library call is SDPA with the same key mask
     for s, s_pad in ((257, 272), (577, 640)):
         q, k, v = (rnd(100, 16, s_pad, 64) for _ in range(3))
+        mask = (torch.arange(s_pad, device=dev) < s)[None, None, None]
         check(results, "flash_attention_bhsd", (100, 16, s_pad, 64, s),
               lambda: attention.flash_attention_bhsd(q, k, v, kv_len=s),
               lambda: attention.flash_attention_bhsd_plain(q, k, v,
-                                                           kv_len=s))
+                                                           kv_len=s),
+              nbytes=4 * q.numel() * 2, ops=4 * 100 * 16 * s_pad * s * 64,
+              library=lambda: F.scaled_dot_product_attention(
+                  q, k, v, attn_mask=mask))
     del q, k, v
-    # pooling: 100 frames, then a 12-frame clip
+    # pooling: 100 frames, then a 12-frame clip; the library call is the
+    # two means over the pooled axes
     for t in (100, 12):
         x = rnd(t, 256, 1024)
         check(results, "spatio_temporal_pool", (t, 256, 1024),
               lambda: pooling.spatio_temporal_pool_fused(x, t),
-              lambda: pooling.spatio_temporal_pool(x, t))
+              lambda: pooling.spatio_temporal_pool(x, t),
+              nbytes=(x.numel() + (100 + 256) * 1024) * 2,
+              library=lambda: torch.cat([x.mean(1), x.mean(0)]))
     # decode attention at the first chat turn's cache, mid-answer
     n_prompt, L = chat_cache_len(VideoLLaVAConfig())
-    lens = torch.tensor([n_prompt + MAX_NEW_TOKENS // 2], dtype=torch.int32,
-                        device=dev)
+    n = n_prompt + MAX_NEW_TOKENS // 2
+    lens = torch.tensor([n], dtype=torch.int32, device=dev)
     q = rnd(1, 1, 32, 128)
     kc, vc = rnd(32, 1, L, 32, 128), rnd(32, 1, L, 32, 128)
+    mask = (torch.arange(L, device=dev) < n)[None, None, None]
     check(results, "decode_attention_stacked", (32, 1, L, 32, 128, "bf16"),
           lambda: attention.decode_attention_stacked(q, kc, vc, 17, lens),
           lambda: attention.decode_attention_stacked_plain(q, kc, vc, 17,
-                                                           lens))
+                                                           lens),
+          nbytes=2 * n * 32 * 128 * 2, ops=4 * n * 32 * 128,
+          library=lambda: F.scaled_dot_product_attention(
+              q.transpose(1, 2), kc[17].transpose(1, 2),
+              vc[17].transpose(1, 2), attn_mask=mask))
     kq = torch.randint(-127, 128, kc.shape, generator=g, device=dev,
                        dtype=torch.int8)
     vq = torch.randint(-127, 128, kc.shape, generator=g, device=dev,
@@ -215,10 +290,87 @@ def kernel_checks(dev) -> dict:
           lambda: attention.decode_attention_stacked(q, kq, vq, 17, lens,
                                                      ks, vs),
           lambda: attention.decode_attention_stacked_plain(q, kq, vq, 17,
-                                                           lens, ks, vs))
+                                                           lens, ks, vs),
+          nbytes=2 * n * 32 * (128 + 4), ops=4 * n * 32 * 128)
     del q, kc, vc, kq, vq, ks, vs
+    paged_checks(dev, g, rnd, results)
     w4a8_checks(dev, g, results)
     return results
+
+
+def paged_checks(dev, g, rnd, results) -> None:
+    """Kernel 10 at the serving engine's shapes (7B, 4 slots, a pool of
+    32 x 129 blocks of 64 positions, 32 blocks a row): two batches of row
+    lengths {1000, 2048, 63, 64} and {1, 65, 1000, 2048}, each row's
+    blocks drawn without replacement from a shuffled pool, the pad block
+    0 past its allocation; bf16, then an int8 pool. The library call is
+    SDPA with a length mask over the gathered dense view, timed from the
+    gather on. On the first batch of each pool, two planted faults in
+    the plain version (one table entry of the 2048-position row pointing
+    at a block no row uses; row 1000's partial tail block dropped) must
+    fail the row check: printed beside whether the absolute limit alone
+    would have caught them."""
+    nl, nb, bs, maxb, b, h, d = 32, 129, 64, 32, 4, 32, 128
+    k, v = rnd(nl, nb, bs, h, d), rnd(nl, nb, bs, h, d)
+    kq = torch.randint(-127, 128, k.shape, generator=g, device=dev,
+                       dtype=torch.int8)
+    vq = torch.randint(-127, 128, k.shape, generator=g, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand(k.shape[:-1], generator=g, device=dev) / 127
+    vs = torch.rand(k.shape[:-1], generator=g, device=dev) / 127
+    q = rnd(b, 1, h, d)
+    pos = torch.arange(maxb * bs, device=dev)
+    for int8 in (False, True):
+        for row_lens in ((1000, 2048, 63, 64), (1, 65, 1000, 2048)):
+            perm = (torch.randperm(nb - 1, generator=g, device=dev)
+                    + 1).tolist()
+            table = torch.zeros((b, maxb), dtype=torch.int32)
+            for i, n in enumerate(row_lens):
+                used = -(-n // bs)
+                table[i, :used] = torch.tensor(perm[:used])
+                perm = perm[used:]
+            table = table.to(dev)
+            lens = torch.tensor(row_lens, dtype=torch.int32, device=dev)
+            args = ((q, kq, vq, 5, table, lens, ks, vs) if int8 else
+                    (q, k, v, 5, table, lens))
+            tokens = sum(row_lens) * h
+            library = None
+            if not int8:
+                def library():
+                    dense = lambda a: attention.paged_layer_dense(  # noqa
+                        a, 5, table).transpose(1, 2)
+                    mask = (pos[None] < lens[:, None])[:, None, None]
+                    return F.scaled_dot_product_attention(
+                        q.transpose(1, 2), dense(k), dense(v),
+                        attn_mask=mask).transpose(1, 2)
+            label = (nl, nb, bs, h, d, "table", b, maxb, row_lens,
+                     "int8" if int8 else "bf16")
+            check(results, "decode_attention_paged", label,
+                  lambda: attention.decode_attention_paged(*args),
+                  lambda: attention.decode_attention_paged_plain(*args),
+                  nbytes=2 * tokens * (d + 4 if int8 else 2 * d),
+                  ops=4 * tokens * d, library=library)
+            if row_lens[:2] == (1000, 2048):
+                swapped, short = table.clone(), lens.clone()
+                swapped[1, 17] = perm[0]  # a block no row uses
+                short[0] = 960  # row 1000 without its 40-position tail
+                want = attention.decode_attention_paged_plain(*args)
+                for fault, t, n in (("block 17 of row 2048 swapped",
+                                     swapped, lens),
+                                    ("row 1000's tail block dropped",
+                                     table, short)):
+                    faulty = attention.decode_attention_paged_plain(
+                        *args[:4], t, n, *args[6:])
+                    err = (faulty.float() - want.float()).abs().max().item()
+                    row = row_rel_err(faulty, want)
+                    verdict = ("fails" if err > TOL["decode_attention_paged"]
+                               else "passes")
+                    print(f"planted fault {label[-1]}, {fault}: max|err| "
+                          f"{err:.3e} ({verdict} the absolute limit), rows' "
+                          f"max|err|/max|ref| {row:.3e}", flush=True)
+                    if not row > ROW_TOL["decode_attention_paged"]:
+                        raise AssertionError("the row check passes a "
+                                             f"planted fault: {fault}")
 
 
 def w4a8_checks(dev, g, results) -> None:
@@ -264,7 +416,10 @@ def w4a8_checks(dev, g, results) -> None:
         check(results, name,
               (nb, 2 * p.shape[0], p.shape[1], "layer 2 of 4" if stacked
                else "flat", f"{str(out)[6:]} out"),
-              lambda: kernel(x, p, s, out), lambda: plain(x, p, s).to(out))
+              lambda: kernel(x, p, s, out), lambda: plain(x, p, s).to(out),
+              nbytes=(p.numel() + 2 * s.numel() + 2 * x.numel()
+                      + nb * p.shape[1] * out.itemsize),
+              ops=2 * nb * x.shape[1] * p.shape[1], peak=INT8_PEAK)
 
 
 SMALL_LIMIT = {None: 5e-2, "int4": 1e-1}
@@ -421,6 +576,19 @@ def chat_requests(engine, clips, requests, dev, label):
     return launches
 
 
+def busy_and_names(spans):
+    """(name, start ns, end ns) of device activities -> (busy ms: the
+    length of the union of their intervals, {name: (total us, calls)})."""
+    busy_ns, end = 0.0, float("-inf")
+    by_name: dict = {}
+    for name, start, stop in sorted(spans, key=lambda s: s[1]):
+        busy_ns += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        total, calls = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + (stop - start) / 1e3, calls + 1)
+    return busy_ns / 1e6, by_name
+
+
 def profile_request(engine, clips, dev, label) -> None:
     """Where the device time of one first-turn request goes (100 frames,
     T=0, MAX_NEW_TOKENS new tokens: encode, prefill, decode). The
@@ -450,23 +618,227 @@ def profile_request(engine, clips, dev, label) -> None:
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not device:
         raise AssertionError(f"{label} profile: no device activity")
-    busy_us, end = 0.0, float("-inf")
-    by_name: dict = {}
-    for e in sorted(device, key=lambda e: e.time_range.start):
-        start, stop = e.time_range.start, e.time_range.end
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-        total, calls = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (total + stop - start, calls + 1)
-    busy_ms = busy_us / 1e3
+    busy_ms, by_name = busy_and_names(
+        (e.name, e.time_range.start * 1e3, e.time_range.end * 1e3)
+        for e in device)
     print(f"{label} profile, 100-frame request: wall {wall_ms:.1f} ms "
           f"(unprofiled), device busy {busy_ms:.1f} ms over "
           f"{len(device)} device activities, idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # the top kernels, then those launched once a token (the lm_head)
+    for i, (name, (total, calls)) in enumerate(ranked):
+        if i < 16 or calls == MAX_NEW_TOKENS:
+            print(f"{label} profile: {total / 1e3:9.2f} ms {calls:6d} "
+                  f"calls  {name[:90]}")
+
+
+SERVING_PROMPT, SERVING_SHARED = 256, 0.6  # tokens; share of the prefix
+SERVING_WORDS = ("video", "person", "walks", "market", "camera", "red",
+                 "car", "turns", "left", "dog", "runs", "after", "ball",
+                 "crowd", "cheers", "light", "rain", "falls", "slowly")
+
+
+def serving_messages(chat, n: int = 8):
+    """n chat requests of SERVING_PROMPT tokens each, whose first
+    SERVING_SHARED of tokens are the same (system prompt and a shared
+    context), then a distinct question (the byte tokenizer: one token a
+    character)."""
+    system = {"role": "system",
+              "content": "You answer questions about videos."}
+    empty = len(chat.build_prompt([system, {"role": "user",
+                                            "content": "x"}])[0]) - 1
+    n_shared = round(SERVING_SHARED * SERVING_PROMPT) - empty
+    rng = np.random.default_rng(1)
+    shared = " ".join(rng.choice(SERVING_WORDS, 40))[:n_shared]
+    out = []
+    for i in range(n):
+        tail = f" Q{i}: " + " ".join(rng.choice(SERVING_WORDS, 60))
+        text = shared + tail[:SERVING_PROMPT - empty - n_shared]
+        msgs = [system, {"role": "user", "content": text}]
+        if len(chat.build_prompt(msgs)[0]) != SERVING_PROMPT:
+            raise AssertionError("serving prompt length")
+        out.append(msgs)
+    return out
+
+
+def http_chat(base, body):
+    """POST one chat completion; return (text, seconds). A streamed
+    request's text is its deltas concatenated."""
+    t = time.perf_counter()
+    req = urllib.request.Request(
+        base + "/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        if not body.get("stream"):
+            text = json.loads(resp.read())["choices"][0]["message"][
+                "content"]
+        else:
+            pieces, done = [], False
+            for line in resp:
+                line = line.strip()
+                if not line.startswith(b"data: "):
+                    continue
+                if line == b"data: [DONE]":
+                    done = True
+                    break
+                payload = json.loads(line[len(b"data: "):])
+                if "error" in payload:
+                    raise AssertionError(f"stream error: {payload}")
+                pieces.append(payload["choices"][0]["delta"].get(
+                    "content", ""))
+            if not done:
+                raise AssertionError("stream ended without [DONE]")
+            text = "".join(pieces)
+    if not isinstance(text, str):
+        raise AssertionError(f"bad answer {text!r}")
+    return text, time.perf_counter() - t
+
+
+def continuous_traffic(chat, messages, video):
+    """Serve `chat` with continuous batching over the paged pool and
+    prefix caching (4 slots, 2048 positions a row: serving/__main__.py's
+    defaults) on 127.0.0.1, send the 8 requests from 8 threads at once
+    (max_tokens 16 and 128 in turn, four at temperature 0 and four at
+    0.2, requests 1 and 6 streamed), then submit the video request to
+    the engine; check every answer, the stream texts, /metrics and that
+    every block came back. Returns what the phase prints."""
+    server = serve(chat, host="127.0.0.1", port=0, block=False,
+                   model_name="vicuna", continuous=True, paged=True,
+                   prefix_cache=True)
+    cm, eng = server.chat_model, server.chat_model.engine
+    base = f"http://127.0.0.1:{server.server_address[1]}/v1"
+    finals, handles = {}, []
+    chat_fn, submit_fn = cm.chat, eng.submit
+
+    def chat_recorded(msgs, **kw):  # the final text of every request
+        text = chat_fn(msgs, **kw)
+        finals[msgs[-1]["content"]] = text
+        return text
+
+    def submit_recorded(req):  # every handle, for the token counts
+        handles.append(submit_fn(req))
+        return handles[-1]
+
+    cm.chat, eng.submit = chat_recorded, submit_recorded
+    bodies = [{"model": "vicuna", "messages": m,
+               "max_tokens": (16, 128)[i % 2],
+               "temperature": 0.0 if i < 4 else 0.2, "seed": i,
+               "stream": i in (1, 6)} for i, m in enumerate(messages)]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(bodies)) as ex:
+            answers = list(ex.map(lambda b: http_chat(base, b), bodies))
+        t_video = time.perf_counter()
+        vh = eng.submit(video)
+        vh.result(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        latency = [s for _, s in answers] + [time.perf_counter() - t_video]
+        metrics = json.loads(urllib.request.urlopen(
+            base.replace("/v1", "/metrics"), timeout=60).read())
+        for body, (text, _) in zip(bodies, answers):
+            if body["stream"] and text != finals[
+                    body["messages"][-1]["content"]]:
+                raise AssertionError("a stream's deltas differ from its "
+                                     "final text")
+        for key in ("spec_chunks", "plain_chunks", "prefix_hit_tokens"):
+            if not metrics.get(key):
+                raise AssertionError(f"/metrics {key} = {metrics.get(key)}")
+        if any(eng.slots) or any(eng.slot_owned) or any(eng.slot_shared):
+            raise AssertionError("a slot still holds blocks")
+        warm = set(eng.prefix.refs)
+        if (any(eng.prefix.refs.values()) or warm & set(eng.alloc.free)
+                or len(warm | set(eng.alloc.free)) != eng.alloc.capacity):
+            raise AssertionError("pool blocks leaked")
+    finally:
+        server.shutdown()
+        server.server_close()
+    return {"wall_s": wall, "latency_s": latency, "metrics": metrics,
+            "tokens": sum(len(h.tokens) for h in handles),
+            "chunk": eng.chunk, "blocks": eng.alloc.capacity}
+
+
+def serving_phase(engine, clips, dev) -> dict:
+    """The serving path on the int4 engine's weights (the model
+    serving/__main__.py builds for --model_size 7b --quant int4: fused
+    wqkv/gate_up, bf16 cache): continuous traffic (continuous_traffic)
+    with a video request whose features come from the port's encoder
+    over the seeded 100-frame clip (no libav on this machine, so the
+    clip is not an mp4), then one request through the default
+    serialized mode, with launch counts over exactly that run; then the
+    continuous traffic again under torch.profiler (device activity only)
+    for device busy time, idle share = 1 - busy / the first run's wall.
+    Returns the launch counts."""
+    chat = ChatModel(model=engine.model, cfg=engine.cfg,
+                     tokenizer=engine.tokenizer)
+    messages = serving_messages(chat)
+    feats = engine.encode_video_frames(clips["long"])
+    ids, _, _ = chat.build_prompt([{"role": "user", "content":
+                                    build_video_question(
+                                        QUESTION, engine.cfg.video_token_len,
+                                        True)}])
+    video = lambda: SlotRequest(  # noqa: E731
+        ids, max_new_tokens=MAX_NEW_TOKENS, temperature=0.0,
+        eos_token_id=engine.tokenizer.eos_token_id, video_features=feats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    run = continuous_traffic(chat, messages, video())
+    server = serve(chat, host="127.0.0.1", port=0, block=False,
+                   model_name="vicuna")  # the default serialized mode
+    try:
+        _, serial_s = http_chat(
+            f"http://127.0.0.1:{server.server_address[1]}/v1",
+            {"model": "vicuna", "messages": messages[0],
+             "max_tokens": MAX_NEW_TOKENS, "temperature": 0.0})
+    finally:
+        server.shutdown()
+        server.server_close()
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    m = run["metrics"]
+    plain_steps = m["plain_chunks"] * run["chunk"]
+    lat = sorted(run["latency_s"][:-1])
+    print(f"serving: 8 HTTP requests + 1 video request in "
+          f"{run['wall_s']:.2f} s, {run['tokens']} tokens generated "
+          f"({run['tokens'] / run['wall_s']:.1f} tok/s aggregate); HTTP "
+          f"latency p50 {statistics.median(lat):.2f} s, p95 "
+          f"{lat[min(len(lat) - 1, round(0.95 * (len(lat) - 1)))]:.2f} s "
+          f"(each: {', '.join(f'{s:.2f}' for s in run['latency_s'][:-1])}); "
+          f"video {run['latency_s'][-1]:.2f} s; serialized request "
+          f"{serial_s:.2f} s; peak {peak:.2f} GiB; metrics {m}; pool "
+          f"{run['blocks']} blocks", flush=True)
+    print(f"serving launches: {launches}")
+    need = len(engine.model.llm.layers) * plain_steps
+    if launches.get("decode_attention_paged", 0) < need:
+        raise AssertionError(f"kernel 10 launched fewer than 32 x "
+                             f"{plain_steps} plain decode steps")
+    missing = [k for k in SERVING_PATH if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"serving: kernels never launched: {missing}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        continuous_traffic(chat, messages, video())
+    spans = [(e.name(), e.start_ns(), e.end_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    if not spans:
+        raise AssertionError("serving profile: no device activity")
+    busy_ms, by_name = busy_and_names(spans)
+    wall_ms = run["wall_s"] * 1e3
+    print(f"serving profile: device busy {busy_ms:.1f} ms over "
+          f"{len(spans)} device activities, wall {wall_ms:.1f} ms "
+          f"(unprofiled run), idle share {1 - busy_ms / wall_ms:.3f}")
     for name, (total, calls) in sorted(by_name.items(),
-                                       key=lambda kv: -kv[1][0])[:12]:
-        print(f"{label} profile: {total / 1e3:9.2f} ms {calls:6d} calls  "
+                                       key=lambda kv: -kv[1][0])[:8]:
+        print(f"serving profile: {total / 1e3:9.2f} ms {calls:6d} calls  "
               f"{name[:90]}")
+    return launches
 
 
 def weight_bytes(module, leaves) -> int:
@@ -515,11 +887,14 @@ def main() -> int:
     ]
     launches = {}
     for quant in (None, "int4"):
-        label = quant or "bf16"
+        # the chat interface decodes without speculation, as the JAX
+        # package's chat CLI does
+        label = f"{quant or 'bf16'} chat (speculative=False)"
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         engine = initialize_model(model_size="7b", device=dev, seed=0,
                                   llm_quant=quant, llm_fuse=bool(quant))
+        engine.speculative = False
         torch.cuda.synchronize()
         llm = engine.model.llm
         print(f"initialize_model(7b, llm_quant={quant}): "
@@ -533,7 +908,7 @@ def main() -> int:
         counts = chat_requests(engine, clips,
                                requests if quant is None else requests[:2],
                                dev, label)
-        path = BF16_PATH if quant is None else tuple(KERNELS)
+        path = BF16_PATH if quant is None else INT4_PATH
         missing = [k for k in path if not counts.get(k)]
         if missing:
             raise AssertionError(f"{label}: kernels never launched on the "
@@ -548,8 +923,12 @@ def main() -> int:
                                      "times a prefill")
         profile_request(engine, clips, dev, label)
         # the bf16 kernels' launches are the bf16 path's, A's and B's
-        # the int4 path's
+        # the int4 path's, kernel 10's the serving path's
         launches.update({k: counts[k] for k in path if k not in launches})
+        if quant:
+            served = serving_phase(engine, clips, dev)
+            launches["decode_attention_paged"] = served[
+                "decode_attention_paged"]
         del engine, llm
         gc.collect()
         torch.cuda.empty_cache()

@@ -92,6 +92,71 @@ def test_decode_kernel_matches_plain(dev, nl, b, L, h, d, int8):
         _assert_close(got, want, 2e-2)
 
 
+@pytest.mark.parametrize("nb,bs,maxb,h,d,lens,int8", [
+    (3, 16, 4, 4, 64, (1, 37, 64), False),
+    (3, 16, 4, 4, 64, (1, 37, 64), True),
+    (4, 64, 32, 32, 128, (1000, 2048, 63, 65), False),
+    (4, 64, 32, 32, 128, (1, 64, 1000, 2048), True),
+])
+def test_paged_decode_kernel_matches_plain(dev, nb, bs, maxb, h, d, lens,
+                                           int8):
+    """Kernel 10 over a pool of 2 layers, rows' blocks drawn from a
+    shuffled pool, the pad block 0 past each allocation."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    pool = (2, 1 + sum(-(-n // bs) for n in lens), bs, h, d)
+    q = _rand(g, nb, 1, h, d)
+    if int8:
+        kc, vc = (torch.randint(-127, 128, pool, generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(pool[:-1], generator=g, device=dev) / 127
+                  for _ in range(2))
+    else:
+        kc, vc = (_rand(g, *pool) for _ in range(2))
+        ks = vs = None
+    perm = (torch.randperm(pool[1] - 1, generator=g, device=dev) + 1).tolist()
+    table = torch.zeros((nb, maxb), dtype=torch.int32)
+    for i, n in enumerate(lens):
+        used = -(-n // bs)
+        table[i, :used] = torch.tensor(perm[:used])
+        perm = perm[used:]
+    table = table.to(dev)
+    cache_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for li in range(2):
+        before = cuda_lib.LAUNCHES["decode_attention_paged"]
+        got = attention.decode_attention_paged(q, kc, vc, li, table,
+                                               cache_len, ks, vs)
+        assert cuda_lib.LAUNCHES["decode_attention_paged"] == before + 1
+        want = attention.decode_attention_paged_plain(q, kc, vc, li, table,
+                                                      cache_len, ks, vs)
+        _assert_close(got, want, 2e-2)
+        # row by row: a long row's outputs are small, so the absolute
+        # limit alone would pass a wrong block there
+        err = (got.float() - want.float()).abs().flatten(1).amax(1)
+        rel = err / want.float().abs().flatten(1).amax(1)
+        assert rel.max().item() <= 2 ** -6, rel.tolist()
+
+
+def test_f32_product_of_bf16_operands(dev):
+    """ops/quant.dot_f32 (the bf16 lm_head's logits, the int8 head's
+    product) on the card: bf16 operands, f32 out, against the f32
+    product of the same values: only the summation order differs."""
+    from video_llava_tpu_torch.ops.quant import dot_f32, quantized_matmul
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = _rand(g, 3, 4096)
+    w = _rand(g, 4096, 32006) * 4096 ** -0.5
+    got = dot_f32(x, w)
+    assert got.dtype == torch.float32 and got.shape == (3, 32006)
+    _assert_rel(got, x.float() @ w.float(), 1e-5)
+    q = torch.randint(-127, 128, (4096, 512), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand((1, 512), generator=g, device=dev) / 127
+    got = quantized_matmul(x, q, s)
+    assert got.dtype == torch.bfloat16
+    _assert_rel(got, ((x.float() @ q.float()) * s).to(torch.bfloat16),
+                2 ** -7)
+
+
 def _int4_weight(g, d, f, group_size):
     w = torch.randn(d, f, generator=g, device=g.device) * d ** -0.5
     return quant4.quantize_tensor_int4(w, group_size)
@@ -167,6 +232,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     lens = torch.tensor([5], dtype=torch.int32, device=dev)
     with pytest.raises(NotImplementedError):
         attention.decode_attention_stacked(q, kv, kv, 0, lens)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError):  # paged: MHA only as well
+        attention.decode_attention_paged(q, kv, kv, 0, table, lens)
+    pool = _rand(g, 2, 3, 24, 8, 64)  # a block of 24: not a multiple of 16
+    with pytest.raises(ValueError):
+        attention.decode_attention_paged(q, pool, pool, 0, table, lens)
     x = _rand(g, 1, 2, 32, 64)
     with pytest.raises(TypeError):
         attention.flash_attention_bhsd(x.float(), x.float(), x.float())

@@ -42,5 +42,5 @@ def slice_pair():
                            speculative=False)
     engine = InferenceEngine(model=model, cfg=cfg, tokenizer=tok, gen=gen,
                              seq_pad_multiple=64,
-                             cache_dtype=torch.float32)
+                             cache_dtype=torch.float32, speculative=False)
     return jax_engine, engine

@@ -1,23 +1,32 @@
-// Decode attention for one query token against one layer of the stacked
-// KV cache (NL, b, L, h, d), bf16 or int8 with per-(position, head) f32
-// scales (NL, b, L, h).
-//
-// Replaces video_llava_tpu/ops/attention.py::decode_attention_mxu_stacked
-// (Pallas body _decode_attn_mxu_stacked_kernel), reached through
-// decode_attention_stacked. For row bi, head hh, with n = lengths[bi]:
+// Decode attention for one query token against one layer of a KV cache,
+// bf16 or int8 with per-(position, head) f32 scales. Two cache layouts,
+// one kernel body:
+//   stacked (NL, b, L, h, d), scales (NL, b, L, h): the slot cache.
+//     Replaces video_llava_tpu/ops/attention.py::decode_attention_mxu_stacked
+//     (Pallas body _decode_attn_mxu_stacked_kernel).
+//   paged (NL, NB, BS, h, d), scales (NL, NB, BS, h), with a block table
+//     (b, MAXB): the serving block pool. Position p of row bi lives in pool
+//     block table[bi, p / BS] at offset p % BS.
+//     Replaces video_llava_tpu/ops/attention.py::decode_attention_mxu_paged
+//     (Pallas body _decode_attn_mxu_paged_kernel).
+// For row bi, head hh, with n = lengths[bi]:
 //     s_p = (q . k_p) * scale [* k_scale_p]            p < n
 //     o   = sum_p softmax(s)_p [* v_scale_p] v_p        (bf16 out)
-// Positions at or past a row's length are never read. The layer select
-// that the TPU kernel did with scalar prefetch is a pointer offset here.
+// Positions at or past a row's length are never read, and neither are the
+// table entries that map them (the pad block 0 past a row's allocation).
+// The layer select that the TPU kernels did with scalar prefetch, and the
+// block-table index map, are address arithmetic here (row_of below).
 //
 // What bounds it on Hopper: device-memory bandwidth on the cache stream
 // (2 * n * h * d bytes per layer and row in bf16, half that in int8); the
 // arithmetic is a few flops per byte. One block per (head, row) with 8 warps;
 // lanes split d so each cache row is one coalesced 256-byte (bf16, d = 128)
-// read, and each warp keeps kUnroll rows in flight to hide latency. Scores
-// go to shared memory (n floats), so the softmax is exact two-pass, not
-// online. At b = 1 the grid is h = 32 blocks, which fills 32 of 132 SMs:
-// splitting L across blocks (flash-decoding) is later work. Any L works.
+// read, and each warp keeps kUnroll rows in flight to hide latency. A paged
+// block keeps that: a 64-position block of one head is 64 such reads. The
+// row's table (MAXB ints) is staged in shared memory once. Scores go to
+// shared memory (n floats), so the softmax is exact two-pass, not online.
+// At b = 1 the grid is h = 32 blocks, which fills 32 of 132 SMs: splitting L
+// across blocks (flash-decoding) is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -29,6 +38,23 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kUnroll = 8;
+
+// What the entry points pass to launch().
+struct Args {
+  const void* q;        // (b, 1, h, D) bf16
+  const void* k;        // cache values, layout above
+  const void* v;
+  const float* ks;      // scales, or null for a bf16 cache
+  const float* vs;
+  const int* lengths;   // (b,)
+  const int* table;     // (b, maxb), or null for the stacked cache
+  void* o;              // (b, 1, h, D) bf16
+  int layer, b;
+  int L;                // positions a row can hold: L, or maxb * bs
+  int h;
+  int nblocks, bs, maxb;  // paged only
+  float scale;
+};
 
 template <int E>
 __device__ inline void load_row(const __nv_bfloat16* p, float (&f)[E]) {
@@ -79,18 +105,24 @@ __device__ inline float block_reduce(float x, float* red) {
   return r;
 }
 
-template <typename T, int D>
+// The pointers are separate __restrict__ kernel parameters (not members of
+// Args), so nvcc knows they are global and unaliased and streams the cache
+// through the read-only path.
+template <typename T, int D, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    const T* __restrict__ kc, const T* __restrict__ vc,
                    const float* __restrict__ ks, const float* __restrict__ vs,
-                   const int* __restrict__ lengths, __nv_bfloat16* __restrict__ o,
-                   int layer, int b, int L, int h, float scale) {
+                   const int* __restrict__ lengths,
+                   const int* __restrict__ table,
+                   __nv_bfloat16* __restrict__ o, int layer, int b, int L,
+                   int h, int nblocks, int bs, int maxb, float scale) {
   constexpr int E = D / 32;
   extern __shared__ float smem[];
   float* sc = smem;                 // (L,) scores, then weights
   float* acc_s = smem + L;          // (kWarps, D) partial outputs
   float* red = acc_s + kWarps * D;  // (kWarps,) reduction scratch
+  int* tbl = reinterpret_cast<int*>(red + kWarps);  // (maxb,) paged only
 
   const int hh = blockIdx.x, bi = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -100,26 +132,43 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
     for (int c = threadIdx.x; c < D; c += kThreads) orow[c] = __float2bfloat16(0.f);
     return;
   }
+  if constexpr (kPaged) {
+    for (int i = threadIdx.x; i < maxb; i += kThreads) tbl[i] = table[(size_t)bi * maxb + i];
+    __syncthreads();
+  }
 
-  const size_t row0 = ((size_t)layer * b + bi) * L;  // position 0 of (layer, bi)
-  const size_t pstride = (size_t)h * D;               // elements between positions
-  const T* kbase = kc + row0 * pstride + (size_t)hh * D + lane * E;
-  const T* vbase = vc + row0 * pstride + (size_t)hh * D + lane * E;
-  const float* ksb = ks ? ks + row0 * h + hh : nullptr;
-  const float* vsb = vs ? vs + row0 * h + hh : nullptr;
+  // slot(p): where position p sits in the layer's slab, counted in
+  // positions from `first` (the layer's row bi stacked; the layer's pool
+  // block 0 paged): the values of head hh at (first + slot) * h * D +
+  // hh * D, its scale at (first + slot) * h + hh. Passes 1 and 2 walk runs
+  // of kUnroll positions that start at a multiple of kUnroll, and a paged
+  // block (bs a multiple of 16) never splits a run, so they look the table
+  // up once a run: p + u sits at slot(p) + u.
+  const size_t first = kPaged ? (size_t)layer * nblocks * bs
+                              : ((size_t)layer * b + bi) * L;
+  auto slot = [=](int p) -> int {
+    if constexpr (kPaged) return tbl[p / bs] * bs + p % bs;
+    else return p;
+  };
+  const size_t pstride = (size_t)h * D;  // elements between positions
+  const T* kbase = kc + first * pstride + (size_t)hh * D + lane * E;
+  const T* vbase = vc + first * pstride + (size_t)hh * D + lane * E;
+  const float* ksb = ks ? ks + first * h + hh : nullptr;
+  const float* vsb = vs ? vs + first * h + hh : nullptr;
 
   float qf[E];
   load_row<E>(q + ((size_t)bi * h + hh) * D + lane * E, qf);
 
   // Pass 1: scores.
   for (int base = warp * kUnroll; base < n; base += kWarps * kUnroll) {
+    const int s0 = slot(base);
     float part[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       part[u] = 0.f;
       if (base + u < n) {
         float kf[E];
-        load_row<E>(kbase + (size_t)(base + u) * pstride, kf);
+        load_row<E>(kbase + (size_t)(s0 + u) * pstride, kf);
 #pragma unroll
         for (int e = 0; e < E; ++e) part[u] += qf[e] * kf[e];
       }
@@ -128,7 +177,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
     for (int u = 0; u < kUnroll; ++u) {
       const float dot = warp_sum(part[u]);
       const int p = base + u;
-      if (lane == 0 && p < n) sc[p] = dot * scale * (ksb ? ksb[(size_t)p * h] : 1.f);
+      if (lane == 0 && p < n) sc[p] = dot * scale * (ksb ? ksb[(size_t)(s0 + u) * h] : 1.f);
     }
   }
   __syncthreads();
@@ -141,7 +190,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   for (int p = threadIdx.x; p < n; p += kThreads) {
     const float w = __expf(sc[p] - mx);
     sum += w;
-    sc[p] = vsb ? w * vsb[(size_t)p * h] : w;
+    sc[p] = vsb ? w * vsb[(size_t)slot(p) * h] : w;
   }
   sum = block_reduce<false>(sum, red);  // also orders the sc writes
 
@@ -150,12 +199,13 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = 0.f;
   for (int base = warp * kUnroll; base < n; base += kWarps * kUnroll) {
+    const int s0 = slot(base);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int p = base + u;
       if (p < n) {
         float vf[E];
-        load_row<E>(vbase + (size_t)p * pstride, vf);
+        load_row<E>(vbase + (size_t)(s0 + u) * pstride, vf);
         const float w = sc[p];
 #pragma unroll
         for (int e = 0; e < E; ++e) acc[e] += w * vf[e];
@@ -173,40 +223,63 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* lengths, void* o, int layer, int b,
-           int L, int h, float scale, cudaStream_t stream) {
-  auto kern = decode_attn_kernel<T, D>;
-  const size_t smem = ((size_t)L + kWarps * D + kWarps) * sizeof(float);
+template <typename T, int D, bool kPaged>
+int launch(const Args& a, cudaStream_t stream) {
+  auto kern = decode_attn_kernel<T, D, kPaged>;
+  const size_t smem = ((size_t)a.L + kWarps * D + kWarps) * sizeof(float)
+                      + (kPaged ? (size_t)a.maxb * sizeof(int) : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(h, b), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(lengths),
-      static_cast<__nv_bfloat16*>(o), layer, b, L, h, scale);
+  kern<<<dim3(a.h, a.b), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.ks, a.vs, a.lengths, a.table,
+      static_cast<__nv_bfloat16*>(a.o), a.layer, a.b, a.L, a.h, a.nblocks,
+      a.bs, a.maxb, a.scale);
   return (int)cudaGetLastError();
+}
+
+template <bool kPaged>
+int dispatch(const Args& a, int d, int int8, cudaStream_t st) {
+  if (int8) {
+    if (d == 128) return launch<int8_t, 128, kPaged>(a, st);
+    return launch<int8_t, 64, kPaged>(a, st);
+  }
+  if (d == 128) return launch<__nv_bfloat16, 128, kPaged>(a, st);
+  return launch<__nv_bfloat16, 64, kPaged>(a, st);
 }
 
 }  // namespace
 
 // int8: 0 for a bf16 cache (ks/vs ignored, pass null), 1 for int8 + scales.
-// d must be 64 or 128 (the wrapper checks).
+// d must be 64 or 128 (the wrappers check).
 extern "C" int vlt_decode_attention(const void* q, const void* k,
                                     const void* v, const void* ks,
                                     const void* vs, const void* lengths,
                                     void* o, int layer, int b, int L, int h,
                                     int d, int int8, float scale,
                                     void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (int8) {
-    if (d == 128)
-      return launch<int8_t, 128>(q, k, v, ks, vs, lengths, o, layer, b, L, h, scale, st);
-    return launch<int8_t, 64>(q, k, v, ks, vs, lengths, o, layer, b, L, h, scale, st);
-  }
-  if (d == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, nullptr, nullptr, lengths, o, layer, b, L, h, scale, st);
-  return launch<__nv_bfloat16, 64>(q, k, v, nullptr, nullptr, lengths, o, layer, b, L, h, scale, st);
+  const Args a{q, k, v, int8 ? static_cast<const float*>(ks) : nullptr,
+               int8 ? static_cast<const float*>(vs) : nullptr,
+               static_cast<const int*>(lengths), nullptr, o, layer, b, L, h,
+               0, 0, 0, scale};
+  return dispatch<false>(a, d, int8, (cudaStream_t)stream);
+}
+
+// The paged pool: k/v (NL, nblocks, bs, h, d), scales (NL, nblocks, bs, h),
+// table (b, maxb) int32 with every entry in [0, nblocks).
+extern "C" int vlt_decode_attention_paged(const void* q, const void* k,
+                                          const void* v, const void* ks,
+                                          const void* vs, const void* table,
+                                          const void* lengths, void* o,
+                                          int layer, int b, int nblocks,
+                                          int bs, int maxb, int h, int d,
+                                          int int8, float scale,
+                                          void* stream) {
+  const Args a{q, k, v, int8 ? static_cast<const float*>(ks) : nullptr,
+               int8 ? static_cast<const float*>(vs) : nullptr,
+               static_cast<const int*>(lengths),
+               static_cast<const int*>(table), o, layer, b, maxb * bs, h,
+               nblocks, bs, maxb, scale};
+  return dispatch<true>(a, d, int8, (cudaStream_t)stream);
 }

@@ -1,12 +1,13 @@
 """Autoregressive generation: prefill + decode loop.
 
-Counterpart of video_llava_tpu/engine/generate.py without speculative
-decoding or a device mesh. The decode loop is a Python loop of
-``decode_step`` calls; sampling draws from an explicit
-``torch.Generator``. Loop rules kept from the JAX package: stop ids end
-a row, a finished row emits the pad id and keeps its cache length, and
-keyword stops are checked on the host between chunks of
-``keyword_check_every`` tokens.
+Counterpart of video_llava_tpu/engine/generate.py without a device mesh.
+The decode loop is a Python loop of ``decode_step`` calls, or with
+``speculative`` the prompt-lookup loop of engine/speculative.py;
+sampling draws from an explicit ``torch.Generator``. Loop rules kept
+from the JAX package: stop ids end a row, a finished row emits the pad
+id and keeps its cache length, and keyword stops are checked on the
+host between chunks of ``keyword_check_every`` tokens, which is also
+where the streaming callback of ``generate_with_keywords`` is called.
 """
 
 from __future__ import annotations
@@ -87,13 +88,33 @@ def generate(model, gen: GenerationConfig, input_ids: torch.Tensor,
              seq_lens: torch.Tensor, video_features: Optional[torch.Tensor],
              generator: Optional[torch.Generator] = None,
              max_cache_len: Optional[int] = None,
-             cache_dtype=torch.bfloat16) -> GenerateResult:
-    """Prefill a right-padded batch and decode up to max_new_tokens."""
+             cache_dtype=torch.bfloat16, speculative: bool = False,
+             spec_ngram: int = 3, spec_k: int = 8) -> GenerateResult:
+    """Prefill a right-padded batch and decode up to max_new_tokens.
+
+    speculative: decode through prompt-lookup speculation
+    (engine/speculative.py; rows draft and advance on their own), with
+    spec_k + 1 more cache rows for the verify forward's overshoot."""
     s = input_ids.shape[1]
+    slack = spec_k + 1 if speculative else 0
     if max_cache_len is None:
-        max_cache_len = s + gen.max_new_tokens
+        max_cache_len = s + gen.max_new_tokens + slack
+    elif speculative:
+        max_cache_len = max(max_cache_len, s + gen.max_new_tokens + slack)
     res = model.prefill(input_ids, seq_lens, video_features, max_cache_len,
                         cache_dtype)
+    if speculative:
+        from video_llava_tpu_torch.engine.speculative import (
+            _decode_loop_pld,
+            _init_ctx,
+        )
+
+        ctx = _init_ctx(input_ids, s + gen.max_new_tokens + spec_k + 1,
+                        gen.pad_token_id)
+        out, _, _ = _decode_loop_pld(model, gen, res.logits_last, res.cache,
+                                     ctx, seq_lens, generator,
+                                     gen.max_new_tokens, spec_ngram, spec_k)
+        return out
     return _decode_loop(model, gen, res.logits_last, res.cache, generator,
                         gen.max_new_tokens)
 
@@ -110,29 +131,74 @@ def generate_with_keywords(
     keyword_check_every: int = 64,
     max_cache_len: Optional[int] = None,
     cache_dtype=torch.bfloat16,
+    on_delta: Optional[Callable[[str], None]] = None,
+    postprocess: Optional[Callable[[str], str]] = None,
+    speculative: bool = False,
+    spec_ngram: int = 3,
+    spec_k: int = 8,
 ) -> Tuple[str, GenerateResult]:
     """Generation with the reference's keyword stopping
-    (model/utils.py:6-26): stop when a decoded keyword appears; the
-    text from the keyword on is dropped and the rest stripped. Batch
-    size 1. (The JAX version's streaming callback is not ported yet.)
+    (model/utils.py:6-26): decode in chunks of keyword_check_every
+    tokens, stop when a decoded keyword appears, drop the text from the
+    keyword on. Batch size 1.
+
+    speculative: each chunk runs the prompt-lookup loop
+    (engine/speculative.py) instead of plain decode.
+    on_delta: streaming callback, called after each chunk with the newly
+    final text; to never retract text it holds back len(longest
+    keyword) - 1 characters until a chunk's check has passed, and the
+    last call flushes the rest.
+    postprocess: applied to the final text before the last delta and the
+    return value, so the stream concatenates to the returned text
+    (default str.strip); if it rewrites text already streamed, the raw
+    remainder is flushed instead.
     """
     if input_ids.shape[0] != 1:
         raise ValueError("keyword stopping is per-conversation (batch 1)")
     s = input_ids.shape[1]
     if max_cache_len is None:
-        max_cache_len = s + gen.max_new_tokens
+        max_cache_len = s + gen.max_new_tokens + (
+            spec_k + 1 if speculative else 0)
     pre = model.prefill(input_ids, seq_lens, video_features, max_cache_len,
                         cache_dtype)
     logits, cache = pre.logits_last, pre.cache
+    if speculative:
+        from video_llava_tpu_torch.engine.speculative import (
+            _decode_loop_pld,
+            _init_ctx,
+        )
+
+        ctx = _init_ctx(input_ids, s + gen.max_new_tokens + spec_k + 1,
+                        gen.pad_token_id)
+        ctx_len = seq_lens
 
     pieces: list = []
     text = ""
+    emitted = 0
+    holdback = max((len(k) for k in keywords if k), default=1) - 1
+
+    def emit(current: str, final: bool) -> None:
+        nonlocal emitted
+        if on_delta is None:
+            return
+        upto = len(current) if final else max(len(current) - holdback, 0)
+        if upto > emitted:
+            on_delta(current[emitted:upto])
+            emitted = upto
+
     remaining = gen.max_new_tokens
     while remaining > 0:
         chunk = min(keyword_check_every, remaining)
-        out = _decode_loop(model, gen, logits, cache, generator, chunk)
+        if speculative:
+            out, ctx, ctx_len = _decode_loop_pld(
+                model, gen, logits, cache, ctx, ctx_len, generator, chunk,
+                spec_ngram, spec_k)
+        else:
+            out = _decode_loop(model, gen, logits, cache, generator, chunk)
+        # one device-to-host copy of the chunk's tokens
+        toks_all = out.tokens[0].cpu()
         n = int(out.lengths[0])
-        toks = out.tokens[0, :n].tolist()
+        toks = toks_all[:n].tolist()
         pieces.extend(toks)
         remaining -= chunk
         text = decode_fn(pieces)
@@ -144,12 +210,20 @@ def generate_with_keywords(
             break
         if stopped_by_id or remaining == 0:
             break
+        emit(text, final=False)
         # continue from the chunk's last token (the JAX version also takes
         # this step after the last chunk, where nothing reads its logits)
         cache = out.cache
         logits, cache = model.llm.decode_step(out.tokens[:, n - 1], cache)
 
-    return text.strip(), GenerateResult(
+    final = (postprocess or str.strip)(text)
+    if on_delta is not None:
+        if final.startswith(text[:emitted]):
+            if len(final) > emitted:
+                on_delta(final[emitted:])
+        else:
+            emit(text, final=True)
+    return final, GenerateResult(
         tokens=torch.tensor([pieces], dtype=torch.int32),
         lengths=torch.tensor([len(pieces)], dtype=torch.int32),
         cache=cache,

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from video_llava_tpu_torch.ops.quant import quantized_matmul
+from video_llava_tpu_torch.ops.quant import dot_f32, quantized_matmul
 from video_llava_tpu_torch.ops.quant4 import int4_matmul
 
 
@@ -64,11 +64,12 @@ def linear(x: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None,
 
     bf16/f32 kernel: the product accumulates in f32 (cuBLAS and the CPU
     BLAS do for bf16 operands) and the bias joins the f32 sum in the
-    GEMM's epilogue, before the single cast; a wider out_dtype than x's
-    takes the product in out_dtype, as a dot with preferred_element_type
-    does. int4 kernel: the W4A8 matmuls of ops/quant4.py (f32 out, +
-    f32 bias, one cast). int8 kernel: ops/quant.quantized_matmul, in x's
-    dtype (layers.py:31-65 in the JAX package)."""
+    GEMM's epilogue, before the single cast; another out_dtype than x's
+    takes the f32 product (ops/quant.dot_f32, no f32 copy of the kernel
+    on CUDA), as a dot with preferred_element_type does. int4 kernel:
+    the W4A8 matmuls of ops/quant4.py (f32 out, + f32 bias, one cast).
+    int8 kernel: ops/quant.quantized_matmul, in x's dtype (layers.py:
+    31-65 in the JAX package)."""
     out_dtype = out_dtype or x.dtype
     if isinstance(kernel, Int4Kernel):
         if bias is None:  # the kernel casts on its store
@@ -81,7 +82,7 @@ def linear(x: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None,
         return F.linear(x, kernel.to(x.dtype).t(),
                         None if bias is None else bias.to(x.dtype))
     else:
-        y = torch.matmul(x.to(out_dtype), kernel.to(out_dtype))
+        y = dot_f32(x, kernel)
     if bias is not None:
         y = y + bias.float()
     return y.to(out_dtype)

@@ -1,12 +1,14 @@
-"""LLaMA / Vicuna decoder with a stacked KV cache.
+"""LLaMA / Vicuna decoder with a stacked or a paged KV cache.
 
-Counterpart of video_llava_tpu/models/llama.py for the chat path: one
-module per layer, a static-capacity KV cache stacked over layers
-(NL, b, L, h_kv, hd) and updated in place, RoPE from explicit
-positions. Prefill (s > 1) attends over the whole cache capacity with
+Counterpart of video_llava_tpu/models/llama.py for the chat and serving
+paths: one module per layer, RoPE from explicit positions, and either
+cache, updated in place: a static-capacity cache stacked over layers
+(NL, b, L, h_kv, hd), or a pool of blocks shared by the rows through
+their block tables (PagedKVCache, continuous-batching serving). Prefill
+and speculative verify (s > 1) attend over the whole row capacity with
 the causal mask at each row's write position (plain torch, as XLA in
 the JAX package); decode (s == 1) reads the cache through
-ops.attention.decode_attention_stacked.
+ops.attention.decode_attention_stacked or decode_attention_paged.
 
 Quantized layouts (``quant`` "int8" or "int4"): every kernel leaf and
 the embedding table take the format the JAX package's quantize_params /
@@ -16,8 +18,8 @@ share a format (fuse_layer_kernels, JAX models/llama.py:435-465). Each
 layer holds its own (Dh, F) int4 weight; the W4A8 kernels take a layer
 of a stacked weight as a view just the same.
 
-Not ported (no caller on the chat path): the paged cache, vocab
-padding, and the forward without a cache.
+Not ported (no caller on these paths): vocab padding and the forward
+without a cache.
 """
 
 from __future__ import annotations
@@ -40,7 +42,9 @@ from video_llava_tpu_torch.models.layers import (
 )
 from video_llava_tpu_torch.ops.attention import (
     attention_reference,
+    decode_attention_paged,
     decode_attention_stacked,
+    paged_layer_dense,
 )
 from video_llava_tpu_torch.ops.quant import ieee_div, leaf_format
 
@@ -82,6 +86,49 @@ class KVCache:
                    length=length)
 
 
+@dataclasses.dataclass
+class PagedKVCache:
+    """Block-pooled KV cache for continuous-batching serving, updated in
+    place (JAX models/llama.py:88-151).
+
+    k, v: (num_layers, num_blocks, block_size, num_kv_heads, head_dim), a
+    pool shared by every row; table: (batch, max_blocks_per_row) int32
+    pool block ids mapping each row's logical positions, entries past a
+    row's allocation 0 (the pad block, never handed out); length:
+    (batch,) int32. An int8 pool holds f32 scales (num_layers,
+    num_blocks, block_size, num_kv_heads).
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+    table: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[2]
+
+    @classmethod
+    def create(cls, cfg: LlamaConfig, batch: int, num_blocks: int,
+               block_size: int, max_blocks_per_row: int,
+               dtype=torch.bfloat16, device=None) -> "PagedKVCache":
+        shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+                 cfg.head_dim)
+        table = torch.zeros((batch, max_blocks_per_row), dtype=torch.int32,
+                            device=device)
+        length = torch.zeros((batch,), dtype=torch.int32, device=device)
+        scales = ({"k_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                          device=device),
+                   "v_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                          device=device)}
+                  if dtype == torch.int8 else {})
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   length=length, table=table, **scales)
+
+
 def _quantize_kv(x: torch.Tensor):
     """(b, s, h, hd) -> (int8 values, (b, s, h) f32 scales); rounds half
     to even (torch.round), as the JAX package does."""
@@ -106,6 +153,39 @@ def _write(full: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
     cols = (pos.to(full.device).long()[:, None]
             + torch.arange(s, device=full.device)[None, :])
     full[li][rows, cols] = new.to(full.dtype)
+
+
+def _write_paged_cache(full: torch.Tensor, new: torch.Tensor,
+                       pos: torch.Tensor, li: int,
+                       table: torch.Tensor) -> None:
+    """Write new (b, s, ...) into the block pool full (NL, NB, BS, ...)
+    at layer li, row i's logical positions [pos_i, pos_i + s) mapped
+    through its table row, in place, with one vectorised index write
+    (JAX models/llama.py:226-279). Two regimes:
+      * s a multiple of BS (a prefill window, pos block-aligned): whole
+        blocks;
+      * otherwise (decode s=1, a speculative verify s=k+1): token at a
+        time, any alignment.
+    A logical position at or past MAXB*BS writes to pad block 0, never to
+    the row's last real block (a clamped lookup would overwrite the
+    row's own valid tail)."""
+    bs, maxb = full.shape[2], table.shape[1]
+    b, s = new.shape[:2]
+    dev = full.device
+    pos = pos.to(dev).long()
+    tbl = table.to(dev).long()
+
+    def block_of(idx):  # (b, n) logical block ids -> pool block ids
+        mapped = torch.gather(tbl, 1, idx.clamp(max=maxb - 1))
+        return torch.where(idx < maxb, mapped, torch.zeros_like(mapped))
+
+    if s % bs == 0:
+        idx = pos[:, None] // bs + torch.arange(s // bs, device=dev)[None]
+        full[li][block_of(idx).reshape(-1)] = new.reshape(
+            (b * (s // bs), bs) + tuple(new.shape[2:])).to(full.dtype)
+    else:
+        p = pos[:, None] + torch.arange(s, device=dev)[None]  # (b, s)
+        full[li][block_of(p // bs), p % bs] = new.to(full.dtype)
 
 
 FUSED = {"wqkv": ("wq", "wk", "wv"), "gate_up": ("gate", "up")}
@@ -180,10 +260,13 @@ class LlamaLayer(nn.Module):
             setattr(self, name, Linear(i, o, bias=False, fmt=fmt,
                                        n_groups=g, **kw))
 
-    def attention(self, x, cos, sin, cache: KVCache, li: int,
+    def attention(self, x, cos, sin, cache, li: int,
                   write_pos: torch.Tensor, cache_len: torch.Tensor):
-        """Self-attention that writes this layer's k/v into the cache at
-        write_pos and attends over the cache masked to cache_len."""
+        """Self-attention that writes this layer's k/v into the cache (a
+        KVCache or a PagedKVCache) at write_pos and attends over the
+        cache masked to cache_len: s == 1 through the decode kernel of
+        the cache's layout, s > 1 through the plain masked reference over
+        the layer (a paged pool gathered into its dense view first)."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, h_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -195,29 +278,41 @@ class LlamaLayer(nn.Module):
         q = apply_rope(q.reshape(b, s, h, hd), cos, sin)
         k = apply_rope(k.reshape(b, s, h_kv, hd), cos, sin)
         v = v.reshape(b, s, h_kv, hd)
+        table = getattr(cache, "table", None)
+        if table is None:
+            write = lambda full, new: _write(  # noqa: E731
+                full, new, write_pos, li)
+            layer_of = lambda a: a[li]  # noqa: E731
+        else:
+            write = lambda full, new: _write_paged_cache(  # noqa: E731
+                full, new, write_pos, li, table)
+            layer_of = lambda a: paged_layer_dense(  # noqa: E731
+                a, li, table)
         if cache.k_scale is not None:  # int8 cache: quantize on write
             kq, ks = _quantize_kv(k)
             vq, vs = _quantize_kv(v)
-            _write(cache.k, kq, write_pos, li)
-            _write(cache.v, vq, write_pos, li)
-            _write(cache.k_scale, ks, write_pos, li)
-            _write(cache.v_scale, vs, write_pos, li)
+            write(cache.k, kq)
+            write(cache.v, vq)
+            write(cache.k_scale, ks)
+            write(cache.v_scale, vs)
         else:
-            _write(cache.k, k, write_pos, li)
-            _write(cache.v, v, write_pos, li)
+            write(cache.k, k)
+            write(cache.v, v)
         if s == 1:
-            out = decode_attention_stacked(
-                q, cache.k, cache.v, li, cache_len,
-                k_scale=cache.k_scale, v_scale=cache.v_scale,
-            )
+            scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
+            out = (decode_attention_stacked(q, cache.k, cache.v, li,
+                                            cache_len, **scales)
+                   if table is None else
+                   decode_attention_paged(q, cache.k, cache.v, li, table,
+                                          cache_len, **scales))
         else:
             if cache.k_scale is not None:
-                k_read = _dequantize_kv(cache.k[li], cache.k_scale[li],
-                                        q.dtype)
-                v_read = _dequantize_kv(cache.v[li], cache.v_scale[li],
-                                        q.dtype)
+                k_read = _dequantize_kv(layer_of(cache.k),
+                                        layer_of(cache.k_scale), q.dtype)
+                v_read = _dequantize_kv(layer_of(cache.v),
+                                        layer_of(cache.v_scale), q.dtype)
             else:
-                k_read, v_read = cache.k[li], cache.v[li]
+                k_read, v_read = layer_of(cache.k), layer_of(cache.v)
             # row b's queries sit at cache positions [write_pos_b, +s)
             out = attention_reference(
                 q, k_read, v_read, causal=True, kv_valid_len=cache_len,
@@ -271,12 +366,13 @@ class Llama(nn.Module):
         self,
         inputs_embeds: torch.Tensor,
         positions: torch.Tensor,
-        cache: KVCache,
+        cache,
         new_length: Optional[torch.Tensor] = None,
-    ) -> Tuple[torch.Tensor, KVCache]:
-        """embeds (b, s, d) + positions (b, s) -> final-normed hidden
-        (b, s, d). Writes k/v at cache.length onward and sets
-        cache.length to new_length (default length + s)."""
+    ):
+        """embeds (b, s, d) + positions (b, s) -> (final-normed hidden
+        (b, s, d), cache). Writes k/v into the cache (KVCache or
+        PagedKVCache) at cache.length onward and sets cache.length to
+        new_length (default length + s)."""
         if cache is None:
             raise ValueError("the port's decoder runs with a KV cache")
         cfg = self.cfg

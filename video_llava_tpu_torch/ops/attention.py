@@ -1,6 +1,7 @@
-"""Attention: plain PyTorch reference + two hand-written CUDA kernels.
+"""Attention: plain PyTorch reference + hand-written CUDA kernels.
 
-Counterpart of video_llava_tpu/ops/attention.py for the chat path:
+Counterpart of video_llava_tpu/ops/attention.py for the chat and
+serving paths:
 
   * :func:`attention_reference` -- plain torch, f32 softmax. Prefill
     attention into the KV cache runs here, as it runs on XLA in the JAX
@@ -10,6 +11,9 @@ Counterpart of video_llava_tpu/ops/attention.py for the chat path:
   * :func:`decode_attention_stacked` -- one query token against one
     layer of the stacked (NL, b, L, h, d) KV cache, bf16 or int8
     (csrc/decode_attention.cu).
+  * :func:`decode_attention_paged` -- the same against one layer of the
+    paged (NL, NB, BS, h, d) block pool through a block table (the same
+    kernel body, csrc/decode_attention.cu).
 
 Each kernel wrapper takes its plain version (``*_plain``) only for a
 tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
@@ -201,5 +205,104 @@ def decode_attention_stacked(
         cuda_lib.ptr(q), cuda_lib.ptr(k_cache), cuda_lib.ptr(v_cache),
         ks, vs, cuda_lib.ptr(cache_len), cuda_lib.ptr(out),
         int(layer), b, L, h, d, int(quantized), float(scale),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel 10: decode attention over the paged block pool
+# ---------------------------------------------------------------------------
+
+
+def paged_layer_dense(a: torch.Tensor, li: int,
+                      table: torch.Tensor) -> torch.Tensor:
+    """Layer li of the paged pool gathered into each row's logically
+    contiguous view: (NL, NB, BS, ...) -> (b, MAXB*BS, ...), a copy (JAX
+    models/llama.py:282-290). The s > 1 read path of the LLaMA layer and
+    the plain version of kernel 10; the kernel reads the blocks in
+    place."""
+    g = a[li][table.long()]  # (b, MAXB, BS, ...)
+    return g.reshape((table.shape[0], -1) + tuple(a.shape[3:]))
+
+
+def decode_attention_paged_plain(q, k_cache, v_cache, layer, table,
+                                 cache_len, k_scale=None, v_scale=None,
+                                 scale=None):
+    """Plain version of :func:`decode_attention_paged`: gather the rows'
+    blocks of the layer into a logically dense (b, MAXB*BS, h, d) view
+    through the table (:func:`paged_layer_dense`), dequantize, masked
+    reference attention (the JAX package's fallback,
+    ops/attention.py:1481-1492)."""
+    dense = lambda a: paged_layer_dense(a, layer, table)  # noqa: E731
+    k, v = dense(k_cache), dense(v_cache)
+    if k_scale is not None:
+        k = (k.float() * dense(k_scale)[..., None]).to(q.dtype)
+        v = (v.float() * dense(v_scale)[..., None]).to(q.dtype)
+    return attention_reference(q, k, v, kv_valid_len=cache_len, scale=scale)
+
+
+def decode_attention_paged(
+    q: torch.Tensor,  # (b, 1, h, d)
+    k_cache: torch.Tensor,  # (NL, NB, BS, h, d) bf16, or int8 with scales
+    v_cache: torch.Tensor,
+    layer: int,
+    table: torch.Tensor,  # (b, MAXB) int32 pool block ids
+    cache_len: torch.Tensor,  # (b,) int32
+    k_scale: Optional[torch.Tensor] = None,  # (NL, NB, BS, h) f32 when int8
+    v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One decode step's attention against layer `layer` of the paged
+    block pool (models/llama.PagedKVCache) -> (b, 1, h, d): position p
+    of row i is pool block table[i, p // BS], offset p % BS. Positions
+    at or past a row's length, and the table entries that map them, are
+    never read; every entry must still be a valid block id (0, the pad
+    block, past a row's allocation). On CUDA, under the JAX package's
+    dispatch conditions (ops/attention.py:1465-1476): MHA, h*d a
+    multiple of 128, BS a multiple of 16 up to 128, and d in {64, 128}
+    (csrc/decode_attention.cu); other shapes raise."""
+    b, _, h, d = q.shape
+    nl, nb, bs, h_kv = k_cache.shape[:4]
+    maxb = table.shape[1]
+    scale = scale if scale is not None else 1.0 / (d**0.5)
+    if q.device.type == "cpu":
+        return decode_attention_paged_plain(
+            q, k_cache, v_cache, layer, table, cache_len, k_scale, v_scale,
+            scale)
+    if h_kv != h:
+        raise NotImplementedError("paged decode kernel is MHA-only "
+                                  "(h == h_kv)")
+    if (h * d) % 128 or bs % 16 or bs > 128:
+        raise ValueError(f"paged decode kernel: h*d = {h * d} must be a "
+                         f"multiple of 128 and the block size {bs} a "
+                         "multiple of 16 up to 128")
+    if d not in (64, 128):
+        raise ValueError(f"head dim {d}: the decode kernel takes 64 or 128")
+    if not 0 <= layer < nl:
+        raise IndexError(f"layer {layer} outside [0, {nl})")
+    quantized = k_scale is not None
+    cdtype = torch.int8 if quantized else torch.bfloat16
+    dev = q.device
+    cuda_lib.require(q, "q", torch.bfloat16, (b, 1, h, d))
+    cuda_lib.require(k_cache, "k_cache", cdtype, (nl, nb, bs, h, d), dev)
+    cuda_lib.require(v_cache, "v_cache", cdtype, (nl, nb, bs, h, d), dev)
+    cuda_lib.require(table, "table", torch.int32, (b, maxb), dev)
+    cuda_lib.require(cache_len, "cache_len", torch.int32, (b,), dev)
+    if quantized:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            cuda_lib.require(t, name, torch.float32, (nl, nb, bs, h), dev)
+        ks, vs = cuda_lib.ptr(k_scale), cuda_lib.ptr(v_scale)
+    else:
+        ks = vs = None
+    if (maxb * bs + 9 * d) * 4 + maxb * 4 > 227 * 1024:
+        raise ValueError(f"{maxb} blocks of {bs} exceed the kernel's shared "
+                         "memory for its scores")
+    out = torch.empty_like(q)
+    cuda_lib.launch(
+        "decode_attention_paged", "vlt_decode_attention_paged", dev,
+        cuda_lib.ptr(q), cuda_lib.ptr(k_cache), cuda_lib.ptr(v_cache),
+        ks, vs, cuda_lib.ptr(table), cuda_lib.ptr(cache_len),
+        cuda_lib.ptr(out), int(layer), b, nb, bs, maxb, h, d,
+        int(quantized), float(scale),
     )
     return out

@@ -49,12 +49,17 @@ _SIGNATURES = {
     "vlt_decode_attention": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
+    "vlt_decode_attention_paged": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+        _P,
+    ),
     "vlt_w4a8_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vlt_w4a8_block": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -150,7 +155,8 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(
             f"{kernel}: CUDA error {rc}: {lib.vlt_error_string(rc).decode()}"
         )
-    LAUNCHES[kernel] += 1
+    with _count_lock:  # serving launches from its engine and HTTP threads
+        LAUNCHES[kernel] += 1
 
 
 def require(t: torch.Tensor, name: str, dtype, shape=None,

@@ -38,14 +38,28 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor,
     return (q.float() * scales).to(dtype)
 
 
+def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., in) @ w (in, out) -> f32, as a dot with
+    preferred_element_type=f32: the product is never rounded to a
+    narrower type. On CUDA, 16-bit operands go to the GEMM as they are
+    and it writes its f32 accumulator (``aten::mm.dtype``), so no f32
+    copy of w is made; elsewhere both operands are cast to f32."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+        y = torch.mm(x2, w.to(x.dtype), out_dtype=torch.float32)
+    else:
+        y = torch.mm(x2.float(), w.float())
+    return y.reshape(*lead, w.shape[-1])
+
+
 def quantized_matmul(x: torch.Tensor, qvalues: torch.Tensor,
                      scales: torch.Tensor) -> torch.Tensor:
     """x (..., in) @ qvalues (in, out) int8 * scales (1, out) -> x's
-    dtype: the weights cast to x's dtype, the product accumulated in
-    f32, scaled in f32, then cast. For bf16 x, PyTorch's matmul returns
-    the product rounded to bf16, one rounding more than the JAX
-    package's f32-accumulated dot."""
-    y = torch.matmul(x, qvalues.to(x.dtype)).float()
+    dtype: the weights cast to x's dtype, the product kept in f32
+    (:func:`dot_f32`), scaled in f32, then cast once, as the JAX
+    package's dot with preferred_element_type=f32 does."""
+    y = dot_f32(x, qvalues)
     return (y * scales.float()[0]).to(x.dtype)
 
 

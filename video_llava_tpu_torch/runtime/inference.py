@@ -1,10 +1,10 @@
 """Single-shot video-QA inference.
 
-Counterpart of video_llava_tpu/runtime/inference.py (without
-speculative decoding): prompt assembly with
-<vid_start><vid_patch>*N<vid_end>, conversation templating, frame
+Counterpart of video_llava_tpu/runtime/inference.py: prompt assembly
+with <vid_start><vid_patch>*N<vid_end>, conversation templating, frame
 preprocessing + CLIP + pooling, and generation with keyword stopping
-(reference video_chatgpt/inference.py:47-125).
+(reference video_chatgpt/inference.py:47-125), through prompt-lookup
+speculation by default.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from video_llava_tpu_torch.constants import (
     DEFAULT_VIDEO_PATCH_TOKEN,
 )
 from video_llava_tpu_torch.engine.generate import generate_with_keywords
+from video_llava_tpu_torch.engine.speculative import generate_pld_text
 from video_llava_tpu_torch.models.video_llava import VideoLLaVA
 from video_llava_tpu_torch.ops.image import preprocess_frames
 from video_llava_tpu_torch.runtime.conversation import conv_templates
@@ -55,6 +56,12 @@ class InferenceEngine:
         default_factory=GenerationConfig)
     seq_pad_multiple: int = 128  # prompts pad to fixed buckets
     cache_dtype: torch.dtype = torch.bfloat16
+    # Prompt-lookup speculative decoding (engine/speculative.py), on by
+    # default as in the JAX package: token-id-stop templates ("</s>")
+    # run the speculative loop whole, textual-stop templates run it in
+    # the host-checked chunks of generate_with_keywords. Greedy-exact and
+    # sampling distribution-exact.
+    speculative: bool = True
 
     @property
     def device(self) -> torch.device:
@@ -95,18 +102,23 @@ class InferenceEngine:
         conv.append_message(conv.roles[0], qs)
         conv.append_message(conv.roles[1], None)
         stop_str = conv.stop_string()
-        input_ids, seq_lens, _ = self.padded_prompt(conv.get_prompt())
+        input_ids, seq_lens, s_real = self.padded_prompt(conv.get_prompt())
         feats = None
         if video_frames is not None:
             feats = self.encode_video_frames(video_frames,
                                              num_valid_frames)[None]
         gen = dataclasses.replace(self.gen, eos_token_id=tok.eos_token_id,
                                   pad_token_id=tok.pad_token_id)
+        keywords = (stop_str,) if stop_str and stop_str != "</s>" else ()
+        if self.speculative and not keywords:
+            return generate_pld_text(
+                self.model, gen, input_ids, s_real, feats, generator, tok,
+                stop_str, cache_dtype=self.cache_dtype)
         text, _ = generate_with_keywords(
             self.model, gen, input_ids, seq_lens, feats, generator,
             decode_fn=lambda t: tok.decode(t, skip_special_tokens=True),
-            keywords=(stop_str,) if stop_str and stop_str != "</s>" else (),
-            cache_dtype=self.cache_dtype,
+            keywords=keywords, cache_dtype=self.cache_dtype,
+            speculative=self.speculative,
         )
         # reference post-processing: strip, rstrip(stop_str), strip
         out = text.strip()

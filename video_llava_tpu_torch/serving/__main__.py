@@ -1,0 +1,98 @@
+"""Serve a Vicuna judge / video chat endpoint from the command line.
+
+Counterpart of video_llava_tpu/serving/__main__.py, with its flags and
+defaults:
+
+    python -m video_llava_tpu_torch.serving --model_size 7b --quant int4 \
+        --continuous --paged
+
+Random weights (no checkpoint loading yet), on the card. --quant int8
+also takes an int8 KV cache. --batching (the windowed batcher) with its
+--max_batch and --window_ms, and --mesh_model > 1 (multi-GPU), are not
+ported and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from video_llava_tpu_torch.engine.quant_select import resolve_quant
+from video_llava_tpu_torch.runtime.model_init import initialize_model
+from video_llava_tpu_torch.serving.server import (
+    BATCHING_NOT_PORTED,
+    ChatModel,
+    serve,
+)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="video_llava_tpu_torch.serving")
+    ap.add_argument("--model_name", default=None,
+                    help="HF Vicuna checkpoint dir (not supported yet)")
+    ap.add_argument("--model_size", default="13b",
+                    choices=["tiny", "7b", "13b"])
+    ap.add_argument("--quant", default=None,
+                    choices=["int8", "int4", "auto"],
+                    help="weights-only LLM quantization at load, resolved "
+                    "against the checkpoint's quant_preflight.json as in "
+                    "the JAX package")
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--served_name", default="vicuna-13b-v1.5")
+    ap.add_argument("--conv_mode", default="vicuna_v1_1")
+    ap.add_argument("--mesh_model", type=int, default=None,
+                    help="TP degree (more than 1 is not ported yet)")
+    # batching modes (default: serialized)
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching (persistent slot decode)")
+    ap.add_argument("--num_slots", type=int, default=4)
+    ap.add_argument("--max_cache_len", type=int, default=2048)
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV pool for --continuous (shared block "
+                    "pool + per-slot block tables)")
+    ap.add_argument("--num_blocks", type=int, default=None,
+                    help="paged pool size in 64-token blocks (default: "
+                    "slot-cache capacity)")
+    ap.add_argument("--prefix_cache", action="store_true",
+                    help="automatic prefix caching (implies --paged)")
+    ap.add_argument("--batching", action="store_true",
+                    help="windowed request batching (not ported yet)")
+    # the batcher's knobs (JAX defaults 8 and 30.0) raise with it
+    ap.add_argument("--max_batch", type=int, default=None,
+                    help="--batching's batch size (not ported yet)")
+    ap.add_argument("--window_ms", type=float, default=None,
+                    help="--batching's window (not ported yet)")
+    ap.add_argument("--no_speculative", action="store_true")
+    args = ap.parse_args(argv)
+    # refuse what is not ported before the (slow) model build
+    if (args.batching or args.max_batch is not None
+            or args.window_ms is not None):
+        raise NotImplementedError(BATCHING_NOT_PORTED)
+    if args.mesh_model and args.mesh_model > 1:
+        raise NotImplementedError(
+            "--mesh_model > 1 (multi-GPU serving) is not ported yet: "
+            "ROADMAP Queue 1 item 9")
+    quant = resolve_quant(args.quant, args.model_name)
+    if args.quant == "auto":
+        print(f"--quant auto -> {quant or 'bf16'} (preflight record)",
+              flush=True)
+    # one card: the fused wqkv/gate_up layout, as the JAX CLI builds it
+    engine = initialize_model(model_name=args.model_name,
+                              model_size=args.model_size, device="cuda",
+                              llm_quant=quant, llm_fuse=bool(quant))
+    model = ChatModel(
+        model=engine.model, cfg=engine.cfg, tokenizer=engine.tokenizer,
+        conv_mode=args.conv_mode,
+        cache_dtype=torch.int8 if quant == "int8" else torch.bfloat16,
+        speculative=not args.no_speculative)
+    serve(model, host=args.host, port=args.port,
+          model_name=args.served_name, continuous=args.continuous,
+          num_slots=args.num_slots, max_cache_len=args.max_cache_len,
+          paged=args.paged, num_blocks=args.num_blocks,
+          prefix_cache=args.prefix_cache)
+
+
+if __name__ == "__main__":
+    main()
