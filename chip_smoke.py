@@ -34,7 +34,13 @@ Phases, each of which raises on failure (exit code != 0):
      request through continuous batching, one request through the
      serialized mode (see serving_phase), launch counts over that run;
      the continuous traffic again under the profiler;
-  8. print stage times, the kernels' JSON line, the card line and, last,
+  8. free it and train (training_phase): kernels 7 and 8 against their
+     plain versions at the training layer's shape and three others, a
+     small model's train steps on the card against the CPU (bf16 and an
+     int8 LLM), then `python -m video_llava_tpu_torch.train.train
+     --model_size 7b` for 4 optimizer steps on seeded features, with its
+     checkpoint, export and a profile of step 3;
+  9. print stage times, the kernels' JSON line, the card line and, last,
      {"ok": true, "device": {...}}.
 It needs a CUDA card and the repository beside it, and imports no JAX.
 """
@@ -44,11 +50,16 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import gc
+import hashlib
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -73,11 +84,24 @@ from video_llava_tpu_torch.runtime.conversation import conv_templates
 from video_llava_tpu_torch.runtime.inference import build_video_question
 from video_llava_tpu_torch.runtime.model_init import (
     initialize_model,
+    model_config,
     random_init_,
     random_init_quantized_llm_,
 )
 from video_llava_tpu_torch.runtime.tokenizer import load_tokenizer
 from video_llava_tpu_torch.serving.server import ChatModel, serve
+from video_llava_tpu_torch.train import train
+from video_llava_tpu_torch.train.data import (
+    MultimodalCfg,
+    preprocess,
+    preprocess_multimodal,
+)
+from video_llava_tpu_torch.train.train_step import (
+    init_train_state,
+    make_optimizer,
+    make_train_step,
+    trainable_mask,
+)
 
 MAX_NEW_TOKENS = 64
 QUESTION = "What is happening in this video?"
@@ -96,18 +120,26 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
     "decode_attention_paged": (
         "video_llava_tpu_torch/csrc/decode_attention.cu",
         "video_llava_tpu/ops/attention.py:1360"),
+    "flash_forward": ("video_llava_tpu_torch/csrc/flash_attention.cu",
+                      "video_llava_tpu/ops/attention.py:324"),
+    "flash_backward_dq": ("video_llava_tpu_torch/csrc/flash_attention.cu",
+                          "video_llava_tpu/ops/attention.py:625"),
+    "flash_backward_dkv": ("video_llava_tpu_torch/csrc/flash_attention.cu",
+                           "video_llava_tpu/ops/attention.py:649"),
 }
 BF16_PATH = ("flash_attention_bhsd", "spatio_temporal_pool",
              "decode_attention_stacked")
 INT4_PATH = BF16_PATH + ("w4a8_matvec", "w4a8_block")
 SERVING_PATH = ("decode_attention_paged", "w4a8_matvec", "w4a8_block")
+TRAIN_PATH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
 # Kernel vs plain on the card, both bf16 out. flash: the kernel rounds P
 # to bf16 for its second product and accumulates in another order;
 # decode: the plain version dequantizes int8 to bf16, the kernel keeps
 # f32; pool: f32 sums in another order. Each differs from the plain
 # version by a few bf16 ulps of outputs of magnitude < 2.
 TOL = {"flash_attention_bhsd": 2e-2, "spatio_temporal_pool": 1e-2,
-       "decode_attention_stacked": 2e-2, "decode_attention_paged": 2e-2}
+       "decode_attention_stacked": 2e-2, "decode_attention_paged": 2e-2,
+       "flash_forward": 2e-2}
 # Kernel 10 also row by row (row_rel_err): a row of 2048 positions
 # averages them, so its outputs are small (~0.01 in the int8 pool) and
 # the absolute limit would pass a wrong block there; a few bf16 ulps of
@@ -136,14 +168,30 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, calls: int = 10, reps: int = 7) -> float:
+def median_ms(fn, calls: int = 10, reps: int = 7,
+              capture: bool = True) -> float:
     """Device time of one call: `calls` calls captured in a CUDA graph,
     the graph replayed `reps` times, each replay timed with CUDA events;
     the median over replays, per call. A replay launches back to back,
     so the host's Python overhead around each call (tens of µs, more
-    than a decode-sized kernel takes) is not counted."""
+    than a decode-sized kernel takes) is not counted. capture=False (an
+    autograd backward, which is not captured): the `calls` calls
+    launched back to back, each rep timed the same way, so the host
+    counts only where it falls behind a call's device time."""
     fn()
     torch.cuda.synchronize()
+    if not capture:
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / calls)
+        return statistics.median(times)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(calls):
@@ -179,6 +227,19 @@ def row_rel_err(got, want) -> float:
     return (err / want.float().abs().flatten(1).amax(1)).max().item()
 
 
+def record(results, name, err, ms, plain_ms, library_ms, nbytes, ops=0.0,
+           peak=BF16_PEAK):
+    """Keep a kernel's max |err| over its shapes and the first shape's
+    times (the main path's) beside its bound; return the bound."""
+    r = results.setdefault(name, {"max_abs_err": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    bound_ms, bound_by = bound(nbytes, ops, peak)
+    if "ms" not in r:
+        r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=library_ms)
+    return bound_ms, bound_by
+
+
 def check(results, name, shape, fn, plain, nbytes, ops=0.0,
           peak=BF16_PEAK, library=None):
     """Kernel vs plain on the same inputs; raise past the tolerance
@@ -210,14 +271,10 @@ def check(results, name, shape, fn, plain, nbytes, ops=0.0,
         bad = bad or not np.isfinite(row) or row > ROW_TOL[name]
     if bad:
         raise AssertionError(f"{name} {shape}: {note}")
-    r = results.setdefault(name, {"max_abs_err": 0.0})
-    r["max_abs_err"] = max(r["max_abs_err"], err)
     ms, plain_ms = median_ms(fn), median_ms(plain)
     library_ms = None if library is None else median_ms(library)
-    bound_ms, bound_by = bound(nbytes, ops, peak)
-    if "ms" not in r:  # the first shape listed is the main path's
-        r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                 bound_by=bound_by, library_ms=library_ms)
+    bound_ms, bound_by = record(results, name, err, ms, plain_ms,
+                                library_ms, nbytes, ops, peak)
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
     print(f"check {name} {shape}: {note}, max|err| {err:.3e}, "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
@@ -841,6 +898,458 @@ def serving_phase(engine, clips, dev) -> dict:
     return launches
 
 
+# Kernels 7 and 8 at (b, sq, skv, h, h_kv, d, causal): Vicuna-7B's
+# training layer (4 rows of 1,024 tokens, causal) first, then GQA, a
+# ragged right-aligned pair (no length a multiple of a tile) and no mask.
+FLASH_SHAPES = ((4, 1024, 1024, 32, 32, 128, True),
+                (4, 1024, 1024, 32, 8, 128, True),
+                (2, 1000, 1037, 16, 16, 128, True),
+                (2, 512, 640, 32, 32, 128, False))
+# Forward: absolute (TOL) as kernel 1 (P rounded to bf16 for the second
+# product), and per (row, head) max|err| / max|ref| as kernel 10; lse in
+# f32 from the same f32 scores summed in another order. Gradients: each
+# within FLASH_GRAD_TOL of its tensor's max |ref|: bf16 inputs, P and dS
+# rounded to bf16 for their products, sums in another order than the
+# plain f32 version.
+FLASH_ROW_TOL, FLASH_LSE_TOL, FLASH_GRAD_TOL = 2 ** -6, 1e-3, 2e-2
+
+
+def visible_pairs(sq: int, skv: int, causal: bool) -> int:
+    """The (query, key) pairs the mask lets through: the work a product
+    over them needs (right-aligned causal: query i sees keys <= i + skv -
+    sq)."""
+    if not causal:
+        return sq * skv
+    return int(np.minimum(np.arange(sq) + skv - sq + 1, skv).sum())
+
+
+def grad_rel_errs(got, want):
+    """max|got - want| / max|want| of each of (dq, dk, dv)."""
+    return [((a.float() - b.float()).abs().max()
+             / b.float().abs().max()).item() for a, b in zip(got, want)]
+
+
+def flash_checks(dev, results) -> None:
+    """Kernels 7 and 8 against their plain versions on the same bf16
+    inputs at FLASH_SHAPES (the backward fed the kernel forward's out and
+    lse, D from flash_delta), then timed: the kernels, the plain forward
+    and backward (one function gives dq, dk and dv: its time stands in
+    both kernel 8 rows), and the library: SDPA (is_causal, or the
+    right-aligned mask where sq != skv; enable_gqa for GQA) and its
+    backward, torch.autograd.grad of its output (timed without a graph).
+    Bounds count the visible pairs only: the forward's two products, dq's
+    three (S, dP, dS K), dk/dv's four (S, dP, P^T dO, dS^T Q). On the
+    training shape, a fault planted in the plain backward (query tile 1's
+    diagonal key tile dropped from the mask) must fail the gradient
+    check."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(  # noqa
+        torch.bfloat16)
+    for shape in FLASH_SHAPES:
+        b, sq, skv, h, hkv, d, causal = shape
+        q, do = rnd(b, sq, h, d), rnd(b, sq, h, d)
+        k, v = rnd(b, skv, hkv, d), rnd(b, skv, hkv, d)
+        scale = d ** -0.5
+        out, lse = attention.flash_forward(q, k, v, causal)
+        want, want_lse = attention.flash_forward_plain(q, k, v, causal)
+        err = (out.float() - want.float()).abs()
+        fwd_err = err.max().item()
+        row = (err.amax(-1) / want.float().abs().amax(-1)).max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        note = (f"max|err| {fwd_err:.3e} (tol {TOL['flash_forward']}), "
+                f"(row, head) max|err|/max|ref| {row:.3e} (tol 2^-6), lse "
+                f"max|err| {lse_err:.3e} (tol {FLASH_LSE_TOL})")
+        if not (fwd_err <= TOL["flash_forward"] and row <= FLASH_ROW_TOL
+                and lse_err <= FLASH_LSE_TOL):
+            raise AssertionError(f"flash_forward {shape}: {note}")
+        delta = attention.flash_delta(out, do)
+        dq_fn = lambda: attention.flash_backward_dq(  # noqa: E731
+            q, k, v, do, lse, delta, causal, scale)
+        dkv_fn = lambda: attention.flash_backward_dkv(  # noqa: E731
+            q, k, v, do, lse, delta, causal, scale)
+        plain_bwd = lambda: attention.flash_backward_plain(  # noqa: E731
+            q, k, v, out, lse, do, causal, scale)
+        got, ref = (dq_fn(), *dkv_fn()), plain_bwd()
+        rels = grad_rel_errs(got, ref)
+        grad_note = ", ".join(f"{n} {e:.3e}" for n, e in
+                              zip(("dq", "dk", "dv"), rels))
+        if not all(np.isfinite(e) and e <= FLASH_GRAD_TOL for e in rels):
+            raise AssertionError(f"flash backward {shape}: max|err|/max|ref| "
+                                 f"{grad_note} (tol {FLASH_GRAD_TOL})")
+        if shape == FLASH_SHAPES[0]:
+            mask = attention.flash_mask(sq, skv, causal, dev).clone()
+            mask[64:128, 64:128] = False
+            faulty = attention.flash_backward_masked(q, k, v, out, lse, do,
+                                                     mask, scale)
+            caught = grad_rel_errs(faulty, ref)
+            print("planted fault, query tile 1's diagonal key tile dropped "
+                  "from the plain backward: max|err|/max|ref| "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in
+                              zip(("dq", "dk", "dv"), caught)), flush=True)
+            if not max(caught) > FLASH_GRAD_TOL:
+                raise AssertionError("the gradient check passes a dropped "
+                                     "diagonal tile")
+            del faulty, mask
+
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask_kw = ({"attn_mask": attention.flash_mask(sq, skv, True, dev)}
+                   if causal and sq != skv else {"is_causal": causal})
+        sdpa = lambda *a: F.scaled_dot_product_attention(  # noqa: E731
+            *a, enable_gqa=hkv < h, **mask_kw)
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        lib_out = sdpa(*leaves)
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, leaves, do.transpose(1, 2), retain_graph=True)
+        fwd_ms = median_ms(lambda: attention.flash_forward(q, k, v, causal))
+        dq_ms, dkv_ms = median_ms(dq_fn), median_ms(dkv_fn)
+        plain_fwd_ms = median_ms(
+            lambda: attention.flash_forward_plain(q, k, v, causal))
+        plain_bwd_ms = median_ms(plain_bwd)
+        lib_fwd_ms = median_ms(lambda: sdpa(qt, kt, vt))
+        lib_bwd_ms = median_ms(lib_bwd, capture=False)
+        del leaves, lib_out
+
+        prod = 2 * b * h * visible_pairs(sq, skv, causal) * d
+        qb, kb, sb = 2 * q.numel(), 2 * k.numel(), 4 * lse.numel()
+        rows = (("flash_forward", fwd_err, fwd_ms, plain_fwd_ms, lib_fwd_ms,
+                 2 * qb + 2 * kb + sb, 2 * prod),
+                ("flash_backward_dq", (got[0].float() - ref[0].float())
+                 .abs().max().item(), dq_ms, plain_bwd_ms, lib_bwd_ms,
+                 3 * qb + 2 * kb + 2 * sb, 3 * prod),
+                ("flash_backward_dkv", max(
+                    (a.float() - r.float()).abs().max().item()
+                    for a, r in zip(got[1:], ref[1:])), dkv_ms, plain_bwd_ms,
+                 lib_bwd_ms, 2 * qb + 4 * kb + 2 * sb, 4 * prod))
+        for name, e, ms, plain_ms, lib_ms, nbytes, ops in rows:
+            bound_ms, bound_by = record(results, name, e, ms, plain_ms,
+                                        lib_ms, nbytes, ops)
+            print(f"check {name} {shape}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms by {bound_by}", flush=True)
+        print(f"check flash {shape}: forward {note}; backward "
+              f"max|err|/max|ref| {grad_note} (tol {FLASH_GRAD_TOL})",
+              flush=True)
+        del q, k, v, do, out, lse, want, want_lse, err, delta, got, ref
+        torch.cuda.empty_cache()
+
+
+def small_train_check(dev, llm_weights: str = "bf16") -> None:
+    """Two optimizer steps of a small VideoLLaVA (2 layers, GQA 4/2,
+    head dim 64) tuning projector+embed, grad_accum 2, AdamW at lr 1e-3
+    with no warmup, built by the entry point's build_model from one seed:
+    on the card in bf16 (kernels 7 and 8, the dot_f32 gradient on CUDA)
+    against the same weights in f32 on the CPU's plain path, on the same
+    batch (4 rows of 256 tokens with a video block, different target
+    counts). llm_weights "int8": the frozen LLM in --llm_weights int8's
+    layout. Loss within 2e-2 and the gradient's global norm within 5e-2
+    of the CPU's, relative: bf16 activations through 2 layers move both
+    by ~1e-2, and step 2 sees step 1's Adam update, which a sign flip of
+    a near-zero gradient moves by 2 lr."""
+    tok = load_tokenizer(None)
+    cfg = dataclasses.replace(
+        VideoLLaVAConfig.tiny(),
+        llm=dataclasses.replace(LlamaConfig.tiny(vocab_size=512),
+                                num_layers=2, num_heads=4, num_kv_heads=2,
+                                head_dim=64, intermediate_size=512),
+        vid_patch_token_id=tok.vid_patch_token_id,
+        vid_start_token_id=tok.vid_start_token_id,
+        vid_end_token_id=tok.vid_end_token_id,
+    )
+    args = types.SimpleNamespace(pretrained_dir=None, llm_weights=llm_weights,
+                                 tune_mode="projector+embed", seed=0)
+    src = train.build_model(args, cfg, "cpu")
+    int8 = dict(llm_quant="int8", llm_skip_keys=("embed_tokens",))
+    layout = int8 if llm_weights == "int8" else {}
+    models = {}
+    for where, dtype in ((dev, torch.bfloat16), ("cpu", torch.float32)):
+        models[where] = VideoLLaVA(cfg, device=where, dtype=dtype, **layout)
+        models[where].load_state_dict(src.state_dict())
+    rng = np.random.default_rng(0)
+    b, s, n = 4, 256, cfg.video_token_len
+    ids = rng.integers(3, 250, size=(b, s)).astype(np.int32)
+    ids[:, 2] = cfg.vid_start_token_id
+    ids[:, 3:3 + n] = cfg.vid_patch_token_id
+    ids[:, 3 + n] = cfg.vid_end_token_id
+    labels = ids.copy()
+    for i in range(b):
+        labels[i, :n + 4 + 9 * i] = -100
+    batch = {"input_ids": ids, "labels": labels,
+             "video_features": rng.standard_normal(
+                 (b, n, cfg.vision.hidden_size)).astype(np.float32)}
+    metrics = {}
+    before = dict(cuda_lib.LAUNCHES)
+    for where, model in models.items():
+        tx = make_optimizer(1e-3, 0.0, warmup_steps=0, total_steps=4)
+        state = init_train_state(model, tx, trainable_mask(model))
+        step = make_train_step(tx, grad_accum=2)
+        mb = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        metrics[where] = []
+        for _ in range(2):
+            state, m = step(state, mb)
+            metrics[where].append((float(m["loss"]), float(m["grad_norm"])))
+    if not all(cuda_lib.LAUNCHES[k] > before.get(k, 0) for k in TRAIN_PATH):
+        raise AssertionError("small train step did not run kernels 7 and 8")
+    for i, ((loss, norm), (loss_ref, norm_ref)) in enumerate(
+            zip(metrics[dev], metrics["cpu"])):
+        rel_loss = abs(loss - loss_ref) / abs(loss_ref)
+        rel_norm = abs(norm - norm_ref) / norm_ref
+        print(f"small {llm_weights} train step {i}: loss {loss:.5f} (CPU f32 "
+              f"{loss_ref:.5f}, rel {rel_loss:.2e}, limit 2e-2), grad norm "
+              f"{norm:.5f} (CPU f32 {norm_ref:.5f}, rel {rel_norm:.2e}, "
+              "limit 5e-2)", flush=True)
+        if not (np.isfinite(loss) and np.isfinite(norm) and rel_loss <= 2e-2
+                and rel_norm <= 5e-2):
+            raise AssertionError(f"small {llm_weights} train step {i} "
+                                 "disagrees with the CPU")
+
+
+TRAIN_SAMPLES, TRAIN_LAYER = 32, 7  # samples; the frozen layer checksummed
+TRAIN_ROWS = (600, 1000)  # tokens of alternate samples: the 640, 1024 buckets
+
+
+def write_train_data(root: str):
+    """TRAIN_SAMPLES samples of {"video", "conversations": [human
+    "<video>\\n...", gpt "..."]} in root/data.json and a (356, 1024) f32
+    .npy feature file each in root/features, from
+    np.random.default_rng(0). Answers are sized with the byte tokenizer
+    so that alternate rows take TRAIN_ROWS tokens: the video block and
+    the template alone take 577, so the shortest rows fall in the 640
+    bucket, not 512. Returns (data path, feature folder)."""
+    tok = load_tokenizer(None)
+    cfg = model_config("7b")
+    mm = MultimodalCfg(video_token_len=cfg.video_token_len,
+                       use_vid_start_end=cfg.use_vid_start_end)
+    question = DEFAULT_VIDEO_TOKEN + "\nWhat happens in this video?"
+
+    def turns(answer):
+        return [{"from": "human", "value": question},
+                {"from": "gpt", "value": answer}]
+
+    def n_tokens(answer):
+        src = preprocess_multimodal([turns(answer)], mm)
+        return len(preprocess(src, tok)["input_ids"][0])
+
+    base = n_tokens("")
+    rng = np.random.default_rng(0)
+    folder = os.path.join(root, "features")
+    os.makedirs(folder)
+    samples = []
+    for i in range(TRAIN_SAMPLES):
+        target = TRAIN_ROWS[i % 2]
+        answer = " ".join(rng.choice(SERVING_WORDS, 400))[:target - base]
+        answer = answer[:-1] + "."
+        if n_tokens(answer) != target:
+            raise AssertionError(f"sample {i}: {n_tokens(answer)} tokens")
+        np.save(os.path.join(folder, f"video_{i}.npy"), rng.standard_normal(
+            (cfg.video_token_len, cfg.vision.hidden_size), dtype=np.float32))
+        samples.append({"video": f"video_{i}.npy",
+                        "conversations": turns(answer)})
+    path = os.path.join(root, "data.json")
+    with open(path, "w") as f:
+        json.dump(samples, f)
+    return path, folder
+
+
+def digest(module) -> str:
+    """sha256 over the bytes of every parameter of `module`."""
+    h = hashlib.sha256()
+    for _, p in sorted(module.named_parameters()):
+        h.update(p.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def trace_busy(path: str):
+    """(busy ms, {name: (total us, calls)}) of the device activities
+    (kernels, copies, memsets) in a torch.profiler chrome trace."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return busy_and_names(
+        (e["name"], e["ts"] * 1e3, (e["ts"] + e["dur"]) * 1e3)
+        for e in events if e.get("ph") == "X"
+        and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+
+
+def train_7b(dev) -> dict:
+    """The training entry point at full width: python -m
+    video_llava_tpu_torch.train.train --model_size 7b (Vicuna-7B + the
+    linear projector, bf16, random weights from --seed, tune_mode
+    projector+embed) on write_train_data's 32 samples, batch 4 x
+    gradient accumulation 2, one epoch: 4 optimizer steps, the profile
+    on step 3, the final checkpoint-4 (the whole state, the frozen LLM
+    included) and mm_projector.bin, in a temp dir removed afterwards.
+    Launch counts over exactly train.main; kernel 7 must run 2 x 32 x 2
+    times a step (forward and the remat recompute of each layer of each
+    microbatch), dq and dk/dv 32 x 2. A frozen layer must keep its bytes
+    and the projector and embed_tokens must move. Then the same command
+    for two epochs must resume: restore checkpoint-4 with the trainables
+    run 1 ended with and take steps 5-12. Returns run 1's counts."""
+    root = tempfile.mkdtemp(prefix="vlt_train_")
+    try:
+        data, folder = write_train_data(root)
+        out, prof = os.path.join(root, "out"), os.path.join(root, "profile")
+        usage = shutil.disk_usage(root)
+        print(f"train data in {root}: {TRAIN_SAMPLES} samples; disk "
+              f"{usage.free / 2**30:.1f} GiB free of "
+              f"{usage.total / 2**30:.1f} GiB", flush=True)
+        built = {}
+        build = train.build_model
+
+        def build_model(args, cfg, device):  # note the weights on entry
+            model = build(args, cfg, device)
+            built.update(
+                model=model, frozen=digest(model.llm.layers[TRAIN_LAYER]),
+                projector=[p.detach().clone()
+                           for p in model.projector.parameters()],
+                embed=model.llm.embed_tokens.weight.detach().clone())
+            return model
+
+        accum, steps = 2, TRAIN_SAMPLES // 8
+        argv = ["--data_path", data, "--video_folder", folder,
+                "--output_dir", out, "--model_size", "7b",
+                "--per_device_train_batch_size", "4",
+                "--gradient_accumulation_steps", str(accum),
+                "--num_train_epochs", "1", "--save_steps", "0",
+                "--profile", prof]
+        print(f"train.main({' '.join(argv)})", flush=True)
+        train.build_model = build_model
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            summary = train.main(argv)
+        finally:
+            train.build_model = build
+        torch.cuda.synchronize()
+        launches = dict(cuda_lib.LAUNCHES)
+        total_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        for i, (loss, norm, step_s, tokens, bucket) in enumerate(zip(
+                summary["loss"], summary["grad_norm"], summary["step_s"],
+                summary["tokens"], summary["bucket"])):
+            note = " (profiled)" if i == train.PROFILE_STEP else ""
+            print(f"train 7b step {i}: loss {loss:.5f}, grad norm "
+                  f"{norm:.5f}, bucket {bucket}, {step_s:.3f} s, "
+                  f"{tokens / step_s:.0f} tokens/s ({tokens} tokens with "
+                  f"padding){note}", flush=True)
+        if summary["steps"] != steps or not all(
+                np.isfinite(summary["loss"] + summary["grad_norm"])):
+            raise AssertionError(f"train 7b: {summary['steps']} steps, "
+                                 f"losses {summary['loss']}")
+        model = built.pop("model")
+        layers = len(model.llm.layers)
+        frozen_ok = digest(model.llm.layers[TRAIN_LAYER]) == built["frozen"]
+        d_proj = max((p.detach().float() - p0.float()).abs().max().item()
+                     for p, p0 in zip(model.projector.parameters(),
+                                      built["projector"]))
+        d_embed = (model.llm.embed_tokens.weight.detach().float()
+                   - built["embed"].float()).abs()
+        rows_moved = int((d_embed.amax(1) > 0).sum())
+        trained = (digest(model.projector), digest(model.llm.embed_tokens))
+        ckpt = os.path.join(out, f"checkpoint-{steps}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                         for f in os.listdir(ckpt))
+        print(f"train 7b: {total_s:.2f} s in train.main (init, data, "
+              f"{steps} steps, checkpoint); peak device memory {peak:.2f} "
+              f"GiB; launches {launches}; layer {TRAIN_LAYER} sha256 "
+              f"{built['frozen'][:16]} before, "
+              f"{'the same' if frozen_ok else 'CHANGED'} after; projector "
+              f"max|change| {d_proj:.3e}; embed_tokens max|change| "
+              f"{d_embed.max().item():.3e} over {rows_moved} rows; "
+              f"checkpoint-{steps} {ckpt_bytes / 2**30:.2f} GiB and "
+              f"mm_projector.bin written in {summary['save_s']:.2f} s",
+              flush=True)
+        del model, built, d_embed
+        want = {"flash_forward": 2 * layers * accum * steps,
+                "flash_backward_dq": layers * accum * steps,
+                "flash_backward_dkv": layers * accum * steps}
+        wrong = {k: launches.get(k, 0) for k, n in want.items()
+                 if launches.get(k, 0) != n}
+        if wrong:
+            raise AssertionError(f"train 7b launches {wrong}, want {want}")
+        if not frozen_ok or not d_proj > 0 or not rows_moved:
+            raise AssertionError("train 7b: a frozen layer moved or a "
+                                 "trainable one did not")
+        for name in (f"checkpoint-{steps}", "mm_projector.bin",
+                     "train_summary.json"):
+            if not os.path.exists(os.path.join(out, name)):
+                raise AssertionError(f"train 7b wrote no {name}")
+
+        busy_ms, by_name = trace_busy(os.path.join(prof, "trace.json"))
+        if not by_name:
+            raise AssertionError("train 7b profile: no device activity")
+        step_ms = summary["step_s"][train.PROFILE_STEP] * 1e3
+        calm_ms = statistics.mean(
+            summary["step_s"][1:train.PROFILE_STEP]) * 1e3
+        print(f"train 7b profile, step {train.PROFILE_STEP}: device busy "
+              f"{busy_ms:.1f} ms over {sum(c for _, c in by_name.values())} "
+              f"device activities; idle share {1 - busy_ms / step_ms:.3f} of "
+              f"the profiled step's {step_ms:.1f} ms, "
+              f"{1 - busy_ms / calm_ms:.3f} of the unprofiled steps 1-2's "
+              f"mean {calm_ms:.1f} ms")
+        for name, (total, calls) in sorted(by_name.items(),
+                                           key=lambda kv: -kv[1][0])[:14]:
+            print(f"train 7b profile: {total / 1e3:9.2f} ms {calls:6d} "
+                  f"calls  {name[:90]}")
+
+        restore, restored = train.restore_checkpoint, {}
+
+        def restore_checkpoint(path, state):  # note what was restored
+            state = restore(path, state)
+            restored.update(path=path, trainables=(
+                digest(state.model.projector),
+                digest(state.model.llm.embed_tokens)))
+            return state
+
+        argv = argv[:argv.index("--num_train_epochs")] + [
+            "--num_train_epochs", "2", "--save_steps", "0"]
+        train.restore_checkpoint = restore_checkpoint
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            resumed = train.main(argv)
+        finally:
+            train.restore_checkpoint = restore
+        same = restored.get("trainables") == trained
+        print(f"train 7b resumed from {restored.get('path')} (trainables "
+              f"{'as' if same else 'NOT as'} run 1 ended them): steps "
+              f"{resumed['steps']}, losses "
+              f"{', '.join(f'{x:.4f}' for x in resumed['loss'])}, "
+              f"{time.perf_counter() - t0:.2f} s in train.main, "
+              f"checkpoint-{resumed['steps']} written in "
+              f"{resumed['save_s']:.2f} s", flush=True)
+        if (restored.get("path") != ckpt or not same
+                or resumed["steps"] != 3 * steps
+                or not all(np.isfinite(resumed["loss"]))):
+            raise AssertionError("train 7b did not resume from "
+                                 f"checkpoint-{steps}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def training_phase(dev, results) -> dict:
+    """Kernels 7 and 8 (flash_checks), the small train steps in bf16 and
+    with an int8 LLM (small_train_check), then 7B through the entry
+    point (train_7b). Returns the 7B run's launch counts."""
+    t0 = time.perf_counter()
+    flash_checks(dev, results)
+    torch.cuda.empty_cache()
+    small_train_check(dev)
+    small_train_check(dev, "int8")
+    launches = train_7b(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"training phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    return launches
+
+
 def weight_bytes(module, leaves) -> int:
     return sum(p.numel() * p.element_size()
                for n, p in module.named_parameters()
@@ -932,6 +1441,8 @@ def main() -> int:
         del engine, llm
         gc.collect()
         torch.cuda.empty_cache()
+    trained = training_phase(dev, results)
+    launches.update({k: trained[k] for k in TRAIN_PATH})
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -23,6 +23,7 @@ def test_prompts_and_token_ids_match_jax():
         jc = jconv.conv_templates[name].copy()
         tc = tconv.conv_templates[name].copy()
         assert tc.stop_string() == jc.stop_string(), name
+        assert tc.version == jc.version, name
         assert tc.get_prompt() == jc.get_prompt(), name
         for question, answer in TURNS:
             for conv in (jc, tc):

@@ -157,6 +157,96 @@ def test_f32_product_of_bf16_operands(dev):
                 2 ** -7)
 
 
+def test_dot_f32_gradients_on_the_card(dev):
+    """The gradient of ops/quant.dot_f32 on CUDA (``aten::mm.dtype`` has
+    none of its own): the bf16 lm_head's, for x and for the weight, and
+    the int8 quantized_matmul's, against the f32 products of the same
+    values; only summation order and the one cast to bf16 differ, so
+    one bf16 ulp (2^-7 of max |ref|)."""
+    from video_llava_tpu_torch.ops.quant import dot_f32, quantized_matmul
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = _rand(g, 2, 3, 4096).requires_grad_()
+    w = (_rand(g, 4096, 32006) * 4096 ** -0.5).requires_grad_()
+    gy = torch.randn(2, 3, 32006, generator=g, device=dev)
+    dot_f32(x, w).backward(gy)
+    assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+    gy2 = gy.reshape(6, -1)
+    _assert_rel(x.grad, (gy2 @ w.detach().float().t()).reshape(x.shape),
+                2 ** -7)
+    _assert_rel(w.grad, x.detach().float().reshape(6, -1).t() @ gy2, 2 ** -7)
+    x.grad = None
+    q = torch.randint(-127, 128, (4096, 512), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand((1, 512), generator=g, device=dev) / 127
+    gq = torch.randn(2, 3, 512, generator=g, device=dev).to(torch.bfloat16)
+    quantized_matmul(x, q, s).backward(gq)
+    want = ((gq.float() * s) @ q.float().t()).to(torch.bfloat16)
+    _assert_rel(x.grad, want, 2 ** -7)
+
+
+# b, sq, skv, h, h_kv, d, causal: the training layer's shape at a small
+# batch, GQA, ragged right-aligned, non-causal, and every tile width
+FLASH_SHAPES = [
+    (1, 256, 256, 8, 8, 128, True), (2, 130, 130, 8, 2, 64, True),
+    (1, 100, 137, 4, 4, 128, True), (2, 77, 50, 4, 2, 32, False),
+    (1, 129, 129, 2, 1, 16, False), (1, 64, 96, 3, 3, 80, True),
+    (1, 33, 33, 2, 2, 48, True), (1, 70, 70, 2, 2, 96, False),
+    (1, 65, 65, 2, 2, 112, True),
+]
+
+
+def _flash_inputs(g, b, sq, skv, h, h_kv, d):
+    return (_rand(g, b, sq, h, d), _rand(g, b, skv, h_kv, d),
+            _rand(g, b, skv, h_kv, d), _rand(g, b, sq, h, d))
+
+
+@pytest.mark.parametrize("b,sq,skv,h,h_kv,d,causal", FLASH_SHAPES)
+def test_flash_kernels_match_plain(dev, b, sq, skv, h, h_kv, d, causal):
+    """Kernels 7 and 8 against their plain versions on the same bf16
+    inputs (the backward's out and lse are the kernel forward's). Forward:
+    absolute 2e-2 (P rounded to bf16 for the second product) and, for
+    every (row, head), max|err| <= 2^-6 of that row's max |ref|; lse to
+    1e-3. dq, dk, dv: each within 2e-2 of its tensor's max |ref| (bf16
+    P and dS in the products, sums in another order)."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    q, k, v, do = _flash_inputs(gen, b, sq, skv, h, h_kv, d)
+    before = dict(cuda_lib.LAUNCHES)
+    out, lse = attention.flash_forward(q, k, v, causal)
+    want, want_lse = attention.flash_forward_plain(q, k, v, causal)
+    _assert_close(out, want, 2e-2)
+    _assert_close(lse, want_lse, 1e-3)
+    err = (out.float() - want.float()).abs().amax(-1)
+    assert (err / want.float().abs().amax(-1)).max().item() <= 2 ** -6
+    got = attention.flash_backward(q, k, v, out, lse, do, causal)
+    ref = attention.flash_backward_plain(q, k, v, out, lse, do, causal)
+    for a, r in zip(got, ref):
+        assert a.dtype == r.dtype == torch.bfloat16 and a.shape == r.shape
+        _assert_rel(a, r, 2e-2)
+    for name in ("flash_forward", "flash_backward_dq", "flash_backward_dkv"):
+        assert cuda_lib.LAUNCHES[name] == before.get(name, 0) + 1, name
+
+
+def test_flash_attention_autograd_on_the_card(dev):
+    """multi_head_attention on CUDA tensors goes through the autograd
+    function: kernel 7 forward, kernel 8 backward, gradients those of
+    the plain backward (2e-2 of max |ref|)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, do = _flash_inputs(gen, 2, 96, 96, 4, 2, 64)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(cuda_lib.LAUNCHES)
+    out = attention.multi_head_attention(*leaves, causal=True)
+    out.backward(do)
+    for name in ("flash_forward", "flash_backward_dq", "flash_backward_dkv"):
+        assert cuda_lib.LAUNCHES[name] == before.get(name, 0) + 1, name
+    o, lse = attention.flash_forward_plain(q, k, v, True)
+    ref = attention.flash_backward_plain(q, k, v, out.detach(), lse, do,
+                                         True)
+    for leaf, r in zip(leaves, ref):
+        _assert_rel(leaf.grad, r, 2e-2)
+    _assert_close(out, o, 2e-2)
+
+
 def _int4_weight(g, d, f, group_size):
     w = torch.randn(d, f, generator=g, device=g.device) * d ** -0.5
     return quant4.quantize_tensor_int4(w, group_size)
@@ -255,3 +345,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         quant4.w4a8_block(xb.float(), packed, scales)
     with pytest.raises(TypeError):  # and write f32 or bf16
         quant4.w4a8_matvec(xb[:1], packed, scales, torch.float16)
+    qf = _rand(g, 1, 8, 4, 64)
+    with pytest.raises(TypeError):  # the flash kernels read bf16
+        attention.flash_forward(qf.float(), qf.float(), qf.float())
+    with pytest.raises(ValueError):  # causal needs sq <= skv
+        attention.flash_forward(qf, qf[:, :4], qf[:, :4], causal=True)
+    with pytest.raises(ValueError):  # 4 query heads over 3 kv heads
+        kv3 = qf[:, :, :3].contiguous()
+        attention.flash_forward(qf, kv3, kv3)
+    q72 = _rand(g, 1, 8, 2, 72)
+    with pytest.raises(ValueError):  # d % 8 == 0 dispatches, 72 raises
+        attention.multi_head_attention(q72, q72, q72, causal=True)

@@ -22,8 +22,8 @@ def _run(code: str, *args: str) -> subprocess.CompletedProcess:
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imports with JAX
-    unimportable, and none pulls JAX in; the chat and serving CLIs'
-    --help run."""
+    unimportable, and none pulls JAX in; the chat, serving and training
+    CLIs' --help run."""
     modules = [m.name for m in pkgutil.walk_packages(
         video_llava_tpu_torch.__path__, "video_llava_tpu_torch.")]
     assert "video_llava_tpu_torch.runtime.chat" in modules
@@ -46,3 +46,9 @@ def test_port_imports_no_jax():
                 "run_name='__main__')")
     assert proc.returncode == 0, proc.stderr
     assert "--continuous" in proc.stdout and "--prefix_cache" in proc.stdout
+    assert "video_llava_tpu_torch.train.train" in modules
+    proc = _run(BLOCK_JAX + "import runpy; sys.argv = ['train', '--help']; "
+                "runpy.run_module('video_llava_tpu_torch.train.train', "
+                "run_name='__main__')")
+    assert proc.returncode == 0, proc.stderr
+    assert "--tune_mode" in proc.stdout and "--llm_weights" in proc.stdout

@@ -8,6 +8,9 @@ DEFAULT_VID_START_TOKEN = "<vid_start>"
 DEFAULT_VID_END_TOKEN = "<vid_end>"
 DEFAULT_TRANSCRIPT_START = "The noisy audio transcript of this video is:"
 
+# Label value the training loss ignores (the HF convention).
+IGNORE_INDEX = -100
+
 # Videos of any length are mean-pooled to at most this many temporal
 # tokens, zero-padded up to it.
 MAX_TEMPORAL_TOKENS = 100

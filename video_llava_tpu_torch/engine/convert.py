@@ -84,9 +84,12 @@ def params_from_jax(tree_np, cfg: VideoLLaVAConfig, device=None,
     flat = flatten_tree(tree_np)
     model_dtype = dtype or _to_tensor(flat["llm.final_norm.scale"]).dtype
     quant, group_size, fuse = llm_layout(flat)
+    # a quantized LLM whose embedding stayed dense (training's int8 tree)
+    skip = (("embed_tokens",) if quant and "llm.embed_tokens.weight" in flat
+            else ())
     model = VideoLLaVA(cfg, device="meta", dtype=model_dtype,
                        llm_quant=quant, group_size=group_size,
-                       llm_fuse=fuse)
+                       llm_fuse=fuse, llm_skip_keys=skip)
     expected = dict(model.named_parameters())
     missing = sorted(set(expected) - set(flat))
     unexpected = sorted(set(flat) - set(expected))

@@ -10,16 +10,22 @@ the causal mask at each row's write position (plain torch, as XLA in
 the JAX package); decode (s == 1) reads the cache through
 ops.attention.decode_attention_stacked or decode_attention_paged.
 
+Without a cache (training), every layer attends causally over its own
+s tokens through ops.attention.multi_head_attention (kernels 7 and 8 on
+CUDA), and ``remat`` recomputes each layer in the backward pass
+(torch.utils.checkpoint: only each layer's input is kept, as
+jax.checkpoint with nothing_saveable keeps).
+
 Quantized layouts (``quant`` "int8" or "int4"): every kernel leaf and
 the embedding table take the format the JAX package's quantize_params /
-quantize_params_int4 give them (ops/quant.leaf_format), and ``fuse``
+quantize_params_int4 give them (ops/quant.leaf_format; ``skip_keys``
+keeps more leaves dense, as training keeps embed_tokens), and ``fuse``
 merges wq/wk/wv into wqkv and gate/up into gate_up where the members
 share a format (fuse_layer_kernels, JAX models/llama.py:435-465). Each
 layer holds its own (Dh, F) int4 weight; the W4A8 kernels take a layer
 of a stacked weight as a view just the same.
 
-Not ported (no caller on these paths): vocab padding and the forward
-without a cache.
+Not ported (no caller on these paths): vocab padding.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from video_llava_tpu_torch.config import LlamaConfig
 from video_llava_tpu_torch.models.layers import (
@@ -44,6 +51,7 @@ from video_llava_tpu_torch.ops.attention import (
     attention_reference,
     decode_attention_paged,
     decode_attention_stacked,
+    multi_head_attention,
     paged_layer_dense,
 )
 from video_llava_tpu_torch.ops.quant import ieee_div, leaf_format
@@ -261,12 +269,15 @@ class LlamaLayer(nn.Module):
                                        n_groups=g, **kw))
 
     def attention(self, x, cos, sin, cache, li: int,
-                  write_pos: torch.Tensor, cache_len: torch.Tensor):
+                  write_pos: Optional[torch.Tensor],
+                  cache_len: Optional[torch.Tensor]):
         """Self-attention that writes this layer's k/v into the cache (a
         KVCache or a PagedKVCache) at write_pos and attends over the
         cache masked to cache_len: s == 1 through the decode kernel of
         the cache's layout, s > 1 through the plain masked reference over
-        the layer (a paged pool gathered into its dense view first)."""
+        the layer (a paged pool gathered into its dense view first).
+        Without a cache, causal attention over the s tokens themselves
+        (multi_head_attention: the flash kernels on CUDA)."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, h_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -278,6 +289,9 @@ class LlamaLayer(nn.Module):
         q = apply_rope(q.reshape(b, s, h, hd), cos, sin)
         k = apply_rope(k.reshape(b, s, h_kv, hd), cos, sin)
         v = v.reshape(b, s, h_kv, hd)
+        if cache is None:
+            out = multi_head_attention(q, k, v, causal=True)
+            return self.wo(out.reshape(b, s, h * hd))
         table = getattr(cache, "table", None)
         if table is None:
             write = lambda full, new: _write(  # noqa: E731
@@ -341,15 +355,17 @@ class Llama(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, *, device=None,
                  dtype=torch.bfloat16, quant: Optional[str] = None,
-                 group_size: Optional[int] = 128, fuse: bool = False):
+                 group_size: Optional[int] = 128, fuse: bool = False,
+                 skip_keys: Tuple[str, ...] = ()):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.quant, self.group_size, self.fuse = quant, group_size, fuse
         self.layout = layer_layout(cfg, quant, group_size, fuse)
         d, vocab = cfg.hidden_size, cfg.vocab_size
+        skip = ("class_embedding", "position_embedding") + tuple(skip_keys)
         fmt = lambda *keys_shape: quant and leaf_format(  # noqa: E731
-            *keys_shape, quant, group_size)
+            *keys_shape, quant, group_size, skip_keys=skip)
         self.embed_tokens = Embedding(
             vocab, d, fmt=fmt(("embed_tokens", "weight"), (vocab, d)) or None,
             **kw)
@@ -366,17 +382,28 @@ class Llama(nn.Module):
         self,
         inputs_embeds: torch.Tensor,
         positions: torch.Tensor,
-        cache,
+        cache=None,
         new_length: Optional[torch.Tensor] = None,
+        remat: bool = False,
     ):
         """embeds (b, s, d) + positions (b, s) -> (final-normed hidden
         (b, s, d), cache). Writes k/v into the cache (KVCache or
         PagedKVCache) at cache.length onward and sets cache.length to
-        new_length (default length + s)."""
-        if cache is None:
-            raise ValueError("the port's decoder runs with a KV cache")
+        new_length (default length + s). Without a cache, causal
+        attention over the s tokens; remat=True then recomputes each
+        layer in the backward pass, keeping only its input."""
         cfg = self.cfg
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        if cache is None:
+            x = inputs_embeds
+            for li, layer in enumerate(self.layers):
+                if remat and torch.is_grad_enabled():
+                    x = checkpoint(layer, x, cos, sin, None, li, None, None,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    x = layer(x, cos, sin, None, li, None, None)
+            return self.final_norm(x), None
         write_pos = cache.length
         cache_len = (new_length if new_length is not None
                      else cache.length + inputs_embeds.shape[1])
@@ -395,23 +422,28 @@ class Llama(nn.Module):
 
     def forward(
         self,
-        cache: KVCache,
+        cache: Optional[KVCache] = None,
         *,
         input_ids: Optional[torch.Tensor] = None,
         inputs_embeds: Optional[torch.Tensor] = None,
         positions: Optional[torch.Tensor] = None,
         new_length: Optional[torch.Tensor] = None,
-    ) -> Tuple[torch.Tensor, KVCache]:
-        """Full LM forward -> (logits (b, s, vocab) f32, cache)."""
+        remat: bool = False,
+    ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+        """Full LM forward -> (logits (b, s, vocab) f32, cache); with no
+        cache the positions default to 0..s-1 and the cache comes back
+        None."""
         if inputs_embeds is None:
             inputs_embeds = self.embed_tokens(input_ids)
         b, s = inputs_embeds.shape[:2]
         if positions is None:
-            positions = (torch.arange(s, dtype=torch.int32,
-                                      device=inputs_embeds.device)[None, :]
-                         + cache.length[:, None]).expand(b, s)
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=inputs_embeds.device)[None, :]
+            if cache is not None:
+                positions = positions + cache.length[:, None]
+            positions = positions.expand(b, s)
         hidden, cache = self.forward_hidden(inputs_embeds, positions, cache,
-                                            new_length)
+                                            new_length, remat)
         return self.logits(hidden), cache
 
     def decode_step(self, token: torch.Tensor,

@@ -1,19 +1,22 @@
 """VideoLLaVA: CLIP vision tower + mm_projector + Vicuna LM.
 
-Counterpart of video_llava_tpu/models/video_llava.py for inference:
-video encode (CLIP penultimate patches + spatio-temporal pooling), the
-vectorized splice of projected video features into the token
-embeddings, and prefill of a right-padded batch into a fresh KV cache.
+Counterpart of video_llava_tpu/models/video_llava.py: video encode
+(CLIP penultimate patches + spatio-temporal pooling), the vectorized
+splice of projected video features into the token embeddings (a gather
+and a where, so the projector and embed_tokens take gradients through
+it), prefill of a right-padded batch into a fresh KV cache, and the
+training forward without a cache with its shifted cross-entropy.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from video_llava_tpu_torch.config import VideoLLaVAConfig
+from video_llava_tpu_torch.constants import IGNORE_INDEX
 from video_llava_tpu_torch.models.clip import CLIPVisionTower
 from video_llava_tpu_torch.models.llama import KVCache, Llama
 from video_llava_tpu_torch.models.projector import Projector
@@ -41,21 +44,37 @@ def splice_video_embeddings(token_embeds, input_ids, video_features,
                        token_embeds)
 
 
+def shifted_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE of logits[:, :-1] against labels[:, 1:] over the targets
+    that are not IGNORE_INDEX, with an f32 log-softmax (JAX
+    models/video_llava.py:160-169)."""
+    shift_labels = labels[:, 1:].long()
+    valid = shift_labels != IGNORE_INDEX
+    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    token_logp = torch.gather(logp, -1, safe[..., None])[..., 0]
+    n = valid.sum().clamp_min(1)
+    return -torch.where(valid, token_logp, 0.0).sum() / n
+
+
 class VideoLLaVA(nn.Module):
-    """llm_quant (None, "int8", "int4"), group_size and llm_fuse set the
+    """llm_quant (None, "int8", "int4"), group_size, llm_fuse and
+    llm_skip_keys (leaves kept dense beside the default ones) set the
     LLM's layout (models/llama.py); CLIP and the projector stay in
     `dtype`."""
 
     def __init__(self, cfg: VideoLLaVAConfig, *, device=None,
                  dtype=torch.bfloat16, llm_quant: Optional[str] = None,
-                 group_size: Optional[int] = 128, llm_fuse: bool = False):
+                 group_size: Optional[int] = 128, llm_fuse: bool = False,
+                 llm_skip_keys: Tuple[str, ...] = ()):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.vision = CLIPVisionTower(cfg.vision, **kw)
         self.projector = Projector(cfg.projector, **kw)
         self.llm = Llama(cfg.llm, quant=llm_quant, group_size=group_size,
-                         fuse=llm_fuse, **kw)
+                         fuse=llm_fuse, skip_keys=llm_skip_keys, **kw)
 
     def encode_video(self, pixels: torch.Tensor,
                      num_valid_frames: Optional[int] = None) -> torch.Tensor:
@@ -98,3 +117,17 @@ class VideoLLaVA(nn.Module):
                                                 new_length=seq_lens)
         last = hidden[torch.arange(b, device=device), seq_lens.long() - 1]
         return PrefillResult(self.llm.logits(last), cache)
+
+    def forward(self, input_ids: torch.Tensor,
+                video_features: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None,
+                remat: bool = False):
+        """The multimodal LM forward without a cache -> (logits (b, s,
+        vocab) f32, loss or None): the shifted masked cross-entropy of
+        `labels` (JAX forward with cache=None, :133-157). remat=True
+        recomputes each decoder layer in the backward pass."""
+        embeds = self.build_inputs_embeds(input_ids, video_features)
+        logits, _ = self.llm.forward(inputs_embeds=embeds, remat=remat)
+        loss = None if labels is None else shifted_cross_entropy(logits,
+                                                                 labels)
+        return logits, loss

@@ -1,11 +1,15 @@
 """Attention: plain PyTorch reference + hand-written CUDA kernels.
 
-Counterpart of video_llava_tpu/ops/attention.py for the chat and
-serving paths:
+Counterpart of video_llava_tpu/ops/attention.py for the chat, serving
+and training paths:
 
   * :func:`attention_reference` -- plain torch, f32 softmax. Prefill
     attention into the KV cache runs here, as it runs on XLA in the JAX
     package (``kv_valid_len``/``q_offset`` keep it off the kernels).
+  * :func:`flash_attention` -- causal/GQA attention with its gradient
+    (the LLaMA forward without a cache, training): forward and backward
+    are kernels (csrc/flash_attention.cu); :func:`multi_head_attention`
+    is the dispatch.
   * :func:`flash_attention_bhsd` -- CLIP encoder attention over
     head-major, once-padded operands (csrc/flash_bhsd.cu).
   * :func:`decode_attention_stacked` -- one query token against one
@@ -83,6 +87,227 @@ def attention_reference(
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernels 7 and 8: flash attention forward and backward (training)
+# ---------------------------------------------------------------------------
+
+LSE_SENTINEL = 1e30  # lse of a row that sees no key: exp(s - lse) is 0
+
+
+def flash_mask(sq: int, skv: int, causal: bool, device) -> torch.Tensor:
+    """(sq, skv) bool: key j is seen by query i (all keys, or with
+    `causal` j <= i + skv - sq, the right-aligned convention)."""
+    if not causal:
+        return torch.ones((sq, skv), dtype=torch.bool, device=device)
+    qpos = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    return qpos >= torch.arange(skv, device=device)[None, :]
+
+
+def _default_scale(d: int, scale: Optional[float]) -> float:
+    return float(scale) if scale is not None else 1.0 / (d**0.5)
+
+
+def flash_forward_plain(q, k, v, causal: bool = False,
+                        scale: Optional[float] = None):
+    """Plain version of :func:`flash_forward` (JAX ``_flash_forward``):
+    f32 products and softmax, masked keys at DEFAULT_MASK_VALUE, out =
+    (p v) / l in q's dtype, lse = m + log(l) (b, h, sq) f32 with
+    LSE_SENTINEL where it is not finite."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    scale = _default_scale(d, scale)
+    kk, vv = _repeat_kv(k, h).float(), _repeat_kv(v, h).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kk)
+    s = s.masked_fill(~flash_mask(sq, skv, causal, q.device),
+                      DEFAULT_MASK_VALUE)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bkhd->bhqd", p, vv) / l
+    lse = (m + torch.log(l))[..., 0]
+    lse = torch.where(torch.isfinite(lse), lse,
+                      torch.full_like(lse, LSE_SENTINEL))
+    return out.transpose(1, 2).to(q.dtype), lse
+
+
+def flash_backward_masked(q, k, v, out, lse, g, mask: torch.Tensor,
+                          scale: float):
+    """The backward of :func:`flash_backward_plain` under an explicit
+    (sq, skv) bool `mask` of the keys each query sees."""
+    b, sq, h, d = q.shape
+    skv, h_kv = k.shape[1], k.shape[2]
+    qf, gf = q.float(), g.float()
+    kk, vv = _repeat_kv(k, h).float(), _repeat_kv(v, h).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kk) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vv)
+    ds = p * (dp - flash_delta(out, g)[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kk) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    # GQA: sum over the query heads sharing each kv head
+    dk = dk.reshape(b, skv, h_kv, h // h_kv, d).sum(dim=3)
+    dv = dv.reshape(b, skv, h_kv, h // h_kv, d).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_backward_plain(q, k, v, out, lse, g, causal: bool = False,
+                         scale: Optional[float] = None):
+    """Plain version of :func:`flash_backward` (JAX ``_flash_backward``):
+    p = exp(s * scale - lse) recomputed under the same mask, D =
+    rowsum(dO * O), dS = p (dP - D); dk and dv per query head, summed
+    over each kv head's group; outputs in the inputs' dtypes."""
+    scale = _default_scale(q.shape[-1], scale)
+    mask = flash_mask(q.shape[1], k.shape[1], causal, q.device)
+    return flash_backward_masked(q, k, v, out, lse, g, mask, scale)
+
+
+def _check_flash(q, k, v, causal: bool):
+    """Raise unless the kernels take these operands: bf16, contiguous
+    BSHD, h a multiple of h_kv, d a multiple of 16 up to 128, and under
+    the causal mask sq <= skv (every query row sees a key)."""
+    b, sq, h, d = q.shape
+    skv, h_kv = k.shape[1], k.shape[2]
+    cuda_lib.require(q, "q", torch.bfloat16, (b, sq, h, d))
+    cuda_lib.require(k, "k", torch.bfloat16, (b, skv, h_kv, d), q.device)
+    cuda_lib.require(v, "v", torch.bfloat16, (b, skv, h_kv, d), q.device)
+    if d % 16 or not 16 <= d <= 128:
+        raise ValueError(f"head dim {d}: must be a multiple of 16 <= 128")
+    if h % h_kv:
+        raise ValueError(f"{h} query heads do not group over {h_kv}")
+    if sq < 1 or skv < 1:
+        raise ValueError(f"empty sequence: sq {sq}, skv {skv}")
+    if causal and sq > skv:
+        raise ValueError(f"causal attention with sq {sq} > skv {skv}")
+    if b * h > 65535:
+        raise ValueError(f"b*h = {b * h} exceeds the grid's y limit")
+
+
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = False, scale: Optional[float] = None):
+    """Kernel 7. q (b, sq, h, d), k/v (b, skv, h_kv, d) -> (out (b, sq,
+    h, d) in q's dtype, lse (b, h, sq) f32). On CUDA: bf16, d a multiple
+    of 16 up to 128 (csrc/flash_attention.cu)."""
+    b, sq, h, d = q.shape
+    scale = _default_scale(d, scale)
+    if q.device.type == "cpu":
+        return flash_forward_plain(q, k, v, causal, scale)
+    _check_flash(q, k, v, causal)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    cuda_lib.launch(
+        "flash_forward", "vlt_flash_fwd", q.device,
+        cuda_lib.ptr(q), cuda_lib.ptr(k), cuda_lib.ptr(v), cuda_lib.ptr(out),
+        cuda_lib.ptr(lse), b, sq, k.shape[1], h, k.shape[2], d, int(causal),
+        scale,
+    )
+    return out, lse
+
+
+def flash_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO * O) in f32, (b, h, sq) contiguous: plain torch, as
+    the JAX package computes it outside its kernels."""
+    return (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def _flash_bwd_args(q, k, v, g, lse, delta, causal: bool, scale: float):
+    b, sq, h, d = q.shape
+    ins = tuple(cuda_lib.ptr(t) for t in (q, k, v, g, lse, delta))
+    return ins, (b, sq, k.shape[1], h, k.shape[2], d, int(causal), scale)
+
+
+def flash_backward_dq(q, k, v, g, lse, delta, causal: bool, scale: float):
+    """Kernel 8's dq kernel on operands :func:`flash_backward` checked."""
+    dq = torch.empty_like(q)
+    ins, shape = _flash_bwd_args(q, k, v, g, lse, delta, causal, scale)
+    cuda_lib.launch("flash_backward_dq", "vlt_flash_bwd_dq", q.device, *ins,
+                    cuda_lib.ptr(dq), *shape)
+    return dq
+
+
+def flash_backward_dkv(q, k, v, g, lse, delta, causal: bool, scale: float):
+    """Kernel 8's dk/dv kernel (each kv head's group summed in the block)
+    on operands :func:`flash_backward` checked."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ins, shape = _flash_bwd_args(q, k, v, g, lse, delta, causal, scale)
+    cuda_lib.launch("flash_backward_dkv", "vlt_flash_bwd_dkv", q.device,
+                    *ins, cuda_lib.ptr(dk), cuda_lib.ptr(dv), *shape)
+    return dk, dv
+
+
+def flash_backward(q, k, v, out, lse, g, causal: bool = False,
+                   scale: Optional[float] = None):
+    """Kernel 8 -> (dq, dk, dv) in the inputs' dtypes: D (flash_delta),
+    then the dq kernel and the dk/dv kernel (csrc/flash_attention.cu)."""
+    b, sq, h, d = q.shape
+    scale = _default_scale(d, scale)
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, out, lse, g, causal, scale)
+    _check_flash(q, k, v, causal)
+    dev = q.device
+    cuda_lib.require(out, "out", torch.bfloat16, q.shape, dev)
+    cuda_lib.require(g, "g", torch.bfloat16, q.shape, dev)
+    cuda_lib.require(lse, "lse", torch.float32, (b, h, sq), dev)
+    delta = flash_delta(out, g)
+    dq = flash_backward_dq(q, k, v, g, lse, delta, causal, scale)
+    dk, dv = flash_backward_dkv(q, k, v, g, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """JAX ``flash_attention``'s custom VJP: the forward saves (q, k, v,
+    out, lse), the backward recomputes p from lse (no stored
+    probability matrix)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, g.contiguous(),
+                                    ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention with its gradient. q (b, sq, h, d); k/v (b, skv,
+    h_kv, d) -> (b, sq, h, d). CPU tensors take the plain forward and
+    backward; CUDA tensors launch kernels 7 and 8 or raise."""
+    scale = _default_scale(q.shape[-1], scale)
+    if q.device.type != "cpu":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return _FlashAttention.apply(q, k, v, causal, scale)
+
+
+def multi_head_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    kv_valid_len: Optional[torch.Tensor] = None,
+    q_offset: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Dispatch (JAX ops/attention.py:736-778): the flash kernels for
+    CUDA tensors when no key mask or per-row offset is asked for and d %
+    8 == 0; the masked reference otherwise. The CPU takes the reference,
+    as the JAX package's CPU backend does."""
+    plain = kv_valid_len is None and q_offset is None and q.shape[-1] % 8 == 0
+    if plain and q.is_cuda:
+        return flash_attention(q, k, v, causal, scale)
+    return attention_reference(q, k, v, causal=causal,
+                               kv_valid_len=kv_valid_len, q_offset=q_offset,
+                               scale=scale)
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,15 @@ _SIGNATURES = {
     ),
     "vlt_w4a8_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vlt_w4a8_block": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # q, k, v, out, lse; b, sq, skv, h, h_kv, d, causal; scale
+    "vlt_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                      _P),
+    # q, k, v, dout, lse, delta, dq; the same shape arguments
+    "vlt_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _F, _P),
+    # q, k, v, dout, lse, delta, dk, dv; the same shape arguments
+    "vlt_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _F, _P),
 }
 
 _lib = None

@@ -6,7 +6,8 @@ contraction axis, values rounded half to even as ``jnp.round`` does.
 2D ``kernel`` leaves and embedding tables become ``{'qvalues': int8,
 'scales': f32}``; ``models.layers.linear`` and ``embed`` dispatch on
 that layout. The W8A8 (``qvalues_a8``) form for the CLIP tower is not
-ported yet.
+ported yet. :func:`dot_f32` carries a gradient, so a frozen int8 LLM
+passes gradients to its inputs in training.
 """
 
 from __future__ import annotations
@@ -38,18 +39,41 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor,
     return (q.float() * scales).to(dtype)
 
 
+class _DotF32(torch.autograd.Function):
+    """(m, in) @ (in, out) -> f32 with the VJP of JAX's dot with
+    preferred_element_type=f32: the f32 cotangent against the other
+    operand in f32, then cast to the operand's dtype. (``aten::mm.dtype``
+    has no derivative of its own.)"""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        if x2.is_cuda and x2.dtype in (torch.bfloat16, torch.float16):
+            return torch.mm(x2, w.to(x2.dtype), out_dtype=torch.float32)
+        return torch.mm(x2.float(), w.float())
+
+    @staticmethod
+    def backward(ctx, gy):
+        x2, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.mm(gy.float(), w.float().t()).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.mm(x2.float().t(), gy.float()).to(w.dtype)
+        return gx, gw
+
+
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., in) @ w (in, out) -> f32, as a dot with
     preferred_element_type=f32: the product is never rounded to a
     narrower type. On CUDA, 16-bit operands go to the GEMM as they are
     and it writes its f32 accumulator (``aten::mm.dtype``), so no f32
-    copy of w is made; elsewhere both operands are cast to f32."""
+    copy of w is made; elsewhere both operands are cast to f32. The
+    gradient (for x, and for w where it requires one) is JAX's: f32
+    cotangent times the other operand in f32, cast to the operand's
+    dtype."""
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
-        y = torch.mm(x2, w.to(x.dtype), out_dtype=torch.float32)
-    else:
-        y = torch.mm(x2.float(), w.float())
+    y = _DotF32.apply(x.reshape(-1, x.shape[-1]), w)
     return y.reshape(*lead, w.shape[-1])
 
 

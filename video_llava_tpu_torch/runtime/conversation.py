@@ -24,6 +24,7 @@ class Conversation:
     sep_style: SeparatorStyle = SeparatorStyle.SINGLE
     sep: str = "###"
     sep2: Optional[str] = None
+    version: str = "Unknown"  # "v1": train/data.preprocess takes preprocess_v1
 
     def get_prompt(self) -> str:
         """SINGLE ends every turn with sep; TWO alternates sep and
@@ -82,6 +83,7 @@ conv_vicuna_v1_1 = Conversation(
         " answers to the user's questions."
     ),
     roles=("USER", "ASSISTANT"),
+    version="v1",
     messages=[],
     sep_style=SeparatorStyle.TWO,
     sep=" ",
