@@ -34,13 +34,22 @@ Phases, each of which raises on failure (exit code != 0):
      request through continuous batching, one request through the
      serialized mode (see serving_phase), launch counts over that run;
      the continuous traffic again under the profiler;
-  8. free it and train (training_phase): kernels 7 and 8 against their
+  8. ground those answers (grounding_phase): kernel 12 (multi-scale
+     deformable attention) against its plain version at GroundingDINO's
+     800 px encoder and decoder shapes in f32 and bf16, through
+     set_tile2d(True), with non-finite locations and a planted fault;
+     a small GroundingDINO on the card against the CPU; then the
+     full-width stack of `--with_grounding` (build_grounding_stack: Swin-T
+     GroundingDINO, MobileSAM, the STM tracker, a Swin-L tagger) on the
+     7B int4 engine, PGVideoLLaVA.answer over a seeded 100-frame 480 x 832
+     clip, with stage times, launch counts, a profile and peak memory;
+  9. free it and train (training_phase): kernels 7 and 8 against their
      plain versions at the training layer's shape and three others, a
      small model's train steps on the card against the CPU (bf16 and an
      int8 LLM), then `python -m video_llava_tpu_torch.train.train
      --model_size 7b` for 4 optimizer steps on seeded features, with its
      checkpoint, export and a profile of step 3;
-  9. print stage times, the kernels' JSON line, the card line and, last,
+  10. print stage times, the kernels' JSON line, the card line and, last,
      {"ok": true, "device": {...}}.
 It needs a CUDA card and the repository beside it, and imports no JAX.
 """
@@ -77,9 +86,24 @@ from video_llava_tpu_torch.constants import (
     DEFAULT_VIDEO_TOKEN,
 )
 from video_llava_tpu_torch.engine.continuous import SlotRequest
+from video_llava_tpu_torch.grounding import fused_clip, results as gresults
+from video_llava_tpu_torch.grounding.builders import build_grounding_stack
+from video_llava_tpu_torch.media import scene as scene_mod
 from video_llava_tpu_torch.models.video_llava import VideoLLaVA
-from video_llava_tpu_torch.ops import attention, cuda_lib, pooling, quant4
-from video_llava_tpu_torch.runtime.chat import VideoChatGPTInterface
+from video_llava_tpu_torch.models import grounding_dino as gdino
+from video_llava_tpu_torch.models.layers import TreeInit
+from video_llava_tpu_torch.ops import (
+    attention,
+    cuda_lib,
+    deformable,
+    pooling,
+    quant4,
+)
+from video_llava_tpu_torch.runtime import chat as chat_mod
+from video_llava_tpu_torch.runtime.chat import (
+    PGVideoLLaVA,
+    VideoChatGPTInterface,
+)
 from video_llava_tpu_torch.runtime.conversation import conv_templates
 from video_llava_tpu_torch.runtime.inference import build_video_question
 from video_llava_tpu_torch.runtime.model_init import (
@@ -126,12 +150,16 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                           "video_llava_tpu/ops/attention.py:625"),
     "flash_backward_dkv": ("video_llava_tpu_torch/csrc/flash_attention.cu",
                            "video_llava_tpu/ops/attention.py:649"),
+    "multi_scale_deformable_attention": (
+        "video_llava_tpu_torch/csrc/deformable_attention.cu",
+        "video_llava_tpu/ops/deformable_pallas.py:196"),
 }
 BF16_PATH = ("flash_attention_bhsd", "spatio_temporal_pool",
              "decode_attention_stacked")
 INT4_PATH = BF16_PATH + ("w4a8_matvec", "w4a8_block")
 SERVING_PATH = ("decode_attention_paged", "w4a8_matvec", "w4a8_block")
 TRAIN_PATH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+GROUNDING_PATH = ("multi_scale_deformable_attention",)
 # Kernel vs plain on the card, both bf16 out. flash: the kernel rounds P
 # to bf16 for its second product and accumulates in another order;
 # decode: the plain version dequantizes int8 to bf16, the kernel keeps
@@ -150,8 +178,12 @@ ROW_TOL = {"decode_attention_paged": 2 ** -6}
 # out only the order of the f32 sums over groups differs. In bf16 out
 # (what the path launches) the two f32 results round to bf16 at most one
 # ulp apart, and an ulp is at most 2^-7 of the value.
+# Deformable attention likewise: both sum in f32 in another order; bf16
+# out adds one bf16 rounding of each.
 REL_TOL = {"w4a8_matvec": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7},
-           "w4a8_block": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}}
+           "w4a8_block": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7},
+           "multi_scale_deformable_attention": {torch.float32: 1e-4,
+                                                torch.bfloat16: 2 ** -7}}
 # Published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its bytes over HBM_RATE and its operations over the peak of
 # their type.
@@ -1350,6 +1382,356 @@ def training_phase(dev, results) -> dict:
     return launches
 
 
+# -- grounding ------------------------------------------------------------
+
+LEVELS_800 = ((100, 100), (50, 50), (25, 25), (13, 13))  # GroundingDINO
+
+
+def msda_inputs(dev, g, q, b, dtype, nh=8, hd=32, p=4):
+    """Kernel 12's inputs at GroundingDINO's 800 px shapes: value (b,
+    13294, 8, 32); locations as the model makes them, reference points
+    (the raster grid for the encoder, q = 13294; spread boxes for the
+    decoder) plus offsets of a few pixels of each level, some off the
+    map; softmaxed weights."""
+    sum_hw = sum(h * w for h, w in LEVELS_800)
+    value = torch.randn(b, sum_hw, nh, hd, generator=g, device=dev).to(dtype)
+    if q == sum_hw:
+        ref = torch.cat([torch.stack(torch.meshgrid(
+            (torch.arange(w, device=dev) + 0.5) / w,
+            (torch.arange(h, device=dev) + 0.5) / h, indexing="xy"),
+            -1).reshape(-1, 2) for h, w in LEVELS_800])
+        ref = ref[None].expand(b, q, 2)
+    else:
+        ref = torch.rand(b, q, 2, generator=g, device=dev)
+    scale = torch.tensor([[w, h] for h, w in LEVELS_800], device=dev,
+                         dtype=torch.float32)
+    offsets = torch.randn(b, q, nh, len(LEVELS_800), p, 2, generator=g,
+                          device=dev) * 2.0
+    locs = ref[:, :, None, None, None, :] + offsets / scale[:, None, :]
+    weights = torch.softmax(torch.randn(b, q, nh, len(LEVELS_800) * p,
+                                        generator=g, device=dev),
+                            -1).reshape(b, q, nh, len(LEVELS_800), p)
+    return value, locs, weights
+
+
+def grid_sample_msda(value, shapes, locs, weights):
+    """HF GroundingDINO's multi_scale_deformable_attention: one
+    F.grid_sample per level, then the weighted sum (a composition of
+    PyTorch calls; the library yardstick for kernel 12)."""
+    b, _, nh, hd = value.shape
+    q, n_levels, n_points = locs.shape[1], locs.shape[3], locs.shape[4]
+    grids = (2 * locs - 1).to(value.dtype)
+    outs = []
+    for lvl, v in enumerate(value.split([h * w for h, w in shapes], dim=1)):
+        h, w = shapes[lvl]
+        v = v.flatten(2).transpose(1, 2).reshape(b * nh, hd, h, w)
+        grid = grids[:, :, :, lvl].transpose(1, 2).flatten(0, 1)
+        outs.append(F.grid_sample(v, grid, mode="bilinear",
+                                  padding_mode="zeros", align_corners=False))
+    aw = weights.transpose(1, 2).reshape(b * nh, 1, q, n_levels * n_points)
+    out = (torch.stack(outs, dim=-2).flatten(-2) * aw.to(value.dtype)).sum(-1)
+    return out.view(b, nh * hd, q).transpose(1, 2)
+
+
+def deformable_checks(dev, results) -> None:
+    """Kernel 12 against its plain version at the encoder (b 4, q 13,294)
+    and decoder (q 900) shapes in f32 and bf16 (times of the first, the
+    f32 encoder call: the stack runs in f32), the same inputs through
+    set_tile2d(True) (kernel 13's switch: the one kernel, the same
+    result), locations all non-finite for some queries (exact zeros),
+    and a planted fault in the plain version (the smallest level's
+    weights dropped) that the check must catch."""
+    name = "multi_scale_deformable_attention"
+    g = torch.Generator(device=dev).manual_seed(12)
+    for q, b, dtype in ((13294, 4, torch.float32), (900, 4, torch.float32),
+                        (13294, 4, torch.bfloat16), (900, 4, torch.bfloat16)):
+        value, locs, weights = msda_inputs(dev, g, q, b, dtype)
+        run = lambda: deformable.multi_scale_deformable_attention(  # noqa
+            value, LEVELS_800, locs, weights)
+        nbytes = (value.numel() * value.element_size() + locs.numel() * 4
+                  + weights.numel() * 4 + b * q * 256 * value.element_size())
+        check(results, name, (b, q, 8, 32, 4, 4, str(dtype)[6:]), run,
+              lambda: deformable.msda_plain(value, LEVELS_800, locs,
+                                            weights),
+              nbytes=nbytes,
+              library=lambda: grid_sample_msda(value, LEVELS_800, locs,
+                                               weights))
+        lib_err = (grid_sample_msda(value, LEVELS_800, locs, weights).float()
+                   - run().float()).abs().max().item()
+        print(f"  grid_sample composition vs kernel: max|err| {lib_err:.3e}")
+        got = run()
+        deformable.set_tile2d(True)
+        try:
+            tiled = run()
+        finally:
+            deformable.set_tile2d(False)
+        if not torch.equal(tiled, got):
+            raise AssertionError(f"{name}: set_tile2d(True) changed the "
+                                 "result")
+        if q == 900 and dtype == torch.float32:
+            bad = locs.clone()
+            bad[:, :7, :, :, :, 0] = float("nan")
+            bad[:, 7:11, :, :, :, 1] = float("inf")
+            bad[:, 11:13] = float("-inf")
+            out = deformable.multi_scale_deformable_attention(
+                value, LEVELS_800, bad, weights)
+            torch.cuda.synchronize()
+            if out[:, :13].abs().max().item() != 0.0:
+                raise AssertionError(f"{name}: non-finite locations gave "
+                                     "non-zero output")
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"{name}: non-finite output")
+            print(f"check {name}: non-finite locations of 13 queries give "
+                  "exact zeros")
+            faulty = weights.clone()
+            faulty[:, :, :, 3] = 0.0  # drop the 13 x 13 level
+            try:
+                check({}, name, (b, q, "planted fault: level 3 dropped"),
+                      run, lambda: deformable.msda_plain(
+                          value, LEVELS_800, locs, faulty), nbytes=nbytes)
+            except AssertionError as e:
+                print(f"planted fault caught: {e}")
+            else:
+                raise AssertionError(f"{name}: the check passed a plain "
+                                     "version with a level dropped")
+        del value, locs, weights
+
+
+def small_grounding_check(dev) -> None:
+    """A small GroundingDINO (the tiny test config, 3 levels) on the card
+    (kernel 12, f32) against the same weights on the CPU (the plain
+    version): logits and boxes relative to their scale."""
+    cfg = gdino.GroundingDinoConfig.tiny_test()
+    params = gdino.init_params(TreeInit(0, "cpu"), cfg)
+    on_dev = tree_to(params, dev)
+    rng = np.random.default_rng(0)
+    px = torch.from_numpy(rng.normal(size=(2, 64, 64, 3)).astype(np.float32))
+    ids = np.asarray([[101, 5, 6, 1012, 7, 8, 9, 1012, 102]] * 2)
+    before = cuda_lib.LAUNCHES["multi_scale_deformable_attention"]
+    with torch.inference_mode():
+        ref = gdino.forward(params, cfg, px, ids)
+        got = gdino.forward(on_dev, cfg, px.to(dev), ids)
+    launched = cuda_lib.LAUNCHES["multi_scale_deformable_attention"] - before
+    if launched != cfg.encoder_layers + cfg.decoder_layers:
+        raise AssertionError(f"small GroundingDINO launched kernel 12 "
+                             f"{launched} times")
+    for label, a, b in (("logits", got[0], ref[0]), ("boxes", got[1],
+                                                     ref[1])):
+        a, fin = a.cpu(), torch.isfinite(b)
+        rel = ((a[fin] - b[fin]).abs().max() / b[fin].abs().max()).item()
+        print(f"small GroundingDINO {label}: shape {tuple(a.shape)}, "
+              f"max|err| / max|ref| = {rel:.3e} (f32 CUDA vs f32 CPU, limit "
+              "1e-3)")
+        if not torch.equal(torch.isfinite(a), fin) or rel > 1e-3:
+            raise AssertionError(f"small GroundingDINO {label}: {rel}")
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def grounding_clip(t: int, h: int, w: int, seed: int = 0) -> np.ndarray:
+    """A seeded (t, h, w, 3) uint8 clip: a smooth background (a bilinear
+    blend of four corner colors) with four squares moving across it. Not
+    white noise: detect_scenes would cut noise into one scene a frame."""
+    rng = np.random.default_rng(seed)
+    corners = rng.uniform(0, 255, (2, 2, 3))
+    yy = np.linspace(0, 1, h)[:, None, None]
+    xx = np.linspace(0, 1, w)[None, :, None]
+    bg = ((1 - yy) * ((1 - xx) * corners[0, 0] + xx * corners[0, 1])
+          + yy * ((1 - xx) * corners[1, 0] + xx * corners[1, 1]))
+    frames = np.repeat(bg[None].astype(np.uint8), t, axis=0)
+    for k in range(4):
+        size = int(rng.integers(h // 8, h // 3))
+        y0, x0 = rng.integers(0, h - size), rng.integers(0, w - size)
+        vy, vx = rng.uniform(-3, 3), rng.uniform(-4, 4)
+        color = rng.integers(0, 256, 3)
+        for i in range(t):
+            y = int(np.clip(y0 + vy * i, 0, h - size))
+            x = int(np.clip(x0 + vx * i, 0, w - size))
+            frames[i, y:y + size, x:x + size] = color
+    return frames
+
+
+class StubMatchClient:
+    """Entity matching's OpenAI-compatible client, answered here (the
+    card's machine has no network): pairs a phrase with each of the first
+    three entities of the request's list."""
+
+    def chat_text(self, model, messages, **kw):
+        import ast
+
+        listed = ast.literal_eval(messages[-1]["content"].split("<List>")[1])
+        return "\n".join(f"entity {i} - {e}"
+                         for i, e in enumerate(listed[:3]))
+
+
+def timed(stats, key, fn):
+    """fn, with its synchronized wall time added to stats[key]."""
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        stats[key] = stats.get(key, 0.0) + time.perf_counter() - t
+        return out
+
+    return run
+
+
+def grounding_phase(engine, dev, results) -> int:
+    """Kernel 12's checks, the small detector check, then `--with_
+    grounding` at full width on the 7B int4 engine: build_grounding_stack
+    on the card, PGVideoLLaVA.answer over a seeded 100-frame 480 x 832
+    clip (uploaded through upload_frames; the mp4 writer replaced by a
+    recorder, since the card's machine has no libav; entity matching
+    through StubMatchClient). A 10-frame answer warms up (the detector,
+    SAM and tagger batches are padded, so it runs the same shapes); the
+    100-frame answer counts launches and times the stages (host wall
+    around synchronized calls); a third runs under torch.profiler.
+    Returns kernel 12's launches of the counted answer."""
+    name = "multi_scale_deformable_attention"
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        deformable_checks(dev, results)
+    small_grounding_check(dev)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    print(f"grounding checks: {t - t0:.2f} s", flush=True)
+    tracker, tagger, matcher = build_grounding_stack(device=dev, seed=0)
+    torch.cuda.synchronize()
+    print(f"build_grounding_stack on the card: "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    # random tag heads give probabilities near 0.5, under the 0.95 a
+    # trained head clears; 0.5 lets some tags through so the tracker runs
+    tagger.threshold = 0.5
+    matcher.client = StubMatchClient()
+    videos = []
+    print("chip_smoke: the output video goes to an in-memory recorder, not "
+          "encode_video (no libav on this machine)")
+    stats: dict = {}
+    runs = []
+    forwards = [0]
+    detector, segmenter = tracker.detector, tracker.segmenter
+    patched = [  # (owner, attribute, stage)
+        (tagger, "run_on_video", "tagging"),
+        (detector, "detect_batch", "detection"),
+        (segmenter, "decode_masks_batch_device", "sam"),
+        (fused_clip, "run_clip_fused_stm", "propagation"),
+        (gresults, "annotate_frame", "annotation"),
+        (scene_mod, "detect_scenes", "scenes"),
+        (chat_mod, "generate_with_keywords", "llm"),
+    ]
+    saved = [(o, a, getattr(o, a)) for o, a, _ in patched]
+    for o, a, stage in patched:
+        setattr(o, a, timed(stats, stage, getattr(o, a)))
+    detect_batch = detector.detect_batch
+
+    def count_forward(*a, **kw):
+        forwards[0] += 1
+        return detect_batch(*a, **kw)
+
+    run_on_list = tracker.run_on_list_of_images
+
+    def record(frames, classes):
+        out = run_on_list(frames, classes)
+        runs.append(out)
+        return out
+
+    real_encode = chat_mod.encode_video
+    chat_mod.encode_video = lambda path, frames, fps: videos.append(frames)
+    detector.detect_batch = count_forward
+    tracker.run_on_list_of_images = record
+    clip = grounding_clip(100, 480, 832)
+    try:
+        chat = PGVideoLLaVA(engine, tracker, tagger, matcher,
+                            temperature=0.0,
+                            max_output_tokens=MAX_NEW_TOKENS,
+                            generator=torch.Generator(
+                                device=dev).manual_seed(0))
+        out_dir = tempfile.mkdtemp()
+
+        def answer(frames):
+            chat.clear_history()
+            chat.upload_frames(frames)
+            chat.add_text(QUESTION, None)
+            return chat.answer(output_dir=out_dir)
+
+        answer(clip[:10])  # warm-up
+        torch.cuda.synchronize()
+        stats.clear()
+        runs.clear()
+        videos.clear()
+        forwards[0] = 0
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        t = time.perf_counter()
+        text, path, _, match_state = answer(clip)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(cuda_lib.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        scenes = len(runs)
+        n_frames = sum(len(r) for r in runs)
+        masked = sum(int(fr.masks.any()) for r in runs for fr in r)
+        print(f"grounded answer: {len(text)} chars, tags -> match_state "
+              f"{match_state}, {scenes} scene(s), {n_frames} tracked "
+              f"frames, {masked} with a non-empty mask, output {path}")
+        print("grounded answer stages (s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stats.items())
+            + f"; whole answer {wall:.3f} (the rest "
+            f"{wall - sum(stats.values()):.3f})")
+        print(f"grounded answer launches: {launches} ({forwards[0]} "
+              f"detector forwards); peak device memory {peak:.2f} GiB")
+        if not (videos and len(videos[0]) == 100 and n_frames == 100):
+            raise AssertionError("the grounded answer did not annotate the "
+                                 "100 frames")
+        if masked == 0:
+            raise AssertionError("the grounded answer's masks are all empty")
+        shapes = {fr.masks.shape for r in runs for fr in r}
+        if shapes != {(tracker.tracker_cfg.max_objects, 480, 832)}:
+            raise AssertionError(f"mask shapes {shapes}")
+        # a detection every 5 frames, 4 detection frames a forward
+        want_forwards = sum(-(-(-(-len(r) // 5)) // 4) for r in runs)
+        if (launches.get(name, 0) != 12 * forwards[0]
+                or forwards[0] != want_forwards):
+            raise AssertionError(f"{name} launched {launches.get(name)} "
+                                 f"times over {forwards[0]} forwards")
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            answer(clip)
+            torch.cuda.synchronize()
+        spans = [(e.name(), e.start_ns(), e.end_ns())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA]
+        if not spans:
+            raise AssertionError("grounding profile: no device activity")
+        busy_ms, by_name = busy_and_names(spans)
+        print(f"grounded answer profile: device busy {busy_ms:.1f} ms over "
+              f"{len(spans)} device activities, wall {wall * 1e3:.1f} ms "
+              f"(unprofiled run), idle share {1 - busy_ms / (wall * 1e3):.3f}"
+              f" (profiled pass {time.perf_counter() - t:.2f} s)")
+        for name_, (total, calls) in sorted(by_name.items(),
+                                            key=lambda kv: -kv[1][0])[:12]:
+            print(f"grounded profile: {total / 1e3:9.2f} ms {calls:6d} "
+                  f"calls  {name_[:90]}")
+    finally:
+        chat_mod.encode_video = real_encode
+        for o, a, fn in saved:
+            setattr(o, a, fn)
+        tracker.run_on_list_of_images = run_on_list
+    del tracker, tagger, matcher, chat
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"grounding phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    return launches[name]
+
+
 def weight_bytes(module, leaves) -> int:
     return sum(p.numel() * p.element_size()
                for n, p in module.named_parameters()
@@ -1438,6 +1820,8 @@ def main() -> int:
             served = serving_phase(engine, clips, dev)
             launches["decode_attention_paged"] = served[
                 "decode_attention_paged"]
+            launches["multi_scale_deformable_attention"] = grounding_phase(
+                engine, dev, results)
         del engine, llm
         gc.collect()
         torch.cuda.empty_cache()

@@ -12,12 +12,20 @@ kernels quantize the activations exactly as their plain versions do and
 form exact int32 partials, so only the f32 summation order differs:
 max |err| / max |ref| <= 1e-4 in f32; with bf16 out, against the plain
 f32 result rounded to bf16, one bf16 ulp: <= 2^-7 of max |ref|.
+Deformable attention: f32 sums in another order, <= 1e-4 of max |ref|
+in f32; in bf16 out, one bf16 rounding, <= 2^-7 of max |ref|.
 """
 
 import pytest
 import torch
 
-from video_llava_tpu_torch.ops import attention, cuda_lib, pooling, quant4
+from video_llava_tpu_torch.ops import (
+    attention,
+    cuda_lib,
+    deformable,
+    pooling,
+    quant4,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -356,3 +364,47 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q72 = _rand(g, 1, 8, 2, 72)
     with pytest.raises(ValueError):  # d % 8 == 0 dispatches, 72 raises
         attention.multi_head_attention(q72, q72, q72, causal=True)
+
+
+@pytest.mark.parametrize("shapes,q,b,nh,hd,p,dtype", [
+    (((100, 100), (50, 50), (25, 25), (13, 13)), 900, 2, 8, 32, 4,
+     torch.float32),
+    (((12, 12), (6, 6), (3, 3)), 189, 1, 4, 64, 4, torch.bfloat16),
+    (((10, 14), (5, 7)), 33, 3, 2, 128, 3, torch.float32),
+    (((9, 9), (4, 4), (2, 2), (1, 1), (1, 1)), 17, 1, 8, 96, 6,
+     torch.bfloat16),
+    (((16, 16), (8, 8), (4, 4)), 336, 2, 4, 8, 4, torch.float32),
+    (((7, 5), (3, 2)), 41, 2, 3, 40, 4, torch.bfloat16),
+])
+def test_deformable_kernel_matches_plain(dev, shapes, q, b, nh, hd, p,
+                                         dtype):
+    g = torch.Generator(device=dev).manual_seed(0)
+    sum_hw = sum(h * w for h, w in shapes)
+    value = _rand(g, b, sum_hw, nh, hd, dtype=dtype)
+    locs = torch.rand((b, q, nh, len(shapes), p, 2), generator=g,
+                      device=dev) * 1.4 - 0.2
+    locs[0, 1, 0, 0, 0, 0] = float("nan")
+    locs[0, 2, 0, 0, 0, 1] = float("inf")
+    weights = torch.rand((b, q, nh, len(shapes), p), generator=g,
+                         device=dev)
+    before = cuda_lib.LAUNCHES["multi_scale_deformable_attention"]
+    got = deformable.multi_scale_deformable_attention(value, shapes, locs,
+                                                      weights)
+    assert cuda_lib.LAUNCHES["multi_scale_deformable_attention"] == before + 1
+    want = deformable.msda_plain(value, shapes, locs, weights)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == dtype
+    rel = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    assert rel <= (1e-4 if dtype == torch.float32 else 2 ** -7), rel
+    deformable.set_tile2d(True)
+    try:
+        again = deformable.multi_scale_deformable_attention(value, shapes,
+                                                            locs, weights)
+    finally:
+        deformable.set_tile2d(False)
+    assert torch.equal(again, got)
+    with pytest.raises(ValueError):  # more samples than a warp's lanes
+        deformable.multi_scale_deformable_attention(
+            value, shapes, torch.cat([locs] * 9, dim=4),
+            torch.cat([weights] * 9, dim=4))

@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py run where JAX is not installed."""
+"""The port and chip_smoke.py run where JAX, `transformers` and
+`requests` are not installed (the card's machine has none of them)."""
 
 import os
 import pkgutil
@@ -8,8 +9,11 @@ import sys
 import video_llava_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# Makes `import jax` raise ImportError, as on a machine without JAX.
-BLOCK_JAX = "import sys; sys.modules['jax'] = None; "
+# Makes `import jax` (transformers, requests) raise ImportError, as on a
+# machine without them.
+BLOCK_JAX = ("import sys; sys.modules['jax'] = None; "
+             "sys.modules['transformers'] = None; "
+             "sys.modules['requests'] = None; ")
 
 
 def _run(code: str, *args: str) -> subprocess.CompletedProcess:
@@ -40,6 +44,8 @@ def test_port_imports_no_jax():
                 "run_name='__main__')")
     assert proc.returncode == 0, proc.stderr
     assert "--model_size" in proc.stdout
+    assert "--with_grounding" in proc.stdout and "--sam_variant" in proc.stdout
+    assert "video_llava_tpu_torch.grounding.builders" in modules
     assert "video_llava_tpu_torch.serving.server" in modules
     proc = _run(BLOCK_JAX + "import runpy; sys.argv = ['serve', '--help']; "
                 "runpy.run_module('video_llava_tpu_torch.serving', "

@@ -1,6 +1,7 @@
 """chip_smoke.py and the port stand alone: no line of them names JAX or
-the JAX package, and both import with the JAX package and JAX made
-unimportable, leaving neither in sys.modules."""
+the JAX package (nor `transformers` or `requests`, which the card's
+machine does not have), and both import with all of these made
+unimportable, leaving none in sys.modules."""
 
 import ast
 import glob
@@ -9,7 +10,24 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-JAX_SIDE = ("jax", "jaxlib", "video_llava_tpu")
+JAX_SIDE = ("jax", "jaxlib", "video_llava_tpu", "transformers", "requests")
+GROUNDING = ("video_llava_tpu_torch.grounding.builders",
+             "video_llava_tpu_torch.grounding.tracker",
+             "video_llava_tpu_torch.grounding.fused_clip",
+             "video_llava_tpu_torch.grounding.memory_tracker",
+             "video_llava_tpu_torch.grounding.tagging",
+             "video_llava_tpu_torch.grounding.entity_matching",
+             "video_llava_tpu_torch.grounding.results",
+             "video_llava_tpu_torch.eval.openai_client",
+             "video_llava_tpu_torch.media.scene",
+             "video_llava_tpu_torch.models.grounding_dino",
+             "video_llava_tpu_torch.models.swin",
+             "video_llava_tpu_torch.models.bert",
+             "video_llava_tpu_torch.models.tiny_vit",
+             "video_llava_tpu_torch.models.sam",
+             "video_llava_tpu_torch.ops.deformable",
+             "video_llava_tpu_torch.ops.box_ops",
+             "video_llava_tpu_torch.ops.topk")
 
 
 def _imports(path):
@@ -35,6 +53,7 @@ def test_smoke_and_port_import_nothing_of_the_jax_package():
     modules = sorted(
         os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").removesuffix(
             ".__init__") for p in files)
+    assert set(GROUNDING) <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {JAX_SIDE!r}: sys.modules[m] = None\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

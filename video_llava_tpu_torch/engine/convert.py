@@ -12,6 +12,10 @@ A quantized LLM tree (quantize_params / quantize_params_int4, then
 optionally fuse_layer_kernels) carries across as it is: the model is
 built in the layout the tree's leaves name, and the {qvalues_packed,
 scales} / {qvalues, scales} leaves keep their bytes and dtypes.
+
+The grounding models keep the JAX package's nested-dict trees as they
+are (tensors for arrays): tree_from_jax carries one across, checked
+against the port's own random tree of the same model.
 """
 
 from __future__ import annotations
@@ -73,6 +77,36 @@ def llm_layout(flat: Dict[str, np.ndarray]):
         group_size = d // g if g > 1 else None
     fuse = any(f".{name}." in k for k in keys for name in FUSED)
     return quant, group_size, fuse
+
+
+def tree_from_jax(tree_np, like, device=None,
+                  dtype: Optional[torch.dtype] = None, path: str = ""):
+    """A JAX parameter tree of numpy arrays (nested dicts and lists: the
+    grounding models' GroundingDINO, Swin, BERT, TinyViT, SAM-decoder and
+    tag-head trees) -> the same tree of tensors on `device` (floating
+    leaves cast to `dtype` when given). `like` is the port's own tree of
+    that model (its init_params on the meta device): every key, list
+    length and leaf shape must match it."""
+    if isinstance(like, dict):
+        if not isinstance(tree_np, dict) or set(tree_np) != set(like):
+            raise KeyError(f"{path or 'tree'}: keys "
+                           f"{sorted(getattr(tree_np, 'keys', list)())} != "
+                           f"{sorted(like)}")
+        return {k: tree_from_jax(tree_np[k], like[k], device, dtype,
+                                 f"{path}.{k}" if path else k)
+                for k in like}
+    if isinstance(like, (list, tuple)):
+        if len(tree_np) != len(like):
+            raise KeyError(f"{path}: {len(tree_np)} entries != {len(like)}")
+        return [tree_from_jax(a, b, device, dtype, f"{path}.{i}")
+                for i, (a, b) in enumerate(zip(tree_np, like))]
+    t = _to_tensor(tree_np)
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"{path}: tree shape {tuple(t.shape)} != model "
+                         f"shape {tuple(like.shape)}")
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
 
 
 def params_from_jax(tree_np, cfg: VideoLLaVAConfig, device=None,

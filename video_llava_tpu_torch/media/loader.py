@@ -129,3 +129,11 @@ def encode_video(path: str, frames: np.ndarray, fps: float = 25.0,
     )
     if rc != 0:
         raise IOError(f"encode failed ({rc}) for {path}")
+
+
+def load_video_native_size(vis_path: str, num_frm: int = 100) -> np.ndarray:
+    """min(total, num_frm) uniformly sampled frames at the video's own
+    size -> (t, H, W, 3) uint8."""
+    with VideoReader(vis_path) as vr:
+        total = len(vr)
+        return vr.get_batch(get_seq_frames(total, min(total, num_frm)))

@@ -114,6 +114,12 @@ class Linear(nn.Module):
         return linear(x, self.kernel, self.bias)
 
 
+def dense(p, x):
+    """linear() of a parameter dict {'kernel', optional 'bias'}: the
+    grounding models keep the JAX package's nested-dict trees."""
+    return linear(x, p["kernel"], p.get("bias"))
+
+
 # -- norms ------------------------------------------------------------------
 
 
@@ -129,6 +135,55 @@ def rms_norm(x, scale, eps: float = 1e-6):
     x32 = x.float()
     y = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def norm(p, x, eps: float = 1e-5):
+    """layer_norm() of a parameter dict {'scale', 'bias'}."""
+    return layer_norm(x, p["scale"], p["bias"], eps)
+
+
+class TreeInit:
+    """Random parameter trees (nested dicts of tensors, in the JAX
+    package's layout) drawn from one seeded generator on `device`."""
+
+    def __init__(self, seed: int = 0, device=None, dtype=torch.float32):
+        self.device = torch.device(device or "cpu")
+        self.dtype = dtype
+        self.g = (None if self.device.type == "meta"
+                  else torch.Generator(device=self.device).manual_seed(seed))
+
+    def normal(self, shape, std: float = 1.0):
+        if self.g is None:
+            return torch.empty(shape, device=self.device, dtype=self.dtype)
+        x = torch.randn(shape, generator=self.g, device=self.device,
+                        dtype=torch.float32)
+        return (x * std).to(self.dtype)
+
+    def uniform(self, shape, lo: float, hi: float):
+        if self.g is None:
+            return torch.empty(shape, device=self.device, dtype=self.dtype)
+        x = torch.rand(shape, generator=self.g, device=self.device,
+                       dtype=torch.float32)
+        return (lo + (hi - lo) * x).to(self.dtype)
+
+    def full(self, shape, value: float):
+        return torch.full(shape, value, device=self.device, dtype=self.dtype)
+
+    def zeros(self, shape):
+        return self.full(shape, 0.0)
+
+    def linear(self, d_in: int, d_out: int, std: Optional[float] = None,
+               bias: bool = True):
+        """{'kernel': (d_in, d_out) normal * std (d_in ** -0.5 by
+        default, as the JAX package's linear_init), 'bias': zeros}."""
+        p = {"kernel": self.normal((d_in, d_out),
+                                   d_in ** -0.5 if std is None else std)}
+        if bias:
+            p["bias"] = self.zeros((d_out,))
+        return p
+
+    def layer_norm(self, dim: int):
+        return {"scale": self.full((dim,), 1.0), "bias": self.zeros((dim,))}
 
 
 class LayerNorm(nn.Module):

@@ -1,22 +1,29 @@
-"""Interactive video chat CLI.
+"""Interactive video chat CLI and the grounded chat orchestrator.
 
-Counterpart of VideoChatGPTInterface in video_llava_tpu/runtime/chat.py
-(reference video_chatgpt/chat.py:15-225) without ASR or grounding:
-upload_video, add_text (1536/1200-character cut-offs, <video>
-injection on the first turn), answer (prompt replace, generate,
-code-block post-processing) and the interact() REPL.
+Counterpart of video_llava_tpu/runtime/chat.py without ASR:
+  * VideoChatGPTInterface (reference video_chatgpt/chat.py:15-225):
+    upload_video, add_text (1536/1200-character cut-offs, <video>
+    injection on the first turn), answer (prompt replace, generate,
+    code-block post-processing) and the interact() REPL;
+  * PGVideoLLaVA (reference chat.py:240-333): after the LLM answer, tag
+    the frames -> top-10 unique tags -> entity matching -> class list ->
+    scene split -> tracker per scene -> annotated output video.
 
 Run: python -m video_llava_tpu_torch.runtime.chat --model_size 7b
-[--quant int4]
+[--quant int4] [--with_grounding [--sam_variant mobile]]
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
+import os
 import random
+import string
 from typing import Optional
 
+import numpy as np
 import torch
 
 from video_llava_tpu_torch.constants import (
@@ -27,7 +34,7 @@ from video_llava_tpu_torch.constants import (
 )
 from video_llava_tpu_torch.engine.generate import generate_with_keywords
 from video_llava_tpu_torch.engine.quant_select import resolve_quant
-from video_llava_tpu_torch.media.loader import load_video
+from video_llava_tpu_torch.media.loader import encode_video, load_video
 from video_llava_tpu_torch.runtime.conversation import (
     conv_templates,
     default_conversation,
@@ -62,6 +69,7 @@ class VideoChatGPTInterface:
     def clear_history(self):
         self.state = default_conversation.copy()
         self.video_features = None
+        self.video_frames = None
         self.video_path: Optional[str] = None
         self.first_run = True
 
@@ -73,6 +81,7 @@ class VideoChatGPTInterface:
     def upload_frames(self, frames):
         """Encode already decoded (t, h, w, 3) uint8 frames as the
         session's video."""
+        self.video_frames = frames
         self.video_features = self.engine.encode_video_frames(
             frames, num_valid_frames=frames.shape[0])
 
@@ -166,6 +175,84 @@ class VideoChatGPTInterface:
                 return
 
 
+class PGVideoLLaVA(VideoChatGPTInterface):
+    """Grounded chat: the answer plus pixel grounding of its entities
+    (reference chat.py:240-333)."""
+
+    def __init__(self, engine: InferenceEngine, tracker, tagging_model,
+                 entity_match_module, **kw):
+        super().__init__(engine, **kw)
+        self.tracker = tracker
+        self.tagging_model = tagging_model
+        self.entity_match_module = entity_match_module
+
+    @torch.inference_mode()
+    def answer(self, with_grounding: bool = True,
+               output_dir: str = "outputs"):
+        llm_output = super().answer()
+        if not with_grounding or llm_output is None:
+            return llm_output
+        from video_llava_tpu_torch.grounding.results import annotate_frame
+        from video_llava_tpu_torch.media.scene import detect_scenes
+
+        # the uint8 frames go to the device once; tagging and (on the
+        # whole-clip path) tracking read that one copy
+        frames = np.asarray(self.video_frames)
+        dev_frames = torch.as_tensor(frames, device=self.engine.device)
+        entity_list = self.tagging_model.run_on_video(dev_frames, top_k=10)
+        highlight_output, match_state = self.entity_match_module(
+            llm_output, entity_list)
+        class_list = sorted(set(match_state.values()))
+
+        os.makedirs(output_dir, exist_ok=True)
+        stamp = datetime.datetime.now().strftime("%Y%m%d%H%M%S")
+        rand = "".join(random.choices(string.ascii_letters + string.digits,
+                                      k=6))
+        output_video_path = os.path.join(output_dir,
+                                         f"video_{stamp}_{rand}.mp4")
+        annotated = []
+        fused = getattr(self.tracker, "fused_eligible", lambda: False)()
+        if class_list:
+            for start, end in detect_scenes(frames):
+                scene = (dev_frames[start:end] if fused
+                         else list(frames[start:end]))
+                results = self.tracker.run_on_list_of_images(scene,
+                                                             class_list)
+                for r, frame in zip(results, frames[start:end]):
+                    cids = [o.category_id for o in r.objects]
+                    annotated.append(annotate_frame(frame, r.masks, cids))
+        if annotated:
+            encode_video(output_video_path, np.stack(annotated), fps=5.0)
+        else:
+            output_video_path = None
+        return llm_output, output_video_path, highlight_output, match_state
+
+    def interact(self):
+        print("Welcome to PG-Video-LLaVA (PyTorch)!")
+        video_set = False
+        while True:
+            try:
+                if not video_set:
+                    self.upload_video(
+                        input("Please enter the video file path:   "))
+                    video_set = True
+                text = input("USER>>")
+                if not text:
+                    print("----------\n\n")
+                    self.clear_history()
+                    video_set = False
+                    continue
+                self.add_text(text, self.video_path)
+                llm_output, video_out, _, match_state = self.answer()
+                print("ASSISTANT>>", llm_output)
+                print("\nGROUNDING>>", "\t", video_out, "\n\t", match_state,
+                      "\n")
+            except (KeyboardInterrupt, EOFError):
+                print("----------")
+                print("QUITTING...")
+                return
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(
         description="Video chat on the PyTorch port (random weights).")
@@ -177,6 +264,14 @@ def main(argv=None):
                    help="CLIP checkpoint directory (not supported yet)")
     p.add_argument("--model_size", default="7b",
                    choices=("tiny", "7b", "13b"))
+    p.add_argument("--with_grounding", action="store_true",
+                   help="ground the answer's entities in the video "
+                   "(GroundingDINO, MobileSAM, STM tracking, tagging; "
+                   "random weights)")
+    p.add_argument("--sam_variant", default="mobile",
+                   choices=("mobile", "vit_b"),
+                   help="segmenter encoder: MobileSAM's TinyViT (vit_b is "
+                   "not ported yet)")
     p.add_argument("--conv_mode", default="pg-video-llava")
     p.add_argument("--temperature", type=float, default=0.2)
     p.add_argument("--max_output_tokens", type=int, default=1024)
@@ -191,10 +286,18 @@ def main(argv=None):
     engine = initialize_model(args.model_name, model_size=args.model_size,
                               device="cuda", llm_quant=quant,
                               llm_fuse=bool(quant))
-    VideoChatGPTInterface(
-        engine, conv_mode=args.conv_mode, temperature=args.temperature,
-        max_output_tokens=args.max_output_tokens,
-    ).interact()
+    kw = dict(conv_mode=args.conv_mode, temperature=args.temperature,
+              max_output_tokens=args.max_output_tokens)
+    if args.with_grounding:
+        from video_llava_tpu_torch.grounding.builders import (
+            build_grounding_stack,
+        )
+
+        tracker, tagging, matching = build_grounding_stack(
+            sam_variant=args.sam_variant, device="cuda")
+        PGVideoLLaVA(engine, tracker, tagging, matching, **kw).interact()
+    else:
+        VideoChatGPTInterface(engine, **kw).interact()
 
 
 if __name__ == "__main__":
