@@ -9,12 +9,16 @@ Phases, each of which raises on failure (exit code != 0):
   3. check each kernel against its plain PyTorch version at the chat
      and serving paths' shapes (plus the 336 px CLIP shape, the 12-frame
      pool, the int8 caches, the paged pool with bf16 and int8 values,
-     and for the W4A8 kernels Vicuna-7B's decode and prefill linears in
-     the bf16-out build the path launches and in f32 out, a flat
-     per-layer weight and a 1100-row prompt), timing the kernel, the
-     plain version and, where one PyTorch call computes the same
-     function, that call, each beside the kernel's bound;
-  4. check a small model end to end, in bf16 and with int4 W4A8 LLM
+     for the W4A8 and W4A16 kernels Vicuna-7B's decode and prefill
+     linears in the bf16-out build the path launches and in f32 out, a
+     flat per-layer weight and a 1100-row prompt, the flat-cache decode
+     kernels 9 and 11 at the chat and serving shapes, kernels 3 and 10 at
+     head dim 32, and planted faults in three plain versions that must
+     fail), timing the kernel, the plain version and, where one PyTorch
+     call computes the same function, that call, each beside the
+     kernel's bound;
+  4. check a small model end to end (LlamaConfig.tiny's head dim 32, and
+     4 query heads over 2 KV heads), in bf16 and with int4 W4A8 LLM
      weights: the CUDA path in bf16 against the plain path on the CPU
      in f32;
   5. build Vicuna-7B + CLIP ViT-L/14-224 with random bf16 weights and
@@ -27,13 +31,16 @@ Phases, each of which raises on failure (exit code != 0):
   6. free it, build the same model with int4 W4A8 LLM weights (fused
      wqkv/gate_up, int8 lm_head and embedding: --quant int4) and answer
      the 100-frame request and a second turn, launch counts again taken
-     over exactly that run, and profile the 100-frame request;
+     over exactly that run, and profile the 100-frame request; then the
+     same with the A8 switches off (w4a16_chat_phase: the W4A16 kernels);
   7. serve those weights as `python -m video_llava_tpu_torch.serving
      --model_size 7b --quant int4 --continuous --paged --prefix_cache`
      would, on 127.0.0.1: 8 concurrent HTTP requests and a video
      request through continuous batching, one request through the
      serialized mode (see serving_phase), launch counts over that run;
-     the continuous traffic again under the profiler;
+     the continuous traffic again under the profiler; then 4 greedy
+     requests with the paged kernel on and off (paged_off_phase: kernel
+     10, then the dense gather and kernel 9);
   8. ground those answers (grounding_phase): kernel 12 (multi-scale
      deformable attention) against its plain version at GroundingDINO's
      800 px encoder and decoder shapes in f32 and bf16, through
@@ -43,13 +50,15 @@ Phases, each of which raises on failure (exit code != 0):
      GroundingDINO, MobileSAM, the STM tracker, a Swin-L tagger) on the
      7B int4 engine, PGVideoLLaVA.answer over a seeded 100-frame 480 x 832
      clip, with stage times, launch counts, a profile and peak memory;
-  9. free it and train (training_phase): kernels 7 and 8 against their
+  9. free it, build Vicuna-7B with 8 KV heads (int4) and answer the
+     100-frame request (gqa_chat_phase: kernel 11), profiled, and free it;
+  10. train (training_phase): kernels 7 and 8 against their
      plain versions at the training layer's shape and three others, a
      small model's train steps on the card against the CPU (bf16 and an
      int8 LLM), then `python -m video_llava_tpu_torch.train.train
      --model_size 7b` for 4 optimizer steps on seeded features, with its
      checkpoint, export and a profile of step 3;
-  10. print stage times, the kernels' JSON line, the card line and, last,
+  11. print stage times, the kernels' JSON line, the card line and, last,
      {"ok": true, "device": {...}}.
 It needs a CUDA card and the repository beside it, and imports no JAX.
 """
@@ -78,7 +87,11 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from video_llava_tpu_torch.config import LlamaConfig, VideoLLaVAConfig
+from video_llava_tpu_torch.config import (
+    GenerationConfig,
+    LlamaConfig,
+    VideoLLaVAConfig,
+)
 from video_llava_tpu_torch.constants import (
     DEFAULT_VID_END_TOKEN,
     DEFAULT_VID_START_TOKEN,
@@ -105,7 +118,10 @@ from video_llava_tpu_torch.runtime.chat import (
     VideoChatGPTInterface,
 )
 from video_llava_tpu_torch.runtime.conversation import conv_templates
-from video_llava_tpu_torch.runtime.inference import build_video_question
+from video_llava_tpu_torch.runtime.inference import (
+    InferenceEngine,
+    build_video_question,
+)
 from video_llava_tpu_torch.runtime.model_init import (
     initialize_model,
     model_config,
@@ -113,7 +129,11 @@ from video_llava_tpu_torch.runtime.model_init import (
     random_init_quantized_llm_,
 )
 from video_llava_tpu_torch.runtime.tokenizer import load_tokenizer
-from video_llava_tpu_torch.serving.server import ChatModel, serve
+from video_llava_tpu_torch.serving.server import (
+    ChatModel,
+    ContinuousChatModel,
+    serve,
+)
 from video_llava_tpu_torch.train import train
 from video_llava_tpu_torch.train.data import (
     MultimodalCfg,
@@ -153,6 +173,16 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
     "multi_scale_deformable_attention": (
         "video_llava_tpu_torch/csrc/deformable_attention.cu",
         "video_llava_tpu/ops/deformable_pallas.py:196"),
+    "w4a16_matvec": ("video_llava_tpu_torch/csrc/w4a16.cu",
+                     "video_llava_tpu/ops/quant4.py:740"),
+    "w4a16_block": ("video_llava_tpu_torch/csrc/w4a16.cu",
+                    "video_llava_tpu/ops/quant4.py:797"),
+    "decode_attention_mxu": (
+        "video_llava_tpu_torch/csrc/decode_attention.cu",
+        "video_llava_tpu/ops/attention.py:1075"),
+    "decode_attention_pallas": (
+        "video_llava_tpu_torch/csrc/decode_attention.cu",
+        "video_llava_tpu/ops/attention.py:1526"),
 }
 BF16_PATH = ("flash_attention_bhsd", "spatio_temporal_pool",
              "decode_attention_stacked")
@@ -167,12 +197,17 @@ GROUNDING_PATH = ("multi_scale_deformable_attention",)
 # version by a few bf16 ulps of outputs of magnitude < 2.
 TOL = {"flash_attention_bhsd": 2e-2, "spatio_temporal_pool": 1e-2,
        "decode_attention_stacked": 2e-2, "decode_attention_paged": 2e-2,
+       "decode_attention_mxu": 2e-2, "decode_attention_pallas": 2e-2,
        "flash_forward": 2e-2}
 # Kernel 10 also row by row (row_rel_err): a row of 2048 positions
 # averages them, so its outputs are small (~0.01 in the int8 pool) and
 # the absolute limit would pass a wrong block there; a few bf16 ulps of
-# each row's own scale do not (paged_checks plants such faults).
-ROW_TOL = {"decode_attention_paged": 2 ** -6}
+# each row's own scale do not (paged_checks plants such faults). Kernels
+# 9 and 11 read the same long rows through a flat cache, and are held
+# the same way (flat_decode_checks plants a head-mapping fault in 11's
+# plain version).
+ROW_TOL = {"decode_attention_paged": 2 ** -6, "decode_attention_mxu": 2 ** -6,
+           "decode_attention_pallas": 2 ** -6}
 # W4A8 as max|err| / max|ref|: kernel and plain version quantize the
 # activations by the same rule and form exact integer partials, so in f32
 # out only the order of the f32 sums over groups differs. In bf16 out
@@ -180,8 +215,13 @@ ROW_TOL = {"decode_attention_paged": 2 ** -6}
 # ulp apart, and an ulp is at most 2^-7 of the value.
 # Deformable attention likewise: both sum in f32 in another order; bf16
 # out adds one bf16 rounding of each.
+# The W4A16 kernels form f32 group partials of exact products (integer
+# nibbles times bf16 activations), as their plain versions do: the same
+# limits.
 REL_TOL = {"w4a8_matvec": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7},
            "w4a8_block": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7},
+           "w4a16_matvec": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7},
+           "w4a16_block": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7},
            "multi_scale_deformable_attention": {torch.float32: 1e-4,
                                                 torch.bfloat16: 2 ** -7}}
 # Published peaks of one H100 SXM (dense): the bound of a kernel is the
@@ -384,7 +424,35 @@ def kernel_checks(dev) -> dict:
     del q, kc, vc, kq, vq, ks, vs
     paged_checks(dev, g, rnd, results)
     w4a8_checks(dev, g, results)
+    flat_decode_checks(dev, g, rnd, results)
+    w4a16_checks(dev, g, results)
     return results
+
+
+def random_table(g, dev, row_lens, bs, maxb, nb):
+    """(rows, maxb) int32 block tables: each row's blocks drawn without
+    replacement from a shuffled pool of blocks 1..nb-1, the pad block 0
+    past its allocation."""
+    perm = (torch.randperm(nb - 1, generator=g, device=dev) + 1).tolist()
+    table = torch.zeros((len(row_lens), maxb), dtype=torch.int32)
+    for i, n in enumerate(row_lens):
+        used = -(-n // bs)
+        table[i, :used] = torch.tensor(perm[:used])
+        perm = perm[used:]
+    return table.to(dev), perm
+
+
+def kv_pair(dev, g, rnd, shape, int8, unit=False):
+    """(k, v, k_scale, v_scale) of `shape`: bf16 with no scales, or int8
+    with f32 scales of shape[:-1] (plus a unit axis for a flat cache)."""
+    if not int8:
+        return rnd(*shape), rnd(*shape), None, None
+    kq, vq = (torch.randint(-127, 128, shape, generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    sshape = tuple(shape[:-1]) + ((1,) if unit else ())
+    ks, vs = (torch.rand(sshape, generator=g, device=dev) / 127
+              for _ in range(2))
+    return kq, vq, ks, vs
 
 
 def paged_checks(dev, g, rnd, results) -> None:
@@ -411,14 +479,7 @@ def paged_checks(dev, g, rnd, results) -> None:
     pos = torch.arange(maxb * bs, device=dev)
     for int8 in (False, True):
         for row_lens in ((1000, 2048, 63, 64), (1, 65, 1000, 2048)):
-            perm = (torch.randperm(nb - 1, generator=g, device=dev)
-                    + 1).tolist()
-            table = torch.zeros((b, maxb), dtype=torch.int32)
-            for i, n in enumerate(row_lens):
-                used = -(-n // bs)
-                table[i, :used] = torch.tensor(perm[:used])
-                perm = perm[used:]
-            table = table.to(dev)
+            table, perm = random_table(g, dev, row_lens, bs, maxb, nb)
             lens = torch.tensor(row_lens, dtype=torch.int32, device=dev)
             args = ((q, kq, vq, 5, table, lens, ks, vs) if int8 else
                     (q, k, v, 5, table, lens))
@@ -511,24 +572,191 @@ def w4a8_checks(dev, g, results) -> None:
               ops=2 * nb * x.shape[1] * p.shape[1], peak=INT8_PEAK)
 
 
+def flat_decode_checks(dev, g, rnd, results) -> None:
+    """Kernel 9 (MHA, decode_attention_mxu) at the 7B chat's first-turn
+    cache mid-answer and at the serving rows {1000, 2048, 63, 64} in a
+    dense (4, 2048) cache, the view the paged-off serving phase gathers;
+    kernel 11 (GQA, decode_attention_pallas) at 32 query heads over 8 and
+    over 4 KV heads at d 128 and 8 over 2 at d 32, at the chat cache; both
+    in bf16 and int8. The library call is SDPA with the length mask (and
+    enable_gqa for 11) in bf16. A planted fault in kernel 11's plain
+    version (query head i reads KV head i % h_kv, not i // group) must
+    fail the row check. Then kernels 3 and 10 at head dim 32 (the tiny
+    LLaMA's 8 x 32 heads)."""
+    n_prompt, L = chat_cache_len(VideoLLaVAConfig())
+    n = n_prompt + MAX_NEW_TOKENS // 2
+    sdpa = lambda q, k, v, lens, L: F.scaled_dot_product_attention(  # noqa
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=(torch.arange(L, device=dev)[None] < lens[:, None])[
+            :, None, None], enable_gqa=True).transpose(1, 2)
+    cases = [("decode_attention_mxu", 32, 32, 128, L, (n,))] * 2 + [
+        ("decode_attention_mxu", 32, 32, 128, 2048, (1000, 2048, 63, 64))] * 2
+    for h, h_kv, d in ((32, 8, 128), (32, 4, 128), (8, 2, 32)):
+        cases += [("decode_attention_pallas", h, h_kv, d, L, (n,))] * 2
+    for i, (name, h, h_kv, d, length, rows) in enumerate(cases):
+        int8 = i % 2 == 1
+        b = len(rows)
+        q = rnd(b, 1, h, d)
+        kc, vc, ks, vs = kv_pair(dev, g, rnd, (b, length, h_kv, d), int8,
+                                 unit=True)
+        lens = torch.tensor(rows, dtype=torch.int32, device=dev)
+        kernel, plain = (getattr(attention, name),
+                         getattr(attention, name + "_plain"))
+        tokens = sum(rows) * h_kv
+        check(results, name, (b, length, h, h_kv, d, rows,
+                              "int8" if int8 else "bf16"),
+              lambda: kernel(q, kc, vc, lens, ks, vs),
+              lambda: plain(q, kc, vc, lens, ks, vs),
+              nbytes=2 * tokens * (d + 4 if int8 else 2 * d),
+              ops=4 * sum(rows) * h * d,
+              library=None if int8 else (
+                  lambda: sdpa(q, kc, vc, lens, length)))
+        if name == "decode_attention_pallas" and i == 4:
+            heads = [j % h_kv for j in range(h)]
+            want = plain(q, kc, vc, lens)
+            faulty = plain(q, kc[:, :, heads], vc[:, :, heads], lens)
+            row = row_rel_err(faulty, want)
+            print(f"planted fault in kernel 11's plain version, KV head "
+                  f"i % h_kv: rows' max|err|/max|ref| {row:.3e}", flush=True)
+            if not row > ROW_TOL[name]:
+                raise AssertionError("the row check passes the planted "
+                                     "head-mapping fault")
+    # kernels 3 and 10 at head dim 32
+    nl, b, h, d = 4, 2, 8, 32
+    lens = torch.tensor([n, n // 2], dtype=torch.int32, device=dev)
+    for int8 in (False, True):
+        kc, vc, ks, vs = kv_pair(dev, g, rnd, (nl, b, L, h, d), int8)
+        args = (rnd(b, 1, h, d), kc, vc, 2, lens, ks, vs)
+        check(results, "decode_attention_stacked",
+              (nl, b, L, h, d, "int8" if int8 else "bf16"),
+              lambda: attention.decode_attention_stacked(*args),
+              lambda: attention.decode_attention_stacked_plain(*args),
+              nbytes=2 * int(lens.sum()) * h * (d + 4 if int8 else 2 * d),
+              ops=4 * int(lens.sum()) * h * d)
+        row_lens, bs, maxb = (100, 257, 15, 16), 16, 17
+        nb = 1 + sum(-(-r // bs) for r in row_lens)
+        kp, vp, ksp, vsp = kv_pair(dev, g, rnd, (2, nb, bs, h, d), int8)
+        table, _ = random_table(g, dev, row_lens, bs, maxb, nb)
+        plens = torch.tensor(row_lens, dtype=torch.int32, device=dev)
+        pargs = (rnd(len(row_lens), 1, h, d), kp, vp, 1, table, plens, ksp,
+                 vsp)
+        check(results, "decode_attention_paged",
+              (2, nb, bs, h, d, "table", len(row_lens), maxb, row_lens,
+               "int8" if int8 else "bf16"),
+              lambda: attention.decode_attention_paged(*pargs),
+              lambda: attention.decode_attention_paged_plain(*pargs),
+              nbytes=2 * sum(row_lens) * h * (d + 4 if int8 else 2 * d),
+              ops=4 * sum(row_lens) * h * d)
+
+
+def int4pack_library(x, packed, scales):
+    """One PyTorch call computing the W4A16 product of x (nb, D) bf16:
+    torch._weight_int4pack_mm on the weight repacked to its layout (the
+    values q + 8 as unsigned nibbles, zero points 0, so each weight is
+    (u - 8) * scale), the repacking done here, outside the timing. None
+    when this build of PyTorch has no such call."""
+    if not (hasattr(torch, "_weight_int4pack_mm")
+            and hasattr(torch, "_convert_weight_to_int4pack")):
+        return None
+    u = (quant4.unpack_int4(packed) + 8).t().contiguous()  # (F, D) 0..15
+    w = torch._convert_weight_to_int4pack(
+        ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8), 8)
+    group = u.shape[1] // scales.shape[0]
+    sz = torch.stack([scales.float(), torch.zeros_like(scales.float())],
+                     -1).to(torch.bfloat16).contiguous()  # (G, F, 2)
+    return lambda: torch._weight_int4pack_mm(x, w, group, sz)
+
+
+def w4a16_checks(dev, g, results) -> None:
+    """Kernel 6's W4A16 pair on Vicuna-7B's linears, bf16 activations as
+    on the path: the matvec (1 row) on the fused wqkv, wo, gate_up and
+    down, the block matmul at 2, 8, 36 and 768 rows; first the bf16-out
+    build the path launches (its times go in the kernels line), then f32
+    out. The library call is torch._weight_int4pack_mm where PyTorch has
+    it (its max|err|/max|ref| against the plain version is printed, not
+    held: it dequantizes in its own order). A planted fault in the
+    matvec's plain version (the low and high halves' group scales
+    swapped) must fail the check."""
+
+    def weight(d, f, layers=None):
+        w = torch.randn(layers or 1, d, f, generator=g, device=dev)
+        packed, scales = quant4.quantize_tensor_int4(w * d ** -0.5, 128)
+        return (packed[2], scales[2]) if layers else (packed[0], scales[0])
+
+    cfg = LlamaConfig.vicuna_7b()
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    w = {"wqkv": weight(d, 3 * d, 4), "wo": weight(d, d),
+         "gate_up": weight(d, 2 * f, 4), "down": weight(f, d, 4)}
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = ([("w4a16_matvec", 1, "wqkv"), ("w4a16_block", 768, "gate_up")]
+              + [("w4a16_matvec", 1, k) for k in ("wo", "gate_up", "down")]
+              + [("w4a16_block", nb, k) for nb, k in
+                 ((2, "wqkv"), (8, "wo"), (36, "down"))])
+    lib_note = None
+    for out in (bf16, f32):
+        for name, nb, key in shapes:
+            p, s = w[key]
+            x = torch.randn(nb, 2 * p.shape[0], generator=g,
+                            device=dev).to(bf16)
+            kernel = getattr(quant4, name)
+            plain = (quant4.int4_matmul_w4a16_matvec_plain
+                     if name == "w4a16_matvec"
+                     else quant4.int4_matmul_w4a16_block_plain)
+            library = int4pack_library(x, p, s) if out == bf16 else None
+            if library is None and out == bf16:
+                lib_note = "this PyTorch has no torch._weight_int4pack_mm"
+            elif library is not None:
+                ref = plain(x, p, s)
+                rel = ((library().float() - ref).abs().max()
+                       / ref.abs().max()).item()
+                print(f"library torch._weight_int4pack_mm {name} ({nb}, "
+                      f"{key}): max|err|/max|ref| {rel:.3e} against the "
+                      "plain version", flush=True)
+            check(results, name,
+                  (nb, 2 * p.shape[0], p.shape[1], key, f"{str(out)[6:]} out"),
+                  lambda: kernel(x, p, s, out), lambda: plain(x, p, s).to(out),
+                  nbytes=(p.numel() + 2 * s.numel() + 2 * x.numel()
+                          + nb * p.shape[1] * out.itemsize),
+                  ops=2 * nb * x.shape[1] * p.shape[1], library=library)
+            if (name, key, out) == ("w4a16_matvec", "wqkv", f32):
+                half = s.shape[0] // 2
+                swapped = torch.cat([s[half:], s[:half]])
+                want = plain(x, p, s)
+                rel = ((plain(x, p, swapped) - want).abs().max()
+                       / want.abs().max()).item()
+                print(f"planted fault in the W4A16 matvec's plain version, "
+                      f"lo/hi group scales swapped: max|err|/max|ref| "
+                      f"{rel:.3e}", flush=True)
+                if not rel > REL_TOL[name][f32]:
+                    raise AssertionError("the W4A16 check passes the planted "
+                                         "scale-swap fault")
+    if lib_note:
+        print(f"library for the W4A16 kernels: null ({lib_note})")
+
+
 SMALL_LIMIT = {None: 5e-2, "int4": 1e-1}
 
 
-def small_model_check(dev, quant=None) -> None:
-    """A small VideoLLaVA (head dims the kernels take) through the CUDA
-    path in bf16 against the same weights on the CPU plain path in f32:
-    pooled video features, prefill and decode logits, relative to their
-    scale. quant="int4": the LLM in the --quant int4 layout (every layer
-    kernel int4, a 512-word int4 lm_head, an int8 embedding), so prefill
-    runs kernel B and decode kernel A; its limit is wider because an
-    int8 activation rounding step (1/127 of a group's absmax) turns a
-    bf16-vs-f32 difference into a visible one."""
+def small_model_check(dev, quant=None, kv_heads=None) -> None:
+    """A small VideoLLaVA (LlamaConfig.tiny's 8 heads of 32, an
+    intermediate size of 512 so that every int4 kernel's F is a multiple
+    of 128) through the CUDA path in bf16 against the same weights on the
+    CPU plain path in f32: pooled video features, prefill and decode
+    logits, relative to their scale. Decode runs kernel 3 at head dim 32;
+    kv_heads: 4 query heads over `kv_heads` KV heads instead, whose
+    decode runs kernel 11. quant="int4": the LLM in the --quant int4
+    layout (every layer kernel int4, a 512-word int4 lm_head, an int8
+    embedding), so prefill runs kernel B and decode kernel A; its limit
+    is wider because an int8 activation rounding step (1/127 of a group's
+    absmax) turns a bf16-vs-f32 difference into a visible one."""
     tok = load_tokenizer(None)
+    llm = dataclasses.replace(LlamaConfig.tiny(vocab_size=512),
+                              intermediate_size=512)
+    if kv_heads:
+        llm = dataclasses.replace(llm, num_heads=4, num_kv_heads=kv_heads)
     cfg = dataclasses.replace(
         VideoLLaVAConfig.tiny(),
-        llm=dataclasses.replace(LlamaConfig.tiny(vocab_size=512),
-                                num_heads=4, num_kv_heads=4, head_dim=64,
-                                intermediate_size=512),
+        llm=llm,
         vid_patch_token_id=tok.vid_patch_token_id,
         vid_start_token_id=tok.vid_start_token_id,
         vid_end_token_id=tok.vid_end_token_id,
@@ -560,10 +788,13 @@ def small_model_check(dev, quant=None) -> None:
         tok_ref = p_ref.logits_last.argmax(-1)
         d_ref, _ = ref.llm.decode_step(tok_ref.int(), p_ref.cache)
         d_gpu, _ = gpu.llm.decode_step(tok_ref.int().to(dev), p_gpu.cache)
-    if quant and not all(cuda_lib.LAUNCHES[k] > before.get(k, 0)
-                         for k in ("w4a8_matvec", "w4a8_block")):
-        raise AssertionError("small int4 model did not run kernels A and B")
-    label, limit = quant or "bf16", SMALL_LIMIT[quant]
+    need = (("w4a8_matvec", "w4a8_block") if quant else ()) + (
+        "decode_attention_pallas" if kv_heads else "decode_attention_stacked",)
+    missing = [k for k in need if not cuda_lib.LAUNCHES[k] > before.get(k, 0)]
+    label = f"{quant or 'bf16'} {llm.num_heads}/{llm.num_kv_heads} heads"
+    if missing:
+        raise AssertionError(f"small {label} model did not run {missing}")
+    limit = SMALL_LIMIT[quant]
     for name, a, b in (("video features", f_gpu, f_ref),
                        ("prefill logits", p_gpu.logits_last,
                         p_ref.logits_last),
@@ -572,7 +803,7 @@ def small_model_check(dev, quant=None) -> None:
         rel = ((a - b).abs().max() / b.abs().max()).item()
         print(f"small {label} model {name}: shape {tuple(a.shape)}, "
               f"max|err| / max|ref| = {rel:.3e} (bf16 CUDA vs f32 CPU, "
-              f"limit {limit})")
+              f"head dim {llm.head_dim}, limit {limit})")
         if not torch.isfinite(a).all() or rel > limit:
             raise AssertionError(f"small {label} model {name} disagrees: "
                                  f"{rel}")
@@ -928,6 +1159,133 @@ def serving_phase(engine, clips, dev) -> dict:
         print(f"serving profile: {total / 1e3:9.2f} ms {calls:6d} calls  "
               f"{name[:90]}")
     return launches
+
+
+def paged_off_phase(engine, dev) -> dict:
+    """Serving with the paged kernel switched off (enable_paged_kernel(
+    False), the JAX package's escape hatch): the continuous engine over
+    the paged pool, as the serving phase builds it (4 slots, 2048
+    positions, blocks of 64), without speculation so that every step is
+    a one-token decode, answers 4 of the serving phase's prompts greedily
+    once with the kernel on (kernel 10) and once off (each layer's blocks
+    gathered dense, kernel 9), launch counts over each run. Prints how
+    many greedy tokens agree (weights are random, so a bf16-level
+    difference can turn a near tie); the gate is the kernel check, not
+    the tokens. Returns the off run's launch counts."""
+    chat = ChatModel(model=engine.model, cfg=engine.cfg,
+                     tokenizer=engine.tokenizer, speculative=False)
+    prompts = [chat.build_prompt(m)[0] for m in serving_messages(chat, 4)]
+    cm = ContinuousChatModel(chat, paged=True)
+    runs = {}
+    try:
+        for on in (True, False):
+            attention.enable_paged_kernel(on)
+            torch.cuda.synchronize()
+            cuda_lib.reset_launch_counts()
+            t = time.perf_counter()
+            handles = [cm.engine.submit(SlotRequest(
+                ids, max_new_tokens=MAX_NEW_TOKENS, temperature=0.0,
+                eos_token_id=engine.tokenizer.eos_token_id))
+                for ids in prompts]
+            for h in handles:
+                h.result(timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            tokens = [list(h.tokens) for h in handles]
+            runs[on] = tokens, dict(cuda_lib.LAUNCHES)
+            n = sum(map(len, tokens))
+            print(f"paged serving, kernel {'10' if on else '9 (paged kernel off)'}"
+                  f": 4 greedy requests, {n} tokens in {wall:.2f} s "
+                  f"({n / wall:.1f} tok/s aggregate); launches "
+                  f"{runs[on][1]}", flush=True)
+    finally:
+        attention.enable_paged_kernel(True)
+        cm.close()
+    (on_tokens, on_counts), (off_tokens, off_counts) = runs[True], runs[False]
+    # every decode step after a request's first token launches once a layer
+    layers = len(engine.model.llm.layers)
+    for counts, tokens, runs_k, not_k in (
+            (on_counts, on_tokens, "decode_attention_paged",
+             "decode_attention_mxu"),
+            (off_counts, off_tokens, "decode_attention_mxu",
+             "decode_attention_paged")):
+        need = layers * (max(map(len, tokens)) - 1)
+        if counts.get(not_k) or counts.get(runs_k, 0) < need:
+            raise AssertionError(f"{runs_k} must launch at least {need} "
+                                 f"times and {not_k} never: {counts}")
+    same = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                 min(len(x), len(y))) for x, y in zip(on_tokens, off_tokens)]
+    print(f"paged kernel off vs on: greedy tokens agree for the first "
+          f"{same} of {[len(x) for x in on_tokens]} tokens of each request",
+          flush=True)
+    return off_counts
+
+
+def w4a16_chat_phase(engine, clips, requests, dev) -> dict:
+    """The int4 chat's engine with the A8 switches off for the phase (as
+    VLT_INT4_A8=0 VLT_INT4_A8_BLOCK=0 would set them; restored after):
+    `requests`, launch counts over exactly them (every layer linear a
+    decode step through the W4A16 matvec, a prefill through the W4A16
+    block matmul, kernels A and B never), then the profile pass."""
+    label = "W4A16 int4 chat (A8 switches off)"
+    saved = quant4.A8_DECODE, quant4.A8_BLOCK
+    quant4.A8_DECODE = quant4.A8_BLOCK = False
+    try:
+        counts = chat_requests(engine, clips, requests, dev, label)
+        per_step = len(engine.model.llm.layers) * 4  # wqkv wo gate_up down
+        want = {"w4a16_matvec": per_step * counts["decode_steps"],
+                "w4a16_block": per_step * counts["prefills"],
+                "w4a8_matvec": 0, "w4a8_block": 0}
+        got = {k: counts.get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, want {want}")
+        profile_request(engine, clips, dev, label)
+    finally:
+        quant4.A8_DECODE, quant4.A8_BLOCK = saved
+    return counts
+
+
+def gqa_chat_phase(clips, requests, dev) -> dict:
+    """Vicuna-7B with 8 KV heads for its 32 query heads (int4, fused, as
+    --quant int4 builds it): `requests` through the chat interface, the
+    decode attention through kernel 11 (32 launches a decode step, kernel
+    3 never), then the profile pass; the engine is freed after."""
+    label = "GQA 32/8 int4 chat (speculative=False)"
+    t0 = time.perf_counter()
+    tok = load_tokenizer(None)
+    base = model_config("7b")
+    cfg = dataclasses.replace(
+        base, llm=dataclasses.replace(base.llm, num_kv_heads=8),
+        vid_patch_token_id=tok.vid_patch_token_id,
+        vid_start_token_id=tok.vid_start_token_id,
+        vid_end_token_id=tok.vid_end_token_id,
+    )
+    model = VideoLLaVA(cfg, device=dev, dtype=torch.bfloat16,
+                       llm_quant="int4", llm_fuse=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    random_init_(model, gen)
+    random_init_quantized_llm_(model.llm, gen, dtype=torch.bfloat16)
+    engine = InferenceEngine(
+        model=model, cfg=cfg, tokenizer=tok,
+        gen=GenerationConfig(eos_token_id=tok.eos_token_id,
+                             pad_token_id=tok.pad_token_id))
+    del model
+    engine.speculative = False
+    torch.cuda.synchronize()
+    print(f"7B int4 engine with num_kv_heads=8: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    counts = chat_requests(engine, clips, requests, dev, label)
+    need = len(engine.model.llm.layers) * counts["decode_steps"]
+    if (counts.get("decode_attention_pallas") != need
+            or counts.get("decode_attention_stacked")):
+        raise AssertionError(f"{label}: kernel 11 must run {need} times and "
+                             f"kernel 3 never: {counts}")
+    profile_request(engine, clips, dev, label)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 # Kernels 7 and 8 at (b, sq, skv, h, h_kv, d, causal): Vicuna-7B's
@@ -1760,8 +2118,9 @@ def main() -> int:
 
     with torch.inference_mode():
         results = kernel_checks(dev)
-    small_model_check(dev)
-    small_model_check(dev, "int4")
+    for quant in (None, "int4"):
+        small_model_check(dev, quant)
+        small_model_check(dev, quant, kv_heads=2)
     torch.cuda.empty_cache()
 
     # Frames come from a seed, not through an mp4: the native decoder's
@@ -1817,14 +2176,21 @@ def main() -> int:
         # the int4 path's, kernel 10's the serving path's
         launches.update({k: counts[k] for k in path if k not in launches})
         if quant:
+            w4 = w4a16_chat_phase(engine, clips, requests[:2], dev)
+            launches.update({k: w4[k] for k in ("w4a16_matvec",
+                                                "w4a16_block")})
             served = serving_phase(engine, clips, dev)
             launches["decode_attention_paged"] = served[
                 "decode_attention_paged"]
+            launches["decode_attention_mxu"] = paged_off_phase(
+                engine, dev)["decode_attention_mxu"]
             launches["multi_scale_deformable_attention"] = grounding_phase(
                 engine, dev, results)
         del engine, llm
         gc.collect()
         torch.cuda.empty_cache()
+    launches["decode_attention_pallas"] = gqa_chat_phase(
+        clips, requests[:1], dev)["decode_attention_pallas"]
     trained = training_phase(dev, results)
     launches.update({k: trained[k] for k in TRAIN_PATH})
 

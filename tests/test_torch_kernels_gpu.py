@@ -13,7 +13,11 @@ form exact int32 partials, so only the f32 summation order differs:
 max |err| / max |ref| <= 1e-4 in f32; with bf16 out, against the plain
 f32 result rounded to bf16, one bf16 ulp: <= 2^-7 of max |ref|.
 Deformable attention: f32 sums in another order, <= 1e-4 of max |ref|
-in f32; in bf16 out, one bf16 rounding, <= 2^-7 of max |ref|.
+in f32; in bf16 out, one bf16 rounding, <= 2^-7 of max |ref|. The W4A16
+kernels form f32 group partials of exact products (integer nibbles times
+bf16 activations) as their plain versions do: the same limits as W4A8.
+Decode attention over a flat cache (kernels 9 and 11) as kernels 3 and
+10: 2e-2 absolute and, row by row, 2^-6 of each row's max |ref|.
 """
 
 import pytest
@@ -78,6 +82,7 @@ def test_pool_kernel_matches_plain(dev, t, s, c, n, out_dtype):
 @pytest.mark.parametrize("nl,b,L,h,d,int8", [
     (3, 2, 37, 4, 64, False), (3, 2, 37, 4, 64, True),
     (2, 1, 833, 32, 128, False), (2, 1, 833, 32, 128, True),
+    (3, 2, 37, 8, 32, False), (3, 2, 37, 8, 32, True),
 ])
 def test_decode_kernel_matches_plain(dev, nl, b, L, h, d, int8):
     g = torch.Generator(device=dev).manual_seed(2)
@@ -94,7 +99,9 @@ def test_decode_kernel_matches_plain(dev, nl, b, L, h, d, int8):
         kc, vc = (_rand(g, nl, b, L, h, d) for _ in range(2))
         ks = vs = None
     for li in range(nl):
+        before = cuda_lib.LAUNCHES["decode_attention_stacked"]
         got = attention.decode_attention_stacked(q, kc, vc, li, lens, ks, vs)
+        assert cuda_lib.LAUNCHES["decode_attention_stacked"] == before + 1
         want = attention.decode_attention_stacked_plain(q, kc, vc, li, lens,
                                                         ks, vs)
         _assert_close(got, want, 2e-2)
@@ -105,6 +112,8 @@ def test_decode_kernel_matches_plain(dev, nl, b, L, h, d, int8):
     (3, 16, 4, 4, 64, (1, 37, 64), True),
     (4, 64, 32, 32, 128, (1000, 2048, 63, 65), False),
     (4, 64, 32, 32, 128, (1, 64, 1000, 2048), True),
+    (3, 16, 4, 8, 32, (1, 37, 64), False),
+    (3, 16, 4, 8, 32, (1, 37, 64), True),
 ])
 def test_paged_decode_kernel_matches_plain(dev, nb, bs, maxb, h, d, lens,
                                            int8):
@@ -142,6 +151,156 @@ def test_paged_decode_kernel_matches_plain(dev, nb, bs, maxb, h, d, lens,
         err = (got.float() - want.float()).abs().flatten(1).amax(1)
         rel = err / want.float().abs().flatten(1).amax(1)
         assert rel.max().item() <= 2 ** -6, rel.tolist()
+
+
+def _flat_cache(g, dev, b, L, h_kv, d, int8):
+    """A flat (b, L, h_kv, d) cache, bf16 or int8 with (b, L, h_kv, 1)
+    scales."""
+    if not int8:
+        return _rand(g, b, L, h_kv, d), _rand(g, b, L, h_kv, d), None, None
+    kc, vc = (torch.randint(-127, 128, (b, L, h_kv, d), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((b, L, h_kv, 1), generator=g, device=dev) / 127
+              for _ in range(2))
+    return kc, vc, ks, vs
+
+
+def _assert_rows(got, want, atol=2e-2, row_tol=2 ** -6):
+    """Absolute, then row by row: max|err| / max|ref| of each (b, 1, h,
+    d) output row."""
+    _assert_close(got, want, atol)
+    err = (got.float() - want.float()).abs().flatten(1).amax(1)
+    rel = err / want.float().abs().flatten(1).amax(1)
+    assert rel.max().item() <= row_tol, rel.tolist()
+
+
+@pytest.mark.parametrize("b,L,h,d,int8", [
+    (1, 832, 32, 128, False), (1, 832, 32, 128, True),
+    (4, 2048, 32, 128, False), (2, 48, 4, 32, False), (2, 48, 4, 32, True),
+    (3, 64, 4, 64, True),
+])
+def test_flat_mha_decode_kernel_matches_plain(dev, b, L, h, d, int8):
+    """Kernel 9 (decode_attention_mxu): kernel 3's body at NL = 1. Only
+    the plain version rounds q * scale to bf16 (as the JAX kernel does)
+    and the weights to bf16; the kernel scales its f32 scores and keeps
+    the weights f32."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q = _rand(g, b, 1, h, d)
+    kc, vc, ks, vs = _flat_cache(g, dev, b, L, h, d, int8)
+    lens = torch.randint(1, L + 1, (b,), generator=g, device=dev,
+                         dtype=torch.int32)
+    lens[0] = L
+    before = cuda_lib.LAUNCHES["decode_attention_mxu"]
+    got = attention.decode_attention_mxu(q, kc, vc, lens, ks, vs)
+    assert cuda_lib.LAUNCHES["decode_attention_mxu"] == before + 1
+    _assert_rows(got, attention.decode_attention_mxu_plain(q, kc, vc, lens,
+                                                           ks, vs))
+
+
+@pytest.mark.parametrize("b,L,h,h_kv,d,int8", [
+    (1, 833, 32, 8, 128, False), (1, 833, 32, 8, 128, True),
+    (2, 700, 32, 4, 128, False), (2, 37, 8, 2, 32, False),
+    (2, 37, 8, 2, 32, True), (3, 64, 12, 1, 64, True),
+    (2, 50, 6, 6, 64, False), (1, 2048, 16, 2, 128, True),
+    (1, 100, 6, 2, 64, False),
+])
+def test_gqa_decode_kernel_matches_plain(dev, b, L, h, h_kv, d, int8):
+    """Kernel 11 (decode_attention_pallas): groups 4, 8, 1 and 12 (run as
+    three blocks of 4 heads), any L, against the f32 plain version."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    q = _rand(g, b, 1, h, d)
+    kc, vc, ks, vs = _flat_cache(g, dev, b, L, h_kv, d, int8)
+    lens = torch.randint(1, L + 1, (b,), generator=g, device=dev,
+                         dtype=torch.int32)
+    lens[-1] = L
+    before = cuda_lib.LAUNCHES["decode_attention_pallas"]
+    got = attention.decode_attention_pallas(q, kc, vc, lens, ks, vs)
+    assert cuda_lib.LAUNCHES["decode_attention_pallas"] == before + 1
+    _assert_rows(got, attention.decode_attention_pallas_plain(
+        q, kc, vc, lens, ks, vs))
+
+
+def test_gqa_decode_longest_cache(dev):
+    """Kernel 11's length limit comes from its C entry: at 32 query heads
+    over 4 (a block holds 8), d 128, the scores of 8 heads and the warps'
+    partial outputs fill the 227 KB of shared memory at L = 6,239. That
+    length launches and matches the plain version; one more raises before
+    any launch."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    q = _rand(g, 1, 1, 32, 128)
+    kc, vc, _, _ = _flat_cache(g, dev, 1, 6240, 4, 128, False)
+    lens = torch.tensor([6239], dtype=torch.int32, device=dev)
+    k1, v1 = kc[:, :6239].contiguous(), vc[:, :6239].contiguous()
+    got = attention.decode_attention_pallas(q, k1, v1, lens)
+    _assert_rows(got, attention.decode_attention_pallas_plain(q, k1, v1,
+                                                              lens))
+    before = sum(cuda_lib.LAUNCHES.values())
+    with pytest.raises(ValueError, match="shared memory"):
+        attention.decode_attention_pallas(q, kc, vc, lens)
+    assert sum(cuda_lib.LAUNCHES.values()) == before
+
+
+def test_decode_fallthrough_on_the_card(dev):
+    """The stacked and paged wrappers send the shapes kernels 3 and 10 do
+    not take to the flat dispatch: a GQA cache to kernel 11, a paged pool
+    of 24-position blocks or enable_paged_kernel(False) through the dense
+    gather to kernel 9; under set_default_impl('xla') the stacked, paged
+    and flat wrappers raise on CUDA tensors and launch nothing."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    lens = torch.tensor([45, 17], dtype=torch.int32, device=dev)
+    q8 = _rand(g, 2, 1, 8, 64)
+    kv = _rand(g, 2, 2, 48, 2, 64)  # GQA: 2 kv heads for 8 query heads
+    table = torch.tensor([[1, 3], [2, 0]], dtype=torch.int32, device=dev)
+    pool_gqa = _rand(g, 2, 4, 24, 2, 64)
+    pool_mha = _rand(g, 2, 4, 24, 8, 64)  # blocks of 24: not 16's
+    pool16 = _rand(g, 2, 7, 16, 8, 64)
+    table16 = torch.tensor([[1, 3, 5], [2, 4, 0]], dtype=torch.int32,
+                           device=dev)
+    cases = (
+        ("decode_attention_pallas",
+         lambda: attention.decode_attention_stacked(q8, kv, kv, 1, lens),
+         lambda: attention.decode_attention_pallas_plain(q8, kv[1], kv[1],
+                                                         lens)),
+        ("decode_attention_pallas",
+         lambda: attention.decode_attention_paged(q8, pool_gqa, pool_gqa, 1,
+                                                  table, lens),
+         lambda: attention.decode_attention_paged_plain(
+             q8, pool_gqa, pool_gqa, 1, table, lens)),
+        ("decode_attention_mxu",
+         lambda: attention.decode_attention_paged(q8, pool_mha, pool_mha, 0,
+                                                  table, lens),
+         lambda: attention.decode_attention_paged_plain(
+             q8, pool_mha, pool_mha, 0, table, lens)),
+    )
+    for name, run, plain in cases:
+        before = dict(cuda_lib.LAUNCHES)
+        got = run()
+        assert cuda_lib.LAUNCHES[name] == before.get(name, 0) + 1, name
+        assert sum(cuda_lib.LAUNCHES.values()) == sum(before.values()) + 1
+        _assert_rows(got, plain())
+    try:
+        attention.enable_paged_kernel(False)
+        before = cuda_lib.LAUNCHES["decode_attention_mxu"]
+        got = attention.decode_attention_paged(q8, pool16, pool16, 1,
+                                               table16, lens)
+        assert cuda_lib.LAUNCHES["decode_attention_mxu"] == before + 1
+        _assert_rows(got, attention.decode_attention_paged_plain(
+            q8, pool16, pool16, 1, table16, lens))
+        attention.enable_paged_kernel(True)
+        attention.set_default_impl("xla")
+        before = sum(cuda_lib.LAUNCHES.values())
+        for run in (
+                lambda: attention.decode_attention_stacked(q8, kv, kv, 1,
+                                                           lens),
+                lambda: attention.decode_attention_paged(
+                    q8, pool16, pool16, 1, table16, lens),
+                lambda: attention.decode_attention(q8, kv[1], kv[1], lens)):
+            with pytest.raises(RuntimeError, match="xla"):
+                run()
+        assert sum(cuda_lib.LAUNCHES.values()) == before
+    finally:
+        attention.enable_paged_kernel(True)
+        attention.set_default_impl("auto")
 
 
 def test_f32_product_of_bf16_operands(dev):
@@ -305,37 +464,85 @@ def test_w4a8_block_kernel_matches_plain(dev, nb, d, f, group_size):
     _assert_rel(got, want.to(torch.bfloat16), 2 ** -7)
 
 
-def test_int4_dispatch_on_the_card(dev):
-    """Up to 8 rows the matvec, more rows the block kernel, a stacked
-    layer a view of the (L, Dh, F) weight."""
+@pytest.mark.parametrize("d,f,group_size", [
+    (4096, 12288, 128), (4096, 4096, 128), (4096, 22016, 128),
+    (11008, 4096, 128), (768, 256, 128), (512, 384, 32), (1024, 640, None),
+])
+def test_w4a16_matvec_kernel_matches_plain(dev, d, f, group_size):
+    g = torch.Generator(device=dev).manual_seed(15)
+    packed, scales = _int4_weight(g, d, f, group_size)
+    x = torch.randn(1, d, generator=g, device=dev).to(torch.bfloat16)
+    before = cuda_lib.LAUNCHES["w4a16_matvec"]
+    got = quant4.w4a16_matvec(x, packed, scales)
+    assert cuda_lib.LAUNCHES["w4a16_matvec"] == before + 1
+    want = quant4.int4_matmul_w4a16_matvec_plain(x, packed, scales)
+    _assert_rel(got, want)
+    got = quant4.w4a16_matvec(x, packed, scales, torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    _assert_rel(got, want.to(torch.bfloat16), 2 ** -7)
+
+
+@pytest.mark.parametrize("nb,d,f,group_size", [
+    (768, 4096, 22016, 128), (2, 4096, 4096, 128), (36, 11008, 4096, 128),
+    (9, 512, 256, 32), (70, 768, 144, 128), (33, 1024, 256, None),
+])
+def test_w4a16_block_kernel_matches_plain(dev, nb, d, f, group_size):
+    g = torch.Generator(device=dev).manual_seed(16)
+    packed, scales = _int4_weight(g, d, f, group_size)
+    x = torch.randn(nb, d, generator=g, device=dev).to(torch.bfloat16)
+    before = cuda_lib.LAUNCHES["w4a16_block"]
+    got = quant4.w4a16_block(x, packed, scales)
+    assert cuda_lib.LAUNCHES["w4a16_block"] == before + 1
+    want = quant4.int4_matmul_w4a16_block_plain(x, packed, scales)
+    _assert_rel(got, want)
+    got = quant4.w4a16_block(x, packed, scales, torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    _assert_rel(got, want.to(torch.bfloat16), 2 ** -7)
+
+
+def test_int4_dispatch_on_the_card(dev, monkeypatch):
+    """Under the default switches up to 8 rows the W4A8 matvec, more rows
+    the W4A8 block kernel; with A8_DECODE off one row the W4A16 matvec and
+    2-8 rows the W4A16 block matmul; with A8_BLOCK off more rows the W4A16
+    block matmul. A stacked layer is a view of the (L, Dh, F) weight."""
     g = torch.Generator(device=dev).manual_seed(6)
     packed, scales = _int4_weight(g, 512, 256, 128)
     stacked_p = torch.stack([packed, packed.flip(0)])
     stacked_s = torch.stack([scales, scales.flip(0)])
-    for rows, name in ((8, "w4a8_matvec"), (9, "w4a8_block")):
+    plains = {"w4a8_matvec": quant4.int4_matmul_w4a8_xla,
+              "w4a8_block": quant4.int4_matmul_w4a8_block_xla,
+              "w4a16_matvec": quant4.int4_matmul_w4a16_matvec_plain,
+              "w4a16_block": quant4.int4_matmul_w4a16_block_plain}
+    for a8, a8_block, rows, name in (
+            (True, True, 8, "w4a8_matvec"), (True, True, 9, "w4a8_block"),
+            (False, True, 1, "w4a16_matvec"), (False, True, 4, "w4a16_block"),
+            (False, True, 9, "w4a8_block"), (True, False, 9, "w4a16_block"),
+            (True, False, 1, "w4a8_matvec"), (False, False, 1,
+                                              "w4a16_matvec")):
+        monkeypatch.setattr(quant4, "A8_DECODE", a8)
+        monkeypatch.setattr(quant4, "A8_BLOCK", a8_block)
         x = torch.randn(rows, 512, generator=g,
                         device=dev).to(torch.bfloat16)
         before = cuda_lib.LAUNCHES[name]
         got = quant4.int4_matmul_stacked(x, stacked_p, stacked_s, 1)
-        assert cuda_lib.LAUNCHES[name] == before + 1
-        plain = (quant4.int4_matmul_w4a8_xla if rows <= 8
-                 else quant4.int4_matmul_w4a8_block_xla)
-        _assert_rel(got, plain(x, stacked_p[1], stacked_s[1]))
+        assert cuda_lib.LAUNCHES[name] == before + 1, (a8, a8_block, rows)
+        _assert_rel(got, plains[name](x, stacked_p[1], stacked_s[1]))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     g = torch.Generator(device=dev).manual_seed(3)
-    q = _rand(g, 1, 1, 8, 64)
-    kv = _rand(g, 2, 1, 16, 4, 64)  # GQA: 4 kv heads for 8 query heads
+    q = _rand(g, 1, 1, 8, 72)
+    kv = _rand(g, 2, 1, 16, 4, 72)  # head dim 72: no decode kernel takes it
     lens = torch.tensor([5], dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         attention.decode_attention_stacked(q, kv, kv, 0, lens)
     table = torch.zeros((1, 2), dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError):  # paged: MHA only as well
+    with pytest.raises(ValueError):  # paged: through the same flat kernels
         attention.decode_attention_paged(q, kv, kv, 0, table, lens)
-    pool = _rand(g, 2, 3, 24, 8, 64)  # a block of 24: not a multiple of 16
-    with pytest.raises(ValueError):
-        attention.decode_attention_paged(q, pool, pool, 0, table, lens)
+    with pytest.raises(ValueError):  # 8 query heads over 3 kv heads
+        kv3 = _rand(g, 1, 16, 3, 64)
+        attention.decode_attention_pallas(q[..., :64].contiguous(), kv3, kv3,
+                                          lens)
     x = _rand(g, 1, 2, 32, 64)
     with pytest.raises(TypeError):
         attention.flash_attention_bhsd(x.float(), x.float(), x.float())

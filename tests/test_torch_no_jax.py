@@ -58,3 +58,17 @@ def test_port_imports_no_jax():
                 "run_name='__main__')")
     assert proc.returncode == 0, proc.stderr
     assert "--tune_mode" in proc.stdout and "--llm_weights" in proc.stdout
+    # the W4A16 chat: the int4 switches are read at import, as the JAX
+    # package reads VLT_INT4_A8 / VLT_INT4_A8_BLOCK
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(VLT_INT4_A8="0", VLT_INT4_A8_BLOCK="0")
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCK_JAX + (
+            "from video_llava_tpu_torch.ops import quant4\n"
+            "assert not quant4.A8_DECODE and not quant4.A8_BLOCK\n"
+            "import runpy; sys.argv = ['chat', '--help']; "
+            "runpy.run_module('video_llava_tpu_torch.runtime.chat', "
+            "run_name='__main__')")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--quant" in proc.stdout

@@ -1,9 +1,12 @@
 // Decode attention for one query token against one layer of a KV cache,
 // bf16 or int8 with per-(position, head) f32 scales. Two cache layouts,
-// one kernel body:
+// one MHA kernel body (head dims 32, 64, 128):
 //   stacked (NL, b, L, h, d), scales (NL, b, L, h): the slot cache.
 //     Replaces video_llava_tpu/ops/attention.py::decode_attention_mxu_stacked
-//     (Pallas body _decode_attn_mxu_stacked_kernel).
+//     (Pallas body _decode_attn_mxu_stacked_kernel). A flat per-layer cache
+//     (b, L, h, d) is the stacked one with NL = 1 at layer 0, so the same
+//     entry also replaces decode_attention_mxu (Pallas body
+//     _decode_attn_mxu_kernel).
 //   paged (NL, NB, BS, h, d), scales (NL, NB, BS, h), with a block table
 //     (b, MAXB): the serving block pool. Position p of row bi lives in pool
 //     block table[bi, p / BS] at offset p % BS.
@@ -27,6 +30,8 @@
 // shared memory (n floats), so the softmax is exact two-pass, not online.
 // At b = 1 the grid is h = 32 blocks, which fills 32 of 132 SMs: splitting L
 // across blocks (flash-decoding) is later work.
+// Grouped-query attention (h_kv < h) over a flat cache has a body of its
+// own below (kernel 11), so that the MHA body keeps its parameters and time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,9 +68,11 @@ __device__ inline void load_row(const __nv_bfloat16* p, float (&f)[E]) {
     const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
     const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
     f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-  } else {
+  } else if constexpr (E == 2) {
     const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
     f[0] = a.x; f[1] = a.y;
+  } else {
+    f[0] = __bfloat162float(*p);
   }
 }
 
@@ -74,9 +81,11 @@ __device__ inline void load_row(const int8_t* p, float (&f)[E]) {
   if constexpr (E == 4) {
     const char4 c = *reinterpret_cast<const char4*>(p);
     f[0] = c.x; f[1] = c.y; f[2] = c.z; f[3] = c.w;
-  } else {
+  } else if constexpr (E == 2) {
     const char2 c = *reinterpret_cast<const char2*>(p);
     f[0] = c.x; f[1] = c.y;
+  } else {
+    f[0] = *p;
   }
 }
 
@@ -243,13 +252,211 @@ template <bool kPaged>
 int dispatch(const Args& a, int d, int int8, cudaStream_t st) {
   if (int8) {
     if (d == 128) return launch<int8_t, 128, kPaged>(a, st);
+    if (d == 32) return launch<int8_t, 32, kPaged>(a, st);
     return launch<int8_t, 64, kPaged>(a, st);
   }
   if (d == 128) return launch<__nv_bfloat16, 128, kPaged>(a, st);
+  if (d == 32) return launch<__nv_bfloat16, 32, kPaged>(a, st);
   return launch<__nv_bfloat16, 64, kPaged>(a, st);
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 11: grouped-query decode over a flat (b, L, h_kv, D) cache.
+// ---------------------------------------------------------------------------
+// Replaces video_llava_tpu/ops/attention.py::decode_attention_pallas (body
+// _decode_attn_kernel). Query head i reads KV head i / group. For row bi and
+// KV head kh, with n = lengths[bi] and qs_i = q_i * scale (f32):
+//     s_ip = (qs_i . k_p) [* k_scale_p]                 p < n
+//     o_i  = sum_p softmax(s_i)_p [* v_scale_p] v_p      (bf16 out)
+// One block per (row, KV head, run of G of its query heads): G is the
+// largest of 8, 4, 2, 1 that divides the group, so for a group of 1, 2, 4
+// or 8 a block holds the whole group and reads each K/V position of its
+// head once for all of it (other groups take runs of 1 or 2 heads: four
+// instantiations of G keep the build short).
+// Lanes split d as in the MHA body; each position's K row is loaded once
+// and dotted with the G queries held in registers. Scores (G, n) go to
+// shared memory, warp g takes query head g's softmax (exact, two-pass), and
+// pass 2 reads each V row once into G accumulators. The Pallas kernel's
+// block_l tiling, online softmax and masked tail are TPU formulations of
+// the same function: here no position at or past n is read.
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(kThreads)
+decode_gqa_kernel(const __nv_bfloat16* __restrict__ q,
+                  const T* __restrict__ kc, const T* __restrict__ vc,
+                  const float* __restrict__ ks, const float* __restrict__ vs,
+                  const int* __restrict__ lengths,
+                  __nv_bfloat16* __restrict__ o, int L, int h, int h_kv,
+                  int group, float scale) {
+  constexpr int E = D / 32;
+  extern __shared__ float smem[];
+  float* sc = smem;                      // (G, L) scores, then weights
+  float* acc_s = smem + (size_t)G * L;   // (kWarps, G, D) partial outputs
+  float* inv = acc_s + kWarps * G * D;   // (G,) 1 / softmax sums
+
+  const int runs = group / G;
+  const int kh = blockIdx.x / runs;
+  const int h0 = kh * group + (blockIdx.x % runs) * G;  // first query head
+  const int bi = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = min(lengths[bi], L);
+  __nv_bfloat16* obase = o + ((size_t)bi * h + h0) * D;
+  if (n <= 0) {
+    for (int c = threadIdx.x; c < G * D; c += kThreads) obase[c] = __float2bfloat16(0.f);
+    return;
+  }
+
+  const size_t pstride = (size_t)h_kv * D;  // elements between positions
+  const size_t first = (size_t)bi * L;      // row bi's position 0
+  const T* kbase = kc + first * pstride + (size_t)kh * D + lane * E;
+  const T* vbase = vc + first * pstride + (size_t)kh * D + lane * E;
+  const float* ksb = ks ? ks + first * h_kv + kh : nullptr;
+  const float* vsb = vs ? vs + first * h_kv + kh : nullptr;
+
+  float qf[G][E];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    load_row<E>(q + ((size_t)bi * h + h0 + g) * D + lane * E, qf[g]);
+#pragma unroll
+    for (int e = 0; e < E; ++e) qf[g][e] *= scale;
+  }
+
+  // Pass 1: scores of the G heads, one K row load per position.
+  for (int base = warp * kUnroll; base < n; base += kWarps * kUnroll) {
+    float part[kUnroll][G];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) part[u][g] = 0.f;
+      if (base + u < n) {
+        float kf[E];
+        load_row<E>(kbase + (size_t)(base + u) * pstride, kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int e = 0; e < E; ++e) part[u][g] += qf[g][e] * kf[e];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int p = base + u;
+      const float ksc = (ksb && p < n) ? ksb[(size_t)p * h_kv] : 1.f;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float dot = warp_sum(part[u][g]);
+        if (lane == 0 && p < n) sc[(size_t)g * L + p] = dot * ksc;
+      }
+    }
+  }
+  __syncthreads();
+
+  // Softmax: warp g takes head g (max, weights, sum; the sum excludes the
+  // v scales).
+  for (int g = warp; g < G; g += kWarps) {
+    float* sg = sc + (size_t)g * L;
+    float mx = -INFINITY;
+    for (int p = lane; p < n; p += 32) mx = fmaxf(mx, sg[p]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int p = lane; p < n; p += 32) {
+      const float w = __expf(sg[p] - mx);
+      sum += w;
+      sg[p] = vsb ? w * vsb[(size_t)p * h_kv] : w;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) inv[g] = 1.f / sum;
+  }
+  __syncthreads();
+
+  // Pass 2: weighted sums of values, one V row load per position.
+  float acc[G][E];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  for (int base = warp * kUnroll; base < n; base += kWarps * kUnroll) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int p = base + u;
+      if (p < n) {
+        float vf[E];
+        load_row<E>(vbase + (size_t)p * pstride, vf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float w = sc[(size_t)g * L + p];
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] += w * vf[e];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc_s[(warp * G + g) * D + lane * E + e] = acc[g][e];
+  __syncthreads();
+  for (int c = threadIdx.x; c < G * D; c += kThreads) {
+    const int g = c / D;
+    float r = 0.f;
+    for (int w = 0; w < kWarps; ++w) r += acc_s[(w * G + g) * D + c % D];
+    obase[c] = __float2bfloat16(r * inv[g]);
+  }
+}
+
+// Floats of kernel 11's shared memory: scores (g, L), partial outputs
+// (kWarps, g, d), the g softmax sums.
+inline size_t gqa_smem_floats(int g, int L, int d) {
+  return (size_t)g * L + (size_t)kWarps * g * d + g;
+}
+constexpr size_t kMaxSmemFloats = 227 * 1024 / sizeof(float);
+
+template <typename T, int D, int G>
+int launch_gqa(const void* q, const void* k, const void* v, const float* ks,
+               const float* vs, const int* lengths, void* o, int b, int L,
+               int h, int h_kv, float scale, cudaStream_t stream) {
+  auto kern = decode_gqa_kernel<T, D, G>;
+  const size_t smem = gqa_smem_floats(G, L, D) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int group = h / h_kv;
+  kern<<<dim3(h_kv * (group / G), b), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), ks, vs, lengths,
+      static_cast<__nv_bfloat16*>(o), L, h, h_kv, group, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int dispatch_gqa_g(int g, const void* q, const void* k, const void* v,
+                   const float* ks, const float* vs, const int* lengths,
+                   void* o, int b, int L, int h, int h_kv, float scale,
+                   cudaStream_t st) {
+#define VLT_GQA_CASE(N) \
+  case N: return launch_gqa<T, D, N>(q, k, v, ks, vs, lengths, o, b, L, h, h_kv, scale, st);
+  switch (g) {
+    VLT_GQA_CASE(1) VLT_GQA_CASE(2) VLT_GQA_CASE(4) VLT_GQA_CASE(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VLT_GQA_CASE
+}
+
+// Heads of one block: the largest of 8, 4, 2 that divides the group, or 1.
+inline int gqa_run(int group) {
+  for (int g = 8; g > 1; g /= 2)
+    if (group % g == 0) return g;
+  return 1;
+}
+
 }  // namespace
+
+// Kernel 11's longest cache for h query heads over h_kv of dim d: what its
+// block's shared memory holds (0 when h_kv does not divide h).
+extern "C" int vlt_decode_attention_gqa_max_len(int h, int h_kv, int d) {
+  if (h_kv <= 0 || h % h_kv) return 0;
+  const int g = gqa_run(h / h_kv);
+  const size_t fixed = gqa_smem_floats(g, 0, d);
+  return fixed >= kMaxSmemFloats ? 0 : (int)((kMaxSmemFloats - fixed) / g);
+}
 
 // int8: 0 for a bf16 cache (ks/vs ignored, pass null), 1 for int8 + scales.
 // d must be 64 or 128 (the wrappers check).
@@ -282,4 +489,35 @@ extern "C" int vlt_decode_attention_paged(const void* q, const void* k,
                static_cast<const int*>(table), o, layer, b, maxb * bs, h,
                nblocks, bs, maxb, scale};
   return dispatch<true>(a, d, int8, (cudaStream_t)stream);
+}
+
+// Kernel 11. q (b, 1, h, d) bf16; k, v (b, L, h_kv, d), bf16 or int8 with
+// scales (b, L, h_kv) f32; lengths (b,); o (b, 1, h, d) bf16. h a multiple
+// of h_kv; d in {32, 64, 128} (the wrapper checks); L at most
+// vlt_decode_attention_gqa_max_len (else cudaErrorInvalidValue).
+extern "C" int vlt_decode_attention_gqa(const void* q, const void* k,
+                                        const void* v, const void* ks,
+                                        const void* vs, const void* lengths,
+                                        void* o, int b, int L, int h,
+                                        int h_kv, int d, int int8,
+                                        float scale, void* stream) {
+  if (L > vlt_decode_attention_gqa_max_len(h, h_kv, d))
+    return (int)cudaErrorInvalidValue;
+  const int g = gqa_run(h / h_kv);
+  const float* ksf = int8 ? static_cast<const float*>(ks) : nullptr;
+  const float* vsf = int8 ? static_cast<const float*>(vs) : nullptr;
+  const int* len = static_cast<const int*>(lengths);
+  cudaStream_t st = (cudaStream_t)stream;
+#define VLT_GQA_ARGS g, q, k, v, ksf, vsf, len, o, b, L, h, h_kv, scale, st
+  if (int8) {
+    if (d == 128) return dispatch_gqa_g<int8_t, 128>(VLT_GQA_ARGS);
+    if (d == 64) return dispatch_gqa_g<int8_t, 64>(VLT_GQA_ARGS);
+    if (d == 32) return dispatch_gqa_g<int8_t, 32>(VLT_GQA_ARGS);
+  } else {
+    if (d == 128) return dispatch_gqa_g<__nv_bfloat16, 128>(VLT_GQA_ARGS);
+    if (d == 64) return dispatch_gqa_g<__nv_bfloat16, 64>(VLT_GQA_ARGS);
+    if (d == 32) return dispatch_gqa_g<__nv_bfloat16, 32>(VLT_GQA_ARGS);
+  }
+#undef VLT_GQA_ARGS
+  return (int)cudaErrorInvalidValue;
 }

@@ -31,16 +31,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int4_out.cuh"
+
 namespace {
 
 constexpr int kBM = 64, kBN = 64, kKP = 32;  // output tile, packed rows/step
 constexpr int kLds = kKP + 16;  // shared row stride: conflict-free fragments
 constexpr int kThreads = 128;
-
-__device__ inline void store(float* p, float v) { *p = v; }
-__device__ inline void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // One block per row: sx[row] and xq[row, :].
 __global__ void __launch_bounds__(256)

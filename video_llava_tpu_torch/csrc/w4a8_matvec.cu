@@ -34,16 +34,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int4_out.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCols = 128;  // 32 lanes x 4 columns
-
-__device__ inline void store(float* p, float v) { *p = v; }
-__device__ inline void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 __device__ inline int8_t quantize(float v, float s) {
   const float q = rintf(__fdiv_rn(v, s));
@@ -221,16 +218,6 @@ w4a8_matvec_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
     else
       partial[((size_t)blockIdx.y * nb + r) * f + gc] = s;
   }
-}
-
-template <typename TOut>
-__global__ void add_splits_kernel(const float* __restrict__ partial,
-                                  TOut* __restrict__ out, int n, int splits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += partial[(size_t)k * n + i];
-  store(out + i, s);
 }
 
 template <int NB, typename TOut>

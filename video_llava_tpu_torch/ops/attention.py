@@ -18,15 +18,29 @@ and training paths:
   * :func:`decode_attention_paged` -- the same against one layer of the
     paged (NL, NB, BS, h, d) block pool through a block table (the same
     kernel body, csrc/decode_attention.cu).
+  * :func:`decode_attention` -- the flat dispatch over one layer's
+    (b, L, h_kv, d) cache: :func:`decode_attention_mxu` (MHA, the same
+    kernel body at NL = 1) or :func:`decode_attention_pallas` (grouped
+    query heads, a body of its own), or the plain masked reference. The
+    stacked and paged wrappers fall through to it for the shapes their
+    kernels do not take, as the JAX package's do.
 
 Each kernel wrapper takes its plain version (``*_plain``) only for a
 tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
 Layouts are the JAX package's: BSHD at :func:`attention_reference`,
 (b, h, s_pad, d) for CLIP, (b, 1, h, d) queries for decode.
+
+Module switches, as in the JAX package (ops/attention.py:33-58):
+:func:`set_default_impl` -- 'auto' (kernels for CUDA tensors, the plain
+reference for CPU ones), 'pallas' (the kernels' plain versions on the
+CPU as well) or 'xla' (the plain reference; the decode wrappers raise on
+CUDA tensors under it); :func:`enable_paged_kernel` -- off sends the paged wrapper
+through the dense gather and the flat dispatch (the escape hatch).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -34,6 +48,31 @@ import torch
 from video_llava_tpu_torch.ops import cuda_lib
 
 DEFAULT_MASK_VALUE = -1e30
+_DECODE_HEAD_DIMS = (32, 64, 128)  # what the decode kernels take
+
+_DEFAULT_IMPL = "auto"
+_PAGED_KERNEL = True
+
+
+def set_default_impl(impl: str) -> None:
+    """'auto', 'xla' or 'pallas' (see the module docstring)."""
+    global _DEFAULT_IMPL
+    if impl not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    _DEFAULT_IMPL = impl
+
+
+def enable_paged_kernel(on: bool = True) -> None:
+    global _PAGED_KERNEL
+    _PAGED_KERNEL = bool(on)
+
+
+def _refuse_xla_on_card(q: torch.Tensor) -> None:
+    """'xla' selects the plain reference, which runs on CPU tensors only:
+    a CUDA tensor launches a kernel or raises."""
+    if _DEFAULT_IMPL == "xla" and q.device.type != "cpu":
+        raise RuntimeError("set_default_impl('xla'): the plain version runs "
+                           "on CPU tensors only; use 'auto' on CUDA")
 
 
 def _repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -370,14 +409,13 @@ def flash_attention_bhsd(
 
 def decode_attention_stacked_plain(q, k_cache, v_cache, layer, cache_len,
                                    k_scale=None, v_scale=None, scale=None):
-    """Plain version of :func:`decode_attention_stacked`: slice the
-    layer, dequantize to q's dtype, masked reference attention (the JAX
-    package's XLA path)."""
-    k, v = k_cache[layer], v_cache[layer]
-    if k_scale is not None:
-        k = (k.float() * k_scale[layer][..., None]).to(q.dtype)
-        v = (v.float() * v_scale[layer][..., None]).to(q.dtype)
-    return attention_reference(q, k, v, kv_valid_len=cache_len, scale=scale)
+    """Plain version of :func:`decode_attention_stacked`: the layer's
+    view through :func:`decode_attention_reference` (the JAX package's
+    XLA path)."""
+    unit = lambda a: None if a is None else a[layer][..., None]  # noqa
+    return decode_attention_reference(q, k_cache[layer], v_cache[layer],
+                                      cache_len, unit(k_scale),
+                                      unit(v_scale), scale)
 
 
 def decode_attention_stacked(
@@ -392,18 +430,22 @@ def decode_attention_stacked(
 ) -> torch.Tensor:
     """One decode step's attention against layer `layer` of the stacked
     cache -> (b, 1, h, d). Positions at or past a row's length are never
-    read. On CUDA: MHA only (h == h_kv), d in {64, 128}, bf16 query
-    (csrc/decode_attention.cu)."""
+    read. On CUDA, under the JAX package's conditions
+    (ops/attention.py:1320-1331): MHA, h*d a multiple of 128, d in {32,
+    64, 128}, bf16 query: kernel 3 (csrc/decode_attention.cu). Other
+    shapes and CPU tensors take the layer's view through
+    :func:`decode_attention` (JAX :1335-1340); under set_default_impl(
+    'xla') a CUDA tensor raises."""
+    _refuse_xla_on_card(q)
     b, _, h, d = q.shape
     nl, _, L, h_kv = k_cache.shape[:4]
     scale = scale if scale is not None else 1.0 / (d**0.5)
-    if q.device.type == "cpu":
-        return decode_attention_stacked_plain(
-            q, k_cache, v_cache, layer, cache_len, k_scale, v_scale, scale)
-    if h_kv != h:
-        raise NotImplementedError("decode kernel is MHA-only (h == h_kv)")
-    if d not in (64, 128):
-        raise ValueError(f"head dim {d}: the decode kernel takes 64 or 128")
+    if not (q.device.type != "cpu" and h == h_kv
+            and (h * d) % 128 == 0 and d in _DECODE_HEAD_DIMS):
+        unit = lambda a: None if a is None else a[layer][..., None]  # noqa
+        return decode_attention(q, k_cache[layer], v_cache[layer],
+                                cache_len, k_scale=unit(k_scale),
+                                v_scale=unit(v_scale), scale=scale)
     if not 0 <= layer < nl:
         raise IndexError(f"layer {layer} outside [0, {nl})")
     quantized = k_scale is not None
@@ -455,15 +497,14 @@ def decode_attention_paged_plain(q, k_cache, v_cache, layer, table,
                                  scale=None):
     """Plain version of :func:`decode_attention_paged`: gather the rows'
     blocks of the layer into a logically dense (b, MAXB*BS, h, d) view
-    through the table (:func:`paged_layer_dense`), dequantize, masked
-    reference attention (the JAX package's fallback,
+    through the table (:func:`paged_layer_dense`), then
+    :func:`decode_attention_reference` (the JAX package's fallback,
     ops/attention.py:1481-1492)."""
     dense = lambda a: paged_layer_dense(a, layer, table)  # noqa: E731
-    k, v = dense(k_cache), dense(v_cache)
-    if k_scale is not None:
-        k = (k.float() * dense(k_scale)[..., None]).to(q.dtype)
-        v = (v.float() * dense(v_scale)[..., None]).to(q.dtype)
-    return attention_reference(q, k, v, kv_valid_len=cache_len, scale=scale)
+    unit = lambda a: None if a is None else dense(a)[..., None]  # noqa
+    return decode_attention_reference(q, dense(k_cache), dense(v_cache),
+                                      cache_len, unit(k_scale),
+                                      unit(v_scale), scale)
 
 
 def decode_attention_paged(
@@ -482,27 +523,27 @@ def decode_attention_paged(
     of row i is pool block table[i, p // BS], offset p % BS. Positions
     at or past a row's length, and the table entries that map them, are
     never read; every entry must still be a valid block id (0, the pad
-    block, past a row's allocation). On CUDA, under the JAX package's
-    dispatch conditions (ops/attention.py:1465-1476): MHA, h*d a
-    multiple of 128, BS a multiple of 16 up to 128, and d in {64, 128}
-    (csrc/decode_attention.cu); other shapes raise."""
+    block, past a row's allocation). On CUDA, while enable_paged_kernel
+    is on and under the JAX package's conditions (ops/attention.py:
+    1465-1477): MHA, h*d a multiple of 128, BS a multiple of 16 up to
+    128, d in {32, 64, 128}: kernel 10 (csrc/decode_attention.cu). Other
+    shapes, CPU tensors and the kernel switched off gather the rows'
+    blocks into the dense view (:func:`paged_layer_dense`) and take
+    :func:`decode_attention` (JAX :1478-1492); under set_default_impl(
+    'xla') a CUDA tensor raises."""
+    _refuse_xla_on_card(q)
     b, _, h, d = q.shape
     nl, nb, bs, h_kv = k_cache.shape[:4]
     maxb = table.shape[1]
     scale = scale if scale is not None else 1.0 / (d**0.5)
-    if q.device.type == "cpu":
-        return decode_attention_paged_plain(
-            q, k_cache, v_cache, layer, table, cache_len, k_scale, v_scale,
-            scale)
-    if h_kv != h:
-        raise NotImplementedError("paged decode kernel is MHA-only "
-                                  "(h == h_kv)")
-    if (h * d) % 128 or bs % 16 or bs > 128:
-        raise ValueError(f"paged decode kernel: h*d = {h * d} must be a "
-                         f"multiple of 128 and the block size {bs} a "
-                         "multiple of 16 up to 128")
-    if d not in (64, 128):
-        raise ValueError(f"head dim {d}: the decode kernel takes 64 or 128")
+    if not (_PAGED_KERNEL
+            and q.device.type != "cpu" and h == h_kv and (h * d) % 128 == 0
+            and bs % 16 == 0 and bs <= 128 and d in _DECODE_HEAD_DIMS):
+        dense = lambda a: paged_layer_dense(a, layer, table)  # noqa: E731
+        unit = lambda a: None if a is None else dense(a)[..., None]  # noqa
+        return decode_attention(q, dense(k_cache), dense(v_cache),
+                                cache_len, k_scale=unit(k_scale),
+                                v_scale=unit(v_scale), scale=scale)
     if not 0 <= layer < nl:
         raise IndexError(f"layer {layer} outside [0, {nl})")
     quantized = k_scale is not None
@@ -531,3 +572,211 @@ def decode_attention_paged(
         int(quantized), float(scale),
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# Kernels 9 and 11: decode attention over a flat per-layer cache
+# ---------------------------------------------------------------------------
+
+
+def _length_mask(cache_len: torch.Tensor, L: int) -> torch.Tensor:
+    """(b, L) bool: position p of row i is below cache_len[i]."""
+    pos = torch.arange(L, device=cache_len.device)
+    return pos[None, :] < cache_len[:, None]
+
+
+def _softmax_parts(s: torch.Tensor, mask: torch.Tensor):
+    """Masked scores (..., L) -> (p = exp(s - max), l = sum p), both f32."""
+    s = s.masked_fill(~mask, DEFAULT_MASK_VALUE)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return p, p.sum(dim=-1, keepdim=True)
+
+
+def decode_attention_reference(q, k_cache, v_cache, cache_len, k_scale=None,
+                               v_scale=None, scale=None):
+    """The JAX package's XLA decode path (ops/attention.py:835-841): the
+    cache dequantized to q's dtype, the masked reference attention.
+    k_cache/v_cache (b, L, h_kv, d); scales (b, L, h_kv, 1)."""
+    k, v = k_cache, v_cache
+    if k_scale is not None:
+        k = (k.float() * k_scale).to(q.dtype)
+        v = (v.float() * v_scale).to(q.dtype)
+    return attention_reference(q, k, v, kv_valid_len=cache_len, scale=scale)
+
+
+def decode_attention_mxu_plain(q, k_cache, v_cache, cache_len, k_scale=None,
+                               v_scale=None, scale=None):
+    """Plain version of :func:`decode_attention_mxu`, with the JAX
+    kernel's roundings (ops/attention.py:1052-1056, :1000-1020): q * scale
+    and the cache rounded to bf16 for the score product; scores times the
+    k scales; softmax weights times the v scales rounded to bf16 for the
+    value product; the sum of the unscaled weights divides."""
+    b, _, h, d = q.shape
+    scale = _default_scale(d, scale)
+    qs = (q[:, 0].float() * scale).to(torch.bfloat16).float()  # (b, h, d)
+    k = k_cache.to(torch.bfloat16).float()
+    s = torch.einsum("blhd,bhd->bhl", k, qs)
+    if k_scale is not None:
+        s = s * k_scale[..., 0].float().transpose(1, 2)
+    p, l = _softmax_parts(s, _length_mask(cache_len, k.shape[1])[:, None])
+    if v_scale is not None:
+        p = p * v_scale[..., 0].float().transpose(1, 2)
+    out = torch.einsum("bhl,blhd->bhd", p.to(torch.bfloat16).float(),
+                       v_cache.to(torch.bfloat16).float())
+    return (out / l.clamp_min(1e-30))[:, None].to(q.dtype)
+
+
+def _check_decode_flat(q, k_cache, v_cache, cache_len, k_scale, v_scale,
+                       name: str):
+    """Raise unless the flat decode kernels take these operands; return
+    the (ks, vs) pointers (None for a bf16 cache)."""
+    b, _, h, d = q.shape
+    L, h_kv = k_cache.shape[1:3]
+    dev = q.device
+    if d not in _DECODE_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {_DECODE_HEAD_DIMS}")
+    quantized = k_scale is not None
+    cdtype = torch.int8 if quantized else torch.bfloat16
+    cuda_lib.require(q, "q", torch.bfloat16, (b, 1, h, d))
+    cuda_lib.require(k_cache, "k_cache", cdtype, (b, L, h_kv, d), dev)
+    cuda_lib.require(v_cache, "v_cache", cdtype, (b, L, h_kv, d), dev)
+    cuda_lib.require(cache_len, "cache_len", torch.int32, (b,), dev)
+    if not quantized:
+        return None, None
+    for nm, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        cuda_lib.require(t, nm, torch.float32, (b, L, h_kv, 1), dev)
+    return cuda_lib.ptr(k_scale), cuda_lib.ptr(v_scale)
+
+
+def decode_attention_mxu(
+    q: torch.Tensor,  # (b, 1, h, d)
+    k_cache: torch.Tensor,  # (b, L, h, d) bf16, or int8 with scales
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,  # (b,) int32
+    k_scale: Optional[torch.Tensor] = None,  # (b, L, h, 1) f32 when int8
+    v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Kernel 9: MHA decode over a flat per-layer cache -> (b, 1, h, d)
+    (JAX ``decode_attention_mxu``). On CUDA: kernel 3's body at NL = 1
+    (csrc/decode_attention.cu), which scales the f32 scores as kernel 3
+    does (the plain version rounds q * scale to bf16 first, as the JAX
+    kernel does); d in {32, 64, 128}."""
+    b, _, h, d = q.shape
+    L, h_kv = k_cache.shape[1:3]
+    scale = _default_scale(d, scale)
+    if h_kv != h:
+        raise ValueError(f"decode_attention_mxu: MHA only, got {h} query "
+                         f"heads over {h_kv}")
+    if q.device.type == "cpu":
+        return decode_attention_mxu_plain(q, k_cache, v_cache, cache_len,
+                                          k_scale, v_scale, scale)
+    ks, vs = _check_decode_flat(q, k_cache, v_cache, cache_len, k_scale,
+                                v_scale, "decode_attention_mxu")
+    if (L + 9 * d) * 4 > 227 * 1024:
+        raise ValueError(f"cache length {L} exceeds the kernel's shared "
+                         "memory for its scores")
+    out = torch.empty_like(q)
+    cuda_lib.launch(
+        "decode_attention_mxu", "vlt_decode_attention", q.device,
+        cuda_lib.ptr(q), cuda_lib.ptr(k_cache), cuda_lib.ptr(v_cache),
+        ks, vs, cuda_lib.ptr(cache_len), cuda_lib.ptr(out),
+        0, b, L, h, d, int(k_scale is not None), float(scale),
+    )
+    return out
+
+
+def decode_attention_pallas_plain(q, k_cache, v_cache, cache_len,
+                                  k_scale=None, v_scale=None, scale=None):
+    """Plain version of :func:`decode_attention_pallas`, the JAX kernel's
+    math (ops/attention.py:870-934): q * scale in f32, the cache
+    dequantized in f32, query head i against KV head i // group, masked
+    softmax in f32."""
+    b, _, h, d = q.shape
+    L, h_kv = k_cache.shape[1:3]
+    scale = _default_scale(d, scale)
+    qg = q[:, 0].float().reshape(b, h_kv, h // h_kv, d) * scale
+    k, v = k_cache.float(), v_cache.float()
+    if k_scale is not None:
+        k = k * k_scale.float()
+        v = v * v_scale.float()
+    s = torch.einsum("bkgd,blkd->bkgl", qg, k)
+    p, l = _softmax_parts(s, _length_mask(cache_len, L)[:, None, None])
+    out = torch.einsum("bkgl,blkd->bkgd", p, v) / l.clamp_min(1e-30)
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _gqa_max_len(h: int, h_kv: int, d: int) -> int:
+    """Kernel 11's longest cache at these heads (its C entry's rule)."""
+    return cuda_lib.library().vlt_decode_attention_gqa_max_len(h, h_kv, d)
+
+
+def decode_attention_pallas(
+    q: torch.Tensor,  # (b, 1, h, d)
+    k_cache: torch.Tensor,  # (b, L, h_kv, d) bf16, or int8 with scales
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,  # (b,) int32
+    k_scale: Optional[torch.Tensor] = None,  # (b, L, h_kv, 1) f32 when int8
+    v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Kernel 11: grouped-query decode (h_kv divides h) over a flat
+    per-layer cache -> (b, 1, h, d) (JAX ``decode_attention_pallas``). On
+    CUDA: one block per (row, KV head) reading each position once for
+    its group (csrc/decode_attention.cu); any L, d in {32, 64, 128}."""
+    b, _, h, d = q.shape
+    L, h_kv = k_cache.shape[1:3]
+    scale = _default_scale(d, scale)
+    if h % h_kv:
+        raise ValueError(f"{h} query heads do not group over {h_kv}")
+    if q.device.type == "cpu":
+        return decode_attention_pallas_plain(q, k_cache, v_cache, cache_len,
+                                             k_scale, v_scale, scale)
+    ks, vs = _check_decode_flat(q, k_cache, v_cache, cache_len, k_scale,
+                                v_scale, "decode_attention_pallas")
+    if L > _gqa_max_len(h, h_kv, d):
+        raise ValueError(f"cache length {L} exceeds the kernel's shared "
+                         "memory for its scores")
+    if b > 65535:
+        raise ValueError(f"{b} rows exceed the grid's y limit")
+    out = torch.empty_like(q)
+    cuda_lib.launch(
+        "decode_attention_pallas", "vlt_decode_attention_gqa", q.device,
+        cuda_lib.ptr(q), cuda_lib.ptr(k_cache), cuda_lib.ptr(v_cache),
+        ks, vs, cuda_lib.ptr(cache_len), cuda_lib.ptr(out),
+        b, L, h, h_kv, d, int(k_scale is not None), float(scale),
+    )
+    return out
+
+
+def decode_attention(
+    q: torch.Tensor,  # (b, 1, h, d)
+    k_cache: torch.Tensor,  # (b, L, h_kv, d) bf16, or int8 with scales
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,  # (b,) int32, the token just written included
+    *,
+    k_scale: Optional[torch.Tensor] = None,  # (b, L, h_kv, 1) when int8
+    v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One decode step over a flat per-layer cache -> (b, 1, h, d): the
+    JAX package's dispatch (ops/attention.py:786-841), with "on a TPU"
+    read as "a CUDA tensor". 'xla' or 'auto' on the CPU: the plain
+    reference ('xla' raises on a CUDA tensor). Otherwise MHA with h*d a
+    multiple of 128 and L of 16:
+    kernel 9 (:func:`decode_attention_mxu`); every other shape, under
+    'auto' and 'pallas' alike: kernel 11 (:func:`decode_attention_pallas`,
+    where JAX's 'auto' takes its XLA path for GQA: a CUDA tensor here
+    launches a kernel or raises). On the CPU the kernels' plain versions
+    stand in."""
+    b, _, h, d = q.shape
+    L, h_kv = k_cache.shape[1:3]
+    scales = dict(k_scale=k_scale, v_scale=v_scale, scale=scale)
+    _refuse_xla_on_card(q)
+    if q.device.type == "cpu" and _DEFAULT_IMPL != "pallas":
+        return decode_attention_reference(q, k_cache, v_cache, cache_len,
+                                          **scales)
+    if h == h_kv and (h * d) % 128 == 0 and L % 16 == 0:
+        return decode_attention_mxu(q, k_cache, v_cache, cache_len, **scales)
+    return decode_attention_pallas(q, k_cache, v_cache, cache_len, **scales)

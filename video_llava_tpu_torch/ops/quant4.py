@@ -17,18 +17,28 @@ The matmuls:
   * :func:`int4_matmul_xla` -- the W4A16 twin (bf16 dequantized
     weights), taken for an F that is not a multiple of 128, as the JAX
     package does.
-  * :func:`w4a8_matvec` (csrc/w4a8_matvec.cu) and :func:`w4a8_block`
-    (csrc/w4a8_block.cu) -- the kernels; on a CPU tensor each takes its
-    plain version, on a CUDA tensor it launches or raises.
-  * :func:`int4_matmul` / :func:`int4_matmul_stacked` -- the dispatch:
-    up to ``A8_MAX_BATCH`` rows the matvec, more rows the block matmul,
-    at any row count. A layer of a stacked (L, Dh, F) weight is a view
-    (a pointer offset), so one kernel serves stacked and per-layer
-    weights. The JAX package's ``VLT_INT4_*`` switches are not ported.
+  * :func:`int4_matmul_w4a16_matvec_plain` and
+    :func:`int4_matmul_w4a16_block_plain` -- plain versions of the W4A16
+    Pallas kernels (activations not quantized; each group's partial
+    scaled after its dot).
+  * :func:`w4a8_matvec` (csrc/w4a8_matvec.cu), :func:`w4a8_block`
+    (csrc/w4a8_block.cu), :func:`w4a16_matvec` and :func:`w4a16_block`
+    (csrc/w4a16.cu) -- the kernels; on a CPU tensor each takes its plain
+    version, on a CUDA tensor it launches or raises.
+  * :func:`int4_matmul` / :func:`int4_matmul_stacked` -- the JAX
+    package's dispatch (quant4.py:818-866) over the row count, under
+    ``A8_DECODE`` (``VLT_INT4_A8``), ``A8_BLOCK`` (``VLT_INT4_A8_BLOCK``)
+    and ``A8_MAX_BATCH`` (``VLT_INT4_A8_MAX_B``), read at import with
+    the JAX package's defaults. A layer of a stacked (L, Dh, F) weight is
+    a view (a pointer offset), so one kernel serves stacked and
+    per-layer weights. ``VLT_INT4_UNPACK`` and ``VLT_INT4_A8_BLOCK_MAX_B``
+    choose a TPU formulation or a slice copy of the same function and
+    are not ported.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -41,7 +51,16 @@ from video_llava_tpu_torch.ops.quant import (
     quantize_tensor,
 )
 
-A8_MAX_BATCH = 8  # rows the W4A8 matvec takes (quant4.py:822)
+# The JAX package's switches (quant4.py:818-833): the W4A8 matvec for up
+# to A8_MAX_BATCH rows, the W4A8 block matmul past it; either off, the
+# W4A16 kernels take its rows.
+A8_DECODE = os.environ.get("VLT_INT4_A8", "1") == "1"
+A8_BLOCK = os.environ.get("VLT_INT4_A8_BLOCK", "1") == "1"
+A8_MAX_BATCH = int(os.environ.get("VLT_INT4_A8_MAX_B", "8"))
+MATVEC_MAX_ROWS = 8  # rows the W4A8 matvec kernel takes
+if not 0 <= A8_MAX_BATCH <= MATVEC_MAX_ROWS:
+    raise ValueError(f"VLT_INT4_A8_MAX_B={A8_MAX_BATCH}: the W4A8 matvec "
+                     f"takes 0 to {MATVEC_MAX_ROWS} rows")
 
 
 # ---------------------------------------------------------------------------
@@ -146,11 +165,11 @@ def int4_matmul_xla(x: torch.Tensor, packed: torch.Tensor,
 
 def _group_partials(xq: torch.Tensor, packed: torch.Tensor,
                     ga: int) -> torch.Tensor:
-    """(ga, b, F) f32 dots of int8 activations xq (b, D) with the
-    unpacked weight over each of ga contraction groups. Integer
-    operands and sums below 2^24 (127 * 8 * 5504 at Vicuna-7B's
-    per-channel worst case), so every partial is exact in any order, as
-    the kernels' int32 partials are."""
+    """(ga, b, F) f32 dots of activations xq (b, D) with the unpacked
+    weight over each of ga contraction groups. For int8 activations the
+    operands and sums are integers below 2^24 (127 * 8 * 5504 at
+    Vicuna-7B's per-channel worst case), so every partial is exact in
+    any order, as the kernels' int32 partials are."""
     b, d = xq.shape
     q = unpack_int4(packed).float().reshape(ga, d // ga, -1)
     return torch.bmm(xq.float().reshape(b, ga, d // ga).transpose(0, 1), q)
@@ -188,8 +207,39 @@ def int4_matmul_w4a8_block_xla(x: torch.Tensor, packed: torch.Tensor,
     return y.reshape(x.shape[:-1] + (f,))
 
 
+def _w4a16_plain(x: torch.Tensor, packed: torch.Tensor,
+                 scales: torch.Tensor) -> torch.Tensor:
+    """y[r, f] = sum_g sw[g, f] * (f32 dot of x and q over group g), one
+    scale row over the whole contraction when G == 1 (quant4.py:179-182,
+    :323-329): x (..., D) -> (..., F) f32."""
+    dh, f = packed.shape
+    xb = x.float().reshape(-1, 2 * dh)
+    if scales.shape[-2] == 1:
+        y = (xb @ unpack_int4(packed).float()) * scales.float()
+    else:
+        part = _group_partials(xb, packed, scales.shape[-2])
+        y = (part * scales.float()[:, None]).sum(0)
+    return y.reshape(x.shape[:-1] + (f,))
+
+
+def int4_matmul_w4a16_matvec_plain(x: torch.Tensor, packed: torch.Tensor,
+                                   scales: torch.Tensor) -> torch.Tensor:
+    """Plain W4A16 matvec math (JAX ``_w4_matvec_kernel``): x (..., D)
+    in f32 times the integer nibbles, summed per group, the group's scale
+    applied after the sum -> (..., F) f32."""
+    return _w4a16_plain(x, packed, scales)
+
+
+def int4_matmul_w4a16_block_plain(x: torch.Tensor, packed: torch.Tensor,
+                                  scales: torch.Tensor) -> torch.Tensor:
+    """Plain W4A16 block math (JAX ``_w4_matmul_kernel``): x rounded to
+    bf16, a per-group dot in f32, each group's partial scaled -> (..., F)
+    f32."""
+    return _w4a16_plain(x.to(torch.bfloat16), packed, scales)
+
+
 # ---------------------------------------------------------------------------
-# Kernels A (matvec) and B (block matmul)
+# Kernels A (matvec) and B (block matmul), and the W4A16 pair
 # ---------------------------------------------------------------------------
 
 _MATVEC_COLS = 128  # columns per matvec block (csrc/w4a8_matvec.cu)
@@ -242,9 +292,9 @@ def w4a8_matvec(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         return int4_matmul_w4a8_xla(x, packed, scales).to(out_dtype)
     x = x.contiguous()
     nb = x.shape[0]
-    if not 1 <= nb <= A8_MAX_BATCH:
+    if not 1 <= nb <= MATVEC_MAX_ROWS:
         raise ValueError(f"w4a8_matvec: {nb} rows outside [1, "
-                         f"{A8_MAX_BATCH}]")
+                         f"{MATVEC_MAX_ROWS}]")
     dh, f, n_groups = _check_w4a8(x, packed, scales, out_dtype,
                                    "w4a8_matvec")
     if _group_rows(dh, n_groups) % 4:
@@ -296,6 +346,66 @@ def w4a8_block(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+def w4a16_matvec(x: torch.Tensor, packed: torch.Tensor,
+                 scales: torch.Tensor,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Kernel 6's W4A16 matvec: x (1, D) x packed (Dh, F) + scales (G, F)
+    -> (1, F) in out_dtype, computing
+    :func:`int4_matmul_w4a16_matvec_plain`. On CUDA: x bf16
+    (csrc/w4a16.cu)."""
+    if x.device.type == "cpu":
+        return int4_matmul_w4a16_matvec_plain(x, packed, scales).to(
+            out_dtype)
+    x = x.contiguous()
+    if x.shape[0] != 1:
+        raise ValueError(f"w4a16_matvec: one row, got {x.shape[0]}")
+    dh, f, n_groups = _check_w4a8(x, packed, scales, out_dtype,
+                                   "w4a16_matvec")
+    rows = matvec_rows_per_split(
+        1, dh, f,
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
+    splits = -(-dh // rows)
+    out = torch.empty((1, f), dtype=out_dtype, device=x.device)
+    partial = (torch.empty((splits, f), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    cuda_lib.launch(
+        "w4a16_matvec", "vlt_w4a16_matvec", x.device,
+        cuda_lib.ptr(x), cuda_lib.ptr(packed), cuda_lib.ptr(scales),
+        cuda_lib.ptr(out), None if partial is None else cuda_lib.ptr(partial),
+        dh, f, n_groups, rows, int(out_dtype == torch.bfloat16),
+    )
+    return out
+
+
+def w4a16_block(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Kernel 6's W4A16 block matmul: x (nb, D), any nb, x packed
+    (Dh, F) + scales (G, F) -> (nb, F) in out_dtype, computing
+    :func:`int4_matmul_w4a16_block_plain` on the bf16 tensor cores. On
+    CUDA: x bf16, the group's packed rows a multiple of 32
+    (csrc/w4a16.cu)."""
+    if x.device.type == "cpu":
+        return int4_matmul_w4a16_block_plain(x, packed, scales).to(out_dtype)
+    x = x.contiguous()
+    dh, f, n_groups = _check_w4a8(x, packed, scales, out_dtype,
+                                   "w4a16_block")
+    if _group_rows(dh, n_groups) % 32:
+        raise ValueError(f"w4a16_block: group of "
+                         f"{_group_rows(dh, n_groups)} packed rows is not "
+                         "a multiple of 32")
+    nb = x.shape[0]
+    if -(-nb // 64) > 65535:
+        raise ValueError(f"w4a16_block: {nb} rows exceed the grid")
+    out = torch.empty((nb, f), dtype=out_dtype, device=x.device)
+    cuda_lib.launch(
+        "w4a16_block", "vlt_w4a16_block", x.device,
+        cuda_lib.ptr(x), cuda_lib.ptr(packed), cuda_lib.ptr(scales),
+        cuda_lib.ptr(out), nb, dh, f, n_groups,
+        int(out_dtype == torch.bfloat16),
+    )
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
@@ -304,15 +414,26 @@ def w4a8_block(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x (..., D) -> (..., F) in out_dtype (f32 by default, as the JAX
-    package returns). Up to A8_MAX_BATCH rows: the W4A8 matvec; more
-    rows: the W4A8 block matmul; F not a multiple of 128: the W4A16
-    plain version (quant4.py:858-859)."""
+    package returns), b rows mapped as the JAX package maps them
+    (quant4.py:856-866 into :706-797): b <= A8_MAX_BATCH with A8_DECODE:
+    the W4A8 matvec; b == 1 otherwise: the W4A16 matvec; b >
+    A8_MAX_BATCH with A8_BLOCK: the W4A8 block matmul; everything else:
+    the W4A16 block matmul. F not a multiple of 128: the W4A16 twin
+    :func:`int4_matmul_xla` (quant4.py:858-859)."""
     lead, d = x.shape[:-1], x.shape[-1]
     f = packed.shape[-1]
     if f % 128:
         return int4_matmul_xla(x, packed, scales).to(out_dtype)
     xb = x.reshape(-1, d)
-    mm = w4a8_matvec if xb.shape[0] <= A8_MAX_BATCH else w4a8_block
+    b = xb.shape[0]
+    if b <= A8_MAX_BATCH and A8_DECODE:
+        mm = w4a8_matvec
+    elif b == 1:
+        mm = w4a16_matvec
+    elif b > A8_MAX_BATCH and A8_BLOCK:
+        mm = w4a8_block
+    else:
+        mm = w4a16_block
     return mm(xb, packed, scales, out_dtype).reshape(lead + (f,))
 
 
