@@ -1290,11 +1290,14 @@ def gqa_chat_phase(clips, requests, dev) -> dict:
 
 # Kernels 7 and 8 at (b, sq, skv, h, h_kv, d, causal): Vicuna-7B's
 # training layer (4 rows of 1,024 tokens, causal) first, then GQA, a
-# ragged right-aligned pair (no length a multiple of a tile) and no mask.
+# ragged right-aligned pair (no length a multiple of a tile), no mask, and
+# a ragged GQA pair at training width whose causal diagonal crosses the
+# Hopper body's 128-row blocks and 64-row tiles.
 FLASH_SHAPES = ((4, 1024, 1024, 32, 32, 128, True),
                 (4, 1024, 1024, 32, 8, 128, True),
                 (2, 1000, 1037, 16, 16, 128, True),
-                (2, 512, 640, 32, 32, 128, False))
+                (2, 512, 640, 32, 32, 128, False),
+                (1, 1000, 1100, 32, 8, 128, True))
 # Forward: absolute (TOL) as kernel 1 (P rounded to bf16 for the second
 # product), and per (row, head) max|err| / max|ref| as kernel 10; lse in
 # f32 from the same f32 scores summed in another order. Gradients: each
@@ -1328,10 +1331,14 @@ def flash_checks(dev, results) -> None:
     right-aligned mask where sq != skv; enable_gqa for GQA) and its
     backward, torch.autograd.grad of its output (timed without a graph).
     Bounds count the visible pairs only: the forward's two products, dq's
-    three (S, dP, dS K), dk/dv's four (S, dP, P^T dO, dS^T Q). On the
-    training shape, a fault planted in the plain backward (query tile 1's
-    diagonal key tile dropped from the mask) must fail the gradient
-    check."""
+    three (S, dP, dS K), dk/dv's four (S, dP, P^T dO, dS^T Q); beside
+    each kernel's ms, the rate those operations reach and the share of
+    the bound. On the training shape, two planted faults must fail: in
+    the plain forward, the diagonal key tile of query tile 1 (the
+    kernel's 128-row tiles) dropped from the mask, against the row check
+    (the kernel masks only diagonal and ragged tiles); in the plain
+    backward, query tile 1's diagonal 64-key tile dropped, against the
+    gradient check."""
     g = torch.Generator(device=dev).manual_seed(3)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(  # noqa
         torch.bfloat16)
@@ -1352,6 +1359,19 @@ def flash_checks(dev, results) -> None:
         if not (fwd_err <= TOL["flash_forward"] and row <= FLASH_ROW_TOL
                 and lse_err <= FLASH_LSE_TOL):
             raise AssertionError(f"flash_forward {shape}: {note}")
+        if shape == FLASH_SHAPES[0]:
+            mask = attention.flash_mask(sq, skv, causal, dev).clone()
+            mask[128:256, 128:256] = False
+            faulty, _ = attention.flash_forward_masked(q, k, v, mask, scale)
+            bad = (faulty.float() - want.float()).abs().amax(-1)
+            caught = (bad / want.float().abs().amax(-1)).max().item()
+            print("planted fault, query tile 1's diagonal key tile dropped "
+                  f"from the plain forward: (row, head) max|err|/max|ref| "
+                  f"{caught:.3e}", flush=True)
+            if not caught > FLASH_ROW_TOL:
+                raise AssertionError("the forward's row check passes a "
+                                     "dropped diagonal tile")
+            del faulty, bad, mask
         delta = attention.flash_delta(out, do)
         dq_fn = lambda: attention.flash_backward_dq(  # noqa: E731
             q, k, v, do, lse, delta, causal, scale)
@@ -1413,9 +1433,11 @@ def flash_checks(dev, results) -> None:
         for name, e, ms, plain_ms, lib_ms, nbytes, ops in rows:
             bound_ms, bound_by = record(results, name, e, ms, plain_ms,
                                         lib_ms, nbytes, ops)
-            print(f"check {name} {shape}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms by {bound_by}", flush=True)
+            print(f"check {name} {shape}: kernel {ms:.4f} ms "
+                  f"({ops / ms * 1e-9:.1f} TFLOP/s, {bound_ms / ms:.3f} of "
+                  f"the bound), plain {plain_ms:.4f} ms, library "
+                  f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}",
+                  flush=True)
         print(f"check flash {shape}: forward {note}; backward "
               f"max|err|/max|ref| {grad_note} (tol {FLASH_GRAD_TOL})",
               flush=True)
@@ -1686,6 +1708,12 @@ def train_7b(dev) -> dict:
                                            key=lambda kv: -kv[1][0])[:14]:
             print(f"train 7b profile: {total / 1e3:9.2f} ms {calls:6d} "
                   f"calls  {name[:90]}")
+        for kind in ("fwd", "dq", "dkv"):  # kernels 7 and 8, wherever ranked
+            hits = [v for n, v in by_name.items()
+                    if f"flash::hopper::{kind}_kernel" in n]
+            print(f"train 7b profile: kernel {kind} "
+                  f"{sum(t for t, _ in hits) / 1e3:.2f} ms over "
+                  f"{sum(c for _, c in hits)} calls in the step", flush=True)
 
         restore, restored = train.restore_checkpoint, {}
 

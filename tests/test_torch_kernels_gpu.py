@@ -353,13 +353,20 @@ def test_dot_f32_gradients_on_the_card(dev):
 
 
 # b, sq, skv, h, h_kv, d, causal: the training layer's shape at a small
-# batch, GQA, ragged right-aligned, non-causal, and every tile width
+# batch, GQA, ragged right-aligned, non-causal, and every tile width; then
+# the edges of the Hopper body's tiles (128 rows a block, 64 rows a
+# streamed tile) at d 128 and 64, a causal diagonal that straddles a
+# 128-row block, and the training layer's GQA 32/8 at full length
 FLASH_SHAPES = [
     (1, 256, 256, 8, 8, 128, True), (2, 130, 130, 8, 2, 64, True),
     (1, 100, 137, 4, 4, 128, True), (2, 77, 50, 4, 2, 32, False),
     (1, 129, 129, 2, 1, 16, False), (1, 64, 96, 3, 3, 80, True),
     (1, 33, 33, 2, 2, 48, True), (1, 70, 70, 2, 2, 96, False),
     (1, 65, 65, 2, 2, 112, True),
+    (1, 127, 127, 4, 4, 128, True), (1, 128, 128, 4, 2, 128, False),
+    (1, 129, 129, 4, 4, 128, True), (1, 257, 257, 4, 4, 128, True),
+    (1, 200, 333, 4, 4, 128, True), (1, 129, 200, 4, 2, 64, True),
+    (1, 1024, 1024, 32, 8, 128, True),
 ]
 
 

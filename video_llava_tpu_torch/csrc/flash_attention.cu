@@ -18,467 +18,982 @@
 // What bounds it on Hopper: at the training shape (b 4, s 1024, h 32,
 // d 128, causal) the forward is 3.4e10 operations (0.035 ms at 989 TFLOP/s)
 // over 134 MB of q/k/v/o (0.040 ms at 3.35 TB/s): bytes by a hair; the
-// backward is 1.2e11 operations (five products of 2 b h s^2 d / 2 each,
-// plus the two recomputed QK^T; 0.12 ms): operations. Both want the tensor
-// cores fed from shared memory. The design: 64-row tiles, one block of 4
-// warps (16 rows a warp) per (64 rows, head); the tile the rows stream over
-// (K/V in forward and dq, Q/dO in dk/dv) sits in shared memory and serves
-// all 64 rows; every product runs through WMMA (bf16 in, f32 accumulate);
-// scores and probabilities stay in shared memory, never in device memory;
-// causal tiles past the diagonal are skipped (num_kb, start_qb as in the
-// Pallas kernels). dq, dk and dv accumulate in WMMA fragments (registers),
-// the forward's output in shared memory (it is rescaled row by row). Two
-// backward kernels and no atomics, as on the TPU: the gradient is
-// deterministic. Every tile masks its own ragged edge, so any sq, skv work.
-// The head dim is a template parameter (16..128, multiples of 16) so the
-// fragment arrays stay in registers. Later work: wgmma + TMA, softmax in
-// registers, two blocks an SM.
+// backward is 1.2e11 operations (the dq kernel's three products and the
+// dk/dv kernel's four over the visible pairs; 0.12 ms): operations. Both
+// want the tensor cores at their bf16 rate, which on this card only wgmma
+// reaches.
+//
+// The design, for head dims 64 and 128 (the Hopper body below): a block
+// owns 128 rows (queries; keys in the dk/dv kernel) as two consumer
+// warpgroups of 64 rows, plus a producer warpgroup of which one warp
+// issues the copies. The block's own rows sit in shared memory, loaded
+// once; the rows it streams over (K/V in the forward and dq kernels, Q/dO
+// with lse and D in the dk/dv kernel) pass through a ring of tiles that
+// TMA fills (cp.async.bulk.tensor over a 4-D map of the BSHD tensor,
+// 128-byte swizzle; rows past the end come in as zeros) under mbarrier
+// full/empty pairs, so the next tile's copy overlaps the current tile's
+// products. Every product is wgmma m64nNk16, bf16 in, f32 accumulated in
+// registers: scores from two shared-memory operands, then P (or dS)
+// converted to bf16 in registers and fed back as the A operand of the
+// second product (the m64nN accumulator layout is the A fragment layout),
+// against a tile read transposed. The online softmax runs on the
+// accumulator registers (a row lives in the four lanes of a quad: two
+// shuffles per reduction), and the mask is applied only on the diagonal
+// and ragged tiles. The forward's output and the gradients go out through
+// the block's own (by then free) shared rows with 16-byte stores. Causal
+// blocks run longest first (the forward and dq kernels walk query tiles in
+// reverse). Two backward kernels and no atomics, as on the TPU: the
+// gradient is deterministic. setmaxnreg moves registers from the producer
+// (24 a thread) to the consumers (240): at d 128 the forward holds O and S
+// (64 each), the dk/dv kernel dK and dV (64 each) beside S^T and dP^T (32
+// each).
+//
+// Other head dims (multiples of 16 up to 128) take the first, WMMA body
+// (flash_attention_wmma.cuh); the C entries choose by head dim alone.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from cudart
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "flash_attention_wmma.cuh"
 
-namespace {
-
-constexpr int kB = 64;        // rows of a tile: queries or keys
-constexpr int kThreads = 128;  // 4 warps x 16 rows
-constexpr float kSentinel = 1e30f;
-
-struct Shape {
-  int b, sq, skv, h, hkv, causal;
-  float scale;
-};
+namespace flash {
+namespace hopper {
 
 using bf16 = __nv_bfloat16;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBRow =
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol =
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// Shared-memory pitches: bf16 tiles of D columns, bf16 64-column
-// probability tiles, f32 staging wide enough for 64 scores or D outputs.
-template <int D>
-struct Pitch {
-  static constexpr int h = D + 8;
-  static constexpr int p = kB + 8;
-  static constexpr int f = (D > kB ? D : kB) + 4;
-  static constexpr int s = kB + 4;
-  static constexpr size_t tile = (size_t)kB * h * 2;
-  static constexpr size_t ptile = (size_t)kB * p * 2;
-  static constexpr size_t ftile = (size_t)kB * f * 4;
-  static constexpr size_t stile = (size_t)kB * s * 4;
-};
+constexpr int kWarpgroups = 2;                  // consumers, 64 rows each
+constexpr int kRows = 64 * kWarpgroups;         // rows a block owns
+constexpr int kProducerWarp = 4 * kWarpgroups;  // first warp of the producer
+constexpr int kThreads = 128 * (kWarpgroups + 1);
+constexpr int kTile = 64;  // rows of a streamed tile (keys; queries in dk/dv)
+// Registers a thread after setmaxnreg: 168 at launch (65,536 over 384
+// threads); the producer warpgroup gives back what the consumers take.
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+static_assert(kWarpgroups * kConsumerRegs + kProducerRegs ==
+                  (kWarpgroups + 1) * 168,
+              "the register budget of a block of 384 threads");
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Rows [row0, row0 + 64) of one head of a BSHD tensor (rows `stride`
-// elements apart) into a padded tile; rows at or past `valid` are zero.
-template <int D>
-__device__ inline void load_tile(bf16* dst, const bf16* src, size_t stride,
-                                 int row0, int valid) {
-  constexpr int kVec = D / 8;
-  for (int i = threadIdx.x; i < kB * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < valid)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * stride
-                                            + c);
-    *reinterpret_cast<uint4*>(dst + r * Pitch<D>::h + c) = val;
-  }
+// ---------------------------------------------------------------------------
+// PTX: shared addresses, mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ inline uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// out(16 x 64, f32, pitch ldo) = A_w(16 x D) . B^T for B a 64 x D tile:
-// this warp's rows of a tile times the transpose of another tile.
-template <int D>
-__device__ inline void rows_times_tile_t(float* out, int ldo, const bf16* a,
-                                         const bf16* b) {
-#pragma unroll
-  for (int n = 0; n < kB / 16; ++n) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      FragA fa;
-      FragBCol fb;
-      wmma::load_matrix_sync(fa, a + kk, Pitch<D>::h);
-      wmma::load_matrix_sync(fb, b + n * 16 * Pitch<D>::h + kk, Pitch<D>::h);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + n * 16, acc, ldo, wmma::mem_row_major);
-  }
+__device__ inline void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-// acc[n] += P_w(16 x 64, bf16, pitch Pitch::p) . T(64 x D tile), n over
-// the D / 16 column blocks.
-template <int D>
-__device__ inline void accumulate(FragC* acc, const bf16* p, const bf16* t) {
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-    for (int kk = 0; kk < kB; kk += 16) {
-      FragA fa;
-      FragBRow fb;
-      wmma::load_matrix_sync(fa, p + kk, Pitch<D>::p);
-      wmma::load_matrix_sync(fb, t + kk * Pitch<D>::h + n * 16, Pitch<D>::h);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
+__device__ inline void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
 }
 
-// Store scale * acc (this warp's 16 x D rows) as bf16 rows of a BSHD head:
-// staged through `stage` (f32, pitch Pitch::f); rows at or past `valid`
-// are not written. Two lanes per row, each half of the columns.
-template <int D>
-__device__ inline void store_rows(FragC* acc, float scale, float* stage,
-                                  bf16* dst, size_t stride, int row0,
-                                  int valid) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-    for (int i = 0; i < acc[n].num_elements; ++i) acc[n].x[i] *= scale;
-    wmma::store_matrix_sync(stage + warp * 16 * Pitch<D>::f + n * 16, acc[n],
-                            Pitch<D>::f, wmma::mem_row_major);
-  }
-  __syncwarp();
-  const int row = warp * 16 + (lane >> 1), d0 = (lane & 1) * (D / 2);
-  if (row0 + row < valid) {
-    bf16* out = dst + (size_t)(row0 + row) * stride;
-    for (int c = d0; c < d0 + D / 2; ++c)
-      out[c] = __float2bfloat16(stage[row * Pitch<D>::f + c]);
-  }
-  __syncwarp();
+__device__ inline void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
 }
 
-__device__ inline bool visible(const Shape& sh, int qi, int kj) {
-  return kj < sh.skv && (!sh.causal || kj <= qi + sh.skv - sh.sq);
+// Wait for the completion of the barrier's phase of this parity.
+__device__ inline void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-// Key tiles a query tile starting at q0 reads: all, or (causal) up to the
-// key its last real row sees.
-__device__ inline int key_tiles(const Shape& sh, int q0) {
-  int n = (sh.skv + kB - 1) / kB;
-  if (sh.causal) {
-    const int last = min(q0 + kB, sh.sq) - 1 + sh.skv - sh.sq;
-    n = min(n, last / kB + 1);
-  }
+// One box of a 4-D tensor map into shared memory at `dst`; completion
+// (its bytes) is reported to `bar`.
+__device__ inline void tma_load(uint32_t dst, const CUtensorMap* map,
+                                uint32_t bar, int c0, int c1, int c2,
+                                int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+template <int N>
+__device__ inline void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ inline void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// 4 bytes from global to shared memory, asynchronously; zeros when
+// `valid` is false (src is then not read).
+__device__ inline void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+// Arrive on `bar` once this thread's earlier cp.async copies have landed.
+__device__ inline void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// A barrier of one consumer warpgroup's 128 threads (id 0 is
+// __syncthreads').
+__device__ inline void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(wg + 1) : "memory");
+}
+
+__device__ inline void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ inline void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ inline void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Pin registers an asynchronous wgmma reads or writes at this point of the
+// program, so that the compiler neither reads an accumulator before the
+// wait nor reuses an A fragment's registers while the product runs.
+template <int R>
+__device__ inline void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ inline void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units).
+__device__ inline uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                     uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// A tile of `rows` rows x D bf16 columns lies in shared memory as D / 64
+// chunks of rows x 128 bytes, 1024-byte aligned, swizzled as TMA's
+// 128-byte mode writes it: the 16-byte unit u of row r at unit u ^ (r % 8).
+// As a K-major operand (rows are M or N, columns K): k-step kk reads
+// columns 16kk..16kk+15, 32 bytes into the chunk's swizzle rows; 8-row
+// groups 1024 bytes apart.
+__device__ inline uint64_t desc_k(uint32_t tile, int rows, int kk) {
+  return make_desc(tile + (kk / 4) * rows * 128 + (kk % 4) * 32, 16, 1024);
+}
+// As an MN-major operand (rows are K, columns N; the transpose bit): k-step
+// kk reads rows 16kk..16kk+15; N chunks of 64 columns `rows` x 128 bytes
+// apart.
+__device__ inline uint64_t desc_mn(uint32_t tile, int rows, int kk) {
+  return make_desc(tile + kk * 2048, rows * 128, 1024);
+}
+
+// Byte offset of element (row, col) in such a tile.
+__device__ inline uint32_t swizzled(int row, int col, int rows) {
+  return (col / 64) * rows * 128 + row * 128 +
+         ((((col % 64) / 8) ^ (row % 8)) * 16) + (col % 8) * 2;
+}
+
+__device__ inline float ex2(float x) {  // 2^x; 0 at -inf
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ inline uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The m64nNk16 f32 accumulator of a warpgroup: register i of lane `lane`
+// in warp w holds row 16w + lane / 4 + 8 * ((i / 2) % 2), column
+// 8 * (i / 4) + 2 * (lane % 4) + i % 2. Converted pairwise to bf16, the
+// registers of columns 16kk..16kk+15 are the A fragment of k-step kk.
+__device__ inline int acc_col(int i, int lane) {
+  return (i / 4) * 8 + (lane % 4) * 2 + (i % 2);
+}
+
+template <int R>
+__device__ inline void to_a_fragments(const float (&acc)[R],
+                                      uint32_t (&a)[R / 2]) {
+#pragma unroll
+  for (int i = 0; i < R / 2; ++i) a[i] = pack_bf16(acc[2 * i], acc[2 * i + 1]);
+}
+
+// wgmma m64nNk16, bf16 in, f32 accumulate: A and B from shared memory
+// (both K-major), or A from registers and B MN-major (transposed).
+__device__ inline void mma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ inline void mma_rs_n64(float (&d)[32], const uint32_t* a,
+                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ inline void mma_rs_n128(float (&d)[64], const uint32_t* a,
+                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// The second product by accumulator width: a head dim of 64 or 128.
+__device__ inline void mma_rs(float (&d)[32], const uint32_t* a,
+                              uint64_t db) {
+  mma_rs_n64(d, a, db);
+}
+__device__ inline void mma_rs(float (&d)[64], const uint32_t* a,
+                              uint64_t db) {
+  mma_rs_n128(d, a, db);
+}
+
+// ---------------------------------------------------------------------------
+// Shared pieces of the three kernels
+// ---------------------------------------------------------------------------
+
+// Key tiles that query rows up to `last` read: all, or (causal) up to the
+// last key row `last` sees.
+__device__ inline int key_tiles(const Shape& sh, int last) {
+  int n = (sh.skv + kTile - 1) / kTile;
+  if (sh.causal) n = min(n, (last + sh.skv - sh.sq) / kTile + 1);
   return n;
 }
 
+// The dynamic shared memory, 1024-byte aligned (the swizzle's period); the
+// launch asks for 1 KB more than the layout's size.
+__device__ inline unsigned char* aligned_smem() {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t a = smem_addr(smem_raw);
+  return smem_raw + (((a + 1023) & ~1023u) - a);
+}
+
+__device__ inline void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// scale * acc (a warpgroup's 64 x D accumulator; rows of the second half
+// scaled by sb) into a swizzled 64-row tile as bf16.
+template <int D>
+__device__ inline void stage_rows(unsigned char* tile,
+                                  const float (&acc)[D / 2], float sa,
+                                  float sb) {
+  const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = 16 * w + lane / 4 + ((i & 2) ? 8 : 0);
+    const float s = (i & 2) ? sb : sa;
+    *reinterpret_cast<uint32_t*>(tile + swizzled(row, acc_col(i, lane), 64)) =
+        pack_bf16(acc[i] * s, acc[i + 1] * s);
+  }
+}
+
+// A swizzled 64-row tile out to rows row0.. of one head of a BSHD tensor
+// (rows `stride` elements apart), 16 bytes a thread; rows at or past
+// `valid` are not written. `tid`: the thread's index in its warpgroup.
+template <int D>
+__device__ inline void copy_out(const unsigned char* tile, bf16* dst,
+                                size_t stride, int row0, int valid, int tid) {
+  for (int i = tid; i < 64 * D / 8; i += 128) {
+    const int row = i / (D / 8), col = (i % (D / 8)) * 8;
+    if (row0 + row < valid)
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + row) * stride + col) =
+          *reinterpret_cast<const uint4*>(tile + swizzled(row, col, 64));
+  }
+}
+
+// The quad (four lanes) holding a row: max and sum over it.
+__device__ inline float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ inline float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // ---------------------------------------------------------------------------
-// Kernel 7: forward
+// Kernel 7: forward. Block: 128 query rows of one head; ring: K and V tiles
+// of 64 keys.
 // ---------------------------------------------------------------------------
 
-template <int D>
-struct FwdSmem {
-  using P = Pitch<D>;
-  static constexpr int ldo = D + 4;
-  static constexpr size_t q = 0, k = q + P::tile, v = k + P::tile,
-                          p = v + P::tile, f = p + P::ptile,
-                          o = f + P::ftile,
-                          bytes = o + (size_t)kB * ldo * 4;
+// The running max (log2 units) and this lane's partial sums of a lane's two
+// rows (a: 16w + lane / 4, b: 8 below).
+struct RowStats {
+  float m_a, m_b, l_a, l_b;
 };
 
+// Online softmax of one tile of raw scores (a warpgroup's 64 x kTile
+// accumulator; keys from k0; masked only on an edge tile) into P as bf16 A
+// fragments. Updates the row statistics and returns in al_a, al_b the
+// factor that moves O from the old max to the new one. Key 0 is seen by
+// every row (sq <= skv under the causal mask) and tile 0 comes first, so m
+// is finite from the first tile on.
+__device__ __forceinline__ void softmax_tile(float (&sc)[kTile / 2],
+                                             uint32_t (&pa)[kTile / 4],
+                                             RowStats& st, float& al_a,
+                                             float& al_b, const Shape& sh,
+                                             int k0, int ra, int rb,
+                                             bool edge, float sl) {
+  const int lane = threadIdx.x % 32, off = sh.skv - sh.sq;
+  float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kTile / 2; ++i) {
+    if (edge) {
+      const int kj = k0 + acc_col(i, lane);
+      const int qi = (i & 2) ? rb : ra;
+      if (kj >= sh.skv || (sh.causal && kj > qi + off)) sc[i] = -INFINITY;
+    }
+    if (i & 2)
+      mx_b = fmaxf(mx_b, sc[i]);
+    else
+      mx_a = fmaxf(mx_a, sc[i]);
+  }
+  const float mn_a = fmaxf(st.m_a, quad_max(mx_a) * sl);
+  const float mn_b = fmaxf(st.m_b, quad_max(mx_b) * sl);
+  al_a = ex2(st.m_a - mn_a);
+  al_b = ex2(st.m_b - mn_b);
+  st.m_a = mn_a;
+  st.m_b = mn_b;
+  float su_a = 0.f, su_b = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTile / 2; ++i) {
+    const float p = ex2(fmaf(sc[i], sl, (i & 2) ? -mn_b : -mn_a));
+    sc[i] = p;
+    if (i & 2)
+      su_b += p;
+    else
+      su_a += p;
+  }
+  st.l_a = st.l_a * al_a + su_a;  // this lane's columns; summed at the end
+  st.l_b = st.l_b * al_b + su_b;
+  to_a_fragments(sc, pa);
+}
+
+// S = A B^T over the head dim, committed as one group: A the warpgroup's
+// 64 rows at `at`, B a streamed tile at `bt` (both K-major).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, Shape sh) {
-  using P = Pitch<D>;
-  using L = FwdSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L::p);
-  float* fs = reinterpret_cast<float*>(smem + L::f);
-  float* os = reinterpret_cast<float*>(smem + L::o);
+__device__ __forceinline__ void issue_scores(float (&sc)[kTile / 2],
+                                             uint32_t at, uint32_t bt) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    mma_ss(sc, desc_k(at, 64, kk), desc_k(bt, kTile, kk), kk > 0);
+  wgmma_commit();
+}
 
-  const int bi = blockIdx.y / sh.h, hi = blockIdx.y % sh.h;
+template <int D, int STAGES>
+struct FwdLayout {
+  static constexpr uint32_t half = 64 * D * 2;  // one warpgroup's rows
+  static constexpr uint32_t kv = kTile * D * 2;  // one K or V tile
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t ring = q + kWarpgroups * half;  // K, V a stage
+  static constexpr uint32_t bars = ring + STAGES * 2 * kv;  // full, empty, q
+  static constexpr uint32_t bytes = bars + 8 * (2 * STAGES + 1);
+};
+
+template <int D, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+           const __grid_constant__ CUtensorMap kmap,
+           const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,
+           float* __restrict__ lse, Shape sh) {
+  using L = FwdLayout<D, STAGES>;
+  unsigned char* smem = aligned_smem();
+  const uint32_t base = smem_addr(smem);
+  const uint32_t full = base + L::bars, empty = full + 8 * STAGES,
+                 qbar = empty + 8 * STAGES;
+  const int bi = blockIdx.x / sh.h, hi = blockIdx.x % sh.h;
   const int kvh = hi / (sh.h / sh.hkv);
-  const size_t qstride = (size_t)sh.h * D, kstride = (size_t)sh.hkv * D;
-  const size_t qhead = (size_t)bi * sh.sq * qstride + (size_t)hi * D;
-  const size_t khead = (size_t)bi * sh.skv * kstride + (size_t)kvh * D;
-  const int q0 = blockIdx.x * kB;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = key_tiles(sh, min(q0 + kRows, sh.sq) - 1);
 
-  load_tile<D>(qs, q + qhead, qstride, q0, sh.sq);
-  for (int i = threadIdx.x; i < kB * L::ldo; i += kThreads) os[i] = 0.f;
-
-  // Softmax ownership: two lanes per row, each half of the columns.
-  const int row = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const int qi = q0 + row;
-  float m = -INFINITY, l = 0.f;
-
-  const int num_kb = key_tiles(sh, q0);
-  for (int kb = 0; kb < num_kb; ++kb) {
-    __syncthreads();  // the previous tile's K/V fully consumed
-    load_tile<D>(ks, k + khead, kstride, kb * kB, sh.skv);
-    load_tile<D>(vs, v + khead, kstride, kb * kB, sh.skv);
-    __syncthreads();
-
-    rows_times_tile_t<D>(fs + warp * 16 * P::f, P::f,
-                         qs + warp * 16 * P::h, ks);
-    __syncwarp();
-
-    // Online softmax over this lane's half row, f32. Key 0 is seen by
-    // every row (sq <= skv under the causal mask), so m is finite from
-    // the first tile on. P is rounded to bf16 for the second product.
-    float* srow = fs + row * P::f;
-    const int c0 = half * (kB / 2);
-    float mx = -INFINITY;
-    for (int c = c0; c < c0 + kB / 2; ++c) {
-      const float x = visible(sh, qi, kb * kB + c) ? srow[c] * sh.scale
-                                                    : -INFINITY;
-      srow[c] = x;
-      mx = fmaxf(mx, x);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kWarpgroups);  // lane 0 of each warp
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = __expf(m - m_new);
-    float sum = 0.f;
-    for (int c = c0; c < c0 + kB / 2; ++c) {
-      const float pv = __expf(srow[c] - m_new);
-      ps[row * P::p + c] = __float2bfloat16(pv);
-      sum += pv;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l = alpha * l + sum;
-    m = m_new;
-    __syncwarp();
+    mbar_init(qbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    // PV(16 x D) = P_w V, staged in the (now free) score rows.
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kB; kk += 16) {
-        FragA fa;
-        FragBRow fb;
-        wmma::load_matrix_sync(fa, ps + warp * 16 * P::p + kk, P::p);
-        wmma::load_matrix_sync(fb, vs + kk * P::h + n * 16, P::h);
-        wmma::mma_sync(acc, fa, fb, acc);
+  if (warp >= kProducerWarp) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kProducerWarp && lane == 0) {
+      mbar_expect_tx(qbar, kRows * D * 2);
+      for (int g = 0; g < kWarpgroups; ++g)
+        for (int c = 0; c < D / 64; ++c)
+          tma_load(base + L::q + g * L::half + c * 64 * 128, &qmap, qbar,
+                   c * 64, hi, q0 + 64 * g, bi);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty + 8 * s, ((t / STAGES) & 1) ^ 1);
+        const uint32_t kt = base + L::ring + s * 2 * L::kv, vt = kt + L::kv;
+        mbar_expect_tx(full + 8 * s, 2 * L::kv);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(kt + c * kTile * 128, &kmap, full + 8 * s, c * 64, kvh,
+                   t * kTile, bi);
+          tma_load(vt + c * kTile * 128, &vmap, full + 8 * s, c * 64, kvh,
+                   t * kTile, bi);
+        }
       }
-      wmma::store_matrix_sync(fs + warp * 16 * P::f + n * 16, acc, P::f,
-                              wmma::mem_row_major);
     }
-    __syncwarp();
-    const int d0 = half * (D / 2);
-    for (int c = d0; c < d0 + D / 2; ++c)
-      os[row * L::ldo + c] = alpha * os[row * L::ldo + c] + srow[c];
-    __syncwarp();
+    return;
   }
 
-  if (qi < sh.sq) {
-    const float lc = fmaxf(l, 1e-30f);
-    const float inv = 1.f / lc;
-    bf16* orow = o + qhead + (size_t)qi * qstride;
-    const int d0 = half * (D / 2);
-    for (int c = d0; c < d0 + D / 2; ++c)
-      orow[c] = __float2bfloat16(os[row * L::ldo + c] * inv);
-    if (half == 0) {
-      const float x = m + logf(lc);
-      lse[(size_t)blockIdx.y * sh.sq + qi] = isfinite(x) ? x : kSentinel;
-    }
-  }
-}
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp / 4, w = warp % 4;
+  const int r0 = q0 + 64 * wg;  // this warpgroup's first row
+  const int ra = r0 + 16 * w + lane / 4, rb = ra + 8;
+  const int off = sh.skv - sh.sq;
+  const int n_own =
+      r0 < sh.sq ? key_tiles(sh, min(r0 + 64, sh.sq) - 1) : 0;
+  const float sl = sh.scale * kLog2e;  // scores in log2 units
+  const uint32_t qt = base + L::q + wg * L::half;
 
-// ---------------------------------------------------------------------------
-// Kernel 8: backward, dq (one block per 64 query rows of a head, a loop
-// over key tiles)
-// ---------------------------------------------------------------------------
+  const auto kv_tile = [&](int t) {
+    return base + L::ring + (t % STAGES) * 2 * L::kv;  // K; V follows
+  };
+  const auto edge = [&](int k0) {
+    return (sh.causal && k0 + kTile - 1 > r0 + off) || k0 + kTile > sh.skv;
+  };
 
-template <int D>
-struct DqSmem {
-  using P = Pitch<D>;
-  static constexpr size_t q = 0, dout = q + P::tile, k = dout + P::tile,
-                          v = k + P::tile, ds = v + P::tile,
-                          f = ds + P::ptile, dp = f + P::ftile,
-                          bytes = dp + P::stile;
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    Shape sh) {
-  using P = Pitch<D>;
-  using L = DqSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* dos = reinterpret_cast<bf16*>(smem + L::dout);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* dss = reinterpret_cast<bf16*>(smem + L::ds);
-  float* fs = reinterpret_cast<float*>(smem + L::f);
-  float* dps = reinterpret_cast<float*>(smem + L::dp);
-
-  const int bi = blockIdx.y / sh.h, hi = blockIdx.y % sh.h;
-  const int kvh = hi / (sh.h / sh.hkv);
-  const size_t qstride = (size_t)sh.h * D, kstride = (size_t)sh.hkv * D;
-  const size_t qhead = (size_t)bi * sh.sq * qstride + (size_t)hi * D;
-  const size_t khead = (size_t)bi * sh.skv * kstride + (size_t)kvh * D;
-  const int q0 = blockIdx.x * kB;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  load_tile<D>(qs, q + qhead, qstride, q0, sh.sq);
-  load_tile<D>(dos, dout + qhead, qstride, q0, sh.sq);
-
-  const int row = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const int qi = q0 + row;
-  const size_t stat = (size_t)blockIdx.y * sh.sq + qi;
-  const float lse_r = qi < sh.sq ? lse[stat] : 0.f;
-  const float delta_r = qi < sh.sq ? delta[stat] : 0.f;
-
-  FragC acc[D / 16];
+  float acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  RowStats st{-INFINITY, -INFINITY, 0.f, 0.f};
 
-  const int num_kb = key_tiles(sh, q0);
-  for (int kb = 0; kb < num_kb; ++kb) {
-    __syncthreads();
-    load_tile<D>(ks, k + khead, kstride, kb * kB, sh.skv);
-    load_tile<D>(vs, v + khead, kstride, kb * kB, sh.skv);
-    __syncthreads();
-
-    rows_times_tile_t<D>(fs + warp * 16 * P::f, P::f,
-                         qs + warp * 16 * P::h, ks);
-    rows_times_tile_t<D>(dps + warp * 16 * P::s, P::s,
-                         dos + warp * 16 * P::h, vs);
+  mbar_wait(qbar, 0);
+  int t = 0;
+  for (; t < n_own; ++t) {
+    const uint32_t kt = kv_tile(t);
+    mbar_wait(full + 8 * (t % STAGES), (t / STAGES) & 1);
+    float sc[kTile / 2];
+    wgmma_fence();
+    issue_scores<D>(sc, qt, kt);  // S = Q K^T
+    wgmma_wait();
+    fence_regs(sc);
+    uint32_t pa[kTile / 4];
+    float al_a, al_b;
+    softmax_tile(sc, pa, st, al_a, al_b, sh, t * kTile, ra, rb,
+                 edge(t * kTile), sl);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? al_b : al_a;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)  // O += P V
+      mma_rs(acc, pa + 4 * kk, desc_mn(kt + L::kv, kTile, kk));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+    fence_regs(pa);
     __syncwarp();
-
-    // dS = P (dP - D), P recomputed from the saved logsumexp.
-    const int c0 = half * (kB / 2);
-    for (int c = c0; c < c0 + kB / 2; ++c) {
-      const float pv = visible(sh, qi, kb * kB + c)
-                           ? __expf(fs[row * P::f + c] * sh.scale - lse_r)
-                           : 0.f;
-      dss[row * P::p + c] =
-          __float2bfloat16(pv * (dps[row * P::s + c] - delta_r));
-    }
-    __syncwarp();
-    accumulate<D>(acc, dss + warp * 16 * P::p, ks);  // dq += dS K
+    if (lane == 0) mbar_arrive(empty + 8 * (t % STAGES));
   }
-  store_rows<D>(acc, sh.scale, fs, dq + qhead, qstride, q0, sh.sq);
+  for (; t < n_tiles; ++t) {  // tiles past this warpgroup's last key
+    mbar_wait(full + 8 * (t % STAGES), (t / STAGES) & 1);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (t % STAGES));
+  }
+
+  if (r0 >= sh.sq) return;  // the whole warpgroup: rows past the end
+  const float l_a = fmaxf(quad_sum(st.l_a), 1e-30f);
+  const float l_b = fmaxf(quad_sum(st.l_b), 1e-30f);
+  unsigned char* tile = smem + L::q + wg * L::half;  // its Q rows, now free
+  stage_rows<D>(tile, acc, 1.f / l_a, 1.f / l_b);
+  warpgroup_sync(wg);
+  const size_t stride = (size_t)sh.h * D;
+  copy_out<D>(tile, o + (size_t)bi * sh.sq * stride + (size_t)hi * D, stride,
+              r0, sh.sq, threadIdx.x % 128);
+  if (lane % 4 == 0) {
+    float* row_lse = lse + ((size_t)bi * sh.h + hi) * sh.sq;
+    const float xa = (st.m_a + log2f(l_a)) / kLog2e;
+    const float xb = (st.m_b + log2f(l_b)) / kLog2e;
+    if (ra < sh.sq) row_lse[ra] = isfinite(xa) ? xa : kSentinel;
+    if (rb < sh.sq) row_lse[rb] = isfinite(xb) ? xb : kSentinel;
+  }
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 8: backward, dk and dv (one block per 64 keys of a kv head, a loop
-// over the group's query heads and the query tiles that see those keys)
+// Kernel 8: backward, dq. Block: 128 query rows of one head (Q and dO
+// resident); ring: K and V tiles of kTile keys.
 // ---------------------------------------------------------------------------
 
-template <int D>
-struct DkvSmem {
-  using P = Pitch<D>;
-  static constexpr size_t k = 0, v = k + P::tile, q = v + P::tile,
-                          dout = q + P::tile, pt = dout + P::tile,
-                          dst = pt + P::ptile, f = dst + P::ptile,
-                          dp = f + P::ftile, lse = dp + P::stile,
-                          delta = lse + kB * 4, bytes = delta + kB * 4;
+// lse (log2 units) and D of a lane's two rows.
+struct RowGrad {
+  float lse_a, lse_b, dl_a, dl_b;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, Shape sh) {
-  using P = Pitch<D>;
-  using L = DkvSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* dos = reinterpret_cast<bf16*>(smem + L::dout);
-  bf16* pts = reinterpret_cast<bf16*>(smem + L::pt);
-  bf16* dsts = reinterpret_cast<bf16*>(smem + L::dst);
-  float* fs = reinterpret_cast<float*>(smem + L::f);
-  float* dps = reinterpret_cast<float*>(smem + L::dp);
-  float* lses = reinterpret_cast<float*>(smem + L::lse);
-  float* deltas = reinterpret_cast<float*>(smem + L::delta);
+// dS = P (dP - D) of one tile (keys from k0) from its S and dP
+// accumulators, P recomputed from the saved logsumexp and masked only on
+// an edge tile, as bf16 A fragments.
+__device__ __forceinline__ void grad_scores(float (&sc)[kTile / 2],
+                                            const float (&dp)[kTile / 2],
+                                            uint32_t (&ds)[kTile / 4],
+                                            const RowGrad& rows,
+                                            const Shape& sh, int k0, int ra,
+                                            int rb, bool edge, float sl) {
+  const int lane = threadIdx.x % 32, off = sh.skv - sh.sq;
+#pragma unroll
+  for (int i = 0; i < kTile / 2; ++i) {
+    float p = ex2(fmaf(sc[i], sl, (i & 2) ? -rows.lse_b : -rows.lse_a));
+    if (edge) {
+      const int kj = k0 + acc_col(i, lane);
+      const int qi = (i & 2) ? rb : ra;
+      if (kj >= sh.skv || (sh.causal && kj > qi + off)) p = 0.f;
+    }
+    sc[i] = p * (dp[i] - ((i & 2) ? rows.dl_b : rows.dl_a));
+  }
+  to_a_fragments(sc, ds);
+}
 
+template <int D, int STAGES>
+struct DqLayout {
+  static constexpr uint32_t half = 64 * D * 2;
+  static constexpr uint32_t kv = kTile * D * 2;
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t dout = q + kWarpgroups * half;
+  static constexpr uint32_t ring = dout + kWarpgroups * half;
+  static constexpr uint32_t bars = ring + STAGES * 2 * kv;
+  static constexpr uint32_t bytes = bars + 8 * (2 * STAGES + 1);
+};
+
+template <int D, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap qmap,
+          const __grid_constant__ CUtensorMap dmap,
+          const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          bf16* __restrict__ dq, Shape sh) {
+  using L = DqLayout<D, STAGES>;
+  unsigned char* smem = aligned_smem();
+  const uint32_t base = smem_addr(smem);
+  const uint32_t full = base + L::bars, empty = full + 8 * STAGES,
+                 qbar = empty + 8 * STAGES;
+  const int bi = blockIdx.x / sh.h, hi = blockIdx.x % sh.h;
+  const int kvh = hi / (sh.h / sh.hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = key_tiles(sh, min(q0 + kRows, sh.sq) - 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kWarpgroups);
+    }
+    mbar_init(qbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= kProducerWarp) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kProducerWarp && lane == 0) {
+      mbar_expect_tx(qbar, 2 * kRows * D * 2);
+      for (int g = 0; g < kWarpgroups; ++g)
+        for (int c = 0; c < D / 64; ++c) {
+          const uint32_t at = g * L::half + c * 64 * 128;
+          tma_load(base + L::q + at, &qmap, qbar, c * 64, hi, q0 + 64 * g,
+                   bi);
+          tma_load(base + L::dout + at, &dmap, qbar, c * 64, hi,
+                   q0 + 64 * g, bi);
+        }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty + 8 * s, ((t / STAGES) & 1) ^ 1);
+        const uint32_t kt = base + L::ring + s * 2 * L::kv, vt = kt + L::kv;
+        mbar_expect_tx(full + 8 * s, 2 * L::kv);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(kt + c * kTile * 128, &kmap, full + 8 * s, c * 64, kvh,
+                   t * kTile, bi);
+          tma_load(vt + c * kTile * 128, &vmap, full + 8 * s, c * 64, kvh,
+                   t * kTile, bi);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp / 4, w = warp % 4;
+  const int r0 = q0 + 64 * wg;
+  const int ra = r0 + 16 * w + lane / 4, rb = ra + 8;
+  const int off = sh.skv - sh.sq;
+  const int n_own =
+      r0 < sh.sq ? key_tiles(sh, min(r0 + 64, sh.sq) - 1) : 0;
+  const float sl = sh.scale * kLog2e;
+  const uint32_t qt = base + L::q + wg * L::half;
+  const uint32_t dt = base + L::dout + wg * L::half;
+  const size_t stat = ((size_t)bi * sh.h + hi) * sh.sq;
+  const RowGrad rows{ra < sh.sq ? lse[stat + ra] * kLog2e : 0.f,
+                     rb < sh.sq ? lse[stat + rb] * kLog2e : 0.f,
+                     ra < sh.sq ? delta[stat + ra] : 0.f,
+                     rb < sh.sq ? delta[stat + rb] : 0.f};
+
+  const auto kv_tile = [&](int t) {
+    return base + L::ring + (t % STAGES) * 2 * L::kv;  // K; V follows
+  };
+  const auto edge = [&](int k0) {
+    return (sh.causal && k0 + kTile - 1 > r0 + off) || k0 + kTile > sh.skv;
+  };
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  int t = 0;
+  for (; t < n_own; ++t) {
+    const uint32_t kt = kv_tile(t);
+    mbar_wait(full + 8 * (t % STAGES), (t / STAGES) & 1);
+    float sc[kTile / 2], dp[kTile / 2];
+    wgmma_fence();
+    issue_scores<D>(sc, qt, kt);          // S = Q K^T
+    issue_scores<D>(dp, dt, kt + L::kv);  // dP = dO V^T
+    wgmma_wait();
+    fence_regs(sc);
+    fence_regs(dp);
+    uint32_t da[kTile / 4];
+    grad_scores(sc, dp, da, rows, sh, t * kTile, ra, rb, edge(t * kTile),
+                sl);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)  // dq += dS K
+      mma_rs(acc, da + 4 * kk, desc_mn(kt, kTile, kk));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+    fence_regs(da);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (t % STAGES));
+  }
+  for (; t < n_tiles; ++t) {  // tiles past this warpgroup's last key
+    mbar_wait(full + 8 * (t % STAGES), (t / STAGES) & 1);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (t % STAGES));
+  }
+
+  if (r0 >= sh.sq) return;
+  unsigned char* tile = smem + L::q + wg * L::half;
+  stage_rows<D>(tile, acc, sh.scale, sh.scale);
+  warpgroup_sync(wg);
+  const size_t stride = (size_t)sh.h * D;
+  copy_out<D>(tile, dq + (size_t)bi * sh.sq * stride + (size_t)hi * D,
+              stride, r0, sh.sq, threadIdx.x % 128);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 8: backward, dk and dv. Block: 128 keys of one kv head (K and V
+// resident); ring: Q and dO tiles of kTile rows with their lse and D, over
+// the group's query heads and the query tiles that see those keys. In the
+// transposed frame, keys are M: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO,
+// dK += dS^T Q.
+// ---------------------------------------------------------------------------
+
+template <int D, int STAGES>
+struct DkvLayout {
+  static constexpr uint32_t half = 64 * D * 2;
+  static constexpr uint32_t qd = kTile * D * 2;  // one Q or dO tile
+  static constexpr uint32_t k = 0;
+  static constexpr uint32_t v = k + kWarpgroups * half;
+  static constexpr uint32_t ring = v + kWarpgroups * half;  // Q, dO a stage
+  static constexpr uint32_t stats = ring + STAGES * 2 * qd;  // lse, D a stage
+  static constexpr uint32_t bars = stats + STAGES * 2 * kTile * 4;
+  static constexpr uint32_t bytes = bars + 8 * (2 * STAGES + 1);
+};
+
+template <int D, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1)
+dkv_kernel(const __grid_constant__ CUtensorMap kmap,
+           const __grid_constant__ CUtensorMap vmap,
+           const __grid_constant__ CUtensorMap qmap,
+           const __grid_constant__ CUtensorMap dmap,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           bf16* __restrict__ dk, bf16* __restrict__ dv, Shape sh) {
+  using L = DkvLayout<D, STAGES>;
+  unsigned char* smem = aligned_smem();
+  const uint32_t base = smem_addr(smem);
+  const uint32_t full = base + L::bars, empty = full + 8 * STAGES,
+                 kvbar = empty + 8 * STAGES;
   const int group = sh.h / sh.hkv;
-  const int bi = blockIdx.y / sh.hkv, kvh = blockIdx.y % sh.hkv;
-  const size_t qstride = (size_t)sh.h * D, kstride = (size_t)sh.hkv * D;
-  const size_t khead = (size_t)bi * sh.skv * kstride + (size_t)kvh * D;
-  const int k0 = blockIdx.x * kB;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bi = blockIdx.x / sh.hkv, kvh = blockIdx.x % sh.hkv;
+  const int k0 = blockIdx.y * kRows;  // causal: the first keys do the most
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int off = sh.skv - sh.sq;
+  const int num_qb = (sh.sq + kTile - 1) / kTile;
+  // the first query row that sees key k0: i >= k0 - (skv - sq)
+  const int start_qb = sh.causal ? max(k0 - off, 0) / kTile : 0;
 
-  load_tile<D>(ks, k + khead, kstride, k0, sh.skv);
-  load_tile<D>(vs, v + khead, kstride, k0, sh.skv);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // lane 0's expect_tx, and each producer lane once its lse and D
+      // copies have landed
+      mbar_init(full + 8 * s, 1 + 32);
+      mbar_init(empty + 8 * s, 4 * kWarpgroups);
+    }
+    mbar_init(kvbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  // This lane's key row of S^T, and half of the 64 query columns.
-  const int row = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const int kj = k0 + row;
-
-  FragC dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
+  if (warp >= kProducerWarp) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != kProducerWarp) return;
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * kRows * D * 2);
+      for (int g = 0; g < kWarpgroups; ++g)
+        for (int c = 0; c < D / 64; ++c) {
+          const uint32_t at = g * L::half + c * 64 * 128;
+          tma_load(base + L::k + at, &kmap, kvbar, c * 64, kvh, k0 + 64 * g,
+                   bi);
+          tma_load(base + L::v + at, &vmap, kvbar, c * 64, kvh, k0 + 64 * g,
+                   bi);
+        }
+    }
+    int t = 0;
+    for (int g = 0; g < group; ++g) {
+      const int hi = kvh * group + g;
+      const size_t stat = ((size_t)bi * sh.h + hi) * sh.sq;
+      for (int qb = start_qb; qb < num_qb; ++qb, ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty + 8 * s, ((t / STAGES) & 1) ^ 1);
+        // lse and D of the tile's rows (zeros past sq), kTile floats each
+        const uint32_t ls = base + L::stats + s * 2 * kTile * 4;
+        for (int j = lane; j < kTile; j += 32) {
+          const int qi = qb * kTile + j;
+          const size_t at = stat + (qi < sh.sq ? qi : 0);
+          cp_async4(ls + 4 * j, lse + at, qi < sh.sq);
+          cp_async4(ls + 4 * (kTile + j), delta + at, qi < sh.sq);
+        }
+        cp_async_arrive(full + 8 * s);
+        if (lane == 0) {
+          const uint32_t qt = base + L::ring + s * 2 * L::qd, dt = qt + L::qd;
+          mbar_expect_tx(full + 8 * s, 2 * L::qd);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load(qt + c * kTile * 128, &qmap, full + 8 * s, c * 64, hi,
+                     qb * kTile, bi);
+            tma_load(dt + c * kTile * 128, &dmap, full + 8 * s, c * 64, hi,
+                     qb * kTile, bi);
+          }
+        }
+      }
+    }
+    return;
   }
 
-  const int num_qb = (sh.sq + kB - 1) / kB;
-  // the first query row that sees key k0: i >= k0 - (skv - sq)
-  const int start_qb =
-      sh.causal ? max(k0 - (sh.skv - sh.sq), 0) / kB : 0;
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp / 4, w = warp % 4;
+  const int kw = k0 + 64 * wg;  // this warpgroup's first key
+  const int ka = kw + 16 * w + lane / 4, kb = ka + 8;
+  const float sl = sh.scale * kLog2e;
+  const uint32_t kt = base + L::k + wg * L::half;
+  const uint32_t vt = base + L::v + wg * L::half;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  mbar_wait(kvbar, 0);
+  int t = 0;
   for (int g = 0; g < group; ++g) {
-    const int hi = kvh * group + g;
-    const size_t qhead = (size_t)bi * sh.sq * qstride + (size_t)hi * D;
-    const size_t stat = ((size_t)bi * sh.h + hi) * sh.sq;
-    for (int qb = start_qb; qb < num_qb; ++qb) {
-      const int q0 = qb * kB;
-      __syncthreads();  // the previous tile's Q/dO and statistics consumed
-      load_tile<D>(qs, q + qhead, qstride, q0, sh.sq);
-      load_tile<D>(dos, dout + qhead, qstride, q0, sh.sq);
-      if (threadIdx.x < kB) {
-        const int qi = q0 + threadIdx.x;
-        lses[threadIdx.x] = qi < sh.sq ? lse[stat + qi] : 0.f;
-        deltas[threadIdx.x] = qi < sh.sq ? delta[stat + qi] : 0.f;
-      }
-      __syncthreads();
+    for (int qb = start_qb; qb < num_qb; ++qb, ++t) {
+      const int s = t % STAGES;
+      mbar_wait(full + 8 * s, (t / STAGES) & 1);
+      const int q0 = qb * kTile;
+      // keys past the end, or (causal) no query of the tile sees the
+      // warpgroup's first key
+      const bool active =
+          kw < sh.skv && !(sh.causal && q0 + kTile - 1 + off < kw);
+      if (active) {
+        const uint32_t qt = base + L::ring + s * 2 * L::qd, dt = qt + L::qd;
+        const float* ls = reinterpret_cast<const float*>(
+            smem + L::stats + s * 2 * kTile * 4);
+        float st[kTile / 2], dpt[kTile / 2];
+        wgmma_fence();
+        issue_scores<D>(st, kt, qt);   // S^T = K Q^T
+        issue_scores<D>(dpt, vt, dt);  // dP^T = V dO^T
+        wgmma_wait();
+        fence_regs(st);
+        fence_regs(dpt);
 
-      // S^T = K_w Q^T and dP^T = V_w dO^T for this warp's 16 keys.
-      rows_times_tile_t<D>(fs + warp * 16 * P::f, P::f,
-                           ks + warp * 16 * P::h, qs);
-      rows_times_tile_t<D>(dps + warp * 16 * P::s, P::s,
-                           vs + warp * 16 * P::h, dos);
-      __syncwarp();
-
-      const int c0 = half * (kB / 2);
-      for (int c = c0; c < c0 + kB / 2; ++c) {
-        const int qi = q0 + c;
-        const float pv =
-            (qi < sh.sq && visible(sh, qi, kj))
-                ? __expf(fs[row * P::f + c] * sh.scale - lses[c])
-                : 0.f;
-        pts[row * P::p + c] = __float2bfloat16(pv);
-        dsts[row * P::p + c] =
-            __float2bfloat16(pv * (dps[row * P::s + c] - deltas[c]));
+        const bool edge =
+            (sh.causal && kw + 63 > q0 + off) || q0 + kTile > sh.sq;
+#pragma unroll
+        for (int i = 0; i < kTile / 2; ++i) {
+          const int c = acc_col(i, lane);
+          float p = ex2(fmaf(st[i], sl, -ls[c] * kLog2e));
+          if (edge) {
+            const int kj = (i & 2) ? kb : ka;
+            if (q0 + c >= sh.sq || (sh.causal && kj > q0 + c + off)) p = 0.f;
+          }
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - ls[kTile + c]);
+        }
+        uint32_t pa[kTile / 4], da[kTile / 4];
+        to_a_fragments(st, pa);
+        to_a_fragments(dpt, da);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kTile / 16; ++kk)  // dv += P^T dO
+          mma_rs(dv_acc, pa + 4 * kk, desc_mn(dt, kTile, kk));
+#pragma unroll
+        for (int kk = 0; kk < kTile / 16; ++kk)  // dk += dS^T Q
+          mma_rs(dk_acc, da + 4 * kk, desc_mn(qt, kTile, kk));
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        fence_regs(pa);
+        fence_regs(da);
       }
       __syncwarp();
-      accumulate<D>(dv_acc, pts + warp * 16 * P::p, dos);  // dv += P^T dO
-      accumulate<D>(dk_acc, dsts + warp * 16 * P::p, qs);  // dk += dS^T Q
+      if (lane == 0) mbar_arrive(empty + 8 * s);
     }
   }
-  store_rows<D>(dk_acc, sh.scale, fs, dk + khead, kstride, k0, sh.skv);
-  store_rows<D>(dv_acc, 1.f, fs, dv + khead, kstride, k0, sh.skv);
+
+  if (kw >= sh.skv) return;
+  unsigned char* ktile = smem + L::k + wg * L::half;  // its K and V rows
+  unsigned char* vtile = smem + L::v + wg * L::half;
+  stage_rows<D>(ktile, dk_acc, sh.scale, sh.scale);
+  stage_rows<D>(vtile, dv_acc, 1.f, 1.f);
+  warpgroup_sync(wg);
+  const size_t stride = (size_t)sh.hkv * D;
+  const size_t head = (size_t)bi * sh.skv * stride + (size_t)kvh * D;
+  const int tid = threadIdx.x % 128;
+  copy_out<D>(ktile, dk + head, stride, kw, sh.skv, tid);
+  copy_out<D>(vtile, dv + head, stride, kw, sh.skv, tid);
 }
 
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library does not link libcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A BSHD bf16 tensor (b, s, heads, D) as TMA reads it: dimensions {D,
+// heads, s, b}, innermost first; a box is 64 columns of `rows` rows of
+// one head, 128-byte swizzled; rows past s come in as zeros.
+bool bshd_map(CUtensorMap* map, const void* ptr, int b, int s, int heads,
+              int d, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)s * heads * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t bytes) {
@@ -487,17 +1002,29 @@ cudaError_t prepare(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// Ring depths by head dim, as deep as the block's own rows leave room for
+// in 227 KB: 4 tiles, 3 in the backward kernels at d 128. (The forward
+// measured the same with tiles of 128 keys.)
+constexpr int kFwdStages = 4;
+template <int D>
+constexpr int kBwdStages = D == 128 ? 3 : 4;
+
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, const Shape& sh, cudaStream_t stream) {
-  const size_t bytes = FwdSmem<D>::bytes;
-  cudaError_t err = prepare(flash_fwd_kernel<D>, bytes);
+  using L = FwdLayout<D, kFwdStages>;
+  CUtensorMap qm, km, vm;
+  if (!bshd_map(&qm, q, sh.b, sh.sq, sh.h, D, 64) ||
+      !bshd_map(&km, k, sh.b, sh.skv, sh.hkv, D, kTile) ||
+      !bshd_map(&vm, v, sh.b, sh.skv, sh.hkv, D, kTile))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = fwd_kernel<D, kFwdStages>;
+  const size_t bytes = L::bytes + 1024;
+  cudaError_t err = prepare(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((sh.sq + kB - 1) / kB, sh.b * sh.h);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), sh);
+  dim3 grid(sh.b * sh.h, (sh.sq + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, bytes, stream>>>(qm, km, vm, static_cast<bf16*>(o),
+                                            static_cast<float*>(lse), sh);
   return (int)cudaGetLastError();
 }
 
@@ -505,15 +1032,21 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, const Shape& sh,
               cudaStream_t stream) {
-  const size_t bytes = DqSmem<D>::bytes;
-  cudaError_t err = prepare(flash_bwd_dq_kernel<D>, bytes);
+  using L = DqLayout<D, kBwdStages<D>>;
+  CUtensorMap qm, dm, km, vm;
+  if (!bshd_map(&qm, q, sh.b, sh.sq, sh.h, D, 64) ||
+      !bshd_map(&dm, dout, sh.b, sh.sq, sh.h, D, 64) ||
+      !bshd_map(&km, k, sh.b, sh.skv, sh.hkv, D, kTile) ||
+      !bshd_map(&vm, v, sh.b, sh.skv, sh.hkv, D, kTile))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = dq_kernel<D, kBwdStages<D>>;
+  const size_t bytes = L::bytes + 1024;
+  cudaError_t err = prepare(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((sh.sq + kB - 1) / kB, sh.b * sh.h);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), sh);
+  dim3 grid(sh.b * sh.h, (sh.sq + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      qm, dm, km, vm, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), sh);
   return (int)cudaGetLastError();
 }
 
@@ -521,35 +1054,47 @@ template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                const Shape& sh, cudaStream_t stream) {
-  const size_t bytes = DkvSmem<D>::bytes;
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<D>, bytes);
+  using L = DkvLayout<D, kBwdStages<D>>;
+  CUtensorMap km, vm, qm, dm;
+  if (!bshd_map(&km, k, sh.b, sh.skv, sh.hkv, D, 64) ||
+      !bshd_map(&vm, v, sh.b, sh.skv, sh.hkv, D, 64) ||
+      !bshd_map(&qm, q, sh.b, sh.sq, sh.h, D, kTile) ||
+      !bshd_map(&dm, dout, sh.b, sh.sq, sh.h, D, kTile))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = dkv_kernel<D, kBwdStages<D>>;
+  const size_t bytes = L::bytes + 1024;
+  cudaError_t err = prepare(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((sh.skv + kB - 1) / kB, sh.b * sh.hkv);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), sh);
+  dim3 grid(sh.b * sh.hkv, (sh.skv + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      km, vm, qm, dm, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), sh);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace hopper
+}  // namespace flash
 
-// One case per head dim the kernels take (multiples of 16 up to 128).
-#define VLT_HEAD_DIMS(X) \
-  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+// Head dims 64 and 128 take the Hopper body, the other multiples of 16 up
+// to 128 the WMMA body.
+#define VLT_WMMA_HEAD_DIMS(X) X(16) X(32) X(48) X(80) X(96) X(112)
 
 extern "C" int vlt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int b, int sq, int skv,
                              int h, int hkv, int d, int causal, float scale,
                              void* stream) {
-  const Shape sh{b, sq, skv, h, hkv, causal, scale};
+  const flash::Shape sh{b, sq, skv, h, hkv, causal, scale};
   const cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
+    case 64:
+      return flash::hopper::launch_fwd<64>(q, k, v, o, lse, sh, st);
+    case 128:
+      return flash::hopper::launch_fwd<128>(q, k, v, o, lse, sh, st);
 #define VLT_CASE(D) \
   case D:           \
-    return launch_fwd<D>(q, k, v, o, lse, sh, st);
-    VLT_HEAD_DIMS(VLT_CASE)
+    return flash::wmma_body::launch_fwd<D>(q, k, v, o, lse, sh, st);
+      VLT_WMMA_HEAD_DIMS(VLT_CASE)
 #undef VLT_CASE
     default:
       return (int)cudaErrorInvalidValue;
@@ -561,13 +1106,20 @@ extern "C" int vlt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* delta, void* dq, int b, int sq,
                                 int skv, int h, int hkv, int d, int causal,
                                 float scale, void* stream) {
-  const Shape sh{b, sq, skv, h, hkv, causal, scale};
+  const flash::Shape sh{b, sq, skv, h, hkv, causal, scale};
   const cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
-#define VLT_CASE(D) \
-  case D:           \
-    return launch_dq<D>(q, k, v, dout, lse, delta, dq, sh, st);
-    VLT_HEAD_DIMS(VLT_CASE)
+    case 64:
+      return flash::hopper::launch_dq<64>(q, k, v, dout, lse, delta, dq, sh,
+                                          st);
+    case 128:
+      return flash::hopper::launch_dq<128>(q, k, v, dout, lse, delta, dq, sh,
+                                           st);
+#define VLT_CASE(D)                                                       \
+  case D:                                                                 \
+    return flash::wmma_body::launch_dq<D>(q, k, v, dout, lse, delta, dq, \
+                                          sh, st);
+      VLT_WMMA_HEAD_DIMS(VLT_CASE)
 #undef VLT_CASE
     default:
       return (int)cudaErrorInvalidValue;
@@ -579,13 +1131,20 @@ extern "C" int vlt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* delta, void* dk, void* dv, int b,
                                  int sq, int skv, int h, int hkv, int d,
                                  int causal, float scale, void* stream) {
-  const Shape sh{b, sq, skv, h, hkv, causal, scale};
+  const flash::Shape sh{b, sq, skv, h, hkv, causal, scale};
   const cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
-#define VLT_CASE(D) \
-  case D:           \
-    return launch_dkv<D>(q, k, v, dout, lse, delta, dk, dv, sh, st);
-    VLT_HEAD_DIMS(VLT_CASE)
+    case 64:
+      return flash::hopper::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv,
+                                           sh, st);
+    case 128:
+      return flash::hopper::launch_dkv<128>(q, k, v, dout, lse, delta, dk,
+                                            dv, sh, st);
+#define VLT_CASE(D)                                                         \
+  case D:                                                                   \
+    return flash::wmma_body::launch_dkv<D>(q, k, v, dout, lse, delta, dk, \
+                                           dv, sh, st);
+      VLT_WMMA_HEAD_DIMS(VLT_CASE)
 #undef VLT_CASE
     default:
       return (int)cudaErrorInvalidValue;

@@ -154,13 +154,19 @@ def flash_forward_plain(q, k, v, causal: bool = False,
     f32 products and softmax, masked keys at DEFAULT_MASK_VALUE, out =
     (p v) / l in q's dtype, lse = m + log(l) (b, h, sq) f32 with
     LSE_SENTINEL where it is not finite."""
-    b, sq, h, d = q.shape
-    skv = k.shape[1]
-    scale = _default_scale(d, scale)
+    sq, skv = q.shape[1], k.shape[1]
+    mask = flash_mask(sq, skv, causal, q.device)
+    return flash_forward_masked(q, k, v, mask,
+                                _default_scale(q.shape[-1], scale))
+
+
+def flash_forward_masked(q, k, v, mask: torch.Tensor, scale: float):
+    """The forward of :func:`flash_forward_plain` under an explicit
+    (sq, skv) bool `mask` of the keys each query sees."""
+    h = q.shape[2]
     kk, vv = _repeat_kv(k, h).float(), _repeat_kv(v, h).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kk)
-    s = s.masked_fill(~flash_mask(sq, skv, causal, q.device),
-                      DEFAULT_MASK_VALUE)
+    s = s.masked_fill(~mask, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
