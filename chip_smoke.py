@@ -13,8 +13,9 @@ Phases, each of which raises on failure (exit code != 0):
      linears in the bf16-out build the path launches and in f32 out, a
      flat per-layer weight and a 1100-row prompt, the flat-cache decode
      kernels 9 and 11 at the chat and serving shapes, kernels 3 and 10 at
-     head dim 32, and planted faults in three plain versions that must
-     fail), timing the kernel, the plain version and, where one PyTorch
+     head dim 32, CLIP's pad keys and values set large, and planted
+     faults in the plain versions of kernels 1, 10, 11 and the W4A16
+     matvec that must fail), timing the kernel, the plain version and, where one PyTorch
      call computes the same function, that call, each beside the
      kernel's bound;
   4. check a small model end to end (LlamaConfig.tiny's head dim 32, and
@@ -373,17 +374,35 @@ def kernel_checks(dev) -> dict:
         torch.bfloat16)
     results: dict = {}
     # CLIP attention: 100 frames x 16 heads, 224 px then 336 px; the
-    # library call is SDPA with the same key mask
+    # library call is SDPA with the same key mask. The bound reads q and
+    # writes o at s_pad rows, and reads k and v at kv_len rows (the
+    # function never needs the pad keys). The pad rows of k and v hold
+    # large values (keys of 30, values of 100), so a pad key that leaks
+    # into the softmax shows; a planted fault in the plain version
+    # (kv_len + 1: the first pad key seen) must fail the check.
     for s, s_pad in ((257, 272), (577, 640)):
         q, k, v = (rnd(100, 16, s_pad, 64) for _ in range(3))
+        k[:, :, s:], v[:, :, s:] = 30.0, 100.0
         mask = (torch.arange(s_pad, device=dev) < s)[None, None, None]
         check(results, "flash_attention_bhsd", (100, 16, s_pad, 64, s),
               lambda: attention.flash_attention_bhsd(q, k, v, kv_len=s),
               lambda: attention.flash_attention_bhsd_plain(q, k, v,
                                                            kv_len=s),
-              nbytes=4 * q.numel() * 2, ops=4 * 100 * 16 * s_pad * s * 64,
+              nbytes=(2 * s_pad + 2 * s) * 100 * 16 * 64 * 2,
+              ops=4 * 100 * 16 * s_pad * s * 64,
               library=lambda: F.scaled_dot_product_attention(
                   q, k, v, attn_mask=mask))
+        if s_pad == 272:
+            want = attention.flash_attention_bhsd_plain(q, k, v, kv_len=s)
+            faulty = attention.flash_attention_bhsd_plain(q, k, v,
+                                                          kv_len=s + 1)
+            err = (faulty.float() - want.float()).abs().max().item()
+            print(f"planted fault in kernel 1's plain version, kv_len + 1: "
+                  f"max|err| {err:.3e}", flush=True)
+            if not err > TOL["flash_attention_bhsd"]:
+                raise AssertionError("the CLIP attention check passes the "
+                                     "planted pad-key fault")
+            del want, faulty
     del q, k, v
     # pooling: 100 frames, then a 12-frame clip; the library call is the
     # two means over the pooled axes
@@ -579,10 +598,11 @@ def flat_decode_checks(dev, g, rnd, results) -> None:
     kernel 11 (GQA, decode_attention_pallas) at 32 query heads over 8 and
     over 4 KV heads at d 128 and 8 over 2 at d 32, at the chat cache; both
     in bf16 and int8. The library call is SDPA with the length mask (and
-    enable_gqa for 11) in bf16. A planted fault in kernel 11's plain
-    version (query head i reads KV head i % h_kv, not i // group) must
-    fail the row check. Then kernels 3 and 10 at head dim 32 (the tiny
-    LLaMA's 8 x 32 heads)."""
+    enable_gqa for 11) in bf16. Two planted faults in kernel 11's plain
+    versions must fail the row check: query head i reads KV head i %
+    h_kv, not i // group; and, with the cache split as the wrapper
+    splits it, each row's last chunk is dropped. Then kernels 3 and 10
+    at head dim 32 (the tiny LLaMA's 8 x 32 heads)."""
     n_prompt, L = chat_cache_len(VideoLLaVAConfig())
     n = n_prompt + MAX_NEW_TOKENS // 2
     sdpa = lambda q, k, v, lens, L: F.scaled_dot_product_attention(  # noqa
@@ -621,6 +641,32 @@ def flat_decode_checks(dev, g, rnd, results) -> None:
             if not row > ROW_TOL[name]:
                 raise AssertionError("the row check passes the planted "
                                      "head-mapping fault")
+            # the split kernel's and the combine's plain versions over the
+            # wrapper's plan; then the same with each row's last chunk
+            # dropped (its partial emptied), which the row check must fail
+            chunk, splits = attention.gqa_split_plan(
+                length, b, h_kv, torch.cuda.get_device_properties(
+                    dev).multi_processor_count)
+            m, l, acc = attention.decode_gqa_partials_plain(
+                q, kc, vc, lens, chunk, splits)
+            split = attention.decode_gqa_combine_plain(m, l, acc)
+            row = row_rel_err(split, want)
+            print(f"kernel 11's split plain versions ({splits} chunks of "
+                  f"{chunk}) against its plain version: rows' "
+                  f"max|err|/max|ref| {row:.3e}", flush=True)
+            if not row <= ROW_TOL[name]:
+                raise AssertionError("kernel 11's split plain versions "
+                                     "disagree with its plain version")
+            last = (lens.long() - 1) // chunk
+            l[torch.arange(b, device=dev), :, last] = 0.0
+            faulty = attention.decode_gqa_combine_plain(m, l, acc)
+            row = row_rel_err(faulty, want)
+            print(f"planted fault in kernel 11's split plain version, each "
+                  f"row's last chunk of {chunk} dropped: rows' "
+                  f"max|err|/max|ref| {row:.3e}", flush=True)
+            if not row > ROW_TOL[name]:
+                raise AssertionError("the row check passes the planted "
+                                     "dropped-chunk fault")
     # kernels 3 and 10 at head dim 32
     nl, b, h, d = 4, 2, 8, 32
     lens = torch.tensor([n, n // 2], dtype=torch.int32, device=dev)
@@ -946,9 +992,13 @@ def profile_request(engine, clips, dev, label) -> None:
           f"{len(device)} device activities, idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    # the top kernels, then those launched once a token (the lm_head)
+    # the top kernels, those launched once a token (the lm_head), and
+    # every kernel of csrc/ (kernel 11's combine among them; the names
+    # of a few of PyTorch's own kernels also start so)
     for i, (name, (total, calls)) in enumerate(ranked):
-        if i < 16 or calls == MAX_NEW_TOKENS:
+        ours = name.startswith(("void (anonymous namespace)::",
+                                "(anonymous namespace)::", "void flash::"))
+        if i < 16 or calls == MAX_NEW_TOKENS or ours:
             print(f"{label} profile: {total / 1e3:9.2f} ms {calls:6d} "
                   f"calls  {name[:90]}")
 

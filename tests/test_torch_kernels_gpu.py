@@ -53,11 +53,18 @@ def _assert_close(got, want, atol):
 
 @pytest.mark.parametrize("b,h,s,kv_len,d", [
     (2, 4, 32, 23, 64), (3, 2, 100, 100, 128), (1, 2, 640, 577, 64),
-    (2, 3, 48, 17, 16),
+    (2, 3, 48, 17, 16), (2, 16, 272, 257, 64), (1, 16, 272, 65, 64),
+    (1, 2, 272, 1, 64), (1, 4, 640, 577, 64), (1, 65537, 16, 16, 64),
+    (1, 65537, 16, 9, 16), (1, 2, 512, 500, 128),
 ])
 def test_flash_bhsd_kernel_matches_plain(dev, b, h, s, kv_len, d):
+    """Kernel 1: the Hopper body at d 64 and 128 (CLIP's 224 px tiling,
+    its 336 px one, 500 keys at d 128, one valid key, more than 65,535
+    heads), the WMMA body at d 16. The pad rows of k and v are large, so a
+    leaked pad key shows."""
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (_rand(g, b, h, s, d) for _ in range(3))
+    k[:, :, kv_len:], v[:, :, kv_len:] = 30.0, 100.0
     before = cuda_lib.LAUNCHES["flash_attention_bhsd"]
     got = attention.flash_attention_bhsd(q, k, v, kv_len=kv_len)
     assert cuda_lib.LAUNCHES["flash_attention_bhsd"] == before + 1
@@ -202,11 +209,15 @@ def test_flat_mha_decode_kernel_matches_plain(dev, b, L, h, d, int8):
     (2, 700, 32, 4, 128, False), (2, 37, 8, 2, 32, False),
     (2, 37, 8, 2, 32, True), (3, 64, 12, 1, 64, True),
     (2, 50, 6, 6, 64, False), (1, 2048, 16, 2, 128, True),
-    (1, 100, 6, 2, 64, False),
+    (1, 100, 6, 2, 64, False), (1, 6240, 32, 4, 128, False),
+    (1, 16384, 32, 4, 128, False), (1, 6240, 32, 8, 128, True),
+    (1, 16384, 32, 8, 128, True), (1, 15, 8, 2, 32, False),
 ])
 def test_gqa_decode_kernel_matches_plain(dev, b, L, h, h_kv, d, int8):
     """Kernel 11 (decode_attention_pallas): groups 4, 8, 1 and 12 (run as
-    three blocks of 4 heads), any L, against the f32 plain version."""
+    three blocks of 4 heads), any L (one chunk at L 15; 6,240 and 16,384
+    past the old kernel's shared-memory cap), against the f32 plain
+    version."""
     g = torch.Generator(device=dev).manual_seed(13)
     q = _rand(g, b, 1, h, d)
     kc, vc, ks, vs = _flat_cache(g, dev, b, L, h_kv, d, int8)
@@ -220,24 +231,40 @@ def test_gqa_decode_kernel_matches_plain(dev, b, L, h, h_kv, d, int8):
         q, kc, vc, lens, ks, vs))
 
 
+@pytest.mark.parametrize("int8", [False, True])
+def test_gqa_decode_rows_of_a_batch(dev, int8):
+    """Kernel 11 on 4 rows of one cache of 2,048 at 32/8, d 128, with
+    lengths {1, 700, 2048, 64}: rows that end in the first chunk, inside
+    one, at the cache's end and on a chunk's edge, so most of the short
+    rows' chunks are empty partials. Twice: the merge runs in split
+    order, so the result is the same bits."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    q = _rand(g, 4, 1, 32, 128)
+    kc, vc, ks, vs = _flat_cache(g, dev, 4, 2048, 8, 128, int8)
+    lens = torch.tensor([1, 700, 2048, 64], dtype=torch.int32, device=dev)
+    got = attention.decode_attention_pallas(q, kc, vc, lens, ks, vs)
+    again = attention.decode_attention_pallas(q, kc, vc, lens, ks, vs)
+    _assert_rows(got, attention.decode_attention_pallas_plain(
+        q, kc, vc, lens, ks, vs))
+    assert torch.equal(got, again)
+
+
 def test_gqa_decode_longest_cache(dev):
-    """Kernel 11's length limit comes from its C entry: at 32 query heads
-    over 4 (a block holds 8), d 128, the scores of 8 heads and the warps'
-    partial outputs fill the 227 KB of shared memory at L = 6,239. That
-    length launches and matches the plain version; one more raises before
-    any launch."""
+    """Kernel 11 has no length cap: the old kernel kept a score for every
+    position in shared memory and raised past 6,239 positions at 32 query
+    heads over 4, d 128. The split kernel's shared memory is bounded by
+    its step, so a cache of 6,240 and one of 16,384 (which the JAX kernel
+    takes too) each launch once and match the plain version."""
     g = torch.Generator(device=dev).manual_seed(15)
     q = _rand(g, 1, 1, 32, 128)
-    kc, vc, _, _ = _flat_cache(g, dev, 1, 6240, 4, 128, False)
-    lens = torch.tensor([6239], dtype=torch.int32, device=dev)
-    k1, v1 = kc[:, :6239].contiguous(), vc[:, :6239].contiguous()
-    got = attention.decode_attention_pallas(q, k1, v1, lens)
-    _assert_rows(got, attention.decode_attention_pallas_plain(q, k1, v1,
-                                                              lens))
-    before = sum(cuda_lib.LAUNCHES.values())
-    with pytest.raises(ValueError, match="shared memory"):
-        attention.decode_attention_pallas(q, kc, vc, lens)
-    assert sum(cuda_lib.LAUNCHES.values()) == before
+    for L in (6240, 16384):
+        kc, vc, _, _ = _flat_cache(g, dev, 1, L, 4, 128, False)
+        lens = torch.tensor([L], dtype=torch.int32, device=dev)
+        before = cuda_lib.LAUNCHES["decode_attention_pallas"]
+        got = attention.decode_attention_pallas(q, kc, vc, lens)
+        assert cuda_lib.LAUNCHES["decode_attention_pallas"] == before + 1
+        _assert_rows(got, attention.decode_attention_pallas_plain(
+            q, kc, vc, lens))
 
 
 def test_decode_fallthrough_on_the_card(dev):

@@ -31,7 +31,8 @@
 // At b = 1 the grid is h = 32 blocks, which fills 32 of 132 SMs: splitting L
 // across blocks (flash-decoding) is later work.
 // Grouped-query attention (h_kv < h) over a flat cache has a body of its
-// own below (kernel 11), so that the MHA body keeps its parameters and time.
+// own below (kernel 11, split along L), so that the MHA body keeps its
+// parameters and time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -261,178 +262,343 @@ int dispatch(const Args& a, int d, int int8, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 11: grouped-query decode over a flat (b, L, h_kv, D) cache.
+// Kernel 11: grouped-query decode over a flat (b, L, h_kv, D) cache, split
+// along L (flash-decoding).
 // ---------------------------------------------------------------------------
 // Replaces video_llava_tpu/ops/attention.py::decode_attention_pallas (body
 // _decode_attn_kernel). Query head i reads KV head i / group. For row bi and
-// KV head kh, with n = lengths[bi] and qs_i = q_i * scale (f32):
+// KV head kh, with n = min(lengths[bi], L) and qs_i = q_i * scale (f32):
 //     s_ip = (qs_i . k_p) [* k_scale_p]                 p < n
 //     o_i  = sum_p softmax(s_i)_p [* v_scale_p] v_p      (bf16 out)
-// One block per (row, KV head, run of G of its query heads): G is the
-// largest of 8, 4, 2, 1 that divides the group, so for a group of 1, 2, 4
-// or 8 a block holds the whole group and reads each K/V position of its
-// head once for all of it (other groups take runs of 1 or 2 heads: four
-// instantiations of G keep the build short).
-// Lanes split d as in the MHA body; each position's K row is loaded once
-// and dotted with the G queries held in registers. Scores (G, n) go to
-// shared memory, warp g takes query head g's softmax (exact, two-pass), and
-// pass 2 reads each V row once into G accumulators. The Pallas kernel's
-// block_l tiling, online softmax and masked tail are TPU formulations of
-// the same function: here no position at or past n is read.
+// What bounds it: the cache's bytes (2 n h_kv D a row in bf16, half that
+// and the scales in int8), and at b 1 the latency of one pass over them:
+// the chat's 734 positions x 8 KV heads are 3 MB, about what the card
+// must keep in flight to read at its rate.
+// The design: the host's plan (ops/attention.py gqa_split_plan) cuts [0, L)
+// into `splits` chunks of `chunk` positions, enough for about two blocks an
+// SM. A split block (chunk, row, KV head, run of G query heads: G the
+// largest of 8, 4, 2, 1 that divides the group) reads its chunk of K and V
+// once for all G heads, 16 bytes a lane (a cache row is LR lanes), in steps
+// of WIN positions: every K and V row of a step is loaded before the first
+// is used, the scores of the step go to shared memory, and an online
+// softmax (the running max is the same in every thread: it comes from the
+// shared scores) folds the step into each thread's G x VE accumulators.
+// Shared memory is bounded by the step, never by L. The block then sums
+// its accumulators over rows (shuffles within a warp, shared memory across
+// warps) and writes its partial (row max m, sum l, G x D accumulator) to
+// an f32 workspace; a chunk at or past the row's length writes an empty
+// partial (m = -inf, l = 0) and reads nothing. The combine kernel merges
+// each query head's partials in split order (m = max m_j, o = sum_j
+// e^(m_j - m) acc_j / sum_j e^(m_j - m) l_j): deterministic, no atomics.
+// With one split the block writes the output itself and the combine is
+// not launched. The sums exclude the v scales, as the JAX kernel's do.
+
+constexpr int kGqaThreads = 128;
+constexpr int kGqaWarps = kGqaThreads / 32;
+constexpr int kGqaUnroll = 4;  // cache rows a thread loads a step (K and V)
+
+// A cache row of D elements of T, 16 bytes a lane.
+template <typename T, int D>
+struct GqaRows {
+  static constexpr int VE = 16 / sizeof(T);           // elements a lane
+  static constexpr int LR = D / VE;                   // lanes a row
+  static constexpr int RPP = kGqaThreads / LR;        // rows a load
+  static constexpr int WIN = RPP * kGqaUnroll;        // rows a step
+};
+
+__device__ inline void unpack16(const uint4& raw, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 x = __bfloat1622float2(h[j]);
+    f[2 * j] = x.x;
+    f[2 * j + 1] = x.y;
+  }
+}
+
+__device__ inline void unpack16(const uint4& raw, float (&f)[16]) {
+  const char4* c = reinterpret_cast<const char4*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[4 * j] = c[j].x;
+    f[4 * j + 1] = c[j].y;
+    f[4 * j + 2] = c[j].z;
+    f[4 * j + 3] = c[j].w;
+  }
+}
+
 template <typename T, int D, int G>
-__global__ void __launch_bounds__(kThreads)
-decode_gqa_kernel(const __nv_bfloat16* __restrict__ q,
-                  const T* __restrict__ kc, const T* __restrict__ vc,
-                  const float* __restrict__ ks, const float* __restrict__ vs,
-                  const int* __restrict__ lengths,
-                  __nv_bfloat16* __restrict__ o, int L, int h, int h_kv,
-                  int group, float scale) {
-  constexpr int E = D / 32;
-  extern __shared__ float smem[];
-  float* sc = smem;                      // (G, L) scores, then weights
-  float* acc_s = smem + (size_t)G * L;   // (kWarps, G, D) partial outputs
-  float* inv = acc_s + kWarps * G * D;   // (G,) 1 / softmax sums
+__global__ void __launch_bounds__(kGqaThreads)
+decode_gqa_split_kernel(const __nv_bfloat16* __restrict__ q,
+                        const T* __restrict__ kc, const T* __restrict__ vc,
+                        const float* __restrict__ ks,
+                        const float* __restrict__ vs,
+                        const int* __restrict__ lengths,
+                        __nv_bfloat16* __restrict__ o,
+                        float* __restrict__ ws_ml, float* __restrict__ ws_acc,
+                        int L, int h, int h_kv, int group, int chunk,
+                        int splits, float scale) {
+  using R = GqaRows<T, D>;
+  constexpr int VE = R::VE, LR = R::LR, RPP = R::RPP, WIN = R::WIN;
+  __shared__ float qsm[G][D];              // q * scale
+  __shared__ float sc[G][WIN];             // a step's scores
+  __shared__ float step_max[G];
+  __shared__ float red[kGqaWarps][G][D];   // the warps' accumulators
+  __shared__ float lred[kGqaWarps][G];     // and sums
 
   const int runs = group / G;
-  const int kh = blockIdx.x / runs;
-  const int h0 = kh * group + (blockIdx.x % runs) * G;  // first query head
-  const int bi = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int x = blockIdx.x;
+  const int c = x % splits;
+  x /= splits;
+  const int run = x % runs;
+  x /= runs;
+  const int kh = x % h_kv, bi = x / h_kv;
+  const int h0 = kh * group + run * G;  // first query head
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n = min(lengths[bi], L);
+  const int p0 = c * chunk, p1 = min(p0 + chunk, n);
+  // head h0 + g's partial: (bi * h + h0 + g) * splits + c
+  const size_t part = ((size_t)bi * h + h0) * splits + c;
   __nv_bfloat16* obase = o + ((size_t)bi * h + h0) * D;
-  if (n <= 0) {
-    for (int c = threadIdx.x; c < G * D; c += kThreads) obase[c] = __float2bfloat16(0.f);
+  if (p0 >= p1) {  // nothing of the row in this chunk
+    if (splits == 1) {
+      for (int i = threadIdx.x; i < G * D; i += kGqaThreads)
+        obase[i] = __float2bfloat16(0.f);
+    } else if (threadIdx.x < G) {
+      ws_ml[2 * (part + (size_t)threadIdx.x * splits)] = -INFINITY;
+      ws_ml[2 * (part + (size_t)threadIdx.x * splits) + 1] = 0.f;
+    }
     return;
   }
 
+  for (int i = threadIdx.x; i < G * D; i += kGqaThreads)
+    qsm[i / D][i % D] =
+        __bfloat162float(q[((size_t)bi * h + h0) * D + i]) * scale;
+
+  const int r = threadIdx.x / LR;         // row of a load
+  const int e0 = (threadIdx.x % LR) * VE;  // first element of the lane
+  const bool lead = threadIdx.x % LR == 0;
   const size_t pstride = (size_t)h_kv * D;  // elements between positions
   const size_t first = (size_t)bi * L;      // row bi's position 0
-  const T* kbase = kc + first * pstride + (size_t)kh * D + lane * E;
-  const T* vbase = vc + first * pstride + (size_t)kh * D + lane * E;
+  const T* kbase = kc + first * pstride + (size_t)kh * D + e0;
+  const T* vbase = vc + first * pstride + (size_t)kh * D + e0;
   const float* ksb = ks ? ks + first * h_kv + kh : nullptr;
   const float* vsb = vs ? vs + first * h_kv + kh : nullptr;
 
-  float qf[G][E];
+  float acc[G][VE], l[G], m[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    load_row<E>(q + ((size_t)bi * h + h0 + g) * D + lane * E, qf[g]);
+    l[g] = 0.f;
+    m[g] = -INFINITY;
 #pragma unroll
-    for (int e = 0; e < E; ++e) qf[g][e] *= scale;
+    for (int e = 0; e < VE; ++e) acc[g][e] = 0.f;
   }
+  __syncthreads();  // qsm
 
-  // Pass 1: scores of the G heads, one K row load per position.
-  for (int base = warp * kUnroll; base < n; base += kWarps * kUnroll) {
-    float part[kUnroll][G];
+  for (int s0 = p0; s0 < p1; s0 += WIN) {
+    uint4 kr[kGqaUnroll], vr[kGqaUnroll];
+    float ksc[kGqaUnroll], vsc[kGqaUnroll];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) part[u][g] = 0.f;
-      if (base + u < n) {
-        float kf[E];
-        load_row<E>(kbase + (size_t)(base + u) * pstride, kf);
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-#pragma unroll
-          for (int e = 0; e < E; ++e) part[u][g] += qf[g][e] * kf[e];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int p = base + u;
-      const float ksc = (ksb && p < n) ? ksb[(size_t)p * h_kv] : 1.f;
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float dot = warp_sum(part[u][g]);
-        if (lane == 0 && p < n) sc[(size_t)g * L + p] = dot * ksc;
-      }
-    }
-  }
-  __syncthreads();
-
-  // Softmax: warp g takes head g (max, weights, sum; the sum excludes the
-  // v scales).
-  for (int g = warp; g < G; g += kWarps) {
-    float* sg = sc + (size_t)g * L;
-    float mx = -INFINITY;
-    for (int p = lane; p < n; p += 32) mx = fmaxf(mx, sg[p]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int p = lane; p < n; p += 32) {
-      const float w = __expf(sg[p] - mx);
-      sum += w;
-      sg[p] = vsb ? w * vsb[(size_t)p * h_kv] : w;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) inv[g] = 1.f / sum;
-  }
-  __syncthreads();
-
-  // Pass 2: weighted sums of values, one V row load per position.
-  float acc[G][E];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
-  for (int base = warp * kUnroll; base < n; base += kWarps * kUnroll) {
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int p = base + u;
-      if (p < n) {
-        float vf[E];
-        load_row<E>(vbase + (size_t)p * pstride, vf);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float w = sc[(size_t)g * L + p];
-#pragma unroll
-          for (int e = 0; e < E; ++e) acc[g][e] += w * vf[e];
+    for (int u = 0; u < kGqaUnroll; ++u) {
+      const int p = s0 + u * RPP + r;
+      ksc[u] = vsc[u] = 1.f;
+      if (p < p1) {
+        kr[u] = *reinterpret_cast<const uint4*>(kbase + (size_t)p * pstride);
+        vr[u] = *reinterpret_cast<const uint4*>(vbase + (size_t)p * pstride);
+        if (ksb) {
+          ksc[u] = ksb[(size_t)p * h_kv];
+          vsc[u] = vsb[(size_t)p * h_kv];
         }
       }
     }
+    // Scores: each row's LR lanes dot their elements, then sum by shuffles.
+#pragma unroll
+    for (int u = 0; u < kGqaUnroll; ++u) {
+      const int p = s0 + u * RPP + r;
+      float kf[VE];
+      if (p < p1) {
+        unpack16(kr[u], kf);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VE; ++e) kf[e] = 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < VE; ++e) dot = fmaf(qsm[g][e0 + e], kf[e], dot);
+#pragma unroll
+        for (int off = LR / 2; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        if (lead && p < p1) sc[g][u * RPP + r] = dot * ksc[u];
+      }
+    }
+    __syncthreads();
+    const int cnt = min(WIN, p1 - s0);
+    for (int g = warp; g < G; g += kGqaWarps) {
+      float mx = -INFINITY;
+      for (int j = lane; j < cnt; j += 32) mx = fmaxf(mx, sc[g][j]);
+      mx = warp_max(mx);
+      if (lane == 0) step_max[g] = mx;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float mn = fmaxf(m[g], step_max[g]);
+      const float alpha = __expf(m[g] - mn);  // 0 on the first step
+      m[g] = mn;
+      l[g] *= alpha;
+#pragma unroll
+      for (int e = 0; e < VE; ++e) acc[g][e] *= alpha;
+    }
+    // Values: weight each of the thread's rows into its accumulators.
+#pragma unroll
+    for (int u = 0; u < kGqaUnroll; ++u) {
+      const int j = u * RPP + r;
+      if (s0 + j < p1) {
+        float vf[VE];
+        unpack16(vr[u], vf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float w = __expf(sc[g][j] - m[g]);
+          if (lead) l[g] += w;
+          const float wv = w * vsc[u];
+#pragma unroll
+          for (int e = 0; e < VE; ++e) acc[g][e] = fmaf(wv, vf[e], acc[g][e]);
+        }
+      }
+    }
+    __syncthreads();  // sc is read before the next step writes it
   }
+
+  // Sum over rows: the lanes of a warp that hold the same elements, then
+  // the warps.
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int g = 0; g < G; ++g) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc_s[(warp * G + g) * D + lane * E + e] = acc[g][e];
+    for (int e = 0; e < VE; ++e)
+#pragma unroll
+      for (int off = LR; off < 32; off <<= 1)
+        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+    l[g] = warp_sum(l[g]);
+  }
+  if (lane < LR) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < VE; ++e) red[warp][g][e0 + e] = acc[g][e];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) lred[warp][g] = l[g];
+  }
   __syncthreads();
-  for (int c = threadIdx.x; c < G * D; c += kThreads) {
-    const int g = c / D;
-    float r = 0.f;
-    for (int w = 0; w < kWarps; ++w) r += acc_s[(w * G + g) * D + c % D];
-    obase[c] = __float2bfloat16(r * inv[g]);
+  for (int i = threadIdx.x; i < G * D; i += kGqaThreads) {
+    const int g = i / D, dd = i % D;
+    float a = 0.f, lt = 0.f;
+#pragma unroll
+    for (int w = 0; w < kGqaWarps; ++w) {
+      a += red[w][g][dd];
+      lt += lred[w][g];
+    }
+    if (splits == 1)
+      obase[i] = __float2bfloat16(a / lt);
+    else
+      ws_acc[(part + (size_t)g * splits) * D + dd] = a;
+  }
+  if (splits > 1 && threadIdx.x < G) {
+    float lt = 0.f;
+#pragma unroll
+    for (int w = 0; w < kGqaWarps; ++w) lt += lred[w][threadIdx.x];
+    ws_ml[2 * (part + (size_t)threadIdx.x * splits)] = m[threadIdx.x];
+    ws_ml[2 * (part + (size_t)threadIdx.x * splits) + 1] = lt;
   }
 }
 
-// Floats of kernel 11's shared memory: scores (g, L), partial outputs
-// (kWarps, g, d), the g softmax sums.
-inline size_t gqa_smem_floats(int g, int L, int d) {
-  return (size_t)g * L + (size_t)kWarps * g * d + g;
+// One block a (row, query head): the head's partials merged in split order.
+// The largest max of a non-empty partial (l > 0) first, a block reduction;
+// then thread t takes element t % D of the splits j = t / D, t / D + P,
+// ... (P = kCombineThreads / D), and the P sums of each element are added
+// in order: the result does not depend on timing. Empty partials are
+// skipped unread.
+constexpr int kCombineThreads = 256;
+
+template <int D>
+__global__ void __launch_bounds__(kCombineThreads)
+decode_gqa_combine_kernel(const float* __restrict__ ws_ml,
+                          const float* __restrict__ ws_acc,
+                          __nv_bfloat16* __restrict__ o, int splits) {
+  constexpr int P = kCombineThreads / D;
+  __shared__ float red[kCombineThreads / 32];
+  __shared__ float part_acc[P][D], part_l[P][D];
+  const size_t bh = blockIdx.x;
+  const float* ml = ws_ml + bh * splits * 2;
+  const float* a = ws_acc + bh * splits * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float mx = -INFINITY;
+  for (int j = threadIdx.x; j < splits; j += kCombineThreads)
+    if (ml[2 * j + 1] > 0.f) mx = fmaxf(mx, ml[2 * j]);
+  mx = warp_max(mx);
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  mx = red[0];
+#pragma unroll
+  for (int w = 1; w < kCombineThreads / 32; ++w) mx = fmaxf(mx, red[w]);
+
+  const int dd = threadIdx.x % D, part = threadIdx.x / D;
+  float l = 0.f, acc = 0.f;
+#pragma unroll 4
+  for (int j = part; j < splits; j += P) {
+    const float lj = ml[2 * j + 1];
+    if (lj > 0.f) {
+      const float w = __expf(ml[2 * j] - mx);
+      l = fmaf(w, lj, l);
+      acc = fmaf(w, a[(size_t)j * D + dd], acc);
+    }
+  }
+  part_acc[part][dd] = acc;
+  part_l[part][dd] = l;
+  __syncthreads();
+  if (threadIdx.x < D) {
+    for (int p = 1; p < P; ++p) {
+      acc += part_acc[p][dd];
+      l += part_l[p][dd];
+    }
+    o[bh * D + dd] = __float2bfloat16(l > 0.f ? acc / l : 0.f);
+  }
 }
-constexpr size_t kMaxSmemFloats = 227 * 1024 / sizeof(float);
 
 template <typename T, int D, int G>
 int launch_gqa(const void* q, const void* k, const void* v, const float* ks,
-               const float* vs, const int* lengths, void* o, int b, int L,
-               int h, int h_kv, float scale, cudaStream_t stream) {
-  auto kern = decode_gqa_kernel<T, D, G>;
-  const size_t smem = gqa_smem_floats(G, L, D) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+               const float* vs, const int* lengths, void* o, float* ws,
+               int b, int L, int h, int h_kv, int chunk, int splits,
+               float scale, cudaStream_t stream) {
   const int group = h / h_kv;
-  kern<<<dim3(h_kv * (group / G), b), kThreads, smem, stream>>>(
+  const size_t blocks = (size_t)b * h_kv * (group / G) * splits;
+  float* ws_acc = ws + (size_t)2 * b * h * splits;  // after the (m, l) pairs
+  decode_gqa_split_kernel<T, D, G><<<(unsigned)blocks, kGqaThreads, 0,
+                                     stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), ks, vs, lengths,
-      static_cast<__nv_bfloat16*>(o), L, h, h_kv, group, scale);
+      static_cast<__nv_bfloat16*>(o), ws, ws_acc, L, h, h_kv, group, chunk,
+      splits, scale);
+  if (splits == 1) return (int)cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  decode_gqa_combine_kernel<D><<<b * h, kCombineThreads, 0, stream>>>(
+      ws, ws_acc, static_cast<__nv_bfloat16*>(o), splits);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int dispatch_gqa_g(int g, const void* q, const void* k, const void* v,
                    const float* ks, const float* vs, const int* lengths,
-                   void* o, int b, int L, int h, int h_kv, float scale,
-                   cudaStream_t st) {
-#define VLT_GQA_CASE(N) \
-  case N: return launch_gqa<T, D, N>(q, k, v, ks, vs, lengths, o, b, L, h, h_kv, scale, st);
+                   void* o, float* ws, int b, int L, int h, int h_kv,
+                   int chunk, int splits, float scale, cudaStream_t st) {
+#define VLT_GQA_CASE(N)                                                    \
+  case N:                                                                  \
+    return launch_gqa<T, D, N>(q, k, v, ks, vs, lengths, o, ws, b, L, h,   \
+                               h_kv, chunk, splits, scale, st);
   switch (g) {
     VLT_GQA_CASE(1) VLT_GQA_CASE(2) VLT_GQA_CASE(4) VLT_GQA_CASE(8)
     default: return (int)cudaErrorInvalidValue;
@@ -446,17 +612,7 @@ inline int gqa_run(int group) {
     if (group % g == 0) return g;
   return 1;
 }
-
 }  // namespace
-
-// Kernel 11's longest cache for h query heads over h_kv of dim d: what its
-// block's shared memory holds (0 when h_kv does not divide h).
-extern "C" int vlt_decode_attention_gqa_max_len(int h, int h_kv, int d) {
-  if (h_kv <= 0 || h % h_kv) return 0;
-  const int g = gqa_run(h / h_kv);
-  const size_t fixed = gqa_smem_floats(g, 0, d);
-  return fixed >= kMaxSmemFloats ? 0 : (int)((kMaxSmemFloats - fixed) / g);
-}
 
 // int8: 0 for a bf16 cache (ks/vs ignored, pass null), 1 for int8 + scales.
 // d must be 64 or 128 (the wrappers check).
@@ -492,23 +648,29 @@ extern "C" int vlt_decode_attention_paged(const void* q, const void* k,
 }
 
 // Kernel 11. q (b, 1, h, d) bf16; k, v (b, L, h_kv, d), bf16 or int8 with
-// scales (b, L, h_kv) f32; lengths (b,); o (b, 1, h, d) bf16. h a multiple
-// of h_kv; d in {32, 64, 128} (the wrapper checks); L at most
-// vlt_decode_attention_gqa_max_len (else cudaErrorInvalidValue).
+// scales (b, L, h_kv) f32; lengths (b,); o (b, 1, h, d) bf16; ws the f32
+// workspace of the partials, b * h * splits * (2 + d) floats (unused when
+// splits is 1); [0, L) in `splits` chunks of `chunk` positions (splits =
+// ceil(L / chunk)). h a multiple of h_kv; d in {32, 64, 128} (the wrapper
+// checks).
 extern "C" int vlt_decode_attention_gqa(const void* q, const void* k,
                                         const void* v, const void* ks,
                                         const void* vs, const void* lengths,
-                                        void* o, int b, int L, int h,
-                                        int h_kv, int d, int int8,
-                                        float scale, void* stream) {
-  if (L > vlt_decode_attention_gqa_max_len(h, h_kv, d))
+                                        void* o, void* ws, int b, int L,
+                                        int h, int h_kv, int d, int int8,
+                                        int chunk, int splits, float scale,
+                                        void* stream) {
+  if (h_kv <= 0 || h % h_kv || chunk <= 0 ||
+      (long long)chunk * splits < L || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   const int g = gqa_run(h / h_kv);
   const float* ksf = int8 ? static_cast<const float*>(ks) : nullptr;
   const float* vsf = int8 ? static_cast<const float*>(vs) : nullptr;
   const int* len = static_cast<const int*>(lengths);
+  float* wsf = static_cast<float*>(ws);
   cudaStream_t st = (cudaStream_t)stream;
-#define VLT_GQA_ARGS g, q, k, v, ksf, vsf, len, o, b, L, h, h_kv, scale, st
+#define VLT_GQA_ARGS \
+  g, q, k, v, ksf, vsf, len, o, wsf, b, L, h, h_kv, chunk, splits, scale, st
   if (int8) {
     if (d == 128) return dispatch_gqa_g<int8_t, 128>(VLT_GQA_ARGS);
     if (d == 64) return dispatch_gqa_g<int8_t, 64>(VLT_GQA_ARGS);

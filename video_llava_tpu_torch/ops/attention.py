@@ -383,8 +383,9 @@ def flash_attention_bhsd(
 ) -> torch.Tensor:
     """Non-causal attention over head-major, pre-padded operands ->
     (b, h, s_pad, d); keys at or past `kv_len` are masked. On CUDA:
-    bf16 in and out, any s_pad and kv_len, d a multiple of 16 up to
-    128 (csrc/flash_bhsd.cu)."""
+    bf16 in and out, any b*h, s_pad and kv_len, d a multiple of 16 up
+    to 128 (csrc/flash_bhsd.cu: a Hopper body for d 64 and 128, a WMMA
+    body for the others)."""
     b, h, s, d = q.shape
     kv_len = s if kv_len is None else int(kv_len)
     scale = scale if scale is not None else 1.0 / (d**0.5)
@@ -397,8 +398,6 @@ def flash_attention_bhsd(
         raise ValueError(f"head dim {d}: must be a multiple of 16 <= 128")
     if not 1 <= kv_len <= s:
         raise ValueError(f"kv_len {kv_len} outside [1, {s}]")
-    if b * h > 65535:
-        raise ValueError(f"b*h = {b * h} exceeds the grid's y limit")
     out = torch.empty_like(q)
     cuda_lib.launch(
         "flash_attention_bhsd", "vlt_flash_bhsd", q.device,
@@ -712,10 +711,68 @@ def decode_attention_pallas_plain(q, k_cache, v_cache, cache_len,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def gqa_split_plan(L: int, b: int, h_kv: int, sms: int) -> tuple:
+    """Kernel 11's split of [0, L) -> (chunk, splits): `splits` chunks of
+    `chunk` positions (a multiple of 16), splits = ceil(L / chunk), so
+    that the b * h_kv * splits blocks (at least) come to about two an SM
+    where L allows. L is the host's: the rows' lengths live on the
+    device."""
+    want = -(-2 * sms // (b * h_kv))  # chunks a (row, KV head)
+    chunk = -(-max(L, 1) // want)
+    chunk = -(-chunk // 16) * 16
+    return chunk, -(-L // chunk)
+
+
 @functools.lru_cache(maxsize=None)
-def _gqa_max_len(h: int, h_kv: int, d: int) -> int:
-    """Kernel 11's longest cache at these heads (its C entry's rule)."""
-    return cuda_lib.library().vlt_decode_attention_gqa_max_len(h, h_kv, d)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_gqa_partials_plain(q, k_cache, v_cache, cache_len, chunk: int,
+                              splits: int, k_scale=None, v_scale=None,
+                              scale=None):
+    """Plain version of kernel 11's split kernel: for each chunk c of
+    [c * chunk, (c + 1) * chunk), the partial of every (row, query head)
+    over its positions below the row's length -> (m (b, h, splits), l
+    (b, h, splits), acc (b, h, splits, d)), f32: the chunk's max score,
+    sum of exp(s - m) and sum of exp(s - m) [* v_scale] v. An empty chunk
+    has m = -inf, l = 0 and acc 0."""
+    b, _, h, d = q.shape
+    L, h_kv = k_cache.shape[1:3]
+    scale = _default_scale(d, scale)
+    qg = q[:, 0].float().reshape(b, h_kv, h // h_kv, d) * scale
+    k, v = k_cache.float(), v_cache.float()
+    if k_scale is not None:
+        k = k * k_scale.float()
+        v = v * v_scale.float()
+    s = torch.einsum("bkgd,blkd->bkgl", qg, k)  # (b, h_kv, group, L)
+    pad = splits * chunk - L
+    s = torch.nn.functional.pad(s, (0, pad), value=-float("inf"))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    valid = _length_mask(cache_len, splits * chunk)[:, None, None]
+    s = s.masked_fill(~valid, -float("inf"))
+    s = s.reshape(b, h_kv, h // h_kv, splits, chunk)
+    m = s.amax(dim=-1)  # (b, h_kv, group, splits)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    l = p.sum(dim=-1)
+    vv = v.reshape(b, splits, chunk, h_kv, d)
+    acc = torch.einsum("bkgsc,bsckd->bkgsd", p, vv)
+    return (m.reshape(b, h, splits), l.reshape(b, h, splits),
+            acc.reshape(b, h, splits, d))
+
+
+def decode_gqa_combine_plain(m, l, acc, dtype=torch.bfloat16):
+    """Plain version of kernel 11's combine kernel: each (row, head)'s
+    partials merged, o = sum_j e^(m_j - M) acc_j / sum_j e^(m_j - M) l_j
+    with M the largest m_j of a non-empty partial (l_j > 0), 0 where all
+    are empty -> (b, 1, h, d) in `dtype`."""
+    live = l > 0
+    mx = torch.where(live, m, -float("inf")).amax(dim=-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - torch.where(live, mx, 0.0)), 0.0)
+    lt = (w * l).sum(dim=-1, keepdim=True)
+    out = (w[..., None] * torch.where(live[..., None], acc, 0.0)).sum(-2)
+    out = torch.where(lt > 0, out / lt.clamp_min(1e-30), 0.0)
+    return out[:, None].to(dtype)
 
 
 def decode_attention_pallas(
@@ -729,8 +786,10 @@ def decode_attention_pallas(
 ) -> torch.Tensor:
     """Kernel 11: grouped-query decode (h_kv divides h) over a flat
     per-layer cache -> (b, 1, h, d) (JAX ``decode_attention_pallas``). On
-    CUDA: one block per (row, KV head) reading each position once for
-    its group (csrc/decode_attention.cu); any L, d in {32, 64, 128}."""
+    CUDA: L split into chunks (:func:`gqa_split_plan`), a block per (row,
+    KV head, chunk) reading each position once for its group, then a
+    deterministic merge of the chunks' partials in an f32 workspace
+    (csrc/decode_attention.cu); any L, d in {32, 64, 128}."""
     b, _, h, d = q.shape
     L, h_kv = k_cache.shape[1:3]
     scale = _default_scale(d, scale)
@@ -741,17 +800,19 @@ def decode_attention_pallas(
                                              k_scale, v_scale, scale)
     ks, vs = _check_decode_flat(q, k_cache, v_cache, cache_len, k_scale,
                                 v_scale, "decode_attention_pallas")
-    if L > _gqa_max_len(h, h_kv, d):
-        raise ValueError(f"cache length {L} exceeds the kernel's shared "
-                         "memory for its scores")
-    if b > 65535:
-        raise ValueError(f"{b} rows exceed the grid's y limit")
+    chunk, splits = gqa_split_plan(L, b, h_kv, _sm_count(q.device.index))
+    ws = None
+    if splits > 1:
+        ws = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                         device=q.device)
     out = torch.empty_like(q)
     cuda_lib.launch(
         "decode_attention_pallas", "vlt_decode_attention_gqa", q.device,
         cuda_lib.ptr(q), cuda_lib.ptr(k_cache), cuda_lib.ptr(v_cache),
         ks, vs, cuda_lib.ptr(cache_len), cuda_lib.ptr(out),
-        b, L, h, h_kv, d, int(k_scale is not None), float(scale),
+        None if ws is None else cuda_lib.ptr(ws),
+        b, L, h, h_kv, d, int(k_scale is not None), chunk, splits,
+        float(scale),
     )
     return out
 

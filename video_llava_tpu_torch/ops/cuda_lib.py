@@ -53,12 +53,12 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
         _P,
     ),
-    # q, k, v, ks, vs, lengths, o; b, L, h, h_kv, d, int8; scale
+    # q, k, v, ks, vs, lengths, o, ws; b, L, h, h_kv, d, int8, chunk,
+    # splits; scale
     "vlt_decode_attention_gqa": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+        _P,
     ),
-    # h, h_kv, d -> kernel 11's longest cache
-    "vlt_decode_attention_gqa_max_len": (_I, _I, _I),
     "vlt_w4a8_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, packed, scales, out, partial; dh, f, n_groups, rows, out_bf16
     "vlt_w4a16_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
