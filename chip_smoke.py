@@ -8,13 +8,14 @@ Phases, each of which raises on failure (exit code != 0):
   2. build the CUDA kernels from video_llava_tpu_torch/csrc;
   3. check each kernel against its plain PyTorch version at the chat
      and serving paths' shapes (plus the 336 px CLIP shape, the 12-frame
-     pool, the int8 caches, the paged pool with bf16 and int8 values,
+     pool and 9 valid frames of 12, the int8 caches, the paged pool with
+     bf16 and int8 values, kernels 3, 9 and 10 at 65,536 positions,
      for the W4A8 and W4A16 kernels Vicuna-7B's decode and prefill
      linears in the bf16-out build the path launches and in f32 out, a
      flat per-layer weight and a 1100-row prompt, the flat-cache decode
      kernels 9 and 11 at the chat and serving shapes, kernels 3 and 10 at
      head dim 32, CLIP's pad keys and values set large, and planted
-     faults in the plain versions of kernels 1, 10, 11 and the W4A16
+     faults in the plain versions of kernels 1, 2, 10, 11 and the W4A16
      matvec that must fail), timing the kernel, the plain version and, where one PyTorch
      call computes the same function, that call, each beside the
      kernel's bound;
@@ -204,11 +205,12 @@ TOL = {"flash_attention_bhsd": 2e-2, "spatio_temporal_pool": 1e-2,
 # averages them, so its outputs are small (~0.01 in the int8 pool) and
 # the absolute limit would pass a wrong block there; a few bf16 ulps of
 # each row's own scale do not (paged_checks plants such faults). Kernels
-# 9 and 11 read the same long rows through a flat cache, and are held
-# the same way (flat_decode_checks plants a head-mapping fault in 11's
-# plain version).
+# 3, 9 and 11 read long rows through a stacked or flat cache (3 and 9 up
+# to 65,536 positions in long_decode_checks), and are held the same way
+# (flat_decode_checks plants a head-mapping fault in 11's plain version).
 ROW_TOL = {"decode_attention_paged": 2 ** -6, "decode_attention_mxu": 2 ** -6,
-           "decode_attention_pallas": 2 ** -6}
+           "decode_attention_pallas": 2 ** -6,
+           "decode_attention_stacked": 2 ** -6}
 # W4A8 as max|err| / max|ref|: kernel and plain version quantize the
 # activations by the same rule and form exact integer partials, so in f32
 # out only the order of the f32 sums over groups differs. In bf16 out
@@ -404,15 +406,26 @@ def kernel_checks(dev) -> dict:
                                      "planted pad-key fault")
             del want, faulty
     del q, k, v
-    # pooling: 100 frames, then a 12-frame clip; the library call is the
-    # two means over the pooled axes
-    for t in (100, 12):
+    # pooling: 100 frames, a 12-frame clip, then 9 valid frames of 12
+    # (the kernel reads only those); the library call is the two means
+    # over the valid frames. A planted fault in the plain version (n + 1
+    # valid frames) must fail the check.
+    for t, n in ((100, 100), (12, 12), (12, 9)):
         x = rnd(t, 256, 1024)
-        check(results, "spatio_temporal_pool", (t, 256, 1024),
-              lambda: pooling.spatio_temporal_pool_fused(x, t),
-              lambda: pooling.spatio_temporal_pool(x, t),
-              nbytes=(x.numel() + (100 + 256) * 1024) * 2,
-              library=lambda: torch.cat([x.mean(1), x.mean(0)]))
+        check(results, "spatio_temporal_pool",
+              (t, 256, 1024) + (() if n == t else (f"n {n}",)),
+              lambda: pooling.spatio_temporal_pool_fused(x, n),
+              lambda: pooling.spatio_temporal_pool(x, n),
+              nbytes=(n * 256 * 1024 + (100 + 256) * 1024) * 2,
+              library=lambda: torch.cat([x[:n].mean(1), x[:n].mean(0)]))
+        if n < t:
+            err = (pooling.spatio_temporal_pool(x, n + 1).float()
+                   - pooling.spatio_temporal_pool(x, n).float()).abs().max()
+            print(f"planted fault in kernel 2's plain version, n + 1 valid "
+                  f"frames: max|err| {err.item():.3e}", flush=True)
+            if not err.item() > TOL["spatio_temporal_pool"]:
+                raise AssertionError("the pool check passes the planted "
+                                     "n + 1 fault")
     # decode attention at the first chat turn's cache, mid-answer
     n_prompt, L = chat_cache_len(VideoLLaVAConfig())
     n = n_prompt + MAX_NEW_TOKENS // 2
@@ -444,6 +457,9 @@ def kernel_checks(dev) -> dict:
     paged_checks(dev, g, rnd, results)
     w4a8_checks(dev, g, results)
     flat_decode_checks(dev, g, rnd, results)
+    # after every kernel's main-path shape: record() keeps the first
+    long_decode_checks(dev, g, rnd, results)
+    mha_split_checks(dev, g, rnd, results)
     w4a16_checks(dev, g, results)
     return results
 
@@ -485,7 +501,9 @@ def paged_checks(dev, g, rnd, results) -> None:
     the plain version (one table entry of the 2048-position row pointing
     at a block no row uses; row 1000's partial tail block dropped) must
     fail the row check: printed beside whether the absolute limit alone
-    would have caught them."""
+    would have caught them. Then the split kernel's and the combine's
+    plain versions over the wrapper's plan must pass it, and fail it with
+    each row's last live chunk dropped (its partial emptied)."""
     nl, nb, bs, maxb, b, h, d = 32, 129, 64, 32, 4, 32, 128
     k, v = rnd(nl, nb, bs, h, d), rnd(nl, nb, bs, h, d)
     kq = torch.randint(-127, 128, k.shape, generator=g, device=dev,
@@ -540,6 +558,93 @@ def paged_checks(dev, g, rnd, results) -> None:
                     if not row > ROW_TOL["decode_attention_paged"]:
                         raise AssertionError("the row check passes a "
                                              f"planted fault: {fault}")
+                chunk, splits = attention.paged_split_plan(
+                    maxb, bs, b, h, torch.cuda.get_device_properties(
+                        dev).multi_processor_count)
+                m, l, acc = attention.decode_paged_partials_plain(
+                    *args[:6], chunk, splits, *args[6:])
+                row = row_rel_err(attention.decode_gqa_combine_plain(
+                    m, l, acc), want)
+                print(f"kernel 10's split plain versions ({splits} chunks "
+                      f"of {chunk}) against its plain version: rows' "
+                      f"max|err|/max|ref| {row:.3e}", flush=True)
+                if not row <= ROW_TOL["decode_attention_paged"]:
+                    raise AssertionError("kernel 10's split plain versions "
+                                         "disagree with its plain version")
+                last = (lens.long() - 1) // chunk
+                l[torch.arange(b, device=dev), :, last] = 0.0
+                row = row_rel_err(attention.decode_gqa_combine_plain(
+                    m, l, acc), want)
+                print(f"planted fault in kernel 10's split plain version, "
+                      f"each row's last live chunk of {chunk} dropped: "
+                      f"rows' max|err|/max|ref| {row:.3e}", flush=True)
+                if not row > ROW_TOL["decode_attention_paged"]:
+                    raise AssertionError("the row check passes the planted "
+                                         "dropped-chunk fault")
+
+
+def long_decode_checks(dev, g, rnd, results) -> None:
+    """Kernels 3, 9 and 10 at 65,536 positions (Vicuna-7B's 32 heads of
+    128, bf16), past the shared memory of the per-(head, row) body: the
+    stacked and flat wrappers send such a cache by its length to the
+    split body at one head a block (launches counted as
+    decode_attention_pallas); kernel 10 is the split body at any length.
+    Rows {65536, 40000}; the paged pool holds them in blocks of 64."""
+    L, h, d = 65536, 32, 128
+    rows = (L, 40000)
+    b = len(rows)
+    lens = torch.tensor(rows, dtype=torch.int32, device=dev)
+    q = rnd(b, 1, h, d)
+    nbytes, ops = 2 * sum(rows) * h * d * 2, 4 * sum(rows) * h * d
+    kc, vc = rnd(1, b, L, h, d), rnd(1, b, L, h, d)
+    check(results, "decode_attention_stacked", (1, b, L, h, d, rows, "bf16"),
+          lambda: attention.decode_attention_stacked(q, kc, vc, 0, lens),
+          lambda: attention.decode_attention_stacked_plain(q, kc, vc, 0,
+                                                           lens),
+          nbytes=nbytes, ops=ops)
+    check(results, "decode_attention_mxu", (b, L, h, d, rows, "bf16"),
+          lambda: attention.decode_attention_mxu(q, kc[0], vc[0], lens),
+          lambda: attention.decode_attention_mxu_plain(q, kc[0], vc[0],
+                                                       lens),
+          nbytes=nbytes, ops=ops)
+    del kc, vc
+    bs, maxb = 64, L // 64
+    nb = 1 + sum(-(-r // bs) for r in rows)
+    kp, vp = rnd(1, nb, bs, h, d), rnd(1, nb, bs, h, d)
+    table, _ = random_table(g, dev, rows, bs, maxb, nb)
+    args = (q, kp, vp, 0, table, lens)
+    check(results, "decode_attention_paged",
+          (1, nb, bs, h, d, "table", b, maxb, rows, "bf16"),
+          lambda: attention.decode_attention_paged(*args),
+          lambda: attention.decode_attention_paged_plain(*args),
+          nbytes=nbytes, ops=ops)
+
+
+def mha_split_checks(dev, g, rnd, results) -> None:
+    """The split body at one head a block (decode_attention_pallas over
+    an MHA cache, the route kernels 3 and 9 take past their shared
+    memory) at the shapes where they keep their own body: kernel 9's
+    chat cache mid-answer and its serving rows {1000, 2048, 63, 64} in a
+    (4, 2048) cache, bf16 and int8, so that both bodies' times stand in
+    one run."""
+    n_prompt, L = chat_cache_len(VideoLLaVAConfig())
+    n = n_prompt + MAX_NEW_TOKENS // 2
+    h, d = 32, 128
+    for length, rows in ((L, (n,)), (2048, (1000, 2048, 63, 64))):
+        b = len(rows)
+        lens = torch.tensor(rows, dtype=torch.int32, device=dev)
+        for int8 in (False, True):
+            q = rnd(b, 1, h, d)
+            kc, vc, ks, vs = kv_pair(dev, g, rnd, (b, length, h, d), int8,
+                                     unit=True)
+            check(results, "decode_attention_pallas",
+                  (b, length, h, h, d, rows, "int8" if int8 else "bf16"),
+                  lambda: attention.decode_attention_pallas(q, kc, vc, lens,
+                                                            ks, vs),
+                  lambda: attention.decode_attention_pallas_plain(
+                      q, kc, vc, lens, ks, vs),
+                  nbytes=2 * sum(rows) * h * (d + 4 if int8 else 2 * d),
+                  ops=4 * sum(rows) * h * d)
 
 
 def w4a8_checks(dev, g, results) -> None:
@@ -942,6 +1047,13 @@ def chat_requests(engine, clips, requests, dev, label):
     return launches
 
 
+def port_kernel(name: str) -> bool:
+    """Whether a profiled device activity is a kernel of csrc/ (the names
+    of a few of PyTorch's own kernels also start so)."""
+    return name.startswith(("void (anonymous namespace)::",
+                            "(anonymous namespace)::", "void flash::"))
+
+
 def busy_and_names(spans):
     """(name, start ns, end ns) of device activities -> (busy ms: the
     length of the union of their intervals, {name: (total us, calls)})."""
@@ -993,12 +1105,9 @@ def profile_request(engine, clips, dev, label) -> None:
           f"{1 - busy_ms / wall_ms:.3f}")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     # the top kernels, those launched once a token (the lm_head), and
-    # every kernel of csrc/ (kernel 11's combine among them; the names
-    # of a few of PyTorch's own kernels also start so)
+    # every kernel of csrc/ (kernel 11's combine among them)
     for i, (name, (total, calls)) in enumerate(ranked):
-        ours = name.startswith(("void (anonymous namespace)::",
-                                "(anonymous namespace)::", "void flash::"))
-        if i < 16 or calls == MAX_NEW_TOKENS or ours:
+        if i < 16 or calls == MAX_NEW_TOKENS or port_kernel(name):
             print(f"{label} profile: {total / 1e3:9.2f} ms {calls:6d} "
                   f"calls  {name[:90]}")
 
@@ -1204,10 +1313,13 @@ def serving_phase(engine, clips, dev) -> dict:
     print(f"serving profile: device busy {busy_ms:.1f} ms over "
           f"{len(spans)} device activities, wall {wall_ms:.1f} ms "
           f"(unprofiled run), idle share {1 - busy_ms / wall_ms:.3f}")
-    for name, (total, calls) in sorted(by_name.items(),
-                                       key=lambda kv: -kv[1][0])[:8]:
-        print(f"serving profile: {total / 1e3:9.2f} ms {calls:6d} calls  "
-              f"{name[:90]}")
+    # the top kernels and every kernel of csrc/ (kernel 10's combine
+    # among them)
+    for i, (name, (total, calls)) in enumerate(
+            sorted(by_name.items(), key=lambda kv: -kv[1][0])):
+        if i < 8 or port_kernel(name):
+            print(f"serving profile: {total / 1e3:9.2f} ms {calls:6d} "
+                  f"calls  {name[:90]}")
     return launches
 
 

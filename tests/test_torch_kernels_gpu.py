@@ -76,14 +76,31 @@ def test_flash_bhsd_kernel_matches_plain(dev, b, h, s, kv_len, d):
     (100, 256, 1024, 100, torch.bfloat16), (12, 256, 1024, 12,
                                             torch.bfloat16),
     (7, 50, 100, 5, torch.float32), (3, 17, 64, 9, torch.float32),
+    (1, 256, 1024, 1, torch.bfloat16), (12, 256, 1024, 0, torch.bfloat16),
+    (12, 256, 1024, 9, torch.bfloat16), (12, 256, 1024, 9, torch.float32),
+    (20, 33, 1000, 17, torch.float32), (5, 70, 36, 2, torch.bfloat16),
+    (40, 577, 1024, 40, torch.bfloat16),
 ])
 def test_pool_kernel_matches_plain(dev, t, s, c, n, out_dtype):
+    """Kernel 2 at the chat's 100 and 12 frames, one frame, no valid
+    frame, 9 of 12, n past t, and s and c that do not divide the block's
+    32 patches x 64 channels (c % 8 != 0 takes the scalar loads)."""
     g = torch.Generator(device=dev).manual_seed(1)
     x = _rand(g, t, s, c)
     got = pooling.spatio_temporal_pool_fused(x, n, out_dtype=out_dtype)
     want = pooling.spatio_temporal_pool(x, n, out_dtype=out_dtype)
     assert got.dtype == out_dtype and got.shape == want.shape
     _assert_close(got, want, 1e-2 if out_dtype == torch.bfloat16 else 1e-5)
+
+
+def test_pool_kernel_is_deterministic(dev):
+    """Kernel 2's sums run in a fixed order (the temporal partials added
+    in run order): the same bits on every launch."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = _rand(g, 100, 256, 1024)
+    first = pooling.spatio_temporal_pool_fused(x, 100)
+    for _ in range(3):
+        assert torch.equal(pooling.spatio_temporal_pool_fused(x, 100), first)
 
 
 @pytest.mark.parametrize("nl,b,L,h,d,int8", [
@@ -158,6 +175,94 @@ def test_paged_decode_kernel_matches_plain(dev, nb, bs, maxb, h, d, lens,
         err = (got.float() - want.float()).abs().flatten(1).amax(1)
         rel = err / want.float().abs().flatten(1).amax(1)
         assert rel.max().item() <= 2 ** -6, rel.tolist()
+
+
+def _paged_pool(g, dev, lens, bs, maxb, h, d, int8, nl=2):
+    """A pool of nl layers holding `lens` rows, each row's blocks drawn
+    from a shuffled pool, the pad block 0 past its allocation -> (k, v,
+    k_scale, v_scale, table)."""
+    pool = (nl, 1 + sum(-(-n // bs) for n in lens), bs, h, d)
+    if int8:
+        kc, vc = (torch.randint(-127, 128, pool, generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(pool[:-1], generator=g, device=dev) / 127
+                  for _ in range(2))
+    else:
+        kc, vc = (_rand(g, *pool) for _ in range(2))
+        ks = vs = None
+    perm = (torch.randperm(pool[1] - 1, generator=g, device=dev) + 1).tolist()
+    table = torch.zeros((len(lens), maxb), dtype=torch.int32)
+    for i, n in enumerate(lens):
+        used = -(-n // bs)
+        table[i, :used] = torch.tensor(perm[:used], dtype=torch.int32)
+        perm = perm[used:]
+    return kc, vc, ks, vs, table.to(dev)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_decode_rows_at_chunk_edges(dev, int8):
+    """Kernel 10 with row lengths at the plan's chunk edges (one short of
+    a chunk, a chunk, one past it, two chunks), a full table and an empty
+    row, which writes 0 (the plain version, the JAX package's XLA path,
+    averages every value there; a decode row is never empty). Twice: the
+    partials merge in split order, so the result is the same bits."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    bs, maxb, h, d = 64, 32, 32, 128
+    chunk, splits = attention.paged_split_plan(
+        maxb, bs, 6, h, attention._sm_count(dev.index))
+    assert splits > 2
+    lens = [chunk - 1, chunk, chunk + 1, 2 * chunk, maxb * bs, 0]
+    kc, vc, ks, vs, table = _paged_pool(g, dev, lens, bs, maxb, h, d, int8)
+    q = _rand(g, len(lens), 1, h, d)
+    cache_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    args = (q, kc, vc, 1, table, cache_len, ks, vs)
+    before = cuda_lib.LAUNCHES["decode_attention_paged"]
+    got = attention.decode_attention_paged(*args)
+    assert cuda_lib.LAUNCHES["decode_attention_paged"] == before + 1
+    again = attention.decode_attention_paged(*args)
+    want = attention.decode_attention_paged_plain(*args)
+    _assert_rows(got[:-1], want[:-1])
+    assert not got[-1].any()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_kernels_at_65536_positions(dev, int8):
+    """Kernels 3, 9 and 10 at 65,536 positions, past the shared memory
+    of the per-(head, row) body (about 57,000 scores at d 64), where they
+    raised before: kernels 3 and 9 go by length to the split body at one
+    head a block (a launch counted as decode_attention_pallas), kernel 10
+    is the split body for every length."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    L, h, d = 65536, 4, 64
+    lens = torch.tensor([L, 40000], dtype=torch.int32, device=dev)
+    q = _rand(g, 2, 1, h, d)
+    kc, vc, ks, vs = _flat_cache(g, dev, 2, L, h, d, int8)
+    stacked = lambda a: None if a is None else a[None, ..., 0]  # noqa
+    for name, run, plain in (
+            ("decode_attention_stacked",
+             lambda: attention.decode_attention_stacked(
+                 q, kc[None], vc[None], 0, lens, stacked(ks), stacked(vs)),
+             lambda: attention.decode_attention_stacked_plain(
+                 q, kc[None], vc[None], 0, lens, stacked(ks), stacked(vs))),
+            ("decode_attention_mxu",
+             lambda: attention.decode_attention_mxu(q, kc, vc, lens, ks, vs),
+             lambda: attention.decode_attention_mxu_plain(q, kc, vc, lens,
+                                                          ks, vs))):
+        before = dict(cuda_lib.LAUNCHES)
+        got = run()
+        assert cuda_lib.LAUNCHES["decode_attention_pallas"] == before.get(
+            "decode_attention_pallas", 0) + 1, name
+        assert cuda_lib.LAUNCHES[name] == before.get(name, 0), name
+        _assert_rows(got, plain())
+    del kc, vc, ks, vs
+    pk, pv, pks, pvs, table = _paged_pool(g, dev, lens.tolist(), 64, 1024,
+                                          h, d, int8, nl=1)
+    args = (q, pk, pv, 0, table, lens, pks, pvs)
+    before = cuda_lib.LAUNCHES["decode_attention_paged"]
+    got = attention.decode_attention_paged(*args)
+    assert cuda_lib.LAUNCHES["decode_attention_paged"] == before + 1
+    _assert_rows(got, attention.decode_attention_paged_plain(*args))
 
 
 def _flat_cache(g, dev, b, L, h_kv, d, int8):

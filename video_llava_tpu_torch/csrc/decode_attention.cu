@@ -1,38 +1,38 @@
 // Decode attention for one query token against one layer of a KV cache,
-// bf16 or int8 with per-(position, head) f32 scales. Two cache layouts,
-// one MHA kernel body (head dims 32, 64, 128):
-//   stacked (NL, b, L, h, d), scales (NL, b, L, h): the slot cache.
+// bf16 or int8 with per-(position, head) f32 scales, head dims 32, 64, 128.
+// Two kernel bodies:
+//   * one block per (head, row), MHA (below): the stacked cache (NL, b, L,
+//     h, d), scales (NL, b, L, h), the slot cache.
 //     Replaces video_llava_tpu/ops/attention.py::decode_attention_mxu_stacked
 //     (Pallas body _decode_attn_mxu_stacked_kernel). A flat per-layer cache
 //     (b, L, h, d) is the stacked one with NL = 1 at layer 0, so the same
 //     entry also replaces decode_attention_mxu (Pallas body
 //     _decode_attn_mxu_kernel).
-//   paged (NL, NB, BS, h, d), scales (NL, NB, BS, h), with a block table
-//     (b, MAXB): the serving block pool. Position p of row bi lives in pool
-//     block table[bi, p / BS] at offset p % BS.
-//     Replaces video_llava_tpu/ops/attention.py::decode_attention_mxu_paged
-//     (Pallas body _decode_attn_mxu_paged_kernel).
+//   * split along the positions, then a combine (kernel 11's body, further
+//     down): grouped-query heads over a flat cache, and with a block table
+//     (b, MAXB) the paged pool (NL, NB, BS, h, d), scales (NL, NB, BS, h),
+//     where position p of row bi lives in pool block table[bi, p / BS] at
+//     offset p % BS.
+//     Replaces video_llava_tpu/ops/attention.py::decode_attention_pallas
+//     (body _decode_attn_kernel) and decode_attention_mxu_paged (Pallas
+//     body _decode_attn_mxu_paged_kernel).
 // For row bi, head hh, with n = lengths[bi]:
 //     s_p = (q . k_p) * scale [* k_scale_p]            p < n
 //     o   = sum_p softmax(s)_p [* v_scale_p] v_p        (bf16 out)
 // Positions at or past a row's length are never read, and neither are the
 // table entries that map them (the pad block 0 past a row's allocation).
 // The layer select that the TPU kernels did with scalar prefetch, and the
-// block-table index map, are address arithmetic here (row_of below).
+// block-table index map, are address arithmetic here.
 //
 // What bounds it on Hopper: device-memory bandwidth on the cache stream
 // (2 * n * h * d bytes per layer and row in bf16, half that in int8); the
-// arithmetic is a few flops per byte. One block per (head, row) with 8 warps;
+// arithmetic is a few flops per byte. The per-(head, row) body: 8 warps;
 // lanes split d so each cache row is one coalesced 256-byte (bf16, d = 128)
-// read, and each warp keeps kUnroll rows in flight to hide latency. A paged
-// block keeps that: a 64-position block of one head is 64 such reads. The
-// row's table (MAXB ints) is staged in shared memory once. Scores go to
-// shared memory (n floats), so the softmax is exact two-pass, not online.
-// At b = 1 the grid is h = 32 blocks, which fills 32 of 132 SMs: splitting L
-// across blocks (flash-decoding) is later work.
-// Grouped-query attention (h_kv < h) over a flat cache has a body of its
-// own below (kernel 11, split along L), so that the MHA body keeps its
-// parameters and time.
+// read, and each warp keeps kUnroll rows in flight to hide latency. Scores
+// go to shared memory (n floats), so the softmax is exact two-pass, not
+// online, and the body takes L only up to that memory (the wrappers send a
+// longer cache to the split body with one head a block). At b = 1 the grid
+// is h = 32 blocks, which fills 32 of 132 SMs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,12 +53,10 @@ struct Args {
   const float* ks;      // scales, or null for a bf16 cache
   const float* vs;
   const int* lengths;   // (b,)
-  const int* table;     // (b, maxb), or null for the stacked cache
   void* o;              // (b, 1, h, D) bf16
   int layer, b;
-  int L;                // positions a row can hold: L, or maxb * bs
+  int L;                // positions a row can hold
   int h;
-  int nblocks, bs, maxb;  // paged only
   float scale;
 };
 
@@ -118,21 +116,19 @@ __device__ inline float block_reduce(float x, float* red) {
 // The pointers are separate __restrict__ kernel parameters (not members of
 // Args), so nvcc knows they are global and unaliased and streams the cache
 // through the read-only path.
-template <typename T, int D, bool kPaged>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    const T* __restrict__ kc, const T* __restrict__ vc,
                    const float* __restrict__ ks, const float* __restrict__ vs,
                    const int* __restrict__ lengths,
-                   const int* __restrict__ table,
                    __nv_bfloat16* __restrict__ o, int layer, int b, int L,
-                   int h, int nblocks, int bs, int maxb, float scale) {
+                   int h, float scale) {
   constexpr int E = D / 32;
   extern __shared__ float smem[];
   float* sc = smem;                 // (L,) scores, then weights
   float* acc_s = smem + L;          // (kWarps, D) partial outputs
   float* red = acc_s + kWarps * D;  // (kWarps,) reduction scratch
-  int* tbl = reinterpret_cast<int*>(red + kWarps);  // (maxb,) paged only
 
   const int hh = blockIdx.x, bi = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -142,24 +138,10 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
     for (int c = threadIdx.x; c < D; c += kThreads) orow[c] = __float2bfloat16(0.f);
     return;
   }
-  if constexpr (kPaged) {
-    for (int i = threadIdx.x; i < maxb; i += kThreads) tbl[i] = table[(size_t)bi * maxb + i];
-    __syncthreads();
-  }
-
-  // slot(p): where position p sits in the layer's slab, counted in
-  // positions from `first` (the layer's row bi stacked; the layer's pool
-  // block 0 paged): the values of head hh at (first + slot) * h * D +
-  // hh * D, its scale at (first + slot) * h + hh. Passes 1 and 2 walk runs
-  // of kUnroll positions that start at a multiple of kUnroll, and a paged
-  // block (bs a multiple of 16) never splits a run, so they look the table
-  // up once a run: p + u sits at slot(p) + u.
-  const size_t first = kPaged ? (size_t)layer * nblocks * bs
-                              : ((size_t)layer * b + bi) * L;
-  auto slot = [=](int p) -> int {
-    if constexpr (kPaged) return tbl[p / bs] * bs + p % bs;
-    else return p;
-  };
+  // Position p of the row sits at (first + p) positions into the cache:
+  // the values of head hh at (first + p) * h * D + hh * D, its scale at
+  // (first + p) * h + hh.
+  const size_t first = ((size_t)layer * b + bi) * L;
   const size_t pstride = (size_t)h * D;  // elements between positions
   const T* kbase = kc + first * pstride + (size_t)hh * D + lane * E;
   const T* vbase = vc + first * pstride + (size_t)hh * D + lane * E;
@@ -171,14 +153,13 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
 
   // Pass 1: scores.
   for (int base = warp * kUnroll; base < n; base += kWarps * kUnroll) {
-    const int s0 = slot(base);
     float part[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       part[u] = 0.f;
       if (base + u < n) {
         float kf[E];
-        load_row<E>(kbase + (size_t)(s0 + u) * pstride, kf);
+        load_row<E>(kbase + (size_t)(base + u) * pstride, kf);
 #pragma unroll
         for (int e = 0; e < E; ++e) part[u] += qf[e] * kf[e];
       }
@@ -187,7 +168,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
     for (int u = 0; u < kUnroll; ++u) {
       const float dot = warp_sum(part[u]);
       const int p = base + u;
-      if (lane == 0 && p < n) sc[p] = dot * scale * (ksb ? ksb[(size_t)(s0 + u) * h] : 1.f);
+      if (lane == 0 && p < n) sc[p] = dot * scale * (ksb ? ksb[(size_t)p * h] : 1.f);
     }
   }
   __syncthreads();
@@ -200,7 +181,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   for (int p = threadIdx.x; p < n; p += kThreads) {
     const float w = __expf(sc[p] - mx);
     sum += w;
-    sc[p] = vsb ? w * vsb[(size_t)slot(p) * h] : w;
+    sc[p] = vsb ? w * vsb[(size_t)p * h] : w;
   }
   sum = block_reduce<false>(sum, red);  // also orders the sc writes
 
@@ -209,13 +190,12 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = 0.f;
   for (int base = warp * kUnroll; base < n; base += kWarps * kUnroll) {
-    const int s0 = slot(base);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int p = base + u;
       if (p < n) {
         float vf[E];
-        load_row<E>(vbase + (size_t)(s0 + u) * pstride, vf);
+        load_row<E>(vbase + (size_t)p * pstride, vf);
         const float w = sc[p];
 #pragma unroll
         for (int e = 0; e < E; ++e) acc[e] += w * vf[e];
@@ -233,41 +213,42 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename T, int D, bool kPaged>
+template <typename T, int D>
 int launch(const Args& a, cudaStream_t stream) {
-  auto kern = decode_attn_kernel<T, D, kPaged>;
-  const size_t smem = ((size_t)a.L + kWarps * D + kWarps) * sizeof(float)
-                      + (kPaged ? (size_t)a.maxb * sizeof(int) : 0);
+  auto kern = decode_attn_kernel<T, D>;
+  const size_t smem = ((size_t)a.L + kWarps * D + kWarps) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(a.h, a.b), kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.ks, a.vs, a.lengths, a.table,
-      static_cast<__nv_bfloat16*>(a.o), a.layer, a.b, a.L, a.h, a.nblocks,
-      a.bs, a.maxb, a.scale);
+      static_cast<const T*>(a.v), a.ks, a.vs, a.lengths,
+      static_cast<__nv_bfloat16*>(a.o), a.layer, a.b, a.L, a.h, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <bool kPaged>
 int dispatch(const Args& a, int d, int int8, cudaStream_t st) {
   if (int8) {
-    if (d == 128) return launch<int8_t, 128, kPaged>(a, st);
-    if (d == 32) return launch<int8_t, 32, kPaged>(a, st);
-    return launch<int8_t, 64, kPaged>(a, st);
+    if (d == 128) return launch<int8_t, 128>(a, st);
+    if (d == 32) return launch<int8_t, 32>(a, st);
+    return launch<int8_t, 64>(a, st);
   }
-  if (d == 128) return launch<__nv_bfloat16, 128, kPaged>(a, st);
-  if (d == 32) return launch<__nv_bfloat16, 32, kPaged>(a, st);
-  return launch<__nv_bfloat16, 64, kPaged>(a, st);
+  if (d == 128) return launch<__nv_bfloat16, 128>(a, st);
+  if (d == 32) return launch<__nv_bfloat16, 32>(a, st);
+  return launch<__nv_bfloat16, 64>(a, st);
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 11: grouped-query decode over a flat (b, L, h_kv, D) cache, split
-// along L (flash-decoding).
+// Kernels 11 and 10: decode split along the positions (flash-decoding), over
+// a flat (b, L, h_kv, D) cache or, through a block table, the paged pool.
 // ---------------------------------------------------------------------------
 // Replaces video_llava_tpu/ops/attention.py::decode_attention_pallas (body
-// _decode_attn_kernel). Query head i reads KV head i / group. For row bi and
-// KV head kh, with n = min(lengths[bi], L) and qs_i = q_i * scale (f32):
+// _decode_attn_kernel) and, paged (MHA, one head a block),
+// decode_attention_mxu_paged (body _decode_attn_mxu_paged_kernel); the
+// wrappers of kernels 3 and 9 also send a cache longer than the per-(head,
+// row) body's shared memory here, flat, one head a block. Query head i
+// reads KV head i / group. For row bi and KV head kh, with n =
+// min(lengths[bi], L) and qs_i = q_i * scale (f32):
 //     s_ip = (qs_i . k_p) [* k_scale_p]                 p < n
 //     o_i  = sum_p softmax(s_i)_p [* v_scale_p] v_p      (bf16 out)
 // What bounds it: the cache's bytes (2 n h_kv D a row in bf16, half that
@@ -292,10 +273,18 @@ int dispatch(const Args& a, int d, int int8, cudaStream_t st) {
 // e^(m_j - m) acc_j / sum_j e^(m_j - m) l_j): deterministic, no atomics.
 // With one split the block writes the output itself and the combine is
 // not launched. The sums exclude the v scales, as the JAX kernel's do.
+// Paged (kPaged), L is the table's maxb * bs positions and the plan's
+// chunk a multiple of bs (ops/attention.py paged_split_plan), so a chunk
+// covers whole pool blocks: the block stages the table entries of its
+// chunk's live positions in shared memory once (at most kTableMax), and
+// position p sits at slot tbl[(p - p0) / bs] * bs + p % bs of layer
+// `layer`'s slab. A chunk at or past the row's length reads neither the
+// cache nor the table.
 
 constexpr int kGqaThreads = 128;
 constexpr int kGqaWarps = kGqaThreads / 32;
 constexpr int kGqaUnroll = 4;  // cache rows a thread loads a step (K and V)
+constexpr int kTableMax = 256;  // pool blocks a paged chunk spans, at most
 
 // A cache row of D elements of T, 16 bytes a lane.
 template <typename T, int D>
@@ -327,7 +316,7 @@ __device__ inline void unpack16(const uint4& raw, float (&f)[16]) {
   }
 }
 
-template <typename T, int D, int G>
+template <typename T, int D, int G, bool kPaged>
 __global__ void __launch_bounds__(kGqaThreads)
 decode_gqa_split_kernel(const __nv_bfloat16* __restrict__ q,
                         const T* __restrict__ kc, const T* __restrict__ vc,
@@ -337,7 +326,9 @@ decode_gqa_split_kernel(const __nv_bfloat16* __restrict__ q,
                         __nv_bfloat16* __restrict__ o,
                         float* __restrict__ ws_ml, float* __restrict__ ws_acc,
                         int L, int h, int h_kv, int group, int chunk,
-                        int splits, float scale) {
+                        int splits, float scale,
+                        const int* __restrict__ table, int layer,
+                        int nblocks, int bs, int maxb) {
   using R = GqaRows<T, D>;
   constexpr int VE = R::VE, LR = R::LR, RPP = R::RPP, WIN = R::WIN;
   __shared__ float qsm[G][D];              // q * scale
@@ -345,6 +336,7 @@ decode_gqa_split_kernel(const __nv_bfloat16* __restrict__ q,
   __shared__ float step_max[G];
   __shared__ float red[kGqaWarps][G][D];   // the warps' accumulators
   __shared__ float lred[kGqaWarps][G];     // and sums
+  __shared__ int tbl[kPaged ? kTableMax : 1];  // the chunk's pool blocks
 
   const int runs = group / G;
   int x = blockIdx.x;
@@ -374,12 +366,25 @@ decode_gqa_split_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = threadIdx.x; i < G * D; i += kGqaThreads)
     qsm[i / D][i % D] =
         __bfloat162float(q[((size_t)bi * h + h0) * D + i]) * scale;
+  if constexpr (kPaged) {  // p0 is a multiple of bs
+    const int* trow = table + (size_t)bi * maxb + p0 / bs;
+    for (int i = threadIdx.x; i < (p1 - p0 + bs - 1) / bs; i += kGqaThreads)
+      tbl[i] = trow[i];
+  }
+  // slot(p): position p's place in the slab that starts at `first`
+  // positions (row bi's position 0 flat, layer `layer`'s pool block 0
+  // paged)
+  auto slot = [&](int p) -> int {
+    if constexpr (kPaged) return tbl[(p - p0) / bs] * bs + p % bs;
+    else return p;
+  };
 
   const int r = threadIdx.x / LR;         // row of a load
   const int e0 = (threadIdx.x % LR) * VE;  // first element of the lane
   const bool lead = threadIdx.x % LR == 0;
   const size_t pstride = (size_t)h_kv * D;  // elements between positions
-  const size_t first = (size_t)bi * L;      // row bi's position 0
+  const size_t first = kPaged ? (size_t)layer * nblocks * bs
+                              : (size_t)bi * L;
   const T* kbase = kc + first * pstride + (size_t)kh * D + e0;
   const T* vbase = vc + first * pstride + (size_t)kh * D + e0;
   const float* ksb = ks ? ks + first * h_kv + kh : nullptr;
@@ -393,7 +398,7 @@ decode_gqa_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < VE; ++e) acc[g][e] = 0.f;
   }
-  __syncthreads();  // qsm
+  __syncthreads();  // qsm, tbl
 
   for (int s0 = p0; s0 < p1; s0 += WIN) {
     uint4 kr[kGqaUnroll], vr[kGqaUnroll];
@@ -403,11 +408,12 @@ decode_gqa_split_kernel(const __nv_bfloat16* __restrict__ q,
       const int p = s0 + u * RPP + r;
       ksc[u] = vsc[u] = 1.f;
       if (p < p1) {
-        kr[u] = *reinterpret_cast<const uint4*>(kbase + (size_t)p * pstride);
-        vr[u] = *reinterpret_cast<const uint4*>(vbase + (size_t)p * pstride);
+        const size_t at = (size_t)slot(p);
+        kr[u] = *reinterpret_cast<const uint4*>(kbase + at * pstride);
+        vr[u] = *reinterpret_cast<const uint4*>(vbase + at * pstride);
         if (ksb) {
-          ksc[u] = ksb[(size_t)p * h_kv];
-          vsc[u] = vsb[(size_t)p * h_kv];
+          ksc[u] = ksb[at * h_kv];
+          vsc[u] = vsb[at * h_kv];
         }
       }
     }
@@ -568,20 +574,26 @@ decode_gqa_combine_kernel(const float* __restrict__ ws_ml,
   }
 }
 
-template <typename T, int D, int G>
+// The paged pool's geometry (table null for a flat cache).
+struct Paged {
+  const int* table;
+  int layer, nblocks, bs, maxb;
+};
+
+template <typename T, int D, int G, bool kPaged>
 int launch_gqa(const void* q, const void* k, const void* v, const float* ks,
                const float* vs, const int* lengths, void* o, float* ws,
                int b, int L, int h, int h_kv, int chunk, int splits,
-               float scale, cudaStream_t stream) {
+               float scale, const Paged& pg, cudaStream_t stream) {
   const int group = h / h_kv;
   const size_t blocks = (size_t)b * h_kv * (group / G) * splits;
   float* ws_acc = ws + (size_t)2 * b * h * splits;  // after the (m, l) pairs
-  decode_gqa_split_kernel<T, D, G><<<(unsigned)blocks, kGqaThreads, 0,
-                                     stream>>>(
+  decode_gqa_split_kernel<T, D, G, kPaged><<<(unsigned)blocks, kGqaThreads,
+                                             0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), ks, vs, lengths,
       static_cast<__nv_bfloat16*>(o), ws, ws_acc, L, h, h_kv, group, chunk,
-      splits, scale);
+      splits, scale, pg.table, pg.layer, pg.nblocks, pg.bs, pg.maxb);
   if (splits == 1) return (int)cudaGetLastError();
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -597,8 +609,9 @@ int dispatch_gqa_g(int g, const void* q, const void* k, const void* v,
                    int chunk, int splits, float scale, cudaStream_t st) {
 #define VLT_GQA_CASE(N)                                                    \
   case N:                                                                  \
-    return launch_gqa<T, D, N>(q, k, v, ks, vs, lengths, o, ws, b, L, h,   \
-                               h_kv, chunk, splits, scale, st);
+    return launch_gqa<T, D, N, false>(q, k, v, ks, vs, lengths, o, ws, b,  \
+                                      L, h, h_kv, chunk, splits, scale,    \
+                                      Paged{}, st);
   switch (g) {
     VLT_GQA_CASE(1) VLT_GQA_CASE(2) VLT_GQA_CASE(4) VLT_GQA_CASE(8)
     default: return (int)cudaErrorInvalidValue;
@@ -615,7 +628,8 @@ inline int gqa_run(int group) {
 }  // namespace
 
 // int8: 0 for a bf16 cache (ks/vs ignored, pass null), 1 for int8 + scales.
-// d must be 64 or 128 (the wrappers check).
+// d in {32, 64, 128}; L up to the block's shared memory for its scores
+// (the wrappers check).
 extern "C" int vlt_decode_attention(const void* q, const void* k,
                                     const void* v, const void* ks,
                                     const void* vs, const void* lengths,
@@ -624,27 +638,48 @@ extern "C" int vlt_decode_attention(const void* q, const void* k,
                                     void* stream) {
   const Args a{q, k, v, int8 ? static_cast<const float*>(ks) : nullptr,
                int8 ? static_cast<const float*>(vs) : nullptr,
-               static_cast<const int*>(lengths), nullptr, o, layer, b, L, h,
-               0, 0, 0, scale};
-  return dispatch<false>(a, d, int8, (cudaStream_t)stream);
+               static_cast<const int*>(lengths), o, layer, b, L, h, scale};
+  return dispatch(a, d, int8, (cudaStream_t)stream);
 }
 
-// The paged pool: k/v (NL, nblocks, bs, h, d), scales (NL, nblocks, bs, h),
-// table (b, maxb) int32 with every entry in [0, nblocks).
+// Kernel 10. The paged pool: k/v (NL, nblocks, bs, h, d), scales (NL,
+// nblocks, bs, h), table (b, maxb) int32 with every entry in [0, nblocks);
+// ws as kernel 11's (b * h * splits * (2 + d) floats, unused when splits
+// is 1); [0, maxb * bs) in `splits` chunks of `chunk` positions, chunk a
+// multiple of bs spanning at most kTableMax blocks. MHA, d in
+// {32, 64, 128} (the wrapper checks).
 extern "C" int vlt_decode_attention_paged(const void* q, const void* k,
                                           const void* v, const void* ks,
                                           const void* vs, const void* table,
                                           const void* lengths, void* o,
-                                          int layer, int b, int nblocks,
-                                          int bs, int maxb, int h, int d,
-                                          int int8, float scale,
+                                          void* ws, int layer, int b,
+                                          int nblocks, int bs, int maxb,
+                                          int h, int d, int int8, int chunk,
+                                          int splits, float scale,
                                           void* stream) {
-  const Args a{q, k, v, int8 ? static_cast<const float*>(ks) : nullptr,
-               int8 ? static_cast<const float*>(vs) : nullptr,
-               static_cast<const int*>(lengths),
-               static_cast<const int*>(table), o, layer, b, maxb * bs, h,
-               nblocks, bs, maxb, scale};
-  return dispatch<true>(a, d, int8, (cudaStream_t)stream);
+  const int L = maxb * bs;
+  if (bs <= 0 || chunk <= 0 || chunk % bs || chunk / bs > kTableMax ||
+      (long long)chunk * splits < L || (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Paged pg{static_cast<const int*>(table), layer, nblocks, bs, maxb};
+  const float* ksf = int8 ? static_cast<const float*>(ks) : nullptr;
+  const float* vsf = int8 ? static_cast<const float*>(vs) : nullptr;
+  const int* len = static_cast<const int*>(lengths);
+  float* wsf = static_cast<float*>(ws);
+  cudaStream_t st = (cudaStream_t)stream;
+#define VLT_PAGED_ARGS \
+  q, k, v, ksf, vsf, len, o, wsf, b, L, h, h, chunk, splits, scale, pg, st
+  if (int8) {
+    if (d == 128) return launch_gqa<int8_t, 128, 1, true>(VLT_PAGED_ARGS);
+    if (d == 64) return launch_gqa<int8_t, 64, 1, true>(VLT_PAGED_ARGS);
+    if (d == 32) return launch_gqa<int8_t, 32, 1, true>(VLT_PAGED_ARGS);
+  } else {
+    if (d == 128) return launch_gqa<__nv_bfloat16, 128, 1, true>(VLT_PAGED_ARGS);
+    if (d == 64) return launch_gqa<__nv_bfloat16, 64, 1, true>(VLT_PAGED_ARGS);
+    if (d == 32) return launch_gqa<__nv_bfloat16, 32, 1, true>(VLT_PAGED_ARGS);
+  }
+#undef VLT_PAGED_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 // Kernel 11. q (b, 1, h, d) bf16; k, v (b, L, h_kv, d), bf16 or int8 with

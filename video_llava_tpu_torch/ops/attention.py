@@ -16,8 +16,8 @@ and training paths:
     layer of the stacked (NL, b, L, h, d) KV cache, bf16 or int8
     (csrc/decode_attention.cu).
   * :func:`decode_attention_paged` -- the same against one layer of the
-    paged (NL, NB, BS, h, d) block pool through a block table (the same
-    kernel body, csrc/decode_attention.cu).
+    paged (NL, NB, BS, h, d) block pool through a block table (kernel
+    11's split body, csrc/decode_attention.cu).
   * :func:`decode_attention` -- the flat dispatch over one layer's
     (b, L, h_kv, d) cache: :func:`decode_attention_mxu` (MHA, the same
     kernel body at NL = 1) or :func:`decode_attention_pallas` (grouped
@@ -412,6 +412,13 @@ def flash_attention_bhsd(
 # ---------------------------------------------------------------------------
 
 
+def _mha_body_fits(L: int, d: int) -> bool:
+    """Whether the per-(head, row) body of kernels 3 and 9 holds a score
+    for each of L positions (and its d-wide scratch) in one block's 227
+    KB of shared memory. A longer cache goes to the split body."""
+    return (L + 9 * d) * 4 <= 227 * 1024
+
+
 def decode_attention_stacked_plain(q, k_cache, v_cache, layer, cache_len,
                                    k_scale=None, v_scale=None, scale=None):
     """Plain version of :func:`decode_attention_stacked`: the layer's
@@ -437,7 +444,10 @@ def decode_attention_stacked(
     cache -> (b, 1, h, d). Positions at or past a row's length are never
     read. On CUDA, under the JAX package's conditions
     (ops/attention.py:1320-1331): MHA, h*d a multiple of 128, d in {32,
-    64, 128}, bf16 query: kernel 3 (csrc/decode_attention.cu). Other
+    64, 128}, bf16 query: kernel 3 (csrc/decode_attention.cu), or past
+    the length its block holds scores for (:func:`_mha_body_fits`) the
+    layer's view through the split body, one head a block (a launch of
+    :func:`decode_attention_pallas`, counted under its name). Other
     shapes and CPU tensors take the layer's view through
     :func:`decode_attention` (JAX :1335-1340); under set_default_impl(
     'xla') a CUDA tensor raises."""
@@ -468,9 +478,11 @@ def decode_attention_stacked(
         ks, vs = cuda_lib.ptr(k_scale), cuda_lib.ptr(v_scale)
     else:
         ks = vs = None
-    if (L + 9 * d) * 4 > 227 * 1024:
-        raise ValueError(f"cache length {L} exceeds the kernel's shared "
-                         "memory for its scores")
+    if not _mha_body_fits(L, d):  # the layer's view is a flat MHA cache
+        unit = lambda a: None if a is None else a[layer][..., None]  # noqa
+        return decode_attention_pallas(q, k_cache[layer], v_cache[layer],
+                                       cache_len, unit(k_scale),
+                                       unit(v_scale), scale)
     out = torch.empty_like(q)
     cuda_lib.launch(
         "decode_attention_stacked", "vlt_decode_attention", q.device,
@@ -512,6 +524,38 @@ def decode_attention_paged_plain(q, k_cache, v_cache, layer, table,
                                       unit(v_scale), scale)
 
 
+PAGED_BLOCKS_PER_SM = 8  # kernel 10's plan target (PERF.md §6)
+PAGED_TABLE_MAX = 256  # = kTableMax in csrc/decode_attention.cu
+
+
+def paged_split_plan(maxb: int, bs: int, b: int, h: int, sms: int) -> tuple:
+    """Kernel 10's split of a row's [0, maxb * bs) -> (chunk, splits):
+    :func:`gqa_split_plan` with chunks of whole pool blocks (a multiple
+    of bs), about PAGED_BLOCKS_PER_SM blocks an SM over the b * h (row,
+    head) pairs, and at most PAGED_TABLE_MAX pool blocks a chunk (the
+    table entries a block stages)."""
+    L = maxb * bs
+    chunk, _ = gqa_split_plan(L, b, h, sms, align=bs,
+                              per_sm=PAGED_BLOCKS_PER_SM)
+    chunk = min(chunk, PAGED_TABLE_MAX * bs)
+    return chunk, -(-L // chunk)
+
+
+def decode_paged_partials_plain(q, k_cache, v_cache, layer, table,
+                                cache_len, chunk: int, splits: int,
+                                k_scale=None, v_scale=None, scale=None):
+    """Plain version of kernel 10's split kernel: the layer's rows
+    gathered through the table (:func:`paged_layer_dense`), then
+    :func:`decode_gqa_partials_plain` at one head a group -> (m, l, acc)
+    of each (row, head, chunk), f32. Positions at or past a row's length
+    count for nothing, whatever block the table names there."""
+    dense = lambda a: paged_layer_dense(a, layer, table)  # noqa: E731
+    unit = lambda a: None if a is None else dense(a)[..., None]  # noqa
+    return decode_gqa_partials_plain(q, dense(k_cache), dense(v_cache),
+                                     cache_len, chunk, splits,
+                                     unit(k_scale), unit(v_scale), scale)
+
+
 def decode_attention_paged(
     q: torch.Tensor,  # (b, 1, h, d)
     k_cache: torch.Tensor,  # (NL, NB, BS, h, d) bf16, or int8 with scales
@@ -531,7 +575,10 @@ def decode_attention_paged(
     block, past a row's allocation). On CUDA, while enable_paged_kernel
     is on and under the JAX package's conditions (ops/attention.py:
     1465-1477): MHA, h*d a multiple of 128, BS a multiple of 16 up to
-    128, d in {32, 64, 128}: kernel 10 (csrc/decode_attention.cu). Other
+    128, d in {32, 64, 128}: kernel 10 (csrc/decode_attention.cu: the
+    row's positions split into chunks of whole pool blocks by
+    :func:`paged_split_plan`, a block per (row, head, chunk) writing an
+    f32 partial, merged in split order; any table length). Other
     shapes, CPU tensors and the kernel switched off gather the rows'
     blocks into the dense view (:func:`paged_layer_dense`) and take
     :func:`decode_attention` (JAX :1478-1492); under set_default_impl(
@@ -565,16 +612,19 @@ def decode_attention_paged(
         ks, vs = cuda_lib.ptr(k_scale), cuda_lib.ptr(v_scale)
     else:
         ks = vs = None
-    if (maxb * bs + 9 * d) * 4 + maxb * 4 > 227 * 1024:
-        raise ValueError(f"{maxb} blocks of {bs} exceed the kernel's shared "
-                         "memory for its scores")
+    chunk, splits = paged_split_plan(maxb, bs, b, h, _sm_count(dev.index))
+    ws = None
+    if splits > 1:
+        ws = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                         device=dev)
     out = torch.empty_like(q)
     cuda_lib.launch(
         "decode_attention_paged", "vlt_decode_attention_paged", dev,
         cuda_lib.ptr(q), cuda_lib.ptr(k_cache), cuda_lib.ptr(v_cache),
         ks, vs, cuda_lib.ptr(table), cuda_lib.ptr(cache_len),
-        cuda_lib.ptr(out), int(layer), b, nb, bs, maxb, h, d,
-        int(quantized), float(scale),
+        cuda_lib.ptr(out), None if ws is None else cuda_lib.ptr(ws),
+        int(layer), b, nb, bs, maxb, h, d, int(quantized), chunk, splits,
+        float(scale),
     )
     return out
 
@@ -666,7 +716,10 @@ def decode_attention_mxu(
     (JAX ``decode_attention_mxu``). On CUDA: kernel 3's body at NL = 1
     (csrc/decode_attention.cu), which scales the f32 scores as kernel 3
     does (the plain version rounds q * scale to bf16 first, as the JAX
-    kernel does); d in {32, 64, 128}."""
+    kernel does); d in {32, 64, 128}. A cache longer than that body's
+    shared memory holds (:func:`_mha_body_fits`) takes the split body,
+    one head a block (a launch of :func:`decode_attention_pallas`,
+    counted under its name)."""
     b, _, h, d = q.shape
     L, h_kv = k_cache.shape[1:3]
     scale = _default_scale(d, scale)
@@ -678,9 +731,9 @@ def decode_attention_mxu(
                                           k_scale, v_scale, scale)
     ks, vs = _check_decode_flat(q, k_cache, v_cache, cache_len, k_scale,
                                 v_scale, "decode_attention_mxu")
-    if (L + 9 * d) * 4 > 227 * 1024:
-        raise ValueError(f"cache length {L} exceeds the kernel's shared "
-                         "memory for its scores")
+    if not _mha_body_fits(L, d):
+        return decode_attention_pallas(q, k_cache, v_cache, cache_len,
+                                       k_scale, v_scale, scale)
     out = torch.empty_like(q)
     cuda_lib.launch(
         "decode_attention_mxu", "vlt_decode_attention", q.device,
@@ -711,15 +764,16 @@ def decode_attention_pallas_plain(q, k_cache, v_cache, cache_len,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
-def gqa_split_plan(L: int, b: int, h_kv: int, sms: int) -> tuple:
-    """Kernel 11's split of [0, L) -> (chunk, splits): `splits` chunks of
-    `chunk` positions (a multiple of 16), splits = ceil(L / chunk), so
-    that the b * h_kv * splits blocks (at least) come to about two an SM
-    where L allows. L is the host's: the rows' lengths live on the
-    device."""
-    want = -(-2 * sms // (b * h_kv))  # chunks a (row, KV head)
+def gqa_split_plan(L: int, b: int, h_kv: int, sms: int, align: int = 16,
+                   per_sm: int = 2) -> tuple:
+    """The split of [0, L) -> (chunk, splits): `splits` chunks of `chunk`
+    positions (a multiple of `align`: 16 for kernel 11, the pool block
+    for kernel 10), splits = ceil(L / chunk), so that the b * h_kv *
+    splits blocks (at least) come to about `per_sm` an SM where L
+    allows. L is the host's: the rows' lengths live on the device."""
+    want = -(-per_sm * sms // (b * h_kv))  # chunks a (row, KV head)
     chunk = -(-max(L, 1) // want)
-    chunk = -(-chunk // 16) * 16
+    chunk = -(-chunk // align) * align
     return chunk, -(-L // chunk)
 
 

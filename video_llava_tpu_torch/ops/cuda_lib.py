@@ -44,14 +44,17 @@ _F = ctypes.c_float
 # C signature of every entry point (all return int: a cudaError_t).
 _SIGNATURES = {
     "vlt_flash_bhsd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # x, out, partial; t, s, c, T, n, out_bf16
     "vlt_spatio_temporal_pool": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vlt_pool_rows_per_block": (),
     "vlt_decode_attention": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
+    # q, k, v, ks, vs, table, lengths, o, ws; layer, b, nblocks, bs, maxb,
+    # h, d, int8, chunk, splits; scale
     "vlt_decode_attention_paged": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-        _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _F, _P,
     ),
     # q, k, v, ks, vs, lengths, o, ws; b, L, h, h_kv, d, int8, chunk,
     # splits; scale

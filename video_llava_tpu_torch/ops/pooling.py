@@ -10,6 +10,9 @@ Counterpart of video_llava_tpu/ops/pooling.py:
 
 :func:`spatio_temporal_pool` is the plain version;
 :func:`spatio_temporal_pool_fused` runs csrc/pool.cu on CUDA tensors.
+:func:`pool_partials_plain` and :func:`pool_combine_plain` are the plain
+versions of the kernel's two stages (a block's temporal partial over a
+run of patches, then their run-order sum).
 """
 
 from __future__ import annotations
@@ -47,6 +50,39 @@ def spatio_temporal_pool(
     return torch.cat([temporal, pad, spatial], dim=0).to(out_dtype)
 
 
+def pool_partials_plain(features: torch.Tensor, num_valid_frames: int,
+                        run: int):
+    """The kernel's first stage: (partial (ceil(s / run), t, c), spatial
+    sums (s, c)), f32. partial[r, f] is frame f summed over patches
+    [r * run, (r + 1) * run) for f < min(n, t), 0 for the frames never
+    read; the spatial sums run over those same frames."""
+    t, s, c = features.shape
+    nv = max(min(int(num_valid_frames), t), 0)
+    x = features.float()
+    runs = -(-s // run)
+    padded = torch.nn.functional.pad(x, (0, 0, 0, runs * run - s))
+    partial = padded.reshape(t, runs, run, c).sum(dim=2).transpose(0, 1)
+    partial = partial * (torch.arange(t, device=x.device) < nv).float()[
+        None, :, None]
+    return partial.contiguous(), x[:nv].sum(dim=0)
+
+
+def pool_combine_plain(partial: torch.Tensor, spatial_sum: torch.Tensor,
+                       num_valid_frames: int, max_temporal_tokens: int,
+                       out_dtype: torch.dtype = torch.bfloat16):
+    """The kernel's second stage: the runs' partials added in run order
+    over s, the spatial sums over max(n, 1) -> (max_temporal_tokens + s,
+    c)."""
+    runs, t, c = partial.shape
+    s = spatial_sum.shape[0]
+    temporal = partial[0].clone()
+    for r in range(1, runs):
+        temporal += partial[r]
+    pad = temporal.new_zeros((max_temporal_tokens - t, c))
+    spatial = spatial_sum / max(float(num_valid_frames), 1.0)
+    return torch.cat([temporal / s, pad, spatial], dim=0).to(out_dtype)
+
+
 def spatio_temporal_pool_fused(
     features: torch.Tensor,
     num_valid_frames: Optional[int] = None,
@@ -54,7 +90,7 @@ def spatio_temporal_pool_fused(
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """Same contract as :func:`spatio_temporal_pool`. On CUDA one read of
-    the features produces both means (csrc/pool.cu); bf16 in, bf16 or
+    the valid frames produces both means (csrc/pool.cu); bf16 in, bf16 or
     f32 out, any s and c."""
     t, s, c = features.shape
     if features.device.type == "cpu":
@@ -68,10 +104,10 @@ def spatio_temporal_pool_fused(
     cuda_lib.require(features, "features", torch.bfloat16)
     n = t if num_valid_frames is None else int(num_valid_frames)
     lib = cuda_lib.library()
-    nsb = -(-s // lib.vlt_pool_rows_per_block())
+    runs = -(-s // lib.vlt_pool_rows_per_block())
     out = torch.empty((max_temporal_tokens + s, c), dtype=out_dtype,
                       device=features.device)
-    partial = torch.empty((nsb, t, c), dtype=torch.float32,
+    partial = torch.empty((runs, t, c), dtype=torch.float32,
                           device=features.device)
     cuda_lib.launch(
         "spatio_temporal_pool", "vlt_spatio_temporal_pool", features.device,
