@@ -15,10 +15,12 @@ Phases, each of which raises on failure (exit code != 0):
      flat per-layer weight and a 1100-row prompt, the flat-cache decode
      kernels 9 and 11 at the chat and serving shapes, kernels 3 and 10 at
      head dim 32, CLIP's pad keys and values set large, and planted
-     faults in the plain versions of kernels 1, 2, 10, 11 and the W4A16
-     matvec that must fail), timing the kernel, the plain version and, where one PyTorch
-     call computes the same function, that call, each beside the
-     kernel's bound;
+     faults in the plain versions of kernels 1, 2, 9, 10, 11 and the
+     W4A16 matvec that must fail), timing the kernel, the plain version
+     and, where one PyTorch call computes the same function, that call,
+     each beside the kernel's bound; kernels 3, 9 and the W4A16 matvec
+     (and their library calls) also from HBM (ms_hbm: each call of the
+     timed graph on another layer or copy, together past the 50 MB L2);
   4. check a small model end to end (LlamaConfig.tiny's head dim 32, and
      4 query heads over 2 KV heads), in bf16 and with int4 W4A8 LLM
      weights: the CUDA path in bf16 against the plain path on the CPU
@@ -286,6 +288,14 @@ def median_ms(fn, calls: int = 10, reps: int = 7,
     return statistics.median(times)
 
 
+def rotating_ms(fns) -> float:
+    """Device time of one call that reads its operands from HBM, not L2:
+    `fns` are the same call on different copies (layers) of the operands,
+    together past the 50 MB L2, captured one after another in one graph;
+    the replay's median time (median_ms) over len(fns)."""
+    return median_ms(lambda: [f() for f in fns], calls=1) / len(fns)
+
+
 def bound(nbytes: float, ops: float = 0.0, peak: float = BF16_PEAK):
     """(ms, "bytes" or "operations"): the least time the card could take,
     the larger of the bytes the call must move over HBM_RATE and its
@@ -316,13 +326,15 @@ def record(results, name, err, ms, plain_ms, library_ms, nbytes, ops=0.0,
 
 
 def check(results, name, shape, fn, plain, nbytes, ops=0.0,
-          peak=BF16_PEAK, library=None):
+          peak=BF16_PEAK, library=None, hbm=None):
     """Kernel vs plain on the same inputs; raise past the tolerance
     (absolute, or relative to max |ref| for the REL_TOL kernels, by the
     output's dtype; for the ROW_TOL kernels also relative to each row's
     max |ref|). Time the kernel, the plain version and `library`
     (one PyTorch call computing the same function, or None), and put
-    them beside the bound from `nbytes`/`ops` (see bound)."""
+    them beside the bound from `nbytes`/`ops` (see bound). hbm: (kernel
+    calls, library calls or None) on copies of the operands past L2,
+    timed by rotating_ms and printed as ms_hbm beside ms."""
     got, want = fn(), plain()
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -351,6 +363,11 @@ def check(results, name, shape, fn, plain, nbytes, ops=0.0,
     bound_ms, bound_by = record(results, name, err, ms, plain_ms,
                                 library_ms, nbytes, ops, peak)
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    if hbm is not None:
+        fns, libs = hbm
+        lib += f", ms_hbm {rotating_ms(fns):.4f} over {len(fns)} copies"
+        if libs is not None:
+            lib += f" (library {rotating_ms(libs):.4f})"
     print(f"check {name} {shape}: {note}, max|err| {err:.3e}, "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
           f"{bound_ms:.4f} ms by {bound_by}", flush=True)
@@ -433,14 +450,19 @@ def kernel_checks(dev) -> dict:
     q = rnd(1, 1, 32, 128)
     kc, vc = rnd(32, 1, L, 32, 128), rnd(32, 1, L, 32, 128)
     mask = (torch.arange(L, device=dev) < n)[None, None, None]
+    sdpa_layer = lambda li: F.scaled_dot_product_attention(  # noqa: E731
+        q.transpose(1, 2), kc[li].transpose(1, 2), vc[li].transpose(1, 2),
+        attn_mask=mask)
+    # from HBM: one call a layer, layers 0-31 (the decode step's order)
     check(results, "decode_attention_stacked", (32, 1, L, 32, 128, "bf16"),
           lambda: attention.decode_attention_stacked(q, kc, vc, 17, lens),
           lambda: attention.decode_attention_stacked_plain(q, kc, vc, 17,
                                                            lens),
           nbytes=2 * n * 32 * 128 * 2, ops=4 * n * 32 * 128,
-          library=lambda: F.scaled_dot_product_attention(
-              q.transpose(1, 2), kc[17].transpose(1, 2),
-              vc[17].transpose(1, 2), attn_mask=mask))
+          library=lambda: sdpa_layer(17),
+          hbm=([lambda li=li: attention.decode_attention_stacked(
+              q, kc, vc, li, lens) for li in range(32)],
+               [lambda li=li: sdpa_layer(li) for li in range(32)]))
     kq = torch.randint(-127, 128, kc.shape, generator=g, device=dev,
                        dtype=torch.int8)
     vq = torch.randint(-127, 128, kc.shape, generator=g, device=dev,
@@ -452,14 +474,15 @@ def kernel_checks(dev) -> dict:
                                                      ks, vs),
           lambda: attention.decode_attention_stacked_plain(q, kq, vq, 17,
                                                            lens, ks, vs),
-          nbytes=2 * n * 32 * (128 + 4), ops=4 * n * 32 * 128)
+          nbytes=2 * n * 32 * (128 + 4), ops=4 * n * 32 * 128,
+          hbm=([lambda li=li: attention.decode_attention_stacked(
+              q, kq, vq, li, lens, ks, vs) for li in range(32)], None))
     del q, kc, vc, kq, vq, ks, vs
     paged_checks(dev, g, rnd, results)
     w4a8_checks(dev, g, results)
     flat_decode_checks(dev, g, rnd, results)
     # after every kernel's main-path shape: record() keeps the first
     long_decode_checks(dev, g, rnd, results)
-    mha_split_checks(dev, g, rnd, results)
     w4a16_checks(dev, g, results)
     return results
 
@@ -585,11 +608,9 @@ def paged_checks(dev, g, rnd, results) -> None:
 
 def long_decode_checks(dev, g, rnd, results) -> None:
     """Kernels 3, 9 and 10 at 65,536 positions (Vicuna-7B's 32 heads of
-    128, bf16), past the shared memory of the per-(head, row) body: the
-    stacked and flat wrappers send such a cache by its length to the
-    split body at one head a block (launches counted as
-    decode_attention_pallas); kernel 10 is the split body at any length.
-    Rows {65536, 40000}; the paged pool holds them in blocks of 64."""
+    128, bf16), past the shared memory of the per-(head, row) body they
+    once had: each is a split body at any length. Rows {65536, 40000};
+    the paged pool holds them in blocks of 64."""
     L, h, d = 65536, 32, 128
     rows = (L, 40000)
     b = len(rows)
@@ -618,33 +639,6 @@ def long_decode_checks(dev, g, rnd, results) -> None:
           lambda: attention.decode_attention_paged(*args),
           lambda: attention.decode_attention_paged_plain(*args),
           nbytes=nbytes, ops=ops)
-
-
-def mha_split_checks(dev, g, rnd, results) -> None:
-    """The split body at one head a block (decode_attention_pallas over
-    an MHA cache, the route kernels 3 and 9 take past their shared
-    memory) at the shapes where they keep their own body: kernel 9's
-    chat cache mid-answer and its serving rows {1000, 2048, 63, 64} in a
-    (4, 2048) cache, bf16 and int8, so that both bodies' times stand in
-    one run."""
-    n_prompt, L = chat_cache_len(VideoLLaVAConfig())
-    n = n_prompt + MAX_NEW_TOKENS // 2
-    h, d = 32, 128
-    for length, rows in ((L, (n,)), (2048, (1000, 2048, 63, 64))):
-        b = len(rows)
-        lens = torch.tensor(rows, dtype=torch.int32, device=dev)
-        for int8 in (False, True):
-            q = rnd(b, 1, h, d)
-            kc, vc, ks, vs = kv_pair(dev, g, rnd, (b, length, h, d), int8,
-                                     unit=True)
-            check(results, "decode_attention_pallas",
-                  (b, length, h, h, d, rows, "int8" if int8 else "bf16"),
-                  lambda: attention.decode_attention_pallas(q, kc, vc, lens,
-                                                            ks, vs),
-                  lambda: attention.decode_attention_pallas_plain(
-                      q, kc, vc, lens, ks, vs),
-                  nbytes=2 * sum(rows) * h * (d + 4 if int8 else 2 * d),
-                  ops=4 * sum(rows) * h * d)
 
 
 def w4a8_checks(dev, g, results) -> None:
@@ -696,6 +690,32 @@ def w4a8_checks(dev, g, results) -> None:
               ops=2 * nb * x.shape[1] * p.shape[1], peak=INT8_PEAK)
 
 
+def split_fault_check(label, name, q, kc, vc, lens, plan, want) -> None:
+    """The split kernel's and the merge's plain versions over the
+    wrapper's plan (chunk, splits) must pass the row check against the
+    kernel's plain version `want`; with each row's last live chunk
+    dropped (its partial emptied) they must fail it."""
+    chunk, splits = plan
+    m, l, acc = attention.decode_gqa_partials_plain(q, kc, vc, lens, chunk,
+                                                    splits)
+    row = row_rel_err(attention.decode_gqa_combine_plain(m, l, acc), want)
+    print(f"{label}'s split plain versions ({splits} chunks of {chunk}) "
+          f"against its plain version: rows' max|err|/max|ref| {row:.3e}",
+          flush=True)
+    if not row <= ROW_TOL[name]:
+        raise AssertionError(f"{label}'s split plain versions disagree "
+                             "with its plain version")
+    last = (lens.long() - 1) // chunk
+    l[torch.arange(len(lens), device=lens.device), :, last] = 0.0
+    row = row_rel_err(attention.decode_gqa_combine_plain(m, l, acc), want)
+    print(f"planted fault in {label}'s split plain version, each row's "
+          f"last live chunk of {chunk} dropped: rows' max|err|/max|ref| "
+          f"{row:.3e}", flush=True)
+    if not row > ROW_TOL[name]:
+        raise AssertionError("the row check passes the planted "
+                             f"dropped-chunk fault of {label}")
+
+
 def flat_decode_checks(dev, g, rnd, results) -> None:
     """Kernel 9 (MHA, decode_attention_mxu) at the 7B chat's first-turn
     cache mid-answer and at the serving rows {1000, 2048, 63, 64} in a
@@ -703,13 +723,16 @@ def flat_decode_checks(dev, g, rnd, results) -> None:
     kernel 11 (GQA, decode_attention_pallas) at 32 query heads over 8 and
     over 4 KV heads at d 128 and 8 over 2 at d 32, at the chat cache; both
     in bf16 and int8. The library call is SDPA with the length mask (and
-    enable_gqa for 11) in bf16. Two planted faults in kernel 11's plain
-    versions must fail the row check: query head i reads KV head i %
-    h_kv, not i // group; and, with the cache split as the wrapper
-    splits it, each row's last chunk is dropped. Then kernels 3 and 10
-    at head dim 32 (the tiny LLaMA's 8 x 32 heads)."""
+    enable_gqa for 11) in bf16. Kernel 9 is also timed from HBM over
+    enough copies of its cache (at least 5) to read 120 MB a replay. A
+    planted fault in kernel 11's plain version must fail the row check
+    (query head i reads KV head i % h_kv, not i // group), and so must,
+    for kernels 9 (both shapes, bf16) and 11, the split plain versions
+    over the wrapper's plan with each row's last live chunk dropped. Then
+    kernels 3 and 10 at head dim 32 (the tiny LLaMA's 8 x 32 heads)."""
     n_prompt, L = chat_cache_len(VideoLLaVAConfig())
     n = n_prompt + MAX_NEW_TOKENS // 2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sdpa = lambda q, k, v, lens, L: F.scaled_dot_product_attention(  # noqa
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         attn_mask=(torch.arange(L, device=dev)[None] < lens[:, None])[
@@ -728,14 +751,30 @@ def flat_decode_checks(dev, g, rnd, results) -> None:
         kernel, plain = (getattr(attention, name),
                          getattr(attention, name + "_plain"))
         tokens = sum(rows) * h_kv
+        nbytes = 2 * tokens * (d + 4 if int8 else 2 * d)
+        hbm = None
+        if name == "decode_attention_mxu":
+            copies = [kv_pair(dev, g, rnd, (b, length, h_kv, d), int8,
+                              unit=True)
+                      for _ in range(max(5, -(-120_000_000 // nbytes)))]
+            hbm = ([lambda c=c: kernel(q, *c[:2], lens, *c[2:])
+                    for c in copies],
+                   None if int8 else [lambda c=c: sdpa(q, *c[:2], lens,
+                                                       length)
+                                      for c in copies])
         check(results, name, (b, length, h, h_kv, d, rows,
                               "int8" if int8 else "bf16"),
               lambda: kernel(q, kc, vc, lens, ks, vs),
               lambda: plain(q, kc, vc, lens, ks, vs),
-              nbytes=2 * tokens * (d + 4 if int8 else 2 * d),
-              ops=4 * sum(rows) * h * d,
+              nbytes=nbytes, ops=4 * sum(rows) * h * d,
               library=None if int8 else (
-                  lambda: sdpa(q, kc, vc, lens, length)))
+                  lambda: sdpa(q, kc, vc, lens, length)), hbm=hbm)
+        hbm = copies = None
+        if name == "decode_attention_mxu" and not int8:
+            split_fault_check(
+                "kernel 9", name, q, kc, vc, lens,
+                attention.mha_split_plan(length, b, h, sms),
+                plain(q, kc, vc, lens))
         if name == "decode_attention_pallas" and i == 4:
             heads = [j % h_kv for j in range(h)]
             want = plain(q, kc, vc, lens)
@@ -746,32 +785,9 @@ def flat_decode_checks(dev, g, rnd, results) -> None:
             if not row > ROW_TOL[name]:
                 raise AssertionError("the row check passes the planted "
                                      "head-mapping fault")
-            # the split kernel's and the combine's plain versions over the
-            # wrapper's plan; then the same with each row's last chunk
-            # dropped (its partial emptied), which the row check must fail
-            chunk, splits = attention.gqa_split_plan(
-                length, b, h_kv, torch.cuda.get_device_properties(
-                    dev).multi_processor_count)
-            m, l, acc = attention.decode_gqa_partials_plain(
-                q, kc, vc, lens, chunk, splits)
-            split = attention.decode_gqa_combine_plain(m, l, acc)
-            row = row_rel_err(split, want)
-            print(f"kernel 11's split plain versions ({splits} chunks of "
-                  f"{chunk}) against its plain version: rows' "
-                  f"max|err|/max|ref| {row:.3e}", flush=True)
-            if not row <= ROW_TOL[name]:
-                raise AssertionError("kernel 11's split plain versions "
-                                     "disagree with its plain version")
-            last = (lens.long() - 1) // chunk
-            l[torch.arange(b, device=dev), :, last] = 0.0
-            faulty = attention.decode_gqa_combine_plain(m, l, acc)
-            row = row_rel_err(faulty, want)
-            print(f"planted fault in kernel 11's split plain version, each "
-                  f"row's last chunk of {chunk} dropped: rows' "
-                  f"max|err|/max|ref| {row:.3e}", flush=True)
-            if not row > ROW_TOL[name]:
-                raise AssertionError("the row check passes the planted "
-                                     "dropped-chunk fault")
+            split_fault_check("kernel 11", name, q, kc, vc, lens,
+                              attention.gqa_split_plan(length, b, h_kv, sms),
+                              want)
     # kernels 3 and 10 at head dim 32
     nl, b, h, d = 4, 2, 8, 32
     lens = torch.tensor([n, n // 2], dtype=torch.int32, device=dev)
@@ -825,19 +841,23 @@ def w4a16_checks(dev, g, results) -> None:
     build the path launches (its times go in the kernels line), then f32
     out. The library call is torch._weight_int4pack_mm where PyTorch has
     it (its max|err|/max|ref| against the plain version is printed, not
-    held: it dequantizes in its own order). A planted fault in the
-    matvec's plain version (the low and high halves' group scales
-    swapped) must fail the check."""
+    held: it dequantizes in its own order). The matvec in bf16 out on the
+    stacked weights, and its library call, are also timed from HBM over
+    their layers (wqkv and gate_up 6, 151 and 270 MB; down 4, 90 MB). A
+    planted fault in the matvec's plain version (the low and high halves'
+    group scales swapped) must fail the check."""
 
     def weight(d, f, layers=None):
         w = torch.randn(layers or 1, d, f, generator=g, device=dev)
         packed, scales = quant4.quantize_tensor_int4(w * d ** -0.5, 128)
-        return (packed[2], scales[2]) if layers else (packed[0], scales[0])
+        return (packed, scales) if layers else (packed[0], scales[0])
 
     cfg = LlamaConfig.vicuna_7b()
     d, f = cfg.hidden_size, cfg.intermediate_size
-    w = {"wqkv": weight(d, 3 * d, 4), "wo": weight(d, d),
-         "gate_up": weight(d, 2 * f, 4), "down": weight(f, d, 4)}
+    stacked = {"wqkv": weight(d, 3 * d, 6), "gate_up": weight(d, 2 * f, 6),
+               "down": weight(f, d, 4)}
+    w = {k: (p[2], sc[2]) for k, (p, sc) in stacked.items()}
+    w["wo"] = weight(d, d)
     bf16, f32 = torch.bfloat16, torch.float32
     shapes = ([("w4a16_matvec", 1, "wqkv"), ("w4a16_block", 768, "gate_up")]
               + [("w4a16_matvec", 1, k) for k in ("wo", "gate_up", "down")]
@@ -863,12 +883,22 @@ def w4a16_checks(dev, g, results) -> None:
                 print(f"library torch._weight_int4pack_mm {name} ({nb}, "
                       f"{key}): max|err|/max|ref| {rel:.3e} against the "
                       "plain version", flush=True)
+            hbm = None
+            if (name, out) == ("w4a16_matvec", bf16) and key != "wo":
+                sp, ss = stacked[key][0], stacked[key][1]
+                hbm = ([lambda li=li: kernel(x, sp[li], ss[li], out)
+                        for li in range(len(sp))],
+                       None if library is None else
+                       [int4pack_library(x, sp[li], ss[li])
+                        for li in range(len(sp))])
             check(results, name,
                   (nb, 2 * p.shape[0], p.shape[1], key, f"{str(out)[6:]} out"),
                   lambda: kernel(x, p, s, out), lambda: plain(x, p, s).to(out),
                   nbytes=(p.numel() + 2 * s.numel() + 2 * x.numel()
                           + nb * p.shape[1] * out.itemsize),
-                  ops=2 * nb * x.shape[1] * p.shape[1], library=library)
+                  ops=2 * nb * x.shape[1] * p.shape[1], library=library,
+                  hbm=hbm)
+            hbm = None
             if (name, key, out) == ("w4a16_matvec", "wqkv", f32):
                 half = s.shape[0] // 2
                 swapped = torch.cat([s[half:], s[:half]])

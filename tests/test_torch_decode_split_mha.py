@@ -1,11 +1,13 @@
-"""Kernels 3 and 9 past their shared memory, on the CPU.
+"""Kernels 3 and 9's split body, on the CPU.
 
-The per-(head, row) body of kernels 3 and 9 keeps a score for every
-position in shared memory. A longer cache goes, by its length, to the
-split body of kernel 11 at one head a block (G = 1): the layer's view is
-a flat MHA cache. Here the length rule is checked, and the plain
-versions of the split kernel and its combine at G = 1, over the wrapper's
-plan, are held against the JAX decode_attention_mxu in interpret mode.
+Every MHA decode, flat (kernel 9) or a layer of the stacked cache
+(kernel 3), runs one body on the card: the row's positions split into
+chunks by ``mha_split_plan``, a block per (row, head, chunk) writing an
+f32 partial, the last block of a (row, head) merging them in split order
+in the same launch. Here the plan is held at the chat and serving
+shapes, and the plain versions of the split kernel and its merge at one
+head a group (G = 1), over the wrapper's plan, are held against the JAX
+decode_attention_mxu in interpret mode.
 """
 
 import numpy as np
@@ -14,24 +16,29 @@ import torch
 
 from video_llava_tpu.ops.attention import decode_attention_mxu as jax_mxu
 from video_llava_tpu_torch.ops.attention import (
-    _mha_body_fits,
+    MHA_SPLITS_MAX,
     decode_attention_mxu,
     decode_gqa_combine_plain,
     decode_gqa_partials_plain,
-    gqa_split_plan,
+    mha_split_plan,
 )
 
 SMS = 132  # an H100's streaming multiprocessors
 
 
 def test_long_mha_cache_takes_the_split_body():
-    # the chat and serving caches fit the per-(head, row) body; 65,536
-    # positions do not, at any head dim the kernels take
-    for d in (32, 64, 128):
-        assert _mha_body_fits(2048, d) and _mha_body_fits(56000, d)
-        assert not _mha_body_fits(65536, d)
-    assert _mha_body_fits(58112 - 9 * 128, 128)
-    assert not _mha_body_fits(58112 - 9 * 128 + 1, 128)
+    # the plan at the 7B chat's first-turn cache (one row of 832, 32
+    # heads), at the serving rows (4 rows of 2,048) and at 65,536
+    # positions; a single head of a long cache stops at MHA_SPLITS_MAX
+    assert mha_split_plan(832, 1, 32, SMS) == (64, 13)
+    assert mha_split_plan(2048, 4, 32, SMS) == (416, 5)
+    assert mha_split_plan(65536, 2, 32, SMS) == (7296, 9)
+    assert mha_split_plan(65536, 1, 1, SMS) == (512, MHA_SPLITS_MAX)
+    for L, b, h in ((832, 1, 32), (2048, 4, 32), (37, 2, 4), (1, 1, 8),
+                    (65536, 1, 1), (100000, 1, 2)):
+        chunk, splits = mha_split_plan(L, b, h, SMS)
+        assert chunk % 16 == 0 and splits <= MHA_SPLITS_MAX
+        assert (splits - 1) * chunk < L <= splits * chunk
 
     # the split math at G = 1 against the JAX MHA kernel, bf16 and int8
     # caches, rows that end in the first chunk, on a chunk's edge and at
@@ -39,7 +46,7 @@ def test_long_mha_cache_takes_the_split_body():
     # bf16, the split keeps f32: a few bf16 ulps of outputs below 2, 2e-2.
     rng = np.random.default_rng(5)
     b, h, d, L = 3, 4, 64, 256
-    chunk, splits = gqa_split_plan(L, b, h, SMS)
+    chunk, splits = mha_split_plan(L, b, h, SMS)
     assert splits > 1
     lens = np.array([1, chunk, L], np.int32)
     q = rng.normal(size=(b, 1, h, d)).astype(np.float32)

@@ -229,10 +229,10 @@ def test_paged_decode_rows_at_chunk_edges(dev, int8):
 @pytest.mark.parametrize("int8", [False, True])
 def test_decode_kernels_at_65536_positions(dev, int8):
     """Kernels 3, 9 and 10 at 65,536 positions, past the shared memory
-    of the per-(head, row) body (about 57,000 scores at d 64), where they
-    raised before: kernels 3 and 9 go by length to the split body at one
-    head a block (a launch counted as decode_attention_pallas), kernel 10
-    is the split body for every length."""
+    of the per-(head, row) body they once had (about 57,000 scores at d
+    64), where that body could not go: all three are split bodies at one
+    head a block for every length, each launch counted under its own
+    kernel's name."""
     g = torch.Generator(device=dev).manual_seed(18)
     L, h, d = 65536, 4, 64
     lens = torch.tensor([L, 40000], dtype=torch.int32, device=dev)
@@ -251,9 +251,8 @@ def test_decode_kernels_at_65536_positions(dev, int8):
                                                           ks, vs))):
         before = dict(cuda_lib.LAUNCHES)
         got = run()
-        assert cuda_lib.LAUNCHES["decode_attention_pallas"] == before.get(
-            "decode_attention_pallas", 0) + 1, name
-        assert cuda_lib.LAUNCHES[name] == before.get(name, 0), name
+        assert cuda_lib.LAUNCHES[name] == before.get(name, 0) + 1, name
+        assert sum(cuda_lib.LAUNCHES.values()) == sum(before.values()) + 1
         _assert_rows(got, plain())
     del kc, vc, ks, vs
     pk, pv, pks, pvs, table = _paged_pool(g, dev, lens.tolist(), 64, 1024,
@@ -263,6 +262,82 @@ def test_decode_kernels_at_65536_positions(dev, int8):
     got = attention.decode_attention_paged(*args)
     assert cuda_lib.LAUNCHES["decode_attention_paged"] == before + 1
     _assert_rows(got, attention.decode_attention_paged_plain(*args))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_mha_decode_merge_is_deterministic(dev, int8):
+    """Kernels 3 and 9 merge each (row, head)'s chunks in the last block
+    to arrive, in split order whatever the order of arrival: three calls
+    give the same bits, at the chat cache (13 chunks on an H100) and the
+    serving rows."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    for b, L, lens in ((1, 832, [734]), (4, 2048, [1000, 2048, 63, 64])):
+        q = _rand(g, b, 1, 32, 128)
+        kc, vc, ks, vs = _flat_cache(g, dev, b, L, 32, 128, int8)
+        cache_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        _, splits = attention.mha_split_plan(L, b, 32,
+                                             attention._sm_count(dev.index))
+        assert splits > 1
+        runs = [attention.decode_attention_mxu(q, kc, vc, cache_len, ks, vs)
+                for _ in range(3)]
+        _assert_rows(runs[0], attention.decode_attention_mxu_plain(
+            q, kc, vc, cache_len, ks, vs))
+        assert all(torch.equal(r, runs[0]) for r in runs[1:])
+
+
+def test_mha_decode_counters_are_reset(dev):
+    """The last block of a (row, head) sets its arrival counter back to
+    0, so calls in a row at three different split counts (and one at a
+    single split, which uses no counter) each match the plain version,
+    twice over."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    sms = attention._sm_count(dev.index)
+    cases = []
+    for b, L, h in ((1, 832, 32), (4, 2048, 32), (2, 64, 4), (8, 16, 32)):
+        q = _rand(g, b, 1, h, 128)
+        kc, vc, _, _ = _flat_cache(g, dev, b, L, h, 128, False)
+        lens = torch.randint(1, L + 1, (b,), generator=g, device=dev,
+                             dtype=torch.int32)
+        cases.append((q, kc, vc, lens))
+    splits = [attention.mha_split_plan(c[1].shape[1], c[0].shape[0],
+                                       c[0].shape[2], sms)[1] for c in cases]
+    assert len(set(splits[:3])) == 3 and min(splits[:3]) > 1, splits
+    assert splits[3] == 1, splits
+    for _ in range(2):
+        got = [attention.decode_attention_mxu(*c) for c in cases]
+        for out, c in zip(got, cases):
+            _assert_rows(out, attention.decode_attention_mxu_plain(*c))
+
+
+def test_stacked_decode_every_layer_at_chunk_edges(dev):
+    """Kernel 3 at every layer of a 4-layer stacked cache (7B heads),
+    rows that end one short of a chunk, on its edge, one past it and at
+    L, bf16 and int8: the layer is an offset into the cache."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    nl, b, L, h, d = 4, 4, 832, 32, 128
+    chunk, splits = attention.mha_split_plan(L, b, h,
+                                             attention._sm_count(dev.index))
+    assert splits > 2
+    lens = torch.tensor([chunk - 1, chunk, chunk + 1, L], dtype=torch.int32,
+                        device=dev)
+    q = _rand(g, b, 1, h, d)
+    for int8 in (False, True):
+        if int8:
+            kc, vc = (torch.randint(-127, 128, (nl, b, L, h, d), generator=g,
+                                    device=dev, dtype=torch.int8)
+                      for _ in range(2))
+            ks, vs = (torch.rand((nl, b, L, h), generator=g, device=dev)
+                      / 127 for _ in range(2))
+        else:
+            kc, vc = (_rand(g, nl, b, L, h, d) for _ in range(2))
+            ks = vs = None
+        for li in range(nl):
+            before = cuda_lib.LAUNCHES["decode_attention_stacked"]
+            got = attention.decode_attention_stacked(q, kc, vc, li, lens, ks,
+                                                     vs)
+            assert cuda_lib.LAUNCHES["decode_attention_stacked"] == before + 1
+            _assert_rows(got, attention.decode_attention_stacked_plain(
+                q, kc, vc, li, lens, ks, vs))
 
 
 def _flat_cache(g, dev, b, L, h_kv, d, int8):
@@ -619,6 +694,32 @@ def test_w4a16_matvec_kernel_matches_plain(dev, d, f, group_size):
     got = quant4.w4a16_matvec(x, packed, scales, torch.bfloat16)
     assert got.dtype == torch.bfloat16
     _assert_rel(got, want.to(torch.bfloat16), 2 ** -7)
+
+
+@pytest.mark.parametrize("d,f,group_size", [
+    (256, 512, 128), (4096, 1024, 128), (512, 256, None),
+])
+def test_w4a16_matvec_every_nibble_exactly(dev, d, f, group_size):
+    """The W4A16 matvec turns nibbles into floats by bit arithmetic: with
+    q[k, f] = (k + f) % 16 - 8 every value -8..7 sits in the low and the
+    high half, and a one-hot x picks row k, so y[f] = sw[g(k), f] q[k, f]
+    exactly in f32 out (one product, every other term 0). A wrong magic
+    constant or nibble order cannot pass."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    k_idx = torch.arange(d, device=dev)[:, None]
+    qv = (k_idx + torch.arange(f, device=dev)[None]) % 16 - 8  # (d, f)
+    packed = quant4.pack_int4(qv)
+    n_groups = d // group_size if group_size else 1
+    scales = (torch.rand((n_groups, f), generator=g, device=dev)
+              + 0.5).to(torch.bfloat16)
+    rows = d // n_groups
+    for k in sorted({0, 1, 5, d // 2 - 1, d // 2, d // 2 + 3, d - 1}):
+        x = torch.zeros((1, d), device=dev, dtype=torch.bfloat16)
+        x[0, k] = 1.0
+        got = quant4.w4a16_matvec(x, packed, scales)
+        torch.cuda.synchronize()
+        want = scales[k // rows].float() * qv[k].float()
+        assert torch.equal(got[0], want), k
 
 
 @pytest.mark.parametrize("nb,d,f,group_size", [

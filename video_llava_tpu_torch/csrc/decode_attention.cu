@@ -1,92 +1,68 @@
 // Decode attention for one query token against one layer of a KV cache,
 // bf16 or int8 with per-(position, head) f32 scales, head dims 32, 64, 128.
-// Two kernel bodies:
-//   * one block per (head, row), MHA (below): the stacked cache (NL, b, L,
-//     h, d), scales (NL, b, L, h), the slot cache.
-//     Replaces video_llava_tpu/ops/attention.py::decode_attention_mxu_stacked
-//     (Pallas body _decode_attn_mxu_stacked_kernel). A flat per-layer cache
-//     (b, L, h, d) is the stacked one with NL = 1 at layer 0, so the same
-//     entry also replaces decode_attention_mxu (Pallas body
-//     _decode_attn_mxu_kernel).
-//   * split along the positions, then a combine (kernel 11's body, further
-//     down): grouped-query heads over a flat cache, and with a block table
-//     (b, MAXB) the paged pool (NL, NB, BS, h, d), scales (NL, NB, BS, h),
-//     where position p of row bi lives in pool block table[bi, p / BS] at
-//     offset p % BS.
-//     Replaces video_llava_tpu/ops/attention.py::decode_attention_pallas
-//     (body _decode_attn_kernel) and decode_attention_mxu_paged (Pallas
-//     body _decode_attn_mxu_paged_kernel).
-// For row bi, head hh, with n = lengths[bi]:
+// Every body splits a row's positions into chunks, a block a chunk, and
+// merges the chunks' partials in split order.
+//   * MHA over the stacked cache (NL, b, L, h, d), scales (NL, b, L, h),
+//     one head a block, the merge in the same launch (below): kernels 3 and
+//     9. Replaces video_llava_tpu/ops/attention.py::
+//     decode_attention_mxu_stacked (Pallas body
+//     _decode_attn_mxu_stacked_kernel). A flat per-layer cache (b, L, h, d)
+//     is the stacked one with NL = 1 at layer 0, so the same entry also
+//     replaces decode_attention_mxu (Pallas body _decode_attn_mxu_kernel).
+//   * grouped query heads over a flat cache (kernel 11) and, with a block
+//     table (b, MAXB), the paged pool (NL, NB, BS, h, d), scales (NL, NB,
+//     BS, h) (kernel 10), where position p of row bi lives in pool block
+//     table[bi, p / BS] at offset p % BS: a split kernel and a combine
+//     kernel, further down. Replaces video_llava_tpu/ops/attention.py::
+//     decode_attention_pallas (body _decode_attn_kernel) and
+//     decode_attention_mxu_paged (Pallas body _decode_attn_mxu_paged_kernel).
+// For row bi, head hh, with n = min(lengths[bi], L):
 //     s_p = (q . k_p) * scale [* k_scale_p]            p < n
 //     o   = sum_p softmax(s)_p [* v_scale_p] v_p        (bf16 out)
-// Positions at or past a row's length are never read, and neither are the
-// table entries that map them (the pad block 0 past a row's allocation).
-// The layer select that the TPU kernels did with scalar prefetch, and the
-// block-table index map, are address arithmetic here.
+// The sums exclude the v scales, as the JAX kernels' do. Positions at or
+// past a row's length are never read, and neither are the table entries
+// that map them (the pad block 0 past a row's allocation). The layer select
+// that the TPU kernels did with scalar prefetch, and the block-table index
+// map, are address arithmetic here.
 //
-// What bounds it on Hopper: device-memory bandwidth on the cache stream
-// (2 * n * h * d bytes per layer and row in bf16, half that in int8); the
-// arithmetic is a few flops per byte. The per-(head, row) body: 8 warps;
-// lanes split d so each cache row is one coalesced 256-byte (bf16, d = 128)
-// read, and each warp keeps kUnroll rows in flight to hide latency. Scores
-// go to shared memory (n floats), so the softmax is exact two-pass, not
-// online, and the body takes L only up to that memory (the wrappers send a
-// longer cache to the split body with one head a block). At b = 1 the grid
-// is h = 32 blocks, which fills 32 of 132 SMs.
+// What bounds the MHA body on Hopper: device-memory bandwidth on the cache
+// stream (2 n h d bytes a row in bf16, half that plus the scales in int8;
+// a few flops a byte), and at the chat's one row the latency of a single
+// pass: 734 positions x 32 heads are 12 MB, 3.6 us at 3.35 TB/s, about
+// what the card must keep in flight at HBM latency, and in the order of a
+// launch. The design:
+//   * Split along the positions (ops/attention.py mha_split_plan: about
+//     MHA_BLOCKS_PER_SM blocks an SM over the b * h (row, head) pairs), so
+//     that one row of 32 heads fills 132 SMs and at the serving rows the
+//     longest row no longer sets the time; chunks at or past a row's length
+//     read nothing.
+//   * Bytes in flight: each thread streams its share of a chunk with
+//     cp.async into a ring of kMhaStages shared-memory stages (kMhaRows
+//     rows of K and of V a thread a stage, 16 bytes a lane, a cache row
+//     across LR lanes), and reads back only what it copied, so the ring
+//     needs no block barrier (the int8 scales, copied by two lanes of a
+//     row, need a warp's).
+//   * One pass, no barrier a step: each thread keeps an online softmax (max
+//     m, sum l, VE accumulators) over its own rows; the block merges its
+//     threads' states at the end, by shuffles within a warp and shared
+//     memory across warps, in a fixed order.
+//   * One launch: a block writes its partial (m, l, d accumulators) to an
+//     f32 workspace and counts itself in on its (row, head)'s counter; the
+//     last block to arrive resets the counter and merges the row's live
+//     partials in split order, o = sum_j e^(m_j - M) acc_j / sum_j
+//     e^(m_j - M) l_j. Deterministic: the order never depends on arrival.
+//   * int8 values become floats by bit arithmetic (the sign-flipped byte as
+//     the low byte of 2^23, one subtraction), not by conversions, which
+//     Hopper issues at an eighth of its f32 rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "async_ring.cuh"
+
 namespace {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kUnroll = 8;
-
-// What the entry points pass to launch().
-struct Args {
-  const void* q;        // (b, 1, h, D) bf16
-  const void* k;        // cache values, layout above
-  const void* v;
-  const float* ks;      // scales, or null for a bf16 cache
-  const float* vs;
-  const int* lengths;   // (b,)
-  void* o;              // (b, 1, h, D) bf16
-  int layer, b;
-  int L;                // positions a row can hold
-  int h;
-  float scale;
-};
-
-template <int E>
-__device__ inline void load_row(const __nv_bfloat16* p, float (&f)[E]) {
-  if constexpr (E == 4) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-  } else if constexpr (E == 2) {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    f[0] = a.x; f[1] = a.y;
-  } else {
-    f[0] = __bfloat162float(*p);
-  }
-}
-
-template <int E>
-__device__ inline void load_row(const int8_t* p, float (&f)[E]) {
-  if constexpr (E == 4) {
-    const char4 c = *reinterpret_cast<const char4*>(p);
-    f[0] = c.x; f[1] = c.y; f[2] = c.z; f[3] = c.w;
-  } else if constexpr (E == 2) {
-    const char2 c = *reinterpret_cast<const char2*>(p);
-    f[0] = c.x; f[1] = c.y;
-  } else {
-    f[0] = *p;
-  }
-}
 
 __device__ inline float warp_sum(float x) {
 #pragma unroll
@@ -100,142 +76,343 @@ __device__ inline float warp_max(float x) {
   return x;
 }
 
-// Reduce across the block's warps; every thread gets the result.
+// ---------------------------------------------------------------------------
+// Kernels 3 and 9: MHA decode, split along the positions, merged in-launch
+// ---------------------------------------------------------------------------
+
+constexpr int kMhaThreads = 128;
+constexpr int kMhaWarps = kMhaThreads / 32;
+constexpr int kMhaRows = 4;         // rows of K (and of V) a thread a stage
+constexpr int kMhaStages = 4;       // stages in flight
+constexpr int kMhaSplitsMax = 128;  // = MHA_SPLITS_MAX in ops/attention.py
+
+// A cache row of D elements of T, 16 bytes a lane; a stage of the ring.
+template <typename T, int D>
+struct MhaTile {
+  static constexpr bool Q8 = sizeof(T) == 1;
+  static constexpr int VE = 16 / sizeof(T);       // elements a lane
+  static constexpr int LR = D / VE;               // lanes a row
+  static constexpr int RPP = kMhaThreads / LR;    // rows a pass
+  static constexpr int WIN = RPP * kMhaRows;      // rows a stage
+  // K rows, V rows, then (int8) their k and v scales
+  static constexpr int STAGE = 2 * WIN * D * (int)sizeof(T) + (Q8 ? 8 * WIN : 0);
+  static constexpr int SMEM = kMhaStages * STAGE;
+};
+
+__device__ inline void bf16x8_to_f32(const uint4& raw, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 x = __bfloat1622float2(h[j]);
+    f[2 * j] = x.x;
+    f[2 * j + 1] = x.y;
+  }
+}
+
+// 16 int8 values as floats: byte b, its sign bit flipped (b + 128), made
+// the low byte of the f32 2^23 (0x4B000000) reads 2^23 + b + 128; one
+// subtraction leaves b exactly.
+__device__ inline void int8x16_to_f32(const uint4& raw, float* f) {
+  const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u,
+                         raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[4 * j + i] =
+          __uint_as_float(__byte_perm(w[j], 0x4B000000u, 0x7540 + i)) -
+          8388736.f;
+}
+
+template <typename T>
+__device__ inline void row_to_f32(const uint4& raw, float* f) {
+  if constexpr (sizeof(T) == 1) int8x16_to_f32(raw, f);
+  else bf16x8_to_f32(raw, f);
+}
+
+// Merge two online-softmax states (m, l, acc): the result's max is the
+// larger, each side scaled by e^(its m - max); an empty side (m = -inf)
+// adds nothing.
+__device__ inline float merge_weight(float m, float mx) {
+  return m == -INFINITY ? 0.f : __expf(m - mx);
+}
+
+// A block's sum (kMax: max) over its threads; every thread gets it. `red`
+// holds kMhaWarps floats.
 template <bool kMax>
-__device__ inline float block_reduce(float x, float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+__device__ inline float mha_block_reduce(float x, float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   x = kMax ? warp_max(x) : warp_sum(x);
-  __syncthreads();
+  __syncthreads();  // red is free
   if (lane == 0) red[warp] = x;
   __syncthreads();
   float r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
+#pragma unroll
+  for (int w = 1; w < kMhaWarps; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
   return r;
 }
 
-// The pointers are separate __restrict__ kernel parameters (not members of
-// Args), so nvcc knows they are global and unaliased and streams the cache
-// through the read-only path.
+// Block x = (bi * h + hh) * splits + c: chunk c of row bi, head hh.
+// ws: the accumulators (b * h, splits, D), then the (m, l) pairs (b * h,
+// splits, 2), f32; counters: b * h ints at 0 (unused when splits is 1).
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
-                   const T* __restrict__ kc, const T* __restrict__ vc,
-                   const float* __restrict__ ks, const float* __restrict__ vs,
-                   const int* __restrict__ lengths,
-                   __nv_bfloat16* __restrict__ o, int layer, int b, int L,
-                   int h, float scale) {
-  constexpr int E = D / 32;
-  extern __shared__ float smem[];
-  float* sc = smem;                 // (L,) scores, then weights
-  float* acc_s = smem + L;          // (kWarps, D) partial outputs
-  float* red = acc_s + kWarps * D;  // (kWarps,) reduction scratch
+__global__ void __launch_bounds__(kMhaThreads)
+decode_mha_kernel(const __nv_bfloat16* __restrict__ q,
+                  const T* __restrict__ kc, const T* __restrict__ vc,
+                  const float* __restrict__ ks, const float* __restrict__ vs,
+                  const int* __restrict__ lengths,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ ws,
+                  int* __restrict__ counters, int layer, int b, int L, int h,
+                  int chunk, int splits, float scale) {
+  using M = MhaTile<T, D>;
+  constexpr int VE = M::VE, LR = M::LR, RPP = M::RPP, WIN = M::WIN;
+  extern __shared__ __align__(16) unsigned char ring_smem[];
+  __shared__ float red_acc[kMhaWarps][D];  // the warps' states
+  __shared__ float red_m[kMhaWarps], red_l[kMhaWarps];
+  __shared__ float red[kMhaWarps];
+  __shared__ float cw[kMhaSplitsMax];      // the merge's weights
+  __shared__ float4 red4[kMhaThreads];     // the merge's groups
 
-  const int hh = blockIdx.x, bi = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.x % splits;
+  const int bh = blockIdx.x / splits;  // bi * h + hh
+  const int hh = bh % h, bi = bh / h;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r = tid / LR, sub = tid % LR, e0 = sub * VE;
+  uint4 qraw[VE / 8];  // issued beside the length's load
+#pragma unroll
+  for (int e = 0; e < VE; e += 8)
+    qraw[e / 8] = *reinterpret_cast<const uint4*>(q + (size_t)bh * D + e0 + e);
   const int n = min(lengths[bi], L);
-  __nv_bfloat16* orow = o + ((size_t)bi * h + hh) * D;
-  if (n <= 0) {
-    for (int c = threadIdx.x; c < D; c += kThreads) orow[c] = __float2bfloat16(0.f);
+  const int p0 = c * chunk, p1 = min(p0 + chunk, n);
+  float* ws_acc = ws;
+  float* ws_ml = ws + (size_t)b * h * splits * D;
+  __nv_bfloat16* orow = o + (size_t)bh * D;
+
+  if (p0 < p1) {  // block-uniform
+    // position p of the row sits (first + p) positions into the cache
+    const size_t first = ((size_t)layer * b + bi) * L;
+    const size_t pstride = (size_t)h * D;
+    const T* kb = kc + first * pstride + (size_t)hh * D + e0;
+    const T* vb = vc + first * pstride + (size_t)hh * D + e0;
+    const float* ksb = M::Q8 ? ks + first * h + hh : nullptr;
+    const float* vsb = M::Q8 ? vs + first * h + hh : nullptr;
+
+    // Stage i holds positions p0 + i * WIN + [0, WIN); the thread copies,
+    // and later reads, rows r + RPP * u of it. One commit group a stage
+    // (empty past the chunk), so every thread counts the same groups.
+    const int nsteps = (p1 - p0 + WIN - 1) / WIN;
+    auto stage = [&](int i) { return ring_smem + (i % kMhaStages) * M::STAGE; };
+    auto issue = [&](int i) {
+      if (i < nsteps) {
+        T* sk = reinterpret_cast<T*>(stage(i));
+        T* sv = sk + WIN * D;
+        float* ssc = reinterpret_cast<float*>(sv + WIN * D);
+        const int s0 = p0 + i * WIN;
+#pragma unroll
+        for (int u = 0; u < kMhaRows; ++u) {
+          const int j = r + RPP * u, p = s0 + j;
+          if (p < p1) {
+            ring::cp_async16(sk + j * D + e0, kb + (size_t)p * pstride);
+            ring::cp_async16(sv + j * D + e0, vb + (size_t)p * pstride);
+            if constexpr (M::Q8) {
+              if (sub == 0) ring::cp_async4(ssc + j, ksb + (size_t)p * h);
+              if (sub == 1) ring::cp_async4(ssc + WIN + j, vsb + (size_t)p * h);
+            }
+          }
+        }
+      }
+      ring::commit();
+    };
+#pragma unroll
+    for (int i = 0; i < kMhaStages; ++i) issue(i);
+    float qf[VE];  // q * scale, this lane's elements
+#pragma unroll
+    for (int e = 0; e < VE; e += 8) {
+      bf16x8_to_f32(qraw[e / 8], qf + e);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) qf[e + i] *= scale;
+    }
+
+    float m = -INFINITY, l = 0.f, acc[VE];
+#pragma unroll
+    for (int e = 0; e < VE; ++e) acc[e] = 0.f;
+    for (int i = 0; i < nsteps; ++i) {
+      ring::wait<kMhaStages - 1>();  // stage i has landed
+      if constexpr (M::Q8) __syncwarp();  // and the row's scales
+      const T* sk = reinterpret_cast<const T*>(stage(i));
+      const T* sv = sk + WIN * D;
+      const float* ssc = reinterpret_cast<const float*>(sv + WIN * D);
+      const int s0 = p0 + i * WIN;
+      float s[kMhaRows];
+      float smax = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < kMhaRows; ++u) {
+        const int j = r + RPP * u;
+        const bool live = s0 + j < p1;  // the same in the row's LR lanes
+        float dot = 0.f;
+        if (live) {
+          float kf[VE];
+          row_to_f32<T>(*reinterpret_cast<const uint4*>(sk + j * D + e0), kf);
+#pragma unroll
+          for (int e = 0; e < VE; ++e) dot = fmaf(qf[e], kf[e], dot);
+        }
+#pragma unroll
+        for (int off = LR / 2; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        s[u] = live ? (M::Q8 ? dot * ssc[j] : dot) : -INFINITY;
+        smax = fmaxf(smax, s[u]);
+      }
+      if (smax > -INFINITY) {  // a live row of this thread in the stage
+        const float mn = fmaxf(m, smax);
+        const float alpha = merge_weight(m, mn);
+        m = mn;
+        l *= alpha;
+#pragma unroll
+        for (int e = 0; e < VE; ++e) acc[e] *= alpha;
+#pragma unroll
+        for (int u = 0; u < kMhaRows; ++u) {
+          const int j = r + RPP * u;
+          if (s0 + j < p1) {
+            const float w = __expf(s[u] - m);
+            l += w;
+            const float wv = M::Q8 ? w * ssc[WIN + j] : w;
+            float vf[VE];
+            row_to_f32<T>(*reinterpret_cast<const uint4*>(sv + j * D + e0), vf);
+#pragma unroll
+            for (int e = 0; e < VE; ++e) acc[e] = fmaf(wv, vf[e], acc[e]);
+          }
+        }
+      }
+      if constexpr (M::Q8) __syncwarp();  // the scales are read before a refill
+      issue(i + kMhaStages);  // into the stage just read
+    }
+    ring::wait<0>();
+
+    // Merge the block's states: the lanes of a warp with the same elements
+    // (lane ^ LR, ^ 2 LR, ...), then the warps, in order.
+#pragma unroll
+    for (int off = LR; off < 32; off <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m, off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l, off);
+      const float mn = fmaxf(m, mo);
+      const float a = merge_weight(m, mn), bo = merge_weight(mo, mn);
+      l = a * l + bo * lo;
+#pragma unroll
+      for (int e = 0; e < VE; ++e)
+        acc[e] = a * acc[e] + bo * __shfl_xor_sync(0xffffffffu, acc[e], off);
+      m = mn;
+    }
+    if (lane < LR) {
+#pragma unroll
+      for (int e = 0; e < VE; ++e) red_acc[warp][e0 + e] = acc[e];
+    }
+    if (lane == 0) {
+      red_m[warp] = m;
+      red_l[warp] = l;
+    }
+    __syncthreads();
+    if (tid < D) {
+      float mx = red_m[0];
+#pragma unroll
+      for (int w = 1; w < kMhaWarps; ++w) mx = fmaxf(mx, red_m[w]);
+      float at = 0.f, lt = 0.f;
+#pragma unroll
+      for (int w = 0; w < kMhaWarps; ++w) {
+        const float a = merge_weight(red_m[w], mx);
+        at = fmaf(a, red_acc[w][tid], at);
+        lt = fmaf(a, red_l[w], lt);
+      }
+      if (splits == 1) {
+        orow[tid] = __float2bfloat16(at / lt);
+      } else {
+        const size_t part = (size_t)bh * splits + c;
+        ws_acc[part * D + tid] = at;
+        if (tid == 0) {
+          ws_ml[2 * part] = mx;
+          ws_ml[2 * part + 1] = lt;
+        }
+      }
+    }
+    if (splits == 1) return;
+  } else if (splits == 1) {  // an empty row
+    for (int t = tid; t < D; t += kMhaThreads) orow[t] = __float2bfloat16(0.f);
     return;
   }
-  // Position p of the row sits at (first + p) positions into the cache:
-  // the values of head hh at (first + p) * h * D + hh * D, its scale at
-  // (first + p) * h + hh.
-  const size_t first = ((size_t)layer * b + bi) * L;
-  const size_t pstride = (size_t)h * D;  // elements between positions
-  const T* kbase = kc + first * pstride + (size_t)hh * D + lane * E;
-  const T* vbase = vc + first * pstride + (size_t)hh * D + lane * E;
-  const float* ksb = ks ? ks + first * h + hh : nullptr;
-  const float* vsb = vs ? vs + first * h + hh : nullptr;
 
-  float qf[E];
-  load_row<E>(q + ((size_t)bi * h + hh) * D + lane * E, qf);
-
-  // Pass 1: scores.
-  for (int base = warp * kUnroll; base < n; base += kWarps * kUnroll) {
-    float part[kUnroll];
+  if (!ring::arrive_last(counters + bh, splits)) return;
+  // The last block of the (row, head): its live partials merged in split
+  // order. Every live chunk holds a position, so its l >= 1. Thread t
+  // takes float4 e4 = t % Q of the splits j = g, g + G, ... (g = t / Q),
+  // the first kMhaBatch of them loaded beside the (m, l) pairs, before
+  // the weights are known; the G group sums are added in order.
+  constexpr int Q = D / 4, G = kMhaThreads / Q, kMhaBatch = 8;
+  const int live = (n + chunk - 1) / chunk;
+  const int e4 = tid % Q, grp = tid / Q;
+  const float4* a4 =
+      reinterpret_cast<const float4*>(ws_acc + (size_t)bh * splits * D) + e4;
+  float4 av[kMhaBatch];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      part[u] = 0.f;
-      if (base + u < n) {
-        float kf[E];
-        load_row<E>(kbase + (size_t)(base + u) * pstride, kf);
-#pragma unroll
-        for (int e = 0; e < E; ++e) part[u] += qf[e] * kf[e];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const float dot = warp_sum(part[u]);
-      const int p = base + u;
-      if (lane == 0 && p < n) sc[p] = dot * scale * (ksb ? ksb[(size_t)p * h] : 1.f);
-    }
+  for (int u = 0; u < kMhaBatch; ++u) {
+    const int j = grp + G * u;
+    av[u] = j < live ? __ldcg(a4 + (size_t)j * Q) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
+  const float2 mlj =
+      tid < live ? __ldcg(reinterpret_cast<const float2*>(ws_ml) +
+                          (size_t)bh * splits + tid)
+                 : make_float2(-INFINITY, 0.f);
+  const float mx = mha_block_reduce<true>(mlj.x, red);
+  const float wj = tid < live ? __expf(mlj.x - mx) : 0.f;
+  cw[tid] = wj;
+  const float lt = mha_block_reduce<false>(wj * mlj.y, red);  // also orders cw
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto add = [&](float w, const float4& a) {
+    sum.x = fmaf(w, a.x, sum.x);
+    sum.y = fmaf(w, a.y, sum.y);
+    sum.z = fmaf(w, a.z, sum.z);
+    sum.w = fmaf(w, a.w, sum.w);
+  };
+#pragma unroll
+  for (int u = 0; u < kMhaBatch; ++u) {
+    const int j = grp + G * u;
+    if (j < live) add(cw[j], av[u]);
+  }
+  for (int j = grp + G * kMhaBatch; j < live; j += G)
+    add(cw[j], __ldcg(a4 + (size_t)j * Q));
+  red4[tid] = sum;
   __syncthreads();
-
-  // Softmax: max, weights, sum (the sum excludes the v scales).
-  float mx = -INFINITY;
-  for (int p = threadIdx.x; p < n; p += kThreads) mx = fmaxf(mx, sc[p]);
-  mx = block_reduce<true>(mx, red);
-  float sum = 0.f;
-  for (int p = threadIdx.x; p < n; p += kThreads) {
-    const float w = __expf(sc[p] - mx);
-    sum += w;
-    sc[p] = vsb ? w * vsb[(size_t)p * h] : w;
-  }
-  sum = block_reduce<false>(sum, red);  // also orders the sc writes
-
-  // Pass 2: weighted sum of values.
-  float acc[E];
+  if (tid < Q) {
+    float4 t = red4[tid];
 #pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = 0.f;
-  for (int base = warp * kUnroll; base < n; base += kWarps * kUnroll) {
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int p = base + u;
-      if (p < n) {
-        float vf[E];
-        load_row<E>(vbase + (size_t)p * pstride, vf);
-        const float w = sc[p];
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[e] += w * vf[e];
-      }
+    for (int g = 1; g < G; ++g) {
+      const float4 x = red4[g * Q + tid];
+      t.x += x.x;
+      t.y += x.y;
+      t.z += x.z;
+      t.w += x.w;
     }
-  }
-#pragma unroll
-  for (int e = 0; e < E; ++e) acc_s[warp * D + lane * E + e] = acc[e];
-  __syncthreads();
-  const float inv = 1.f / sum;
-  for (int c = threadIdx.x; c < D; c += kThreads) {
-    float r = 0.f;
-    for (int w = 0; w < kWarps; ++w) r += acc_s[w * D + c];
-    orow[c] = __float2bfloat16(r * inv);
+    const float inv = live > 0 ? 1.f / lt : 0.f;
+    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(orow) + 2 * tid;
+    o2[0] = __floats2bfloat162_rn(t.x * inv, t.y * inv);
+    o2[1] = __floats2bfloat162_rn(t.z * inv, t.w * inv);
   }
 }
 
 template <typename T, int D>
-int launch(const Args& a, cudaStream_t stream) {
-  auto kern = decode_attn_kernel<T, D>;
-  const size_t smem = ((size_t)a.L + kWarps * D + kWarps) * sizeof(float);
+int launch_mha(const void* q, const void* k, const void* v, const float* ks,
+               const float* vs, const int* lengths, void* o, float* ws,
+               int* counters, int layer, int b, int L, int h, int chunk,
+               int splits, float scale, cudaStream_t stream) {
+  auto kern = decode_mha_kernel<T, D>;
+  constexpr int smem = MhaTile<T, D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(a.h, a.b), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.ks, a.vs, a.lengths,
-      static_cast<__nv_bfloat16*>(a.o), a.layer, a.b, a.L, a.h, a.scale);
+  kern<<<(unsigned)((size_t)b * h * splits), kMhaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), ks, vs, lengths,
+      static_cast<__nv_bfloat16*>(o), ws, counters, layer, b, L, h, chunk,
+      splits, scale);
   return (int)cudaGetLastError();
-}
-
-int dispatch(const Args& a, int d, int int8, cudaStream_t st) {
-  if (int8) {
-    if (d == 128) return launch<int8_t, 128>(a, st);
-    if (d == 32) return launch<int8_t, 32>(a, st);
-    return launch<int8_t, 64>(a, st);
-  }
-  if (d == 128) return launch<__nv_bfloat16, 128>(a, st);
-  if (d == 32) return launch<__nv_bfloat16, 32>(a, st);
-  return launch<__nv_bfloat16, 64>(a, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -244,10 +421,8 @@ int dispatch(const Args& a, int d, int int8, cudaStream_t st) {
 // ---------------------------------------------------------------------------
 // Replaces video_llava_tpu/ops/attention.py::decode_attention_pallas (body
 // _decode_attn_kernel) and, paged (MHA, one head a block),
-// decode_attention_mxu_paged (body _decode_attn_mxu_paged_kernel); the
-// wrappers of kernels 3 and 9 also send a cache longer than the per-(head,
-// row) body's shared memory here, flat, one head a block. Query head i
-// reads KV head i / group. For row bi and KV head kh, with n =
+// decode_attention_mxu_paged (body _decode_attn_mxu_paged_kernel). Query
+// head i reads KV head i / group. For row bi and KV head kh, with n =
 // min(lengths[bi], L) and qs_i = q_i * scale (f32):
 //     s_ip = (qs_i . k_p) [* k_scale_p]                 p < n
 //     o_i  = sum_p softmax(s_i)_p [* v_scale_p] v_p      (bf16 out)
@@ -627,20 +802,44 @@ inline int gqa_run(int group) {
 }
 }  // namespace
 
-// int8: 0 for a bf16 cache (ks/vs ignored, pass null), 1 for int8 + scales.
-// d in {32, 64, 128}; L up to the block's shared memory for its scores
-// (the wrappers check).
+// Kernels 3 and 9. q (b, 1, h, d) bf16; k, v (NL, b, L, h, d), bf16 or int8
+// with scales (NL, b, L, h) f32 (a flat (b, L, h, d) cache is NL = 1 at
+// layer 0); lengths (b,) int32; o (b, 1, h, d) bf16; ws b * h * splits *
+// (2 + d) floats and counters b * h ints at 0 (both unused when splits is
+// 1); [0, L) in `splits` chunks of `chunk` positions, splits at most
+// kMhaSplitsMax. d in {32, 64, 128} (the wrappers check).
 extern "C" int vlt_decode_attention(const void* q, const void* k,
                                     const void* v, const void* ks,
                                     const void* vs, const void* lengths,
-                                    void* o, int layer, int b, int L, int h,
-                                    int d, int int8, float scale,
-                                    void* stream) {
-  const Args a{q, k, v, int8 ? static_cast<const float*>(ks) : nullptr,
-               int8 ? static_cast<const float*>(vs) : nullptr,
-               static_cast<const int*>(lengths), o, layer, b, L, h, scale};
-  return dispatch(a, d, int8, (cudaStream_t)stream);
+                                    void* o, void* ws, void* counters,
+                                    int layer, int b, int L, int h, int d,
+                                    int int8, int chunk, int splits,
+                                    float scale, void* stream) {
+  if (chunk <= 0 || splits < 1 || splits > kMhaSplitsMax ||
+      (long long)chunk * splits < L ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const float* ksf = int8 ? static_cast<const float*>(ks) : nullptr;
+  const float* vsf = int8 ? static_cast<const float*>(vs) : nullptr;
+  const int* len = static_cast<const int*>(lengths);
+  float* wsf = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(counters);
+  cudaStream_t st = (cudaStream_t)stream;
+#define VLT_MHA_ARGS \
+  q, k, v, ksf, vsf, len, o, wsf, cnt, layer, b, L, h, chunk, splits, scale, st
+  if (int8) {
+    if (d == 128) return launch_mha<int8_t, 128>(VLT_MHA_ARGS);
+    if (d == 64) return launch_mha<int8_t, 64>(VLT_MHA_ARGS);
+    if (d == 32) return launch_mha<int8_t, 32>(VLT_MHA_ARGS);
+  } else {
+    if (d == 128) return launch_mha<__nv_bfloat16, 128>(VLT_MHA_ARGS);
+    if (d == 64) return launch_mha<__nv_bfloat16, 64>(VLT_MHA_ARGS);
+    if (d == 32) return launch_mha<__nv_bfloat16, 32>(VLT_MHA_ARGS);
+  }
+#undef VLT_MHA_ARGS
+  return (int)cudaErrorInvalidValue;
 }
+
 
 // Kernel 10. The paged pool: k/v (NL, nblocks, bs, h, d), scales (NL,
 // nblocks, bs, h), table (b, maxb) int32 with every entry in [0, nblocks);

@@ -14,14 +14,15 @@ and training paths:
     head-major, once-padded operands (csrc/flash_bhsd.cu).
   * :func:`decode_attention_stacked` -- one query token against one
     layer of the stacked (NL, b, L, h, d) KV cache, bf16 or int8
-    (csrc/decode_attention.cu).
+    (csrc/decode_attention.cu: the MHA split body, its chunks merged in
+    the same launch).
   * :func:`decode_attention_paged` -- the same against one layer of the
     paged (NL, NB, BS, h, d) block pool through a block table (kernel
     11's split body, csrc/decode_attention.cu).
   * :func:`decode_attention` -- the flat dispatch over one layer's
     (b, L, h_kv, d) cache: :func:`decode_attention_mxu` (MHA, the same
     kernel body at NL = 1) or :func:`decode_attention_pallas` (grouped
-    query heads, a body of its own), or the plain masked reference. The
+    query heads, kernel 11's split body), or the plain masked reference. The
     stacked and paged wrappers fall through to it for the shapes their
     kernels do not take, as the JAX package's do.
 
@@ -412,11 +413,49 @@ def flash_attention_bhsd(
 # ---------------------------------------------------------------------------
 
 
-def _mha_body_fits(L: int, d: int) -> bool:
-    """Whether the per-(head, row) body of kernels 3 and 9 holds a score
-    for each of L positions (and its d-wide scratch) in one block's 227
-    KB of shared memory. A longer cache goes to the split body."""
-    return (L + 9 * d) * 4 <= 227 * 1024
+MHA_BLOCKS_PER_SM = 4  # kernels 3 and 9's plan target (PERF.md §6)
+MHA_SPLITS_MAX = 128  # = kMhaSplitsMax in csrc/decode_attention.cu
+
+
+def mha_split_plan(L: int, b: int, h: int, sms: int) -> tuple:
+    """Kernels 3 and 9's split of a row's [0, L) -> (chunk, splits):
+    :func:`gqa_split_plan` at one head a block, about MHA_BLOCKS_PER_SM
+    blocks an SM over the b * h (row, head) pairs, and at most
+    MHA_SPLITS_MAX chunks (the partials the last block merges)."""
+    chunk, _ = gqa_split_plan(L, b, h, sms, per_sm=MHA_BLOCKS_PER_SM)
+    least = -(-max(L, 1) // MHA_SPLITS_MAX)
+    chunk = max(chunk, -(-least // 16) * 16)
+    return chunk, -(-L // chunk)
+
+
+def _decode_mha(kernel: str, q, k_cache, v_cache, cache_len, layer: int,
+                k_scale, v_scale, scale: float) -> torch.Tensor:
+    """Launch kernels 3 and 9's body (csrc/decode_attention.cu) on
+    operands the caller checked: layer `layer` of a (NL, b, L, h, d)
+    cache (a flat cache is NL = 1), split by :func:`mha_split_plan`; a
+    block per (row, head, chunk) writes an f32 partial and the last one
+    of a (row, head) merges them in split order, in the same launch.
+    Counted as `kernel`."""
+    b, _, h, d = q.shape
+    L = k_cache.shape[-3]
+    dev = q.device
+    chunk, splits = mha_split_plan(L, b, h, _sm_count(dev.index))
+    ws = counters = None
+    if splits > 1:
+        ws = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                         device=dev)
+        counters = cuda_lib.counters(dev, b * h)
+    quantized = k_scale is not None
+    opt = lambda t: None if t is None else cuda_lib.ptr(t)  # noqa: E731
+    out = torch.empty_like(q)
+    cuda_lib.launch(
+        kernel, "vlt_decode_attention", dev,
+        cuda_lib.ptr(q), cuda_lib.ptr(k_cache), cuda_lib.ptr(v_cache),
+        opt(k_scale), opt(v_scale), cuda_lib.ptr(cache_len),
+        cuda_lib.ptr(out), opt(ws), opt(counters),
+        int(layer), b, L, h, d, int(quantized), chunk, splits, float(scale),
+    )
+    return out
 
 
 def decode_attention_stacked_plain(q, k_cache, v_cache, layer, cache_len,
@@ -444,10 +483,7 @@ def decode_attention_stacked(
     cache -> (b, 1, h, d). Positions at or past a row's length are never
     read. On CUDA, under the JAX package's conditions
     (ops/attention.py:1320-1331): MHA, h*d a multiple of 128, d in {32,
-    64, 128}, bf16 query: kernel 3 (csrc/decode_attention.cu), or past
-    the length its block holds scores for (:func:`_mha_body_fits`) the
-    layer's view through the split body, one head a block (a launch of
-    :func:`decode_attention_pallas`, counted under its name). Other
+    64, 128}, bf16 query: kernel 3 (:func:`_decode_mha`, any L). Other
     shapes and CPU tensors take the layer's view through
     :func:`decode_attention` (JAX :1335-1340); under set_default_impl(
     'xla') a CUDA tensor raises."""
@@ -475,22 +511,8 @@ def decode_attention_stacked(
                          dev)
         cuda_lib.require(v_scale, "v_scale", torch.float32, (nl, b, L, h),
                          dev)
-        ks, vs = cuda_lib.ptr(k_scale), cuda_lib.ptr(v_scale)
-    else:
-        ks = vs = None
-    if not _mha_body_fits(L, d):  # the layer's view is a flat MHA cache
-        unit = lambda a: None if a is None else a[layer][..., None]  # noqa
-        return decode_attention_pallas(q, k_cache[layer], v_cache[layer],
-                                       cache_len, unit(k_scale),
-                                       unit(v_scale), scale)
-    out = torch.empty_like(q)
-    cuda_lib.launch(
-        "decode_attention_stacked", "vlt_decode_attention", q.device,
-        cuda_lib.ptr(q), cuda_lib.ptr(k_cache), cuda_lib.ptr(v_cache),
-        ks, vs, cuda_lib.ptr(cache_len), cuda_lib.ptr(out),
-        int(layer), b, L, h, d, int(quantized), float(scale),
-    )
-    return out
+    return _decode_mha("decode_attention_stacked", q, k_cache, v_cache,
+                       cache_len, layer, k_scale, v_scale, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -714,14 +736,11 @@ def decode_attention_mxu(
 ) -> torch.Tensor:
     """Kernel 9: MHA decode over a flat per-layer cache -> (b, 1, h, d)
     (JAX ``decode_attention_mxu``). On CUDA: kernel 3's body at NL = 1
-    (csrc/decode_attention.cu), which scales the f32 scores as kernel 3
-    does (the plain version rounds q * scale to bf16 first, as the JAX
-    kernel does); d in {32, 64, 128}. A cache longer than that body's
-    shared memory holds (:func:`_mha_body_fits`) takes the split body,
-    one head a block (a launch of :func:`decode_attention_pallas`,
-    counted under its name)."""
-    b, _, h, d = q.shape
-    L, h_kv = k_cache.shape[1:3]
+    (:func:`_decode_mha`, any L), which scales the f32 scores as kernel 3
+    does and keeps the weights f32 (the plain version rounds q * scale and
+    the weights to bf16, as the JAX kernel does); d in {32, 64, 128}."""
+    h, d = q.shape[2:]
+    h_kv = k_cache.shape[2]
     scale = _default_scale(d, scale)
     if h_kv != h:
         raise ValueError(f"decode_attention_mxu: MHA only, got {h} query "
@@ -729,19 +748,10 @@ def decode_attention_mxu(
     if q.device.type == "cpu":
         return decode_attention_mxu_plain(q, k_cache, v_cache, cache_len,
                                           k_scale, v_scale, scale)
-    ks, vs = _check_decode_flat(q, k_cache, v_cache, cache_len, k_scale,
-                                v_scale, "decode_attention_mxu")
-    if not _mha_body_fits(L, d):
-        return decode_attention_pallas(q, k_cache, v_cache, cache_len,
-                                       k_scale, v_scale, scale)
-    out = torch.empty_like(q)
-    cuda_lib.launch(
-        "decode_attention_mxu", "vlt_decode_attention", q.device,
-        cuda_lib.ptr(q), cuda_lib.ptr(k_cache), cuda_lib.ptr(v_cache),
-        ks, vs, cuda_lib.ptr(cache_len), cuda_lib.ptr(out),
-        0, b, L, h, d, int(k_scale is not None), float(scale),
-    )
-    return out
+    _check_decode_flat(q, k_cache, v_cache, cache_len, k_scale, v_scale,
+                       "decode_attention_mxu")
+    return _decode_mha("decode_attention_mxu", q, k_cache, v_cache,
+                       cache_len, 0, k_scale, v_scale, scale)
 
 
 def decode_attention_pallas_plain(q, k_cache, v_cache, cache_len,

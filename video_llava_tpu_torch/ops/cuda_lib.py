@@ -47,8 +47,11 @@ _SIGNATURES = {
     # x, out, partial; t, s, c, T, n, out_bf16
     "vlt_spatio_temporal_pool": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vlt_pool_rows_per_block": (),
+    # q, k, v, ks, vs, lengths, o, ws, counters; layer, b, L, h, d, int8,
+    # chunk, splits; scale
     "vlt_decode_attention": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _F, _P,
     ),
     # q, k, v, ks, vs, table, lengths, o, ws; layer, b, nblocks, bs, maxb,
     # h, d, int8, chunk, splits; scale
@@ -85,6 +88,7 @@ _SIGNATURES = {
 _lib = None
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+_counters: dict = {}  # device index -> int32 arrival counters, all 0
 
 
 def reset_launch_counts() -> None:
@@ -182,6 +186,26 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         )
     with _count_lock:  # serving launches from its engine and HTTP threads
         LAUNCHES[kernel] += 1
+
+
+def counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least `n` int32 arrival counters at 0 on `device`, for the
+    kernels whose last block to finish merges the split partials (kernels
+    3 and 9). Each launch leaves the counters it used at 0, so one buffer
+    a device serves every launch in stream order (not launches that run
+    at once on two streams). Zeroed when first made or grown, never per
+    call: a memset would be a launch of its own. Growing it inside a CUDA
+    graph capture raises (call once before capturing)."""
+    with _lock:
+        buf = _counters.get(device.index)
+        if buf is None or buf.numel() < n:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("arrival counters grown during a CUDA "
+                                   "graph capture: launch once before it")
+            size = max(n, 4096, 0 if buf is None else 2 * buf.numel())
+            buf = torch.zeros(size, dtype=torch.int32, device=device)
+            _counters[device.index] = buf
+    return buf
 
 
 def require(t: torch.Tensor, name: str, dtype, shape=None,

@@ -265,6 +265,21 @@ def matvec_rows_per_split(nb: int, dh: int, f: int, sm_count: int) -> int:
     return 4 * -(-quads // splits)
 
 
+W4A16_COLS = 128  # columns a W4A16 matvec block (csrc/w4a16.cu kMvCols)
+W4A16_BLOCKS_PER_SM = 3  # the W4A16 matvec's plan target (PERF.md §6)
+
+
+def w4a16_rows_per_split(dh: int, f: int, sm_count: int) -> int:
+    """Packed rows each W4A16 matvec block reduces: K cut into as many
+    splits as keep the column tiles times the splits at most
+    W4A16_BLOCKS_PER_SM blocks an SM (one split when the tiles alone come
+    near that), in multiples of 32 rows (two warps of 16-row steps down
+    a strip)."""
+    tiles = -(-f // W4A16_COLS)
+    splits = max(1, W4A16_BLOCKS_PER_SM * sm_count // tiles)
+    return 32 * -(-dh // (32 * splits))
+
+
 def _check_w4a8(x, packed, scales, out_dtype, kernel: str):
     dh, f = packed.shape
     n_groups = scales.shape[0]
@@ -351,8 +366,10 @@ def w4a16_matvec(x: torch.Tensor, packed: torch.Tensor,
                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Kernel 6's W4A16 matvec: x (1, D) x packed (Dh, F) + scales (G, F)
     -> (1, F) in out_dtype, computing
-    :func:`int4_matmul_w4a16_matvec_plain`. On CUDA: x bf16
-    (csrc/w4a16.cu)."""
+    :func:`int4_matmul_w4a16_matvec_plain`. On CUDA: x bf16, the group's
+    packed rows a multiple of 16 (csrc/w4a16.cu: the products on the
+    tensor cores, K split by :func:`w4a16_rows_per_split`, the splits'
+    partials added in order by a second kernel)."""
     if x.device.type == "cpu":
         return int4_matmul_w4a16_matvec_plain(x, packed, scales).to(
             out_dtype)
@@ -361,8 +378,12 @@ def w4a16_matvec(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"w4a16_matvec: one row, got {x.shape[0]}")
     dh, f, n_groups = _check_w4a8(x, packed, scales, out_dtype,
                                    "w4a16_matvec")
-    rows = matvec_rows_per_split(
-        1, dh, f,
+    if _group_rows(dh, n_groups) % 16:
+        raise ValueError(f"w4a16_matvec: group of "
+                         f"{_group_rows(dh, n_groups)} packed rows is not "
+                         "a multiple of 16")
+    rows = w4a16_rows_per_split(
+        dh, f,
         torch.cuda.get_device_properties(x.device).multi_processor_count)
     splits = -(-dh // rows)
     out = torch.empty((1, f), dtype=out_dtype, device=x.device)
