@@ -14,13 +14,16 @@ Phases, each of which raises on failure (exit code != 0):
      linears in the bf16-out build the path launches and in f32 out, a
      flat per-layer weight and a 1100-row prompt, the flat-cache decode
      kernels 9 and 11 at the chat and serving shapes, kernels 3 and 10 at
-     head dim 32, CLIP's pad keys and values set large, and planted
-     faults in the plain versions of kernels 1, 2, 9, 10, 11 and the
-     W4A16 matvec that must fail), timing the kernel, the plain version
+     head dim 32, kernels A and B at serving's 4-row decode, 36-row
+     verify and 256-row prefill window, CLIP's pad keys and values set
+     large, and planted faults in the plain versions of kernels 1, 2, 9,
+     10, 11, A, B and the W4A16 matvec that must fail), timing the
+     kernel, the plain version
      and, where one PyTorch call computes the same function, that call,
-     each beside the kernel's bound; kernels 3, 9 and the W4A16 matvec
-     (and their library calls) also from HBM (ms_hbm: each call of the
-     timed graph on another layer or copy, together past the 50 MB L2);
+     each beside the kernel's bound; kernels 3, 9, A and the W4A16
+     matvec (and their library calls) also from HBM (ms_hbm: each call of
+     the timed graph on another layer or copy, together past the 50 MB
+     L2);
   4. check a small model end to end (LlamaConfig.tiny's head dim 32, and
      4 query heads over 2 KV heads), in bf16 and with int4 W4A8 LLM
      weights: the CUDA path in bf16 against the plain path on the CPU
@@ -641,13 +644,55 @@ def long_decode_checks(dev, g, rnd, results) -> None:
           nbytes=nbytes, ops=ops)
 
 
+def w4a8_planted_faults(name, x, p, s, out, want) -> None:
+    """Two faults planted in kernel `name`'s plain version must each fail
+    its check against the true plain version `want`: the high half's
+    group scales read for the low half, and the last K split of the
+    kernel's plan dropped (its packed rows zeroed)."""
+    half = s.shape[0] // 2
+    wrong_scales = torch.cat([s[half:], s[half:]]) if half else s * 2
+    plain = (quant4.int4_matmul_w4a8_xla if name == "w4a8_matvec"
+             else quant4.int4_matmul_w4a8_block_xla)
+    dh, f = p.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows = (quant4.matvec_rows_per_split(dh, f, s.shape[0], sms)
+            if name == "w4a8_matvec"
+            else quant4.w4a8_block_plan(x.shape[0], dh, f, s.shape[0],
+                                        sms)[1])
+    last = (dh - 1) // rows * rows  # the last split's first packed row
+    dropped = p.clone()
+    dropped[last:] = 0x08  # both nibbles 0: the split adds nothing
+    tol = REL_TOL[name][out]
+    for label, fault in (("high-half scales for the low half",
+                          plain(x, p, wrong_scales)),
+                         (f"the last K split (rows {last}-{dh}) dropped",
+                          plain(x, dropped, s))):
+        fault = fault.to(out)
+        rel = ((fault.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        print(f"planted fault in {name}'s plain version, {label}: "
+              f"max|err|/max|ref| {rel:.3e} (tol {tol})", flush=True)
+        if not rel > tol:
+            raise AssertionError(f"the {name} check passes the planted "
+                                 f"fault: {label}")
+
+
 def w4a8_checks(dev, g, results) -> None:
     """Kernels A and B on Vicuna-7B's linears, bf16 activations as on the
     path. First the build the path launches, bf16 out (its times go in
-    the kernels line), against the plain version rounded to bf16; then
-    f32 out, where the 1e-4 relative bound is not hidden by bf16
-    rounding. Stacked weights are (4, Dh, F), read at layer 2 as a view;
-    one weight of each kernel is a flat per-layer tensor."""
+    the kernels line), against the plain version rounded to bf16: A at
+    wqkv (one row: chat decode) and gate_up (4 rows: serving's decode), B
+    at 768 rows (the chat prefill), 36 (serving's verify: 4 slots x 9)
+    and 256 (a prefill window) of gate_up; then f32 out, where the 1e-4
+    relative bound is not hidden by bf16 rounding. Stacked weights are
+    (4, Dh, F), read at layer 2 as a view; one weight of each kernel is a
+    flat per-layer tensor. A at wqkv and gate_up is also timed from HBM
+    (ms_hbm: one call on each of the 4 layers, 100 and 180 MB). Beside B
+    at 768 rows, torch._int_mm times the same int32 products on xq and
+    the weight unpacked to int8 ahead (no scales, no unpack): cuBLAS's
+    int8 rate for reference, not the same function. Two faults planted in
+    each plain version (wrong-half scales, the last K split dropped) must
+    fail the check."""
 
     def weight(d, f, layers=None):
         w = torch.randn(layers or 1, d, f, generator=g, device=dev)
@@ -659,35 +704,61 @@ def w4a8_checks(dev, g, results) -> None:
 
     cfg = LlamaConfig.vicuna_7b()
     d, f = cfg.hidden_size, cfg.intermediate_size
-    wqkv = weight(d, 3 * d, layers=4)
-    gate_up = weight(d, 2 * f, layers=4)
-    down = weight(f, d, layers=4)
-    wo = weight(d, d)  # flat per-layer
+    weights = {"wqkv": weight(d, 3 * d, layers=4),
+               "gate_up": weight(d, 2 * f, layers=4),
+               "down": weight(f, d, layers=4), "wo": weight(d, d)}
     bf16, f32 = torch.bfloat16, torch.float32
-    for name, nb, (pk, sc), stacked, out in (
-            ("w4a8_matvec", 1, wqkv, True, bf16),
-            ("w4a8_matvec", 1, down, True, bf16),
-            ("w4a8_block", 768, gate_up, True, bf16),
-            ("w4a8_block", 768, down, True, bf16),
-            ("w4a8_matvec", 1, wqkv, True, f32),
-            ("w4a8_matvec", 1, down, True, f32),
-            ("w4a8_matvec", 4, gate_up, True, f32),
-            ("w4a8_matvec", 1, wo, False, f32),
-            ("w4a8_block", 768, gate_up, True, f32),
-            ("w4a8_block", 768, down, True, f32),
-            ("w4a8_block", 1100, wo, False, f32)):
+    for name, nb, key, out in (
+            ("w4a8_matvec", 1, "wqkv", bf16),
+            ("w4a8_matvec", 4, "gate_up", bf16),
+            ("w4a8_matvec", 1, "down", bf16),
+            ("w4a8_block", 768, "gate_up", bf16),
+            ("w4a8_block", 36, "gate_up", bf16),
+            ("w4a8_block", 256, "gate_up", bf16),
+            ("w4a8_block", 768, "down", bf16),
+            ("w4a8_matvec", 1, "wqkv", f32),
+            ("w4a8_matvec", 1, "down", f32),
+            ("w4a8_matvec", 4, "gate_up", f32),
+            ("w4a8_matvec", 1, "wo", f32),
+            ("w4a8_block", 768, "gate_up", f32),
+            ("w4a8_block", 768, "down", f32),
+            ("w4a8_block", 1100, "wo", f32)):
+        pk, sc = weights[key]
+        stacked = key != "wo"
         p, s = (pk[2], sc[2]) if stacked else (pk, sc)
         x = act(nb, 2 * p.shape[0])
         kernel = getattr(quant4, name)
         plain = (quant4.int4_matmul_w4a8_xla if name == "w4a8_matvec"
                  else quant4.int4_matmul_w4a8_block_xla)
+        hbm = None
+        if name == "w4a8_matvec" and out == bf16 and key != "down":
+            hbm = ([lambda li=li: kernel(x, pk[li], sc[li], out)
+                    for li in range(len(pk))], None)
         check(results, name,
               (nb, 2 * p.shape[0], p.shape[1], "layer 2 of 4" if stacked
-               else "flat", f"{str(out)[6:]} out"),
+               else "flat", f"{str(out)[6:]} out", key),
               lambda: kernel(x, p, s, out), lambda: plain(x, p, s).to(out),
               nbytes=(p.numel() + 2 * s.numel() + 2 * x.numel()
                       + nb * p.shape[1] * out.itemsize),
-              ops=2 * nb * x.shape[1] * p.shape[1], peak=INT8_PEAK)
+              ops=2 * nb * x.shape[1] * p.shape[1], peak=INT8_PEAK, hbm=hbm)
+        # where the plan splits K (wqkv: 4 splits; down: 2), so the split
+        # fault drops a real split
+        if (nb, key, out) in ((1, "wqkv", f32), (768, "down", f32)):
+            w4a8_planted_faults(name, x, p, s, out, plain(x, p, s))
+        if (name, nb, key, out) == ("w4a8_block", 768, "gate_up", bf16):
+            xq, _ = quant4.quantize_activation_int8(x, 1)
+            # (D, F) int8 laid out column-major, as cuBLASLt's int8 path
+            # takes its second operand
+            wq = quant4.unpack_int4(p).to(torch.int8).t().contiguous().t()
+            try:
+                note = f"{median_ms(lambda: torch._int_mm(xq, wq)):.4f} ms"
+            except RuntimeError as e:  # a reference print, not a check
+                note = f"not measured ({str(e).splitlines()[0]})"
+            print(f"reference torch._int_mm ({nb}, {x.shape[1]}) x "
+                  f"({x.shape[1]}, {p.shape[1]}) int8 -> int32 (the same "
+                  f"int32 products, no unpack or scales; not the same "
+                  f"function): {note}", flush=True)
+            del xq, wq
 
 
 def split_fault_check(label, name, q, kc, vc, lens, plan, want) -> None:

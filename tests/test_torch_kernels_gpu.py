@@ -452,7 +452,9 @@ def test_decode_fallthrough_on_the_card(dev):
     not take to the flat dispatch: a GQA cache to kernel 11, a paged pool
     of 24-position blocks or enable_paged_kernel(False) through the dense
     gather to kernel 9; under set_default_impl('xla') the stacked, paged
-    and flat wrappers raise on CUDA tensors and launch nothing."""
+    and flat wrappers return the plain reference on CUDA tensors and
+    launch nothing, as the JAX package's 'xla' runs its XLA twin on the
+    accelerator."""
     g = torch.Generator(device=dev).manual_seed(14)
     lens = torch.tensor([45, 17], dtype=torch.int32, device=dev)
     q8 = _rand(g, 2, 1, 8, 64)
@@ -496,14 +498,18 @@ def test_decode_fallthrough_on_the_card(dev):
         attention.enable_paged_kernel(True)
         attention.set_default_impl("xla")
         before = sum(cuda_lib.LAUNCHES.values())
-        for run in (
-                lambda: attention.decode_attention_stacked(q8, kv, kv, 1,
-                                                           lens),
-                lambda: attention.decode_attention_paged(
-                    q8, pool16, pool16, 1, table16, lens),
-                lambda: attention.decode_attention(q8, kv[1], kv[1], lens)):
-            with pytest.raises(RuntimeError, match="xla"):
-                run()
+        dense16 = attention.paged_layer_dense(pool16, 1, table16)
+        for run, cache in (
+                (lambda: attention.decode_attention_stacked(q8, kv, kv, 1,
+                                                            lens), kv[1]),
+                (lambda: attention.decode_attention_paged(
+                    q8, pool16, pool16, 1, table16, lens), dense16),
+                (lambda: attention.decode_attention(q8, kv[1], kv[1], lens),
+                 kv[1])):
+            got = run()
+            assert got.device == q8.device
+            _assert_rows(got, attention.decode_attention_reference(
+                q8, cache, cache, lens))
         assert sum(cuda_lib.LAUNCHES.values()) == before
     finally:
         attention.enable_paged_kernel(True)
@@ -642,8 +648,8 @@ def _assert_rel(got, want, tol=1e-4):
 
 @pytest.mark.parametrize("nb,d,f,group_size", [
     (1, 4096, 12288, 128), (1, 11008, 4096, 128), (4, 4096, 4096, 128),
-    (3, 768, 256, 128), (8, 512, 384, 32), (2, 1024, 640, None),
-    (5, 256, 128, None),
+    (4, 4096, 22016, 128), (3, 768, 256, 128), (8, 512, 384, 32),
+    (2, 1024, 640, None), (5, 256, 128, None),
 ])
 def test_w4a8_matvec_kernel_matches_plain(dev, nb, d, f, group_size):
     g = torch.Generator(device=dev).manual_seed(4)
@@ -662,6 +668,7 @@ def test_w4a8_matvec_kernel_matches_plain(dev, nb, d, f, group_size):
 
 @pytest.mark.parametrize("nb,d,f,group_size", [
     (768, 4096, 22016, 128), (768, 11008, 4096, 128), (1100, 4096, 4096, 128),
+    (36, 4096, 22016, 128), (256, 4096, 22016, 128),
     (9, 512, 256, 32), (70, 768, 144, 128), (33, 1024, 256, None),
 ])
 def test_w4a8_block_kernel_matches_plain(dev, nb, d, f, group_size):
@@ -851,6 +858,15 @@ def test_deformable_kernel_matches_plain(dev, shapes, q, b, nh, hd, p,
     finally:
         deformable.set_tile2d(False)
     assert torch.equal(again, got)
+    deformable.set_default_impl("xla")  # the plain version, no launch
+    try:
+        before = sum(cuda_lib.LAUNCHES.values())
+        plain = deformable.multi_scale_deformable_attention(value, shapes,
+                                                            locs, weights)
+        assert sum(cuda_lib.LAUNCHES.values()) == before
+    finally:
+        deformable.set_default_impl("auto")
+    assert plain.device == value.device and torch.equal(plain, want)
     with pytest.raises(ValueError):  # more samples than a warp's lanes
         deformable.multi_scale_deformable_attention(
             value, shapes, torch.cat([locs] * 9, dim=4),

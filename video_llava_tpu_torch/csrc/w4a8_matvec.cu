@@ -1,4 +1,5 @@
-// W4A8 matvec: a few activation rows against an int4 nibble-packed weight.
+// W4A8 matvec: a few activation rows against an int4 nibble-packed weight,
+// on the int8 tensor cores.
 //
 // Replaces video_llava_tpu/ops/quant4.py::_int4_matvec_stacked_pallas
 // (body _w4a8_matvec_body_axor) and the a8 matvec branch of
@@ -11,208 +12,335 @@
 // over activation groups a: the weight's G groups, or the two halves when
 // G == 1. Groups [0, G/2) cover the low half, [G/2, G) the high half.
 //
-// What bounds it on Hopper: the packed bytes, read once (about 101 MB a
-// Vicuna-7B layer, 3.2 GB a decode step); the arithmetic is a few integer
-// operations a byte. The design keeps the unpack off the critical path with
-// the offset-binary trick the TPU kernel uses: a lane loads 4 columns x 4
-// packed rows, transposes them with byte permutes into one word per column
-// (4 consecutive rows), and with a = word & 0x0F0F0F0F
-//     sum x_lo * lo = dp4a(a, x_lo) - 8 * sum x_lo
-//     sum x_hi * hi = (dp4a(word, x_hi) - dp4a(a, x_hi)) / 16   (exact)
-// so every (row, group) partial is an exact int32, scaled once in f32.
-// The TPU kernel quantized x once, at grid step 0, into VMEM scratch; here
-// blocks run in no order, so each block quantizes the rows of its own K
-// range into shared memory (the absmax of each group it touches is taken
-// over the whole group): one launch, no first pass. Block = 128 columns x
-// a K range; its 8 warps interleave over 4-row quads and add their f32
-// results in a fixed order. When there are too few column tiles to fill
-// the card (F = 4096 gives 32), the K range is split over blocks and a
-// second kernel adds the splits' (splits, nb, F) f32 partials in order:
-// deterministic, no atomics.
+// What bounds it on Hopper: the packed bytes, read once (25.2 MB for
+// Vicuna-7B's fused wqkv, 7.5 us at 3.35 TB/s); the products are few. A
+// first body formed them with dp4a per (row, column), so its instructions
+// grew with nb and, with 4-byte loads, kept too few bytes in flight. The
+// design: a block of 256 threads owns 128 columns and a K range; warp w
+// takes the 32-column strip w % 4 of half the range (w / 4), in steps of
+// 32 packed rows that its lanes stream with cp.async (16 bytes a lane,
+// csrc/async_ring.cuh) through a ring of MATVEC_DEPTH 1 KB stages. A step's
+// weights are the 16-row operand of mma.sync m16n8k32 s8 (two ldmatrix.x4.
+// trans and byte permutes, csrc/w4a8_frag.cuh) and the activations the
+// 8-row one, so 1 to 8 rows cost one instruction stream. Each block first
+// quantizes the activations of its K range into shared memory (the absmax
+// of each group it touches over the whole group; the TPU kernel did this
+// once at grid step 0, which needs the grid's order); each group's exact
+// int32 partials are scaled in f32 at the group's end (every 128 rows at
+// most). K is split over blocks so that the column tiles fill the card
+// (ops/quant4.py matvec_rows_per_split: whole groups), and
+// add_splits_kernel adds the (split, nb, F) f32 partials in split order:
+// deterministic, no atomics (a last-block merge measured slower on the
+// W4A16 matvec, PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_ring.cuh"
 #include "int4_out.cuh"
+#include "w4a8_frag.cuh"
 
 namespace {
 
+using namespace w4a8;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 128;  // 32 lanes x 4 columns
+constexpr int kStrips = 4;               // 32-column strips a block
+constexpr int kCols = 32 * kStrips;      // = MATVEC_COLS in quant4.py
+constexpr int kK = 32;                   // packed rows a step
+constexpr int kDepth = 4;   // = MATVEC_DEPTH: steps in flight a warp (4 of 4, 8)
+constexpr int kStage = kK * 32;          // bytes: 32 rows x 32 columns
+constexpr size_t kRingBytes = (size_t)kWarps * kDepth * kStage;
+constexpr int kRows = 8;                 // activation rows of the product
+static_assert(kRingBytes >= 2 * kRows * kCols * sizeof(float),
+              "the ring holds the block's reduction");
 
 __device__ inline int8_t quantize(float v, float s) {
   const float q = rintf(__fdiv_rn(v, s));
   return (int8_t)fminf(fmaxf(q, -127.f), 127.f);
 }
 
-__host__ __device__ inline size_t align16(size_t n) {
-  return (n + 15) & ~(size_t)15;
+// 16 bytes global -> shared, zeros (and nothing read) when !valid.
+__device__ inline void cp_async16_zfill(void* smem, const void* gmem,
+                                        bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-struct Smem {
-  size_t xq_hi, sxl, sxh, red, bytes;
+// The block's shared memory (= quant4.matvec_smem_bytes): the ring, the
+// int8 activations of the low and high half (8 rows, `stride` bytes
+// apart), the f32 scales of each (row, group) a half, and the weight
+// scales of the block's columns, (half, group, column pair) bf16 pairs.
+struct Layout {
+  int stride, maxg;
+  size_t xs, sxl, sxh, sws, bytes;
 };
 
-__host__ __device__ inline Smem smem_layout(int nbt, int rows, int maxg) {
-  Smem s;
-  s.xq_hi = (size_t)nbt * rows;
-  s.sxl = align16(2 * (size_t)nbt * rows);
-  s.sxh = s.sxl + (size_t)nbt * maxg * 4;
-  s.red = align16(s.sxh + (size_t)nbt * maxg * 4);
-  s.bytes = s.red + (size_t)kWarps * nbt * kCols * 4;
-  return s;
+__host__ __device__ inline Layout layout(int rows, int gr) {
+  Layout L;
+  L.stride = 128 * ((rows + 127) / 128) + 16;
+  L.maxg = (rows + gr - 1) / gr + 1;
+  L.xs = kRingBytes;
+  L.sxl = L.xs + 2 * (size_t)kRows * L.stride;
+  L.sxh = L.sxl + (size_t)kRows * L.maxg * 4;
+  L.sws = L.sxh + (size_t)kRows * L.maxg * 4;
+  L.bytes = L.sws + 2 * (size_t)L.maxg * (kCols / 2) * 4;
+  return L;
 }
 
-// One block: columns [blockIdx.x * 128, +128), packed rows
-// [blockIdx.y * rows, +rows). NB: rows of x rounded up to a power of 2
-// (rows >= nb are zero).
-template <int NB, typename TOut>
+// One block: columns [blockIdx.x * kCols, +kCols), packed rows [k0, k1) =
+// [blockIdx.y * rows, +rows). With one split the block writes out, else
+// its f32 partial (split, nb, F) for add_splits_kernel.
+template <typename TOut>
 __global__ void __launch_bounds__(kThreads)
-w4a8_matvec_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
+w4a8_matvec_kernel(const __nv_bfloat16* __restrict__ x,
+                   const int8_t* __restrict__ packed,
                    const __nv_bfloat16* __restrict__ sw, TOut* __restrict__ out,
                    float* __restrict__ partial, int nb, int dh, int f,
-                   int n_groups, int gr, int rows, int maxg) {
+                   int n_groups, int gr, int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem L = smem_layout(NB, rows, maxg);
-  int8_t* xq_lo = reinterpret_cast<int8_t*>(smem);
-  int8_t* xq_hi = reinterpret_cast<int8_t*>(smem + L.xq_hi);
+  const Layout L = layout(rows, gr);
+  int8_t* xq_lo = reinterpret_cast<int8_t*>(smem + L.xs);
+  int8_t* xq_hi = xq_lo + kRows * L.stride;
   float* sxl = reinterpret_cast<float*>(smem + L.sxl);
   float* sxh = reinterpret_cast<float*>(smem + L.sxh);
-  float* red = reinterpret_cast<float*>(smem + L.red);
+  uint32_t* sws = reinterpret_cast<uint32_t*>(smem + L.sws);
 
-  const int d = 2 * dh;
-  const int gh = dh / gr;  // groups per half
-  const int k0 = blockIdx.y * rows;
-  const int k1 = min(k0 + rows, dh);
-  const int g0 = k0 / gr, g1 = (k1 - 1) / gr + 1;
-  const int ng = g1 - g0;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d = 2 * dh, gh = dh / gr;  // groups a half
+  const int k0 = blockIdx.y * rows, k1 = min(k0 + rows, dh);
+  const int g0 = k0 / gr, ng = (k1 - 1) / gr + 1 - g0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int strip = warp % kStrips, rg = warp / kStrips;
+  const int c0 = blockIdx.x * kCols + strip * 32;  // the strip's first column
+  const int half_rows = kK * ((rows + 2 * kK - 1) / (2 * kK));
+  const int r0 = k0 + rg * half_rows, r1 = min(r0 + half_rows, k1);
+  const int nk = r1 > r0 ? (r1 - r0) / kK : 0;
+  unsigned char* stages = smem + (size_t)warp * kDepth * kStage;
 
-  // 1. activation scales of every (row, group, half) this range touches
-  for (int t = warp; t < NB * ng * 2; t += kWarps) {
+  // The lane's copies: rows lane / 2 and 16 + lane / 2 of the step, 16
+  // bytes (lane % 2) of the strip; the two units of rows 4-7 (mod 8)
+  // swapped, so ldmatrix reads without bank conflicts.
+  const int crow = lane / 2, cu = lane % 2;
+  const bool cvalid = c0 + 16 * cu < f;  // f % 16 == 0
+  const int8_t* csrc = packed + (size_t)(r0 + crow) * f + c0 + 16 * cu;
+  const int cdst = crow * 32 + 16 * (cu ^ ((crow >> 2) & 1));
+  // Step i's copy into its stage, one commit group a step (empty past the
+  // warp's rows), so every lane counts the same groups.
+  auto fetch = [&](int i) {
+    if (i < nk) {
+      unsigned char* st = stages + (i % kDepth) * kStage + cdst;
+      const int8_t* src = csrc + (size_t)i * kK * f;
+      cp_async16_zfill(st, cvalid ? src : packed, cvalid);
+      cp_async16_zfill(st + 16 * 32, cvalid ? src + (size_t)16 * f : packed,
+                       cvalid);
+    }
+    ring::commit();
+  };
+  // The loads the block's set-up waits on go out before the ring's copies
+  // queue behind them: each warp's first (row, group, half) of x (a whole
+  // group of at most 256 values, one 16-byte load a lane) and up to four
+  // bf16 pairs a thread of the block's weight scales.
+  const int ntask = nb * ng * 2;
+  // a group is one load a lane, and (G > 1) splits are whole groups
+  const bool whole = gr <= 256 && n_groups > 1;
+  const auto task_x = [&](int t) {  // the task's half of its row, its group
     const int r = t / (ng * 2), gi = (t >> 1) % ng, half = t & 1;
+    return x + (size_t)r * d + half * dh + (size_t)(g0 + gi) * gr;
+  };
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (whole && warp < ntask && 8 * lane < gr)
+    v = __ldg(reinterpret_cast<const uint4*>(task_x(warp) + 8 * lane));
+  const int nsw = 2 * ng * (kCols / 2);  // (half, group, column pair)
+  const auto sw_src = [&](int j) {
+    const int half = j / (ng * (kCols / 2)), gi = (j / (kCols / 2)) % ng;
+    const int g = g0 + gi, row = n_groups > 1 ? g + half * gh : 0;
+    return sw + (size_t)row * f + blockIdx.x * kCols + 2 * (j % (kCols / 2));
+  };
+  uint32_t swv[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int j = threadIdx.x + u * kThreads;
+    const bool ok = j < nsw &&
+                    blockIdx.x * kCols + 2 * (j % (kCols / 2)) < f;
+    swv[u] = ok ? __ldg(reinterpret_cast<const unsigned*>(sw_src(j))) : 0u;
+  }
+#pragma unroll
+  for (int i = 0; i < kDepth; ++i) fetch(i);
+
+  // 1. The activations of the range, a warp a (row, group, half): the
+  // group's absmax over all of it, then the group's rows inside [k0, k1)
+  // quantized into shared memory; rows past nb are zeros.
+  const int zchunks = (kRows - nb) * L.stride / 16;  // stride % 16 == 0
+  for (int t = threadIdx.x; t < 2 * zchunks; t += kThreads)
+    reinterpret_cast<uint4*>((t < zchunks ? xq_lo : xq_hi) +
+                             nb * L.stride)[t % zchunks] =
+        make_uint4(0u, 0u, 0u, 0u);
+  for (int t = threadIdx.x; t < (kRows - nb) * L.maxg; t += kThreads)
+    sxl[nb * L.maxg + t] = sxh[nb * L.maxg + t] = 0.f;
+  const auto sw_dst = [&](int j) {  // (half, group) rows maxg apart
+    const int half = j / (ng * (kCols / 2)), gi = (j / (kCols / 2)) % ng;
+    return sws + (half * L.maxg + gi) * (kCols / 2) + j % (kCols / 2);
+  };
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (threadIdx.x + u * kThreads < nsw)
+      *sw_dst(threadIdx.x + u * kThreads) = swv[u];
+  for (int j = threadIdx.x + 4 * kThreads; j < nsw; j += kThreads)
+    *sw_dst(j) = blockIdx.x * kCols + 2 * (j % (kCols / 2)) < f
+                     ? __ldg(reinterpret_cast<const unsigned*>(sw_src(j)))
+                     : 0u;
+  const auto quantize8 = [](uint4 val, float sc) {  // 8 values -> 8 bytes
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&val);
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 p = __bfloat1622float2(h[j]);
+      const uint32_t lo = (uint8_t)quantize(p.x, sc);
+      const uint32_t hi = (uint8_t)quantize(p.y, sc);
+      w[j / 2] |= (lo | hi << 8) << (16 * (j % 2));
+    }
+    return make_uint2(w[0], w[1]);
+  };
+  const auto absmax8 = [](uint4 val, float m) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&val);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 p = __bfloat1622float2(h[j]);
+      m = fmaxf(m, fmaxf(fabsf(p.x), fabsf(p.y)));
+    }
+    return m;
+  };
+  for (int t = warp; t < ntask; t += kWarps) {
+    const int r = t / (ng * 2), gi = (t >> 1) % ng, half = t & 1;
+    const int gs = (g0 + gi) * gr;  // the group's first row in its half
+    const __nv_bfloat16* xg = task_x(t);
+    int8_t* dst = (half ? xq_hi : xq_lo) + r * L.stride + gs - k0;
     float m = 0.f;
-    if (r < nb) {
-      const __nv_bfloat16* xr = x + (size_t)r * d + half * dh + (size_t)(g0 + gi) * gr;
-      for (int k = lane; k < gr; k += 32) m = fmaxf(m, fabsf(__bfloat162float(xr[k])));
+    if (whole) {  // the group lies inside [k0, k1): splits are whole groups
+      if (t != warp && 8 * lane < gr)
+        v = __ldg(reinterpret_cast<const uint4*>(xg + 8 * lane));
+      m = absmax8(v, m);
+    } else {
+      for (int k = 8 * lane; k < gr; k += 256)
+        m = absmax8(__ldg(reinterpret_cast<const uint4*>(xg + k)), m);
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if (lane == 0)
-      (half ? sxh : sxl)[r * maxg + gi] = __fdiv_rn(fmaxf(m, 1e-8f), 127.f);
+    const float sc = __fdiv_rn(fmaxf(m, 1e-8f), 127.f);
+    if (lane == 0) (half ? sxh : sxl)[r * L.maxg + gi] = sc;
+    if (whole) {
+      if (8 * lane < gr)
+        *reinterpret_cast<uint2*>(dst + 8 * lane) = quantize8(v, sc);
+    } else {
+      for (int k = max(gs, k0) - gs + 8 * lane; k < min(gs + gr, k1) - gs;
+           k += 256)
+        *reinterpret_cast<uint2*>(dst + k) = quantize8(
+            __ldg(reinterpret_cast<const uint4*>(xg + k)), sc);
+    }
   }
   __syncthreads();
 
-  // 2. int8 activations of the range, both halves
-  const int nrows = k1 - k0;
-  for (int t = threadIdx.x; t < NB * nrows; t += kThreads) {
-    const int r = t / nrows, k = t % nrows;
-    int8_t ql = 0, qh = 0;
-    if (r < nb) {
-      const int gi = (k0 + k) / gr - g0;
-      const __nv_bfloat16* xr = x + (size_t)r * d + k0 + k;
-      ql = quantize(__bfloat162float(xr[0]), sxl[r * maxg + gi]);
-      qh = quantize(__bfloat162float(xr[dh]), sxh[r * maxg + gi]);
-    }
-    xq_lo[r * rows + k] = ql;
-    xq_hi[r * rows + k] = qh;
-  }
-  __syncthreads();
+  // 2. the products: a step's 32 columns are two m16n8k32 A operands a
+  // half; D element e of column group cg is column c0 + 16 cg + 2 gid +
+  // e / 2, activation row 2 tig + e % 2.
+  const int lr = ldsm_row(lane);
+  const uint32_t ring_base = (uint32_t)__cvta_generic_to_shared(stages);
+  uint32_t laddr[2];
+#pragma unroll
+  for (int cg = 0; cg < 2; ++cg)
+    laddr[cg] = ring_base + lr * 32 + 16 * (cg ^ ((lr >> 2) & 1));
+  const uint32_t sel0 = frag_sel(tig, 0), sel1 = frag_sel(tig, 1);
+  const int8_t* xl = xq_lo + gid * L.stride + (r0 - k0) + 4 * tig;
+  const int8_t* xh = xq_hi + gid * L.stride + (r0 - k0) + 4 * tig;
 
-  // 3. exact int32 partials per (row, group, column), scaled in f32
-  const int c = blockIdx.x * kCols + lane * 4;
-  const bool col_ok = c < f;
-  float acc[NB][4];
+  uint32_t acc_lo[2][4], acc_hi[2][4];
+  float tot[2][4];
+  float2 swl[2], swh[2];
+  int gi = 0;  // the group of the run being summed, from g0
 #pragma unroll
-  for (int r = 0; r < NB; ++r)
+  for (int cg = 0; cg < 2; ++cg)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-
-  for (int gi = g0; gi < g1; ++gi) {
-    const int qs = max(k0, gi * gr) / 4, qe = min(k1, (gi + 1) * gr) / 4;
-    int pl[NB][4], ph[NB][4], rs[NB];
+    for (int e = 0; e < 4; ++e) tot[cg][e] = 0.f;
+  // A run's exact int32 sums (16 x, csrc/w4a8_frag.cuh) -> f32, scaled by
+  // sx[row, group] sw[group, column] / 16.
+  auto fold = [&]() {
 #pragma unroll
-    for (int r = 0; r < NB; ++r) {
-      rs[r] = 0;
+    for (int e = 0; e < 4; ++e) {
+      const int r = 2 * tig + (e & 1);
+      const float al = sxl[r * L.maxg + gi], ah = sxh[r * L.maxg + gi];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) pl[r][j] = ph[r][j] = 0;
-    }
-    for (int q = qs + warp; q < qe; q += 2 * kWarps) {
-      const bool two = q + kWarps < qe;
-      int w[2][4];
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int row = 4 * (q + u * kWarps) + j;
-          w[u][j] = (col_ok && (u == 0 || two))
-                        ? __ldg(reinterpret_cast<const int*>(
-                              packed + (size_t)row * f + c))
-                        : 0;
-        }
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        if (u == 1 && !two) break;
-        const int kq = 4 * (q + u * kWarps) - k0;  // offset in the range
-        // 4 rows x 4 columns -> one word per column holding 4 rows
-        const int t0 = __byte_perm(w[u][0], w[u][1], 0x5140);
-        const int t1 = __byte_perm(w[u][0], w[u][1], 0x7362);
-        const int t2 = __byte_perm(w[u][2], w[u][3], 0x5140);
-        const int t3 = __byte_perm(w[u][2], w[u][3], 0x7362);
-        int col[4], a[4];
-        col[0] = __byte_perm(t0, t2, 0x5410);
-        col[1] = __byte_perm(t0, t2, 0x7632);
-        col[2] = __byte_perm(t1, t3, 0x5410);
-        col[3] = __byte_perm(t1, t3, 0x7632);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) a[j] = col[j] & 0x0F0F0F0F;
-#pragma unroll
-        for (int r = 0; r < NB; ++r) {
-          const int xl = *reinterpret_cast<const int*>(xq_lo + r * rows + kq);
-          const int xh = *reinterpret_cast<const int*>(xq_hi + r * rows + kq);
-          rs[r] = __dp4a(xl, 0x01010101, rs[r]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            pl[r][j] = __dp4a(a[j], xl, pl[r][j]);
-            ph[r][j] = __dp4a(col[j], xh, ph[r][j]) - __dp4a(a[j], xh, 0);
-          }
-        }
+      for (int cg = 0; cg < 2; ++cg) {
+        const float wl = (e & 2) ? swl[cg].y : swl[cg].x;
+        const float wh = (e & 2) ? swh[cg].y : swh[cg].x;
+        tot[cg][e] += al * wl * to_f32(acc_lo[cg][e]) +
+                      ah * wh * to_f32(acc_hi[cg][e]);
       }
     }
-    // this warp's exact partials of group gi -> f32
-    const int gl = n_groups > 1 ? gi : 0, ghi = n_groups > 1 ? gi + gh : 0;
-    float swl[4], swh[4];
+  };
+  int next_group = (r0 / gr + 1) * gr;  // where the next group starts
+  gi = r0 / gr - g0 - 1;
+  for (int i = 0; i < nk; ++i) {
+    const int row = r0 + i * kK;
+    const bool new_group = i == 0 || row == next_group;
+    if (new_group || row % 128 == 0) {  // a run starts
+      if (i > 0) fold();
+      if (new_group) {
+        ++gi;
+        if (i > 0) next_group += gr;
+      }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      swl[j] = col_ok ? __bfloat162float(sw[(size_t)gl * f + c + j]) : 0.f;
-      swh[j] = col_ok ? __bfloat162float(sw[(size_t)ghi * f + c + j]) : 0.f;
+      for (int cg = 0; cg < 2; ++cg) {
+        const int pair = (strip * 32 + cg * 16) / 2 + gid;
+        swl[cg] = scale_pair(sws[gi * (kCols / 2) + pair]);
+        swh[cg] = scale_pair(sws[(L.maxg + gi) * (kCols / 2) + pair]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_lo[cg][e] = acc_hi[cg][e] = 0u;
+      }
     }
+    ring::wait<kDepth - 1>();  // step i has landed
+    __syncwarp();               // every lane's copy of it
+    uint32_t r[2][4];
+    const uint32_t so = (i % kDepth) * kStage;
 #pragma unroll
-    for (int r = 0; r < NB; ++r) {
-      const float sl = sxl[r * maxg + gi - g0], sh = sxh[r * maxg + gi - g0];
+    for (int cg = 0; cg < 2; ++cg) ldsm_x4_trans(r[cg], laddr[cg] + so);
+    __syncwarp();  // read before any lane refills the stage
+    fetch(i + kDepth);
+    const int kk = i * kK;
+    const uint32_t bl0 = *reinterpret_cast<const uint32_t*>(xl + kk);
+    const uint32_t bl1 = *reinterpret_cast<const uint32_t*>(xl + kk + 16);
+    const uint32_t bh0 = *reinterpret_cast<const uint32_t*>(xh + kk);
+    const uint32_t bh1 = *reinterpret_cast<const uint32_t*>(xh + kk + 16);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[r][j] += sl * swl[j] * (float)(pl[r][j] - 8 * rs[r]) +
-                     sh * swh[j] * (float)(ph[r][j] >> 4);
+    for (int cg = 0; cg < 2; ++cg) {
+      uint32_t lo[4], hi[4];
+      fragments(r[cg], sel0, sel1, lo, hi);
+      mma_s8(acc_lo[cg], lo, bl0, bl1);
+      mma_s8(acc_hi[cg], hi, bh0, bh1);
     }
   }
+  if (nk > 0) fold();
+  ring::wait<0>();
+  __syncthreads();  // the ring is free: the two row groups' sums go there
 
-  // 4. add the 8 warps' results in a fixed order
+  float* red = reinterpret_cast<float*>(smem);  // (2, kRows, kCols)
 #pragma unroll
-  for (int r = 0; r < NB; ++r)
+  for (int cg = 0; cg < 2; ++cg)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      red[(warp * NB + r) * kCols + lane * 4 + j] = acc[r][j];
+    for (int e = 0; e < 4; ++e)
+      red[(rg * kRows + 2 * tig + (e & 1)) * kCols + strip * 32 + cg * 16 +
+          2 * gid + (e >> 1)] = tot[cg][e];
   __syncthreads();
   for (int t = threadIdx.x; t < nb * kCols; t += kThreads) {
     const int r = t / kCols, cc = t % kCols;
     const int gc = blockIdx.x * kCols + cc;
     if (gc >= f) continue;
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[(w * NB + r) * kCols + cc];
+    const float s = red[r * kCols + cc] + red[(kRows + r) * kCols + cc];
     if (gridDim.y == 1)
       store(out + (size_t)r * f + gc, s);
     else
@@ -220,23 +348,26 @@ w4a8_matvec_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
   }
 }
 
-template <int NB, typename TOut>
+template <typename TOut>
 int launch(const void* x, const void* packed, const void* scales, void* out,
            void* partial, int nb, int dh, int f, int n_groups, int rows,
            cudaStream_t stream) {
   const int gr = n_groups > 1 ? 2 * dh / n_groups : dh;
-  const int maxg = (rows + gr - 1) / gr + 1;
   const int splits = (dh + rows - 1) / rows;
-  const Smem L = smem_layout(NB, rows, maxg);
-  auto kernel = w4a8_matvec_kernel<NB, TOut>;
+  const Layout L = layout(rows, gr);
+  auto kernel = w4a8_matvec_kernel<TOut>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+  if (err == cudaSuccess)  // room for several blocks an SM, not one
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((f + kCols - 1) / kCols, splits);
   kernel<<<grid, kThreads, L.bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(packed),
       static_cast<const __nv_bfloat16*>(scales), static_cast<TOut*>(out),
-      static_cast<float*>(partial), nb, dh, f, n_groups, gr, rows, maxg);
+      static_cast<float*>(partial), nb, dh, f, n_groups, gr, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const int n = nb * f;
@@ -245,39 +376,27 @@ int launch(const void* x, const void* packed, const void* scales, void* out,
   return (int)cudaGetLastError();
 }
 
-template <typename TOut>
-int launch_nb(const void* x, const void* packed, const void* scales,
-              void* out, void* partial, int nb, int dh, int f, int n_groups,
-              int rows, cudaStream_t st) {
-  if (nb <= 1)
-    return launch<1, TOut>(x, packed, scales, out, partial, nb, dh, f,
-                               n_groups, rows, st);
-  if (nb <= 2)
-    return launch<2, TOut>(x, packed, scales, out, partial, nb, dh, f,
-                               n_groups, rows, st);
-  if (nb <= 4)
-    return launch<4, TOut>(x, packed, scales, out, partial, nb, dh, f,
-                               n_groups, rows, st);
-  return launch<8, TOut>(x, packed, scales, out, partial, nb, dh, f,
-                             n_groups, rows, st);
-}
-
 }  // namespace
 
 // x: (nb <= 8, 2 dh) bf16; packed: (dh, f) int8; scales: (n_groups, f)
 // bf16; out: (nb, f) f32 (out_bf16 = 0) or bf16; partial: (ceil(dh / rows),
-// nb, f) f32 scratch when dh > rows, else unused. rows: packed rows per
-// block, a multiple of 4; every group's packed rows (2 dh / n_groups, or dh
-// when n_groups == 1) a multiple of 4; f % 4 == 0.
+// nb, f) f32 scratch when dh > rows, else unused. rows: packed rows a
+// block, a multiple of 64 (or all of dh) and, for G > 1, of the group's
+// packed rows (2 dh / n_groups), which are a multiple of 32 (dh when
+// n_groups == 1); f % 16 == 0.
 extern "C" int vlt_w4a8_matvec(const void* x, const void* packed,
                                const void* scales, void* out, void* partial,
                                int nb, int dh, int f, int n_groups, int rows,
                                int out_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (nb < 1 || nb > 8 || rows % 4 || f % 4) return (int)cudaErrorInvalidValue;
+  const int gr = n_groups > 1 ? 2 * dh / n_groups : dh;
+  if (nb < 1 || nb > kRows || gr % kK || f % 16 || rows < 2 * kK ||
+      (rows < dh && (rows % (2 * kK) || (n_groups > 1 && rows % gr) ||
+                     !partial)))
+    return (int)cudaErrorInvalidValue;
   if (out_bf16)
-    return launch_nb<__nv_bfloat16>(x, packed, scales, out, partial, nb, dh,
-                                    f, n_groups, rows, st);
-  return launch_nb<float>(x, packed, scales, out, partial, nb, dh, f,
-                          n_groups, rows, st);
+    return launch<__nv_bfloat16>(x, packed, scales, out, partial, nb, dh, f,
+                                 n_groups, rows, st);
+  return launch<float>(x, packed, scales, out, partial, nb, dh, f, n_groups,
+                       rows, st);
 }

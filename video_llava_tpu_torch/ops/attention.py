@@ -34,9 +34,11 @@ Layouts are the JAX package's: BSHD at :func:`attention_reference`,
 Module switches, as in the JAX package (ops/attention.py:33-58):
 :func:`set_default_impl` -- 'auto' (kernels for CUDA tensors, the plain
 reference for CPU ones), 'pallas' (the kernels' plain versions on the
-CPU as well) or 'xla' (the plain reference; the decode wrappers raise on
-CUDA tensors under it); :func:`enable_paged_kernel` -- off sends the paged wrapper
-through the dense gather and the flat dispatch (the escape hatch).
+CPU as well) or 'xla' (the plain reference, on CUDA tensors too: the
+decode wrappers launch nothing under it, as the JAX package's 'xla' runs
+its XLA twin on the accelerator); :func:`enable_paged_kernel` -- off
+sends the paged wrapper through the dense gather and the flat dispatch
+(the escape hatch).
 """
 
 from __future__ import annotations
@@ -66,14 +68,6 @@ def set_default_impl(impl: str) -> None:
 def enable_paged_kernel(on: bool = True) -> None:
     global _PAGED_KERNEL
     _PAGED_KERNEL = bool(on)
-
-
-def _refuse_xla_on_card(q: torch.Tensor) -> None:
-    """'xla' selects the plain reference, which runs on CPU tensors only:
-    a CUDA tensor launches a kernel or raises."""
-    if _DEFAULT_IMPL == "xla" and q.device.type != "cpu":
-        raise RuntimeError("set_default_impl('xla'): the plain version runs "
-                           "on CPU tensors only; use 'auto' on CUDA")
 
 
 def _repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -485,13 +479,13 @@ def decode_attention_stacked(
     (ops/attention.py:1320-1331): MHA, h*d a multiple of 128, d in {32,
     64, 128}, bf16 query: kernel 3 (:func:`_decode_mha`, any L). Other
     shapes and CPU tensors take the layer's view through
-    :func:`decode_attention` (JAX :1335-1340); under set_default_impl(
-    'xla') a CUDA tensor raises."""
-    _refuse_xla_on_card(q)
+    :func:`decode_attention` (JAX :1335-1340), and so does every tensor
+    under set_default_impl('xla')."""
     b, _, h, d = q.shape
     nl, _, L, h_kv = k_cache.shape[:4]
     scale = scale if scale is not None else 1.0 / (d**0.5)
-    if not (q.device.type != "cpu" and h == h_kv
+    if _DEFAULT_IMPL == "xla" or not (
+            q.device.type != "cpu" and h == h_kv
             and (h * d) % 128 == 0 and d in _DECODE_HEAD_DIMS):
         unit = lambda a: None if a is None else a[layer][..., None]  # noqa
         return decode_attention(q, k_cache[layer], v_cache[layer],
@@ -603,14 +597,14 @@ def decode_attention_paged(
     f32 partial, merged in split order; any table length). Other
     shapes, CPU tensors and the kernel switched off gather the rows'
     blocks into the dense view (:func:`paged_layer_dense`) and take
-    :func:`decode_attention` (JAX :1478-1492); under set_default_impl(
-    'xla') a CUDA tensor raises."""
-    _refuse_xla_on_card(q)
+    :func:`decode_attention` (JAX :1478-1492), as does every tensor
+    under set_default_impl('xla')."""
     b, _, h, d = q.shape
     nl, nb, bs, h_kv = k_cache.shape[:4]
     maxb = table.shape[1]
     scale = scale if scale is not None else 1.0 / (d**0.5)
-    if not (_PAGED_KERNEL
+    if _DEFAULT_IMPL == "xla" or not (
+            _PAGED_KERNEL
             and q.device.type != "cpu" and h == h_kv and (h * d) % 128 == 0
             and bs % 16 == 0 and bs <= 128 and d in _DECODE_HEAD_DIMS):
         dense = lambda a: paged_layer_dense(a, layer, table)  # noqa: E731
@@ -893,8 +887,9 @@ def decode_attention(
 ) -> torch.Tensor:
     """One decode step over a flat per-layer cache -> (b, 1, h, d): the
     JAX package's dispatch (ops/attention.py:786-841), with "on a TPU"
-    read as "a CUDA tensor". 'xla' or 'auto' on the CPU: the plain
-    reference ('xla' raises on a CUDA tensor). Otherwise MHA with h*d a
+    read as "a CUDA tensor". 'xla' (on any device, as JAX runs its XLA
+    twin on the accelerator) or 'auto' on the CPU: the plain reference,
+    no launch. Otherwise MHA with h*d a
     multiple of 128 and L of 16:
     kernel 9 (:func:`decode_attention_mxu`); every other shape, under
     'auto' and 'pallas' alike: kernel 11 (:func:`decode_attention_pallas`,
@@ -904,8 +899,8 @@ def decode_attention(
     b, _, h, d = q.shape
     L, h_kv = k_cache.shape[1:3]
     scales = dict(k_scale=k_scale, v_scale=v_scale, scale=scale)
-    _refuse_xla_on_card(q)
-    if q.device.type == "cpu" and _DEFAULT_IMPL != "pallas":
+    if _DEFAULT_IMPL == "xla" or (q.device.type == "cpu"
+                                  and _DEFAULT_IMPL != "pallas"):
         return decode_attention_reference(q, k_cache, v_cache, cache_len,
                                           **scales)
     if h == h_kv and (h * d) % 128 == 0 and L % 16 == 0:

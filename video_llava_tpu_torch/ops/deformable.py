@@ -24,7 +24,8 @@ from video_llava_tpu_torch.ops import cuda_lib
 
 # 'auto' and 'pallas' (the JAX package's kernel) both launch the CUDA
 # kernel on CUDA tensors; 'xla' names the JAX package's gather twin, whose
-# counterpart here is the plain version, which runs on CPU tensors only.
+# counterpart here is the plain version: it runs on the tensor's device,
+# CUDA included, and launches nothing.
 _DEFAULT_IMPL = "auto"
 # set_tile2d(True) sends encoder shapes (q == sum_hw) to the JAX package's
 # 2D-tiled kernel; it computes the same function, and here both settings
@@ -147,12 +148,11 @@ def multi_scale_deformable_attention(
 ) -> torch.Tensor:
     """-> (b, q, heads * d): the kernel on CUDA tensors (also with
     set_tile2d(True): one kernel serves both TPU kernels), the plain
-    version on CPU tensors."""
-    if value.device.type == "cpu":
+    version on CPU tensors and, under set_default_impl('xla'), on CUDA
+    tensors too (the JAX package's 'xla' runs its twin on the
+    accelerator)."""
+    if value.device.type == "cpu" or _DEFAULT_IMPL == "xla":
         return msda_plain(value, spatial_shapes, sampling_locations,
                           attention_weights)
-    if _DEFAULT_IMPL == "xla":
-        raise RuntimeError("set_default_impl('xla'): the plain version runs "
-                           "on CPU tensors only; use 'auto' on CUDA")
     return msda_kernel(value, spatial_shapes, sampling_locations,
                        attention_weights)

@@ -38,6 +38,7 @@ The matmuls:
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional, Sequence
 
@@ -175,6 +176,39 @@ def _group_partials(xq: torch.Tensor, packed: torch.Tensor,
     return torch.bmm(xq.float().reshape(b, ga, d // ga).transpose(0, 1), q)
 
 
+def w4a8_nibble_partials(xq: torch.Tensor, packed: torch.Tensor,
+                         n_groups: int) -> torch.Tensor:
+    """The exact per-group int32 partials as kernels A and B form them:
+    xq (b, D) int8, packed (Dh, F) -> (ga, b, F) int32, ga the activation
+    groups (:func:`_act_groups`). Each packed byte w gives both halves as
+    16 q in one signed byte, the low nibble as ((w << 4) & 0xF0) ^ 0x80
+    (offset binary to two's complement), the high one as w & 0xF0; the
+    int8 products are summed in int32 over each 32-row step (one tensor
+    core product), the steps over runs of at most 128 rows that stay in a
+    group (the kernels' folds, a magnitude below 2^22), each run's sum
+    shifted right by 4 (exact: a multiple of 16), and the runs of a group
+    added in order, low half at group g, high half at g + ga / 2."""
+    dh, f = packed.shape
+    ga = _act_groups(n_groups)
+    gr = _group_rows(dh, n_groups)
+    w = packed.to(torch.int32) & 0xFF
+    halves = (((w << 4) & 0xF0) ^ 0x80, w & 0xF0)
+    out = torch.zeros((ga, xq.shape[0], f), dtype=torch.int32)
+    for h, u in enumerate(halves):
+        u = torch.where(u > 127, u - 256, u)  # the signed byte
+        xh = xq[:, h * dh:(h + 1) * dh].to(torch.int32)
+        for k0 in range(0, dh, 32):
+            step = xh[:, k0:k0 + 32] @ u[k0:k0 + 32]
+            g = k0 // gr
+            if k0 % 128 == 0 or k0 % gr == 0:  # a fold run starts
+                run = torch.zeros_like(step)
+            run += step
+            end = k0 + 32
+            if end % 128 == 0 or end % gr == 0 or end == dh:
+                out[g + h * (ga // 2)] += run >> 4
+    return out
+
+
 def _group_scales(scales: torch.Tensor, ga: int) -> torch.Tensor:
     """Weight scale row of each activation group -> (ga, F) f32."""
     s = scales.float()
@@ -242,8 +276,7 @@ def int4_matmul_w4a16_block_plain(x: torch.Tensor, packed: torch.Tensor,
 # Kernels A (matvec) and B (block matmul), and the W4A16 pair
 # ---------------------------------------------------------------------------
 
-_MATVEC_COLS = 128  # columns per matvec block (csrc/w4a8_matvec.cu)
-_MATVEC_SMEM_X = 96 * 1024  # the matvec's int8 activations in shared memory
+SMEM_LIMIT = 232448  # shared memory a block can use on the H100 (227 KB)
 
 
 def _group_rows(dh: int, n_groups: int) -> int:
@@ -251,18 +284,119 @@ def _group_rows(dh: int, n_groups: int) -> int:
     return dh if n_groups == 1 else 2 * dh // n_groups
 
 
-def matvec_rows_per_split(nb: int, dh: int, f: int, sm_count: int) -> int:
-    """Packed rows each matvec block reduces: the K range is cut so that
-    about four blocks per SM are in flight (F = 4096 has only 32 column
-    tiles), in multiples of 4 rows, and the split's int8 activations fit
-    the shared memory the kernel gives them."""
-    tiles = -(-f // _MATVEC_COLS)
-    quads = dh // 4
-    nbt = 1 << max(nb - 1, 0).bit_length()
-    splits = max(-(-4 * sm_count // tiles),
-                 -(-2 * nbt * dh // _MATVEC_SMEM_X))
-    splits = max(1, min(splits, quads // 16 or 1))
-    return 4 * -(-quads // splits)
+def _split_unit(dh: int, n_groups: int, step: int) -> int:
+    """Packed rows a K split is made of: whole steps of `step` rows and,
+    for G > 1, whole groups (each group's partial is exact in one block).
+    With G == 1 one scale serves the whole half, and whole steps do."""
+    gr = _group_rows(dh, n_groups)
+    if n_groups == 1:
+        return step
+    return step * gr // math.gcd(step, gr)
+
+
+def _split_rows(dh: int, unit: int, splits: int) -> int:
+    """Rows a split takes when [0, dh) is cut into at most `splits`
+    pieces of whole units."""
+    units = -(-dh // unit)
+    return unit * -(-units // max(1, min(splits, units)))
+
+
+# Kernel A (csrc/w4a8_matvec.cu): a block of 8 warps owns 128 columns, a
+# warp a 32-column strip of half the block's rows in 32-row steps, each
+# warp's steps streamed through a ring of MATVEC_DEPTH 1 KB stages.
+MATVEC_COLS = 128
+MATVEC_STEP = 64  # packed rows: two warps down a strip, 32 rows a step
+MATVEC_DEPTH = 4
+MATVEC_RING = 8 * MATVEC_DEPTH * 1024
+MATVEC_BLOCKS_PER_SM = 3  # the plan's target (PERF.md §6)
+
+
+def matvec_xq_stride(rows: int) -> int:
+    """Bytes between two activation rows of the matvec's int8 copy in
+    shared memory: a 4-word offset between rows mod the 32 banks, so the
+    eight rows' B-fragment words fall in distinct banks."""
+    return 128 * -(-rows // 128) + 16
+
+
+def matvec_smem_bytes(rows: int, dh: int, n_groups: int) -> int:
+    """Shared memory of one matvec block reducing `rows` packed rows:
+    the ring, then the int8 activations of both halves (8 rows), the f32
+    activation scales of each (row, group) a half, and the bf16 weight
+    scales of the block's columns, each group a half (csrc/
+    w4a8_matvec.cu layout)."""
+    maxg = -(-rows // _group_rows(dh, n_groups)) + 1
+    return (MATVEC_RING + 2 * 8 * matvec_xq_stride(rows) + 2 * 8 * maxg * 4
+            + 2 * maxg * MATVEC_COLS * 2)
+
+
+def matvec_rows_per_split(dh: int, f: int, n_groups: int,
+                          sm_count: int) -> int:
+    """Packed rows each matvec block reduces: K cut into as many splits
+    (whole groups, whole 64-row steps) as bring the column tiles times
+    the splits to about MATVEC_BLOCKS_PER_SM blocks an SM (F = 4096 has
+    only 32 column tiles), fewer when the K range is short, more when a
+    split's activations would not fit the block's shared memory. The
+    row count does not enter: one instruction stream serves 1 to 8."""
+    tiles = -(-f // MATVEC_COLS)
+    unit = _split_unit(dh, n_groups, MATVEC_STEP)
+    rows = _split_rows(dh, unit,
+                       -(-MATVEC_BLOCKS_PER_SM * sm_count // tiles))
+    while rows > unit and matvec_smem_bytes(rows, dh, n_groups) > SMEM_LIMIT:
+        rows -= unit
+    return rows
+
+
+# Kernel B (csrc/w4a8_block.cu): a block of two consumer warpgroups (64
+# columns each) and a producer owns 128 columns x a tile of activation
+# rows, over a K range streamed in stages of 128 packed rows by TMA.
+BLOCK_COLS = 128
+BLOCK_STEP = 128
+BLOCK_ROW_TILES = (64, 128)  # N of the wgmma, chosen from nb
+BLOCK_STAGES = 2  # ring stages (csrc/w4a8_block.cu kStages; PERF.md §6)
+
+
+def block_stage_bytes(rows_tile: int) -> int:
+    """One ring stage: the packed tile, then the activations' low- and
+    high-half tiles."""
+    return BLOCK_COLS * BLOCK_STEP + 2 * rows_tile * BLOCK_STEP
+
+
+def block_smem_bytes(rows_tile: int) -> int:
+    """Shared memory of one block (csrc/w4a8_block.cu block_smem): the
+    ring (also the epilogue's staging), its full and empty barriers, and
+    1 KB to align the ring to the swizzle's period."""
+    return (BLOCK_STAGES * block_stage_bytes(rows_tile) + 16 * BLOCK_STAGES
+            + 1024)
+
+
+def w4a8_block_plan(nb: int, dh: int, f: int, n_groups: int,
+                    sm_count: int):
+    """(rows_tile, rows_per_split) of kernel B for x (nb, 2 dh): 64
+    activation rows a tile up to 64 rows, else 128; and K splits of
+    whole groups and whole 128-row steps where the output tiles alone
+    leave the card's waves uneven. The splits are chosen by a
+    model of one block an SM: waves of blocks, each block's time its
+    128-row steps at the larger of its operations and its bytes, plus
+    the splits' f32 partials written and read once more."""
+    rows_tile = BLOCK_ROW_TILES[0] if nb <= BLOCK_ROW_TILES[0] else \
+        BLOCK_ROW_TILES[1]
+    tiles = -(-nb // rows_tile) * -(-f // BLOCK_COLS)
+    unit = _split_unit(dh, n_groups, BLOCK_STEP)
+    units = -(-dh // unit)
+    steps_a_unit = unit // BLOCK_STEP
+    sm_ops = 1979e12 / 132 * 0.5  # an SM's int8 rate, at half the peak
+    sm_bytes = 3.35e12 / 132
+    step_s = max(2 * BLOCK_COLS * rows_tile * 2 * BLOCK_STEP / sm_ops,
+                 block_stage_bytes(rows_tile) / sm_bytes)
+
+    def cost(splits):
+        waves = -(-tiles * splits // sm_count)
+        per_split = -(-units // splits) * steps_a_unit
+        partial = (splits > 1) * splits * nb * f * 8 / 3.35e12
+        return waves * per_split * step_s + partial
+
+    splits = min(range(1, min(units, 16) + 1), key=cost)
+    return rows_tile, _split_rows(dh, unit, splits)
 
 
 W4A16_COLS = 128  # columns a W4A16 matvec block (csrc/w4a16.cu kMvCols)
@@ -297,12 +431,18 @@ def _check_w4a8(x, packed, scales, out_dtype, kernel: str):
     return dh, f, n_groups
 
 
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def w4a8_matvec(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Kernel A: x (nb <= 8, D) x packed (Dh, F) + scales (G, F) ->
     (nb, F) in out_dtype, computing :func:`int4_matmul_w4a8_xla`. On
     CUDA: x bf16 (the LLM's activations), the group's packed rows a
-    multiple of 4."""
+    multiple of 32 (csrc/w4a8_matvec.cu: the products on the int8 tensor
+    cores, K split by :func:`matvec_rows_per_split`, the splits'
+    partials added in order by a second kernel)."""
     if x.device.type == "cpu":
         return int4_matmul_w4a8_xla(x, packed, scales).to(out_dtype)
     x = x.contiguous()
@@ -312,13 +452,11 @@ def w4a8_matvec(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                          f"{MATVEC_MAX_ROWS}]")
     dh, f, n_groups = _check_w4a8(x, packed, scales, out_dtype,
                                    "w4a8_matvec")
-    if _group_rows(dh, n_groups) % 4:
+    if _group_rows(dh, n_groups) % 32:
         raise ValueError(f"w4a8_matvec: group of "
                          f"{_group_rows(dh, n_groups)} packed rows is not "
-                         "a multiple of 4")
-    rows = matvec_rows_per_split(
-        nb, dh, f,
-        torch.cuda.get_device_properties(x.device).multi_processor_count)
+                         "a multiple of 32")
+    rows = matvec_rows_per_split(dh, f, n_groups, _sm_count(x.device))
     splits = -(-dh // rows)
     out = torch.empty((nb, f), dtype=out_dtype, device=x.device)
     partial = (torch.empty((splits, nb, f), dtype=torch.float32,
@@ -336,27 +474,37 @@ def w4a8_block(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Kernel B: x (nb, D), any nb, x packed (Dh, F) + scales (G, F) ->
     (nb, F) in out_dtype, computing :func:`int4_matmul_w4a8_block_xla`.
-    On CUDA: x bf16, the group's packed rows a multiple of 32."""
+    On CUDA: x bf16, the group's packed rows a multiple of 32 that
+    divides 128 or that 128 divides (csrc/w4a8_block.cu: wgmma on the
+    int8 tensor cores behind a TMA ring, planned by
+    :func:`w4a8_block_plan`, the splits' partials added in order by a
+    second kernel)."""
     if x.device.type == "cpu":
         return int4_matmul_w4a8_block_xla(x, packed, scales).to(out_dtype)
     x = x.contiguous()
     dh, f, n_groups = _check_w4a8(x, packed, scales, out_dtype,
                                    "w4a8_block")
-    if _group_rows(dh, n_groups) % 32:
-        raise ValueError(f"w4a8_block: group of "
-                         f"{_group_rows(dh, n_groups)} packed rows is not "
-                         "a multiple of 32")
+    gr = _group_rows(dh, n_groups)
+    if gr % 32 or (n_groups > 1 and BLOCK_STEP % gr and gr % BLOCK_STEP):
+        raise ValueError(f"w4a8_block: group of {gr} packed rows is not a "
+                         f"multiple of 32 that divides {BLOCK_STEP} or "
+                         f"that {BLOCK_STEP} divides")
     nb = x.shape[0]
-    if -(-nb // 64) > 65535:
-        raise ValueError(f"w4a8_block: {nb} rows exceed the grid")
+    rows_tile, rows = w4a8_block_plan(nb, dh, f, n_groups,
+                                      _sm_count(x.device))
+    splits = -(-dh // rows)
     xq = torch.empty((nb, 2 * dh), dtype=torch.int8, device=x.device)
     sx = torch.empty((nb,), dtype=torch.float32, device=x.device)
     out = torch.empty((nb, f), dtype=out_dtype, device=x.device)
+    partial = (torch.empty((splits, nb, f), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
     cuda_lib.launch(
         "w4a8_block", "vlt_w4a8_block", x.device,
         cuda_lib.ptr(x), cuda_lib.ptr(packed), cuda_lib.ptr(scales),
         cuda_lib.ptr(xq), cuda_lib.ptr(sx), cuda_lib.ptr(out),
-        nb, dh, f, n_groups, int(out_dtype == torch.bfloat16),
+        None if partial is None else cuda_lib.ptr(partial),
+        nb, dh, f, n_groups, rows_tile, rows,
+        int(out_dtype == torch.bfloat16),
     )
     return out
 
@@ -382,9 +530,7 @@ def w4a16_matvec(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"w4a16_matvec: group of "
                          f"{_group_rows(dh, n_groups)} packed rows is not "
                          "a multiple of 16")
-    rows = w4a16_rows_per_split(
-        dh, f,
-        torch.cuda.get_device_properties(x.device).multi_processor_count)
+    rows = w4a16_rows_per_split(dh, f, _sm_count(x.device))
     splits = -(-dh // rows)
     out = torch.empty((1, f), dtype=out_dtype, device=x.device)
     partial = (torch.empty((splits, f), dtype=torch.float32,
