@@ -16,8 +16,9 @@ Phases, each of which raises on failure (exit code != 0):
      kernels 9 and 11 at the chat and serving shapes, kernels 3 and 10 at
      head dim 32, kernels A and B at serving's 4-row decode, 36-row
      verify and 256-row prefill window, CLIP's pad keys and values set
-     large, and planted faults in the plain versions of kernels 1, 2, 9,
-     10, 11, A, B and the W4A16 matvec that must fail), timing the
+     large, the W4A16 block matmul at 2, 8, 36, 256, 768 and 1100 rows,
+     and planted faults in the plain versions of kernels 1, 2, 9, 10, 11,
+     A, B and both W4A16 kernels that must fail), timing the
      kernel, the plain version
      and, where one PyTorch call computes the same function, that call,
      each beside the kernel's bound; kernels 3, 9, A and the W4A16
@@ -644,21 +645,30 @@ def long_decode_checks(dev, g, rnd, results) -> None:
           nbytes=nbytes, ops=ops)
 
 
-def w4a8_planted_faults(name, x, p, s, out, want) -> None:
-    """Two faults planted in kernel `name`'s plain version must each fail
-    its check against the true plain version `want`: the high half's
-    group scales read for the low half, and the last K split of the
-    kernel's plan dropped (its packed rows zeroed)."""
+def int4_planted_faults(name, x, p, s, out, want) -> None:
+    """Two faults planted in kernel `name`'s plain version (kernel A, B or
+    the W4A16 block matmul) must each fail its check against the true
+    plain version `want`: the high half's group scales read for the low
+    half, and the last K split of the kernel's plan dropped (its packed
+    rows zeroed)."""
     half = s.shape[0] // 2
     wrong_scales = torch.cat([s[half:], s[half:]]) if half else s * 2
-    plain = (quant4.int4_matmul_w4a8_xla if name == "w4a8_matvec"
-             else quant4.int4_matmul_w4a8_block_xla)
+    plain = {"w4a8_matvec": quant4.int4_matmul_w4a8_xla,
+             "w4a8_block": quant4.int4_matmul_w4a8_block_xla,
+             "w4a16_block": quant4.int4_matmul_w4a16_block_plain}[name]
     dh, f = p.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows = (quant4.matvec_rows_per_split(dh, f, s.shape[0], sms)
-            if name == "w4a8_matvec"
-            else quant4.w4a8_block_plan(x.shape[0], dh, f, s.shape[0],
-                                        sms)[1])
+    if name == "w4a8_matvec":
+        rows = quant4.matvec_rows_per_split(dh, f, s.shape[0], sms)
+    elif name == "w4a8_block":
+        rows = quant4.w4a8_block_plan(x.shape[0], dh, f, s.shape[0], sms)[1]
+    else:
+        rows = quant4.w4a16_block_plan(x.shape[0], dh, f, s.shape[0],
+                                       sms)[2]
+    if rows >= dh:
+        raise AssertionError(f"{name} {tuple(x.shape)} x {tuple(p.shape)}: "
+                             "the plan does not split K, so the dropped-"
+                             "split fault would drop nothing")
     last = (dh - 1) // rows * rows  # the last split's first packed row
     dropped = p.clone()
     dropped[last:] = 0x08  # both nibbles 0: the split adds nothing
@@ -744,7 +754,7 @@ def w4a8_checks(dev, g, results) -> None:
         # where the plan splits K (wqkv: 4 splits; down: 2), so the split
         # fault drops a real split
         if (nb, key, out) in ((1, "wqkv", f32), (768, "down", f32)):
-            w4a8_planted_faults(name, x, p, s, out, plain(x, p, s))
+            int4_planted_faults(name, x, p, s, out, plain(x, p, s))
         if (name, nb, key, out) == ("w4a8_block", 768, "gate_up", bf16):
             xq, _ = quant4.quantize_activation_int8(x, 1)
             # (D, F) int8 laid out column-major, as cuBLASLt's int8 path
@@ -908,15 +918,18 @@ def int4pack_library(x, packed, scales):
 def w4a16_checks(dev, g, results) -> None:
     """Kernel 6's W4A16 pair on Vicuna-7B's linears, bf16 activations as
     on the path: the matvec (1 row) on the fused wqkv, wo, gate_up and
-    down, the block matmul at 2, 8, 36 and 768 rows; first the bf16-out
-    build the path launches (its times go in the kernels line), then f32
-    out. The library call is torch._weight_int4pack_mm where PyTorch has
-    it (its max|err|/max|ref| against the plain version is printed, not
-    held: it dequantizes in its own order). The matvec in bf16 out on the
-    stacked weights, and its library call, are also timed from HBM over
-    their layers (wqkv and gate_up 6, 151 and 270 MB; down 4, 90 MB). A
-    planted fault in the matvec's plain version (the low and high halves'
-    group scales swapped) must fail the check."""
+    down, the block matmul at 2, 8, 36, 256 and 768 rows; first the
+    bf16-out build the path launches (its times go in the kernels line),
+    then f32 out, with the block matmul also at 1100 rows of wo. The
+    library call is torch._weight_int4pack_mm where PyTorch has it (its
+    max|err|/max|ref| against the plain version is printed, not held: it
+    dequantizes in its own order). The matvec in bf16 out on the stacked
+    weights, and its library call, are also timed from HBM over their
+    layers (wqkv and gate_up 6, 151 and 270 MB; down 4, 90 MB). A planted
+    fault in the matvec's plain version (the low and high halves' group
+    scales swapped) must fail the check, and so must two in the block
+    matmul's (int4_planted_faults, at 768 rows of down, where its plan
+    splits K)."""
 
     def weight(d, f, layers=None):
         w = torch.randn(layers or 1, d, f, generator=g, device=dev)
@@ -933,10 +946,12 @@ def w4a16_checks(dev, g, results) -> None:
     shapes = ([("w4a16_matvec", 1, "wqkv"), ("w4a16_block", 768, "gate_up")]
               + [("w4a16_matvec", 1, k) for k in ("wo", "gate_up", "down")]
               + [("w4a16_block", nb, k) for nb, k in
-                 ((2, "wqkv"), (8, "wo"), (36, "down"))])
+                 ((2, "wqkv"), (8, "wo"), (36, "down"), (256, "gate_up"))])
     lib_note = None
     for out in (bf16, f32):
-        for name, nb, key in shapes:
+        for name, nb, key in shapes + ([("w4a16_block", 1100, "wo"),
+                                        ("w4a16_block", 768, "down")]
+                                       if out == f32 else []):
             p, s = w[key]
             x = torch.randn(nb, 2 * p.shape[0], generator=g,
                             device=dev).to(bf16)
@@ -982,6 +997,8 @@ def w4a16_checks(dev, g, results) -> None:
                 if not rel > REL_TOL[name][f32]:
                     raise AssertionError("the W4A16 check passes the planted "
                                          "scale-swap fault")
+            if (name, nb, key, out) == ("w4a16_block", 768, "down", f32):
+                int4_planted_faults(name, x, p, s, out, plain(x, p, s))
     if lib_note:
         print(f"library for the W4A16 kernels: null ({lib_note})")
 
@@ -2365,10 +2382,11 @@ def grounding_phase(engine, dev, results) -> int:
               f"{len(spans)} device activities, wall {wall * 1e3:.1f} ms "
               f"(unprofiled run), idle share {1 - busy_ms / (wall * 1e3):.3f}"
               f" (profiled pass {time.perf_counter() - t:.2f} s)")
-        for name_, (total, calls) in sorted(by_name.items(),
-                                            key=lambda kv: -kv[1][0])[:12]:
-            print(f"grounded profile: {total / 1e3:9.2f} ms {calls:6d} "
-                  f"calls  {name_[:90]}")
+        for i, (name_, (total, calls)) in enumerate(sorted(
+                by_name.items(), key=lambda kv: -kv[1][0])):
+            if i < 12 or port_kernel(name_):
+                print(f"grounded profile: {total / 1e3:9.2f} ms {calls:6d} "
+                      f"calls  {name_[:90]}")
     finally:
         chat_mod.encode_video = real_encode
         for o, a, fn in saved:

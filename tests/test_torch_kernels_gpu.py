@@ -732,6 +732,12 @@ def test_w4a16_matvec_every_nibble_exactly(dev, d, f, group_size):
 @pytest.mark.parametrize("nb,d,f,group_size", [
     (768, 4096, 22016, 128), (2, 4096, 4096, 128), (36, 11008, 4096, 128),
     (9, 512, 256, 32), (70, 768, 144, 128), (33, 1024, 256, None),
+    # each edge of w4a16_block_plan's row tiles (8, 16, 32, 48, 64, 128),
+    # F = 4096 where the plan splits K, and 1100-row wo
+    (8, 4096, 12288, 128), (9, 4096, 4096, 128), (16, 4096, 4096, 128),
+    (17, 768, 256, 128), (64, 11008, 4096, 128), (65, 1024, 640, None),
+    (128, 4096, 4096, 128), (129, 4096, 4096, 128), (256, 4096, 22016, 128),
+    (1100, 4096, 4096, 128),
 ])
 def test_w4a16_block_kernel_matches_plain(dev, nb, d, f, group_size):
     g = torch.Generator(device=dev).manual_seed(16)
@@ -745,6 +751,51 @@ def test_w4a16_block_kernel_matches_plain(dev, nb, d, f, group_size):
     got = quant4.w4a16_block(x, packed, scales, torch.bfloat16)
     assert got.dtype == torch.bfloat16
     _assert_rel(got, want.to(torch.bfloat16), 2 ** -7)
+
+
+@pytest.mark.parametrize("nb,d,f,group_size", [
+    (3, 256, 512, 128), (70, 4096, 4096, 128), (9, 512, 256, 32),
+    (17, 512, 256, None), (129, 1024, 384, 128),
+])
+def test_w4a16_block_every_nibble_exactly(dev, nb, d, f, group_size):
+    """The block matmul unpacks nibbles by bit arithmetic into wgmma's
+    register fragments: with q[k, f] = (k + f) % 16 - 8 every value -8..7
+    sits in the low and the high half, and row r of x one-hot at k_r picks
+    row k_r, so y[r, f] = sw[g(k_r), f] q[k_r, f] exactly in f32 out (one
+    product, every other term and every other group's fold 0). A wrong
+    fragment order, nibble, group or half cannot pass."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    qv = (torch.arange(d, device=dev)[:, None]
+          + torch.arange(f, device=dev)[None]) % 16 - 8  # (d, f)
+    packed = quant4.pack_int4(qv)
+    n_groups = d // group_size if group_size else 1
+    scales = (torch.rand((n_groups, f), generator=g, device=dev)
+              + 0.5).to(torch.bfloat16)
+    rows = d // n_groups
+    ks = torch.tensor([0, 1, 5, d // 2 - 1, d // 2, d // 2 + 3, d - 1],
+                      device=dev)
+    k_of_row = ks[torch.arange(nb, device=dev) % len(ks)]
+    x = torch.zeros((nb, d), device=dev, dtype=torch.bfloat16)
+    x[torch.arange(nb, device=dev), k_of_row] = 1.0
+    got = quant4.w4a16_block(x, packed, scales)
+    torch.cuda.synchronize()
+    want = scales[k_of_row // rows].float() * qv[k_of_row].float()
+    assert torch.equal(got, want)
+
+
+def test_w4a16_block_is_deterministic(dev):
+    """The K splits' partials are added in split order, no atomics: two
+    calls give the same bits (768-row down and 36-row gate_up split K,
+    768-row gate_up does not)."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    for nb, d, f in ((768, 11008, 4096), (36, 4096, 22016),
+                     (768, 4096, 22016)):
+        packed, scales = _int4_weight(g, d, f, 128)
+        x = torch.randn(nb, d, generator=g, device=dev).to(torch.bfloat16)
+        for out in (torch.float32, torch.bfloat16):
+            first = quant4.w4a16_block(x, packed, scales, out)
+            assert torch.equal(quant4.w4a16_block(x, packed, scales, out),
+                               first), (nb, d, f, out)
 
 
 def test_int4_dispatch_on_the_card(dev, monkeypatch):
@@ -829,6 +880,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
      torch.bfloat16),
     (((16, 16), (8, 8), (4, 4)), 336, 2, 4, 8, 4, torch.float32),
     (((7, 5), (3, 2)), 41, 2, 3, 40, 4, torch.bfloat16),
+    # GroundingDINO's encoder (q = sum_hw) in both dtypes, and query counts
+    # that are not a multiple of the vector path's 64-query tile
+    (((100, 100), (50, 50), (25, 25), (13, 13)), 13294, 4, 8, 32, 4,
+     torch.float32),
+    (((100, 100), (50, 50), (25, 25), (13, 13)), 13294, 4, 8, 32, 4,
+     torch.bfloat16),
+    (((10, 14), (5, 7)), 45, 2, 8, 32, 4, torch.float32),
+    (((10, 14), (5, 7)), 45, 2, 8, 32, 4, torch.bfloat16),
+    (((6, 6), (3, 3)), 7, 1, 2, 16, 5, torch.float32),
 ])
 def test_deformable_kernel_matches_plain(dev, shapes, q, b, nh, hd, p,
                                          dtype):
@@ -858,6 +918,9 @@ def test_deformable_kernel_matches_plain(dev, shapes, q, b, nh, hd, p,
     finally:
         deformable.set_tile2d(False)
     assert torch.equal(again, got)
+    # deterministic: the lane groups' sums are added in a fixed order
+    assert torch.equal(deformable.multi_scale_deformable_attention(
+        value, shapes, locs, weights), got)
     deformable.set_default_impl("xla")  # the plain version, no launch
     try:
         before = sum(cuda_lib.LAUNCHES.values())

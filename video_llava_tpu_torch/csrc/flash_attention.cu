@@ -255,7 +255,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)  // O += P V
-      mma_rs(acc, pa + 4 * kk, desc_mn(kt + L::kv, kTile, kk));
+      mma_rs<D, 1>(acc, pa + 4 * kk, desc_mn(kt + L::kv, kTile, kk), 1);
     wgmma_commit();
     wgmma_wait();
     fence_regs(acc);
@@ -432,7 +432,7 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)  // dq += dS K
-      mma_rs(acc, da + 4 * kk, desc_mn(kt, kTile, kk));
+      mma_rs<D, 1>(acc, da + 4 * kk, desc_mn(kt, kTile, kk), 1);
     wgmma_commit();
     wgmma_wait();
     fence_regs(acc);
@@ -608,10 +608,10 @@ dkv_kernel(const __grid_constant__ CUtensorMap kmap,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kTile / 16; ++kk)  // dv += P^T dO
-          mma_rs(dv_acc, pa + 4 * kk, desc_mn(dt, kTile, kk));
+          mma_rs<D, 1>(dv_acc, pa + 4 * kk, desc_mn(dt, kTile, kk), 1);
 #pragma unroll
         for (int kk = 0; kk < kTile / 16; ++kk)  // dk += dS^T Q
-          mma_rs(dk_acc, da + 4 * kk, desc_mn(qt, kTile, kk));
+          mma_rs<D, 1>(dk_acc, da + 4 * kk, desc_mn(qt, kTile, kk), 1);
         wgmma_commit();
         wgmma_wait();
         fence_regs(dv_acc);

@@ -416,7 +416,7 @@ bhsd_kernel(const __grid_constant__ CUtensorMap qmap,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kTile / 16; ++kk)  // O += P V
-          mma_rs(acc, pa + 4 * kk, desc_mn(kt + L::tile, kTile, kk));
+          mma_rs<D, 1>(acc, pa + 4 * kk, desc_mn(kt + L::tile, kTile, kk), 1);
         wgmma_commit();
         wgmma_wait();
         fence_regs(acc);

@@ -34,27 +34,40 @@
 // partials in split order (measured faster here than a last-block merge
 // behind an arrival counter, whose fences each block waits on).
 // The block matmul: bf16 multiply-adds (2 nb D F, 138.5 G at 768 rows of
-// the 7B gate_up) against 989 TFLOP/s; mma.sync m16n8k16 on 64 x 64 output
-// tiles (4 warps of 32 x 32); a 32-row packed tile is unpacked to bf16
-// (exact for -8..7) and transposed into shared memory, and feeds the
-// low-half K slice (rows k against activation columns k) and the high-half
-// one (rows Dh + k). Later work there: cp.async/TMA double buffering, wgmma.
+// the 7B gate_up, 0.140 ms at 989 TFLOP/s); at a few rows (decode windows
+// of 2-8, serving's 36-row verifies) the packed weight's bytes (25.2 MB
+// for wqkv, 7.5 us). A first body (mma.sync on 64 x 64 tiles, each 32-row
+// step loaded synchronously and unpacked a byte at a time into transposed
+// shared tiles) ran at 0.09 of the operations bound. The design is kernel
+// B's (csrc/w4a8_block.cu) in bf16: the swapped product out^T = W^T x^T,
+// the weight as the register A operand of wgmma m64nNk16 (64 output
+// columns a warpgroup; one ldmatrix.x4.trans a 32-row piece and
+// unpack_pairs make the fragments of two k-steps of both halves, exact),
+// x (nb, D), K-major as it lies, the shared B operand (N = a tile of 8 to
+// 128 activation rows, chosen from nb). A block of two consumer
+// warpgroups and a producer warpgroup owns 128 columns x one row tile
+// over a K range; the producer's one thread keeps a ring of stages in
+// flight by TMA under full/empty mbarriers: 128 packed rows x 128 columns
+// and the two halves' 128-column x tiles (128-byte swizzle; rows past nb,
+// columns past F and rows past Dh come in as zeros). Each group's sums
+// start afresh (scale-d 0 at a run's first k-step) and are folded into the
+// f32 total with one FMA an element, the low half with sw[g], the high
+// half with sw[g + G/2]; at 128 rows the two warpgroups take turns
+// issuing, so one folds while the other's products run. K is split over
+// blocks in whole groups where the output tiles alone leave the waves
+// uneven (ops/quant4.py w4a16_block_plan), and add_splits_kernel adds the
+// (split, nb, F) f32 partials in order: deterministic, no atomics.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "async_ring.cuh"
+#include "hopper.cuh"
 #include "int4_out.cuh"
 
 namespace {
-
-// Byte j of w as the low (offset-binary) and high (two's complement) nibble.
-__device__ inline void nibbles(int w, int j, float& lo, float& hi) {
-  const int b = (int)(int8_t)(w >> (8 * j));
-  lo = (float)((b & 15) - 8);
-  hi = (float)(b >> 4);
-}
 
 // m16n8k16 bf16 product, f32 accumulate: c += a b.
 __device__ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -297,153 +310,303 @@ int launch_matvec(const void* x, const void* packed, const void* scales,
 // block matmul
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 64, kBN = 64, kKP = 32;  // output tile, packed rows/step
-constexpr int kLds = kKP + 8;  // shared row stride in bf16: conflict-free
-constexpr int kBlkThreads = 128;
+using namespace flash::hopper;
 
+constexpr int kBlkCols = 128;  // columns a block (= quant4.W4A16_BLOCK_COLS)
+constexpr int kBlkStep = 128;  // packed rows a stage (= quant4.W4A16_BLOCK_STEP)
+constexpr int kConsumers = 2;  // warpgroups, 64 columns each
+constexpr int kBlkThreads = 128 * (kConsumers + 1);
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+static_assert(kConsumers * kConsumerRegs + kProducerRegs ==
+                  (kConsumers + 1) * 168,
+              "the register budget of a block of 384 threads");
+constexpr uint32_t kPackedTile = kBlkCols * kBlkStep;  // bytes
+constexpr int kOutStride = 68;  // floats a row of the staged output tile
+constexpr int kAllConsumers = 3;  // named barrier of both warpgroups
 
-template <typename TOut>
-__global__ void __launch_bounds__(kBlkThreads)
-w4a16_block_kernel(const __nv_bfloat16* __restrict__ x,
-                   const int8_t* __restrict__ packed,
-                   const __nv_bfloat16* __restrict__ sw, TOut* __restrict__ out,
-                   int nb, int dh, int f, int n_groups, int gr) {
-  // [m][k] activation tiles and [n][k] unpacked weight tiles, low and high
-  __shared__ __align__(16) __nv_bfloat16 a_lo[kBM * kLds], a_hi[kBM * kLds];
-  __shared__ __align__(16) __nv_bfloat16 b_lo[kBN * kLds], b_hi[kBN * kLds];
+// = quant4.w4a16_block_stage_bytes: the packed tile, then x's low- and
+// high-half tiles (bn rows x 128 bf16 each, two 64-column chunks).
+__host__ __device__ constexpr uint32_t blk_stage_bytes(int bn) {
+  return kPackedTile + 4u * bn * kBlkStep;
+}
 
-  const int d = 2 * dh, gh = dh / gr;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int gid = lane >> 2, tig = lane & 3;
+// = quant4.w4a16_block_smem_bytes: the ring, its full and empty barriers,
+// and 1 KB to align the ring to the swizzle's period.
+__host__ __device__ constexpr size_t blk_smem(int bn, int stages) {
+  return (size_t)stages * blk_stage_bytes(bn) + 16 * stages + 1024;
+}
 
-  float acc_lo[2][4][4], acc_hi[2][4][4], facc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc_lo[i][j][e] = acc_hi[i][j][e] = facc[i][j][e] = 0.f;
+struct BlkArgs {
+  int nb, dh, f, n_groups, gr, stages, rows_per_split;
+};
 
-  for (int k0 = 0; k0 < dh; k0 += kKP) {
-    {  // activations: 64 rows x 32 columns of each half, 2 x 16 bytes a thread
-      const int r = tid >> 1, ch = (tid & 1) * 16, gm = m0 + r;
-      uint4 lo[2], hi[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) lo[u] = hi[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (gm < nb) {
-        const __nv_bfloat16* src = x + (size_t)gm * d + k0 + ch;
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          lo[u] = *reinterpret_cast<const uint4*>(src + 8 * u);
-          hi[u] = *reinterpret_cast<const uint4*>(src + dh + 8 * u);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        *reinterpret_cast<uint4*>(a_lo + r * kLds + ch + 8 * u) = lo[u];
-        *reinterpret_cast<uint4*>(a_hi + r * kLds + ch + 8 * u) = hi[u];
+// One block: a tile of BN activation rows x kBlkCols columns (blockIdx.x),
+// packed rows [k_begin, k_end) of split blockIdx.z. Warpgroup wg owns
+// columns 64 wg..64 wg + 63 of the block, its warp w the 16 from
+// 64 wg + 16 w as the M rows of the swapped product out^T = W^T x^T: M
+// row gid is column 2 gid, row gid + 8 column 2 gid + 1, so accumulator
+// register i of lane (gid, tig) is column 2 gid + (i / 2) % 2 and
+// activation row 8 (i / 4) + 2 tig + i % 2.
+template <int BN, typename TOut>
+__global__ void __launch_bounds__(kBlkThreads, 1)
+w4a16_block_kernel(const __grid_constant__ CUtensorMap pmap,
+                   const __grid_constant__ CUtensorMap xmap,
+                   const __nv_bfloat16* __restrict__ sw,
+                   TOut* __restrict__ out, float* __restrict__ partial,
+                   BlkArgs a) {
+  constexpr uint32_t kStage = blk_stage_bytes(BN);
+  constexpr uint32_t kHalf = 2u * BN * kBlkStep;  // one half's x tile
+  // 32-row pieces a run: up to a whole stage (runs of 2 pieces measured
+  // 1.2x slower at 768 and 1100 rows, PERF.md)
+  constexpr int kRun = 4;
+  static_assert(2 * BN * kOutStride * 4 <= 2 * kStage,
+                "the epilogue stages both warpgroups' tiles in the ring");
+  unsigned char* smem = aligned_smem();
+  const uint32_t base = smem_addr(smem);
+  const int ns = a.stages;
+  const uint32_t full = base + ns * kStage, empty = full + 8 * ns;
+  // blockIdx.x: row tiles fastest (they share the packed tile in L2),
+  // then column tiles
+  const int row_tiles = (a.nb + BN - 1) / BN;
+  const int row0 = (int)(blockIdx.x % row_tiles) * BN;
+  const int col0 = (int)(blockIdx.x / row_tiles) * kBlkCols;
+  const int k_begin = blockIdx.z * a.rows_per_split;
+  const int k_end = min(a.dh, k_begin + a.rows_per_split);
+  const int n_st = (k_end - k_begin + kBlkStep - 1) / kBlkStep;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ns; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kConsumers);  // lane 0 of each warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kConsumers) {  // the producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 4 * kConsumers && lane == 0) {
+      for (int t = 0; t < n_st; ++t) {
+        const int s = t % ns, k = k_begin + t * kBlkStep;
+        const uint32_t st = base + s * kStage, bar = full + 8 * s;
+        mbar_wait(empty + 8 * s, ((t / ns) & 1) ^ 1);
+        mbar_expect_tx(bar, kStage);
+        tma_load_2d(st, &pmap, bar, col0, k);
+        for (int h = 0; h < 2; ++h)  // x's low (k) and high (dh + k) half
+          for (int c = 0; c < 2; ++c)  // two 64-column chunks
+            tma_load_2d(st + kPackedTile + h * kHalf + c * BN * 128, &xmap,
+                        bar, h * a.dh + k + 64 * c, row0);
       }
     }
-    {  // weights: 32 packed rows x 64 columns, unpacked and transposed
-      const int kr = tid >> 2, ch = (tid & 3) * 16, gn = n0 + ch;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gn < f)
-        v = __ldg(reinterpret_cast<const uint4*>(
-            packed + (size_t)(k0 + kr) * f + gn));
-      const int* words = reinterpret_cast<const int*>(&v);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        float lo, hi;
-        nibbles(words[j >> 2], j & 3, lo, hi);
-        b_lo[(ch + j) * kLds + kr] = __float2bfloat16(lo);
-        b_hi[(ch + j) * kLds + kr] = __float2bfloat16(hi);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const __nv_bfloat16* as = half ? a_hi : a_lo;
-      const __nv_bfloat16* bs = half ? b_hi : b_lo;
-#pragma unroll
-      for (int kk = 0; kk < kKP; kk += 16) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const __nv_bfloat16* p = as + (wm + i * 16 + gid) * kLds + kk + tig * 2;
-          a[i][0] = *reinterpret_cast<const uint32_t*>(p);
-          a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kLds);
-          a[i][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-          a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kLds + 8);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const __nv_bfloat16* p = bs + (wn + j * 8 + gid) * kLds + kk + tig * 2;
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(p);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(p + 8);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            mma_bf16(half ? acc_hi[i][j] : acc_lo[i][j], a[i], b0, b1);
-        }
-      }
-    }
-    __syncthreads();
-
-    if ((k0 + kKP) % gr == 0) {  // end of group: scale the f32 partials
-      const int gi = k0 / gr;
-      const int gl = n_groups > 1 ? gi : 0, ghi = n_groups > 1 ? gi + gh : 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = n0 + wn + j * 8 + tig * 2;
-        float sl[2], sh[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool ok = c + e < f;
-          sl[e] = ok ? __bfloat162float(sw[(size_t)gl * f + c + e]) : 0.f;
-          sh[e] = ok ? __bfloat162float(sw[(size_t)ghi * f + c + e]) : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            facc[i][j][e] += sl[e & 1] * acc_lo[i][j][e] +
-                             sh[e & 1] * acc_hi[i][j][e];
-            acc_lo[i][j][e] = acc_hi[i][j][e] = 0.f;
-          }
-      }
-    }
+    return;
   }
 
-  // accumulator element e: row gid (+8 for e >= 2), column tig * 2 + (e & 1)
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp / 4, w = warp % 4, gid = lane / 4, tig = lane % 4;
+  const int colw = 64 * wg + 16 * w;  // the warp's columns in the block
+  const int col = col0 + colw + 2 * gid;  // this lane's two: col, col + 1
+  const bool col_ok = col < a.f;
+  // ldmatrix.x4.trans: lane l addresses packed row l of a 32-row piece in
+  // the warp's 16-byte unit of the 128-byte-swizzled tile (each 8-row
+  // matrix reads 8 distinct units: no bank conflict); register j holds
+  // rows 8 j..8 j + 7, so registers 2 j and 2 j + 1 are k-step j's top and
+  // bottom rows.
+  const uint32_t laddr = lane * 128 + (((colw / 16) ^ (lane % 8)) * 16);
+  const int gh = a.n_groups > 1 ? a.n_groups / 2 : 0;
+
+  float acc[BN / 2], acc2[BN / 2], facc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < BN / 2; ++i) acc[i] = acc2[i] = facc[i] = 0.f;
+  // facc += a run's f32 sums scaled by the group's scale of each column
+  const auto fold = [&](const float (&sums)[BN / 2], uint32_t swp) {
+    const float sx = __uint_as_float(swp << 16);
+    const float sy = __uint_as_float(swp & 0xFFFF0000u);
 #pragma unroll
-    for (int e = 0; e < 4; e += 2) {
-      const int r = m0 + wm + i * 16 + gid + (e ? 8 : 0);
-      if (r >= nb) continue;
+    for (int i = 0; i < BN / 2; ++i)
+      facc[i] = fmaf((i & 2) ? sy : sx, sums[i], facc[i]);
+  };
+
+  int turns = 0;  // (128 rows) runs' halves issued: warpgroup 0 waits from
+                  // its second
+  for (int t = 0; t < n_st; ++t) {
+    const int s = t % ns, k = k_begin + t * kBlkStep;
+    const uint32_t st = base + s * kStage;
+    const uint32_t xlo = st + kPackedTile, xhi = xlo + kHalf;
+    const int n_pieces = min(4, (k_end - k) / 32);
+    mbar_wait(full + 8 * s, (t / ns) & 1);
+    for (int u0 = 0; u0 < n_pieces;) {
+      // a run: pieces of one scale group (a group's rows are a multiple
+      // of 32, and with G == 1 the group is the whole half)
+      const int kr = k + 32 * u0;
+      const int gend = (kr / a.gr + 1) * a.gr;
+      const int us = min(min(kRun, n_pieces - u0), (gend - kr) / 32);
+      const int g = kr / a.gr;
+      const int gl = a.n_groups > 1 ? g : 0, ghi = a.n_groups > 1 ? g + gh : 0;
+      const uint32_t swl = col_ok ? __ldg(reinterpret_cast<const unsigned*>(
+                                        sw + (size_t)gl * a.f + col))
+                                  : 0u;
+      const uint32_t swh = col_ok ? __ldg(reinterpret_cast<const unsigned*>(
+                                        sw + (size_t)ghi * a.f + col))
+                                  : 0u;
+      uint32_t lo[kRun][2][4], hi[kRun][2][4];  // [piece][k-step][register]
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = n0 + wn + j * 8 + tig * 2;
-        if (c < f) store(out + (size_t)r * f + c, facc[i][j][e]);
-        if (c + 1 < f) store(out + (size_t)r * f + c + 1, facc[i][j][e + 1]);
+      for (int q = 0; q < kRun; ++q) {
+        if (q < us) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, st + laddr + (u0 + q) * 32 * 128);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            uint32_t lt[2], ht[2], lb[2], hb[2];
+            unpack_pairs(r[2 * j], lt, ht);
+            unpack_pairs(r[2 * j + 1], lb, hb);
+            lo[q][j][0] = lt[0];
+            lo[q][j][1] = lt[1];
+            lo[q][j][2] = lb[0];
+            lo[q][j][3] = lb[1];
+            hi[q][j][0] = ht[0];
+            hi[q][j][1] = ht[1];
+            hi[q][j][2] = hb[0];
+            hi[q][j][3] = hb[1];
+          }
+        }
       }
+      // issue one half's products of the run: k-step 2 (u0 + q) + j of
+      // the stage; the run's first starts its sums afresh
+      const auto issue = [&](float (&d)[BN / 2], uint32_t (&frag)[kRun][2][4],
+                             uint32_t xt) {
+#pragma unroll
+        for (int q = 0; q < kRun; ++q)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            if (q < us)
+              mma_rs<BN, 0>(d, frag[q][j], desc_k(xt, BN, 2 * (u0 + q) + j),
+                            q > 0 || j > 0);
+      };
+      const auto settle = [&](float (&d)[BN / 2],
+                              uint32_t (&frag)[kRun][2][4]) {
+        fence_regs(d);
+#pragma unroll
+        for (int q = 0; q < kRun; ++q)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) fence_regs(frag[q][j]);  // read until here
+      };
+      // at 64 rows and fewer both halves' sums fit beside the f32 total:
+      // one batch, one wait, and the fold is short, so the warpgroups
+      // issue without taking turns (3-8% faster at 2-36 rows, PERF.md); at
+      // 128 one set, the halves one after the other, in turns
+      if constexpr (BN <= 64) {
+        wgmma_fence();
+        issue(acc, lo, xlo);
+        issue(acc2, hi, xhi);
+        wgmma_commit();
+        wgmma_wait();
+        settle(acc, lo);
+        settle(acc2, hi);
+        fold(acc, swl);
+        fold(acc2, swh);
+      } else {
+        if (wg == 1 || turns > 0) wait_turn(wg);
+        wgmma_fence();  // the low half's run
+        issue(acc, lo, xlo);
+        wgmma_commit();
+        pass_turn(wg);
+        wgmma_wait();
+        settle(acc, lo);
+        fold(acc, swl);
+        wait_turn(wg);
+        wgmma_fence();  // the high half's
+        issue(acc, hi, xhi);
+        wgmma_commit();
+        pass_turn(wg);
+        turns += 2;
+        wgmma_wait();
+        settle(acc, hi);
+        fold(acc, swh);
+      }
+      u0 += us;
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+
+  if (wg == 0 && turns > 0) wait_turn(0);  // warpgroup 1's last hand-over
+  // Both warpgroups are past the ring (every stage was consumed): its bytes
+  // stage the output tile, BN rows x 64 columns of f32 a warpgroup.
+  asm volatile("bar.sync %0, %1;" ::"n"(kAllConsumers), "n"(128 * kConsumers)
+               : "memory");
+  float* tile = reinterpret_cast<float*>(smem) + wg * BN * kOutStride;
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 4)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      *reinterpret_cast<float2*>(
+          tile + (8 * (i / 4) + 2 * tig + e) * kOutStride + 16 * w +
+          2 * gid) = make_float2(facc[i + e], facc[i + e + 2]);
+  warpgroup_sync(wg);
+  const bool split = gridDim.z > 1;
+  for (int idx = threadIdx.x % 128; idx < BN * 16; idx += 128) {
+    const int n = idx / 16, cc = (idx % 16) * 4;
+    const int r = row0 + n, c = col0 + 64 * wg + cc;
+    if (r >= a.nb || c >= a.f) continue;
+    const float4 v = *reinterpret_cast<const float4*>(tile + n * kOutStride + cc);
+    if (split)
+      store4(partial + ((size_t)blockIdx.z * a.nb + r) * a.f + c, v);
+    else
+      store4(out + (size_t)r * a.f + c, v);
+  }
+}
+
+template <int BN, typename TOut>
+int launch_block(const void* x, const void* packed, const void* scales,
+                 void* out, void* partial, const BlkArgs& a,
+                 cudaStream_t stream) {
+  CUtensorMap pm, xm;
+  if (!tile_map(&pm, packed, a.dh, a.f, kBlkStep,
+                CU_TENSOR_MAP_DATA_TYPE_UINT8, 1) ||
+      !tile_map(&xm, x, a.nb, 2 * a.dh, BN, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                2))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = w4a16_block_kernel<BN, TOut>;
+  const size_t bytes = blk_smem(BN, a.stages);
+  if (bytes > 232448) return (int)cudaErrorInvalidValue;  // the H100's 227 KB
+  cudaError_t err = prepare(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int splits = (a.dh + a.rows_per_split - 1) / a.rows_per_split;
+  const long long tiles =
+      (long long)((a.nb + BN - 1) / BN) * ((a.f + kBlkCols - 1) / kBlkCols);
+  if (tiles > 0x7fffffffLL || splits > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)tiles, 1, splits);
+  kernel<<<grid, kBlkThreads, bytes, stream>>>(
+      pm, xm, static_cast<const __nv_bfloat16*>(scales),
+      static_cast<TOut*>(out), static_cast<float*>(partial), a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const int n = a.nb * a.f;
+  add_splits_kernel<TOut><<<(n + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<TOut*>(out), n, splits);
+  return (int)cudaGetLastError();
 }
 
 template <typename TOut>
-int launch_block(const void* x, const void* packed, const void* scales,
-                 void* out, int nb, int dh, int f, int n_groups,
-                 cudaStream_t stream) {
-  const int gr = n_groups > 1 ? 2 * dh / n_groups : dh;
-  dim3 grid((f + kBN - 1) / kBN, (nb + kBM - 1) / kBM);
-  w4a16_block_kernel<TOut><<<grid, kBlkThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(packed),
-      static_cast<const __nv_bfloat16*>(scales), static_cast<TOut*>(out), nb,
-      dh, f, n_groups, gr);
-  return (int)cudaGetLastError();
+int launch_tile(const void* x, const void* packed, const void* scales,
+                void* out, void* partial, int rows_tile, const BlkArgs& a,
+                cudaStream_t st) {
+  switch (rows_tile) {
+    case 8:
+      return launch_block<8, TOut>(x, packed, scales, out, partial, a, st);
+    case 16:
+      return launch_block<16, TOut>(x, packed, scales, out, partial, a, st);
+    case 32:
+      return launch_block<32, TOut>(x, packed, scales, out, partial, a, st);
+    case 48:
+      return launch_block<48, TOut>(x, packed, scales, out, partial, a, st);
+    case 64:
+      return launch_block<64, TOut>(x, packed, scales, out, partial, a, st);
+    case 128:
+      return launch_block<128, TOut>(x, packed, scales, out, partial, a, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -469,17 +632,36 @@ extern "C" int vlt_w4a16_matvec(const void* x, const void* packed,
 }
 
 // x: (nb, 2 dh) bf16; packed: (dh, f) int8; scales: (n_groups, f) bf16;
-// out: (nb, f) f32 (out_bf16 = 0) or bf16. Every group's packed rows
-// (2 dh / n_groups, or dh when n_groups == 1) a multiple of 32; f % 16 == 0.
+// out: (nb, f) f32 (out_bf16 = 0) or bf16; partial: (splits, nb, f) f32
+// scratch when rows_per_split < dh (splits = ceil(dh / rows_per_split)),
+// else unused. Every group's packed rows (2 dh / n_groups, or dh when
+// n_groups == 1) a multiple of 32; f % 16 == 0; rows_tile 8, 16, 32, 48,
+// 64 or 128; stages >= 2 within the shared memory; rows_per_split a
+// multiple of 128 and, for n_groups > 1, of the group's rows
+// (ops/quant4.py w4a16_block_plan).
 extern "C" int vlt_w4a16_block(const void* x, const void* packed,
-                               const void* scales, void* out, int nb, int dh,
-                               int f, int n_groups, int out_bf16,
-                               void* stream) {
+                               const void* scales, void* out, void* partial,
+                               int nb, int dh, int f, int n_groups,
+                               int rows_tile, int stages, int rows_per_split,
+                               int out_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int gr = n_groups > 1 ? 2 * dh / n_groups : dh;
-  if (nb < 1 || gr % kKP || f % 16) return (int)cudaErrorInvalidValue;
+  BlkArgs a;
+  a.nb = nb;
+  a.dh = dh;
+  a.f = f;
+  a.n_groups = n_groups;
+  a.gr = n_groups > 1 ? 2 * dh / n_groups : dh;
+  a.stages = stages;
+  a.rows_per_split = rows_per_split;
+  const bool splits = rows_per_split < dh;
+  if (nb < 1 || dh < 32 || a.gr % 32 || f % 16 || stages < 2 ||
+      rows_per_split < kBlkStep ||
+      (splits && (rows_per_split % kBlkStep || !partial ||
+                  (n_groups > 1 && rows_per_split % a.gr))))
+    return (int)cudaErrorInvalidValue;
   if (out_bf16)
-    return launch_block<__nv_bfloat16>(x, packed, scales, out, nb, dh, f,
-                                       n_groups, st);
-  return launch_block<float>(x, packed, scales, out, nb, dh, f, n_groups, st);
+    return launch_tile<__nv_bfloat16>(x, packed, scales, out, partial,
+                                      rows_tile, a, st);
+  return launch_tile<float>(x, packed, scales, out, partial, rows_tile, a,
+                            st);
 }

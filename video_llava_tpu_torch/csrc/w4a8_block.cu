@@ -73,7 +73,6 @@ constexpr int kStages = 2;  // = quant4.BLOCK_STAGES (best of 2, 4, 6: PERF.md)
 constexpr uint32_t kPackedTile = kCols * kStep;  // bytes
 constexpr int kOutStride = 68;  // floats a row of the staged output tile
 constexpr int kAllConsumers = 3;  // named barrier of both warpgroups
-constexpr int kTurn = 4;  // named barriers 4, 5: warpgroup 0's, 1's turn
 
 __host__ __device__ constexpr uint32_t stage_bytes(int bn) {
   return kPackedTile + 2u * bn * kStep;
@@ -88,26 +87,6 @@ __host__ __device__ constexpr size_t block_smem(int bn) {
 struct Args {
   int nb, dh, f, n_groups, gr, rows_per_split;
 };
-
-__device__ inline void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                   uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// The two consumer warpgroups take turns issuing their products (CUTLASS's
-// ping-pong): a warpgroup waits for its turn, issues a run's wgmma, and
-// hands the turn over, so that one folds its sums while the other's
-// products run, instead of both folding at once on the same stage.
-__device__ inline void wait_turn(int wg) {
-  asm volatile("bar.sync %0, 256;" ::"r"(kTurn + wg) : "memory");
-}
-__device__ inline void pass_turn(int wg) {
-  asm volatile("bar.arrive %0, 256;" ::"r"(kTurn + 1 - wg) : "memory");
-}
 
 // wgmma m64nNk32 s8 x s8 -> s32, A (the unpacked weight) from registers,
 // B (xq) from shared memory; d = a b, or d += a b when `accumulate`.
@@ -403,30 +382,14 @@ w4a8_block_kernel(const __grid_constant__ CUtensorMap pmap,
   }
 }
 
-// A row-major (rows, cols) int8 array as TMA reads it: boxes of 128 columns
-// (one 128-byte swizzle row) x box_rows rows; out-of-range elements come in
-// as zeros.
-inline bool bytes_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-                      int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols};
-  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
-                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int BN, typename TOut>
 int launch(const void* packed, const void* scales, const void* xq,
            const void* sx, void* out, void* partial, const Args& a,
            cudaStream_t stream) {
   CUtensorMap pm, xm;
-  if (!bytes_map(&pm, packed, a.dh, a.f, kStep) ||
-      !bytes_map(&xm, xq, a.nb, 2 * a.dh, BN))
+  if (!tile_map(&pm, packed, a.dh, a.f, kStep, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                1) ||
+      !tile_map(&xm, xq, a.nb, 2 * a.dh, BN, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1))
     return (int)cudaErrorInvalidValue;
   auto kernel = w4a8_block_kernel<BN, TOut>;
   const size_t bytes = block_smem(BN);

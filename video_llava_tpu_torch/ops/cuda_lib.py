@@ -69,8 +69,10 @@ _SIGNATURES = {
     "vlt_w4a8_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, packed, scales, out, partial; dh, f, n_groups, rows, out_bf16
     "vlt_w4a16_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, packed, scales, out; nb, dh, f, n_groups, out_bf16
-    "vlt_w4a16_block": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, packed, scales, out, partial; nb, dh, f, n_groups, rows_tile,
+    # stages, rows_per_split, out_bf16
+    "vlt_w4a16_block": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P),
     # x, packed, scales, xq, sx, out, partial; nb, dh, f, n_groups,
     # rows_tile, rows_per_split, out_bf16
     "vlt_w4a8_block": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -414,6 +414,67 @@ def w4a16_rows_per_split(dh: int, f: int, sm_count: int) -> int:
     return 32 * -(-dh // (32 * splits))
 
 
+# The W4A16 block matmul (csrc/w4a16.cu): a block of two consumer
+# warpgroups (64 columns each) and a producer owns 128 columns x a tile of
+# activation rows (the N of its bf16 wgmma), over a K range streamed in
+# stages of 128 packed rows by TMA.
+W4A16_BLOCK_COLS = 128
+W4A16_BLOCK_STEP = 128
+W4A16_ROW_TILES = (8, 16, 32, 48, 64, 128)
+W4A16_MAX_STAGES = 4
+W4A16_BLOCK_RAMP = 2  # steps a block's ring takes to fill, in the plan's model
+
+
+def w4a16_block_stage_bytes(rows_tile: int) -> int:
+    """One ring stage: the packed tile, then x's low- and high-half tiles
+    (rows_tile rows x 128 bf16 each)."""
+    return (W4A16_BLOCK_COLS * W4A16_BLOCK_STEP
+            + 2 * rows_tile * W4A16_BLOCK_STEP * 2)
+
+
+def w4a16_block_smem_bytes(rows_tile: int, stages: int) -> int:
+    """Shared memory of one block (csrc/w4a16.cu blk_smem): the ring (also
+    the epilogue's staging), its full and empty barriers, and 1 KB to
+    align the ring to the swizzle's period."""
+    return stages * w4a16_block_stage_bytes(rows_tile) + 16 * stages + 1024
+
+
+def w4a16_block_plan(nb: int, dh: int, f: int, n_groups: int,
+                     sm_count: int):
+    """(rows_tile, stages, rows_per_split) of the W4A16 block matmul for
+    x (nb, 2 dh): the smallest row tile that holds nb (tiles of 128 rows
+    past 128), as many ring stages (up to W4A16_MAX_STAGES) as the shared
+    memory holds, and K splits of whole groups and whole 128-row steps
+    where the output tiles alone leave the card's waves uneven. The
+    splits are chosen by a model of one block an SM: waves of blocks,
+    each block's time its 128-row steps plus W4A16_BLOCK_RAMP steps of
+    filling its ring, a step at the larger of its operations (at half
+    the bf16 peak) and its packed bytes (an SM's share of HBM), plus the
+    splits' f32 partials written and read once more (`w4a8_sweep.py
+    W4A16`, PERF.md)."""
+    rows_tile = next((t for t in W4A16_ROW_TILES if t >= nb),
+                     W4A16_ROW_TILES[-1])
+    stages = max(s for s in range(2, W4A16_MAX_STAGES + 1)
+                 if w4a16_block_smem_bytes(rows_tile, s) <= SMEM_LIMIT)
+    tiles = -(-nb // rows_tile) * -(-f // W4A16_BLOCK_COLS)
+    unit = _split_unit(dh, n_groups, W4A16_BLOCK_STEP)
+    units = -(-dh // unit)
+    steps_a_unit = unit // W4A16_BLOCK_STEP
+    sm_ops = 989e12 / 132 * 0.5
+    sm_bytes = 3.35e12 / 132
+    step_s = max(2 * W4A16_BLOCK_COLS * rows_tile * 2 * W4A16_BLOCK_STEP
+                 / sm_ops, W4A16_BLOCK_COLS * W4A16_BLOCK_STEP / sm_bytes)
+
+    def cost(splits):
+        waves = -(-tiles * splits // sm_count)
+        per_split = -(-units // splits) * steps_a_unit + W4A16_BLOCK_RAMP
+        partial = (splits > 1) * splits * nb * f * 8 / 3.35e12
+        return waves * per_split * step_s + partial
+
+    splits = min(range(1, min(units, 16) + 1), key=cost)
+    return rows_tile, stages, _split_rows(dh, unit, splits)
+
+
 def _check_w4a8(x, packed, scales, out_dtype, kernel: str):
     dh, f = packed.shape
     n_groups = scales.shape[0]
@@ -550,7 +611,9 @@ def w4a16_block(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     (Dh, F) + scales (G, F) -> (nb, F) in out_dtype, computing
     :func:`int4_matmul_w4a16_block_plain` on the bf16 tensor cores. On
     CUDA: x bf16, the group's packed rows a multiple of 32
-    (csrc/w4a16.cu)."""
+    (csrc/w4a16.cu: wgmma with the weight unpacked in registers as A and
+    x by TMA as B, planned by :func:`w4a16_block_plan`, the splits'
+    partials added in order by a second kernel)."""
     if x.device.type == "cpu":
         return int4_matmul_w4a16_block_plain(x, packed, scales).to(out_dtype)
     x = x.contiguous()
@@ -561,13 +624,17 @@ def w4a16_block(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                          f"{_group_rows(dh, n_groups)} packed rows is not "
                          "a multiple of 32")
     nb = x.shape[0]
-    if -(-nb // 64) > 65535:
-        raise ValueError(f"w4a16_block: {nb} rows exceed the grid")
+    rows_tile, stages, rows = w4a16_block_plan(nb, dh, f, n_groups,
+                                               _sm_count(x.device))
+    splits = -(-dh // rows)
     out = torch.empty((nb, f), dtype=out_dtype, device=x.device)
+    partial = (torch.empty((splits, nb, f), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
     cuda_lib.launch(
         "w4a16_block", "vlt_w4a16_block", x.device,
         cuda_lib.ptr(x), cuda_lib.ptr(packed), cuda_lib.ptr(scales),
-        cuda_lib.ptr(out), nb, dh, f, n_groups,
+        cuda_lib.ptr(out), None if partial is None else cuda_lib.ptr(partial),
+        nb, dh, f, n_groups, rows_tile, stages, rows,
         int(out_dtype == torch.bfloat16),
     )
     return out
