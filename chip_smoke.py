@@ -58,7 +58,18 @@ Phases, each of which raises on failure (exit code != 0):
      GroundingDINO, MobileSAM, the STM tracker, a Swin-L tagger) on the
      7B int4 engine, PGVideoLLaVA.answer over a seeded 100-frame 480 x 832
      clip, with stage times, launch counts, a profile and peak memory;
-  9. free it, build Vicuna-7B with 8 KV heads (int4) and answer the
+  9. transcribe the audio on the same engine (audio_phase, `--use_asr`):
+     kernel 7 against its plain version at the Whisper large-v2 encoder's
+     and the TL-TR head's shapes, its f32 body at Whisper base's, a small
+     bf16 Whisper, TL-TR head and wav2vec2 on the card against the CPU,
+     the chat CLI's f32 Whisper base (kernel 7's f32 body, its launches
+     counted, its encoder against the CPU), then bench.py's stack at
+     full width (Whisper large-v2 bf16, the TL-TR head, the
+     wav2vec2-base aligner) transcribing and aligning a seeded 60 s
+     waveform passed to upload_frames with the 100-frame clip, and the
+     answer with the transcript spliced in: stage times, every kernel's
+     launches, peak memory and a profile of the transcribe; then free
+     the engine, build Vicuna-7B with 8 KV heads (int4) and answer the
      100-frame request (gqa_chat_phase: kernel 11), profiled, and free it;
   10. train (training_phase): kernels 7 and 8 against their
      plain versions at the training layer's shape and three others, a
@@ -95,12 +106,23 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from video_llava_tpu_torch.audio import transcribe as transcribe_mod
+from video_llava_tpu_torch.audio.align import ForcedAligner
+from video_llava_tpu_torch.audio.builders import build_default_transcriber
+from video_llava_tpu_torch.audio.synthetic import (
+    char_vocab,
+    letter_words,
+    speech_wave,
+)
+from video_llava_tpu_torch.audio.transcribe import Transcriber
 from video_llava_tpu_torch.config import (
     GenerationConfig,
     LlamaConfig,
     VideoLLaVAConfig,
 )
 from video_llava_tpu_torch.constants import (
+    DEFAULT_AUDIO_TOKEN,
+    DEFAULT_TRANSCRIPT_START,
     DEFAULT_VID_END_TOKEN,
     DEFAULT_VID_START_TOKEN,
     DEFAULT_VIDEO_PATCH_TOKEN,
@@ -112,6 +134,8 @@ from video_llava_tpu_torch.grounding.builders import build_grounding_stack
 from video_llava_tpu_torch.media import scene as scene_mod
 from video_llava_tpu_torch.models.video_llava import VideoLLaVA
 from video_llava_tpu_torch.models import grounding_dino as gdino
+from video_llava_tpu_torch.models import wav2vec2 as w2v
+from video_llava_tpu_torch.models import whisper as whisper_mod
 from video_llava_tpu_torch.models.layers import TreeInit
 from video_llava_tpu_torch.ops import (
     attention,
@@ -174,6 +198,8 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
         "video_llava_tpu/ops/attention.py:1360"),
     "flash_forward": ("video_llava_tpu_torch/csrc/flash_attention.cu",
                       "video_llava_tpu/ops/attention.py:324"),
+    "flash_forward_f32": ("video_llava_tpu_torch/csrc/flash_attention_f32.cu",
+                          "video_llava_tpu/ops/attention.py:324"),
     "flash_backward_dq": ("video_llava_tpu_torch/csrc/flash_attention.cu",
                           "video_llava_tpu/ops/attention.py:625"),
     "flash_backward_dkv": ("video_llava_tpu_torch/csrc/flash_attention.cu",
@@ -238,6 +264,7 @@ REL_TOL = {"w4a8_matvec": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7},
 # their type.
 HBM_RATE = 3.35e12  # bytes/s
 BF16_PEAK = 989e12  # FLOP/s
+F32_PEAK = 67e12  # FLOP/s, outside the tensor cores
 INT8_PEAK = 1979e12  # OP/s
 
 
@@ -2399,6 +2426,439 @@ def grounding_phase(engine, dev, results) -> int:
     return launches[name]
 
 
+# -- audio ------------------------------------------------------------------
+
+# Kernel 7 at the audio path's (b, s, h, d), non-causal: the Whisper
+# large-v2 encoder over two 30 s chunks, then the TL-TR head over 60 s:
+# its time transformer (32 layers x 2 chunks x 3 windows of 25 pooled
+# tokens) and its layer transformer (6 windows of 32 layer tokens).
+AUDIO_FLASH_SHAPES = ((2, 1500, 20, 64), (192, 25, 4, 128), (6, 32, 4, 128))
+AUDIO_SECONDS, AUDIO_NEW_TOKENS = 60, 112  # bench.py's audio stack
+# The small audio stack, bf16 on the card against f32 on the CPU with the
+# same (bf16-valued) weights: every output within 2^-4 of its max |ref|
+# at most and 2^-6 of its mean |ref| on average (bf16 activations through
+# 2 layers of 64 wide, P rounded to bf16 in kernel 7). Decoder: at each
+# greedy step of the card, the CPU's f32 logit of the token it chose
+# within SMALL_AUDIO_MARGIN of the CPU's best.
+SMALL_AUDIO_TOL = (2 ** -4, 2 ** -6)
+SMALL_AUDIO_MARGIN = 0.25
+
+
+def bench_wave(seconds: float = AUDIO_SECONDS):
+    """bench.py's synthetic waveform as its 16-bit WAV holds it, read
+    back as float32 PCM (no noise)."""
+    return speech_wave(seconds, noise=0.0, pcm16=True)
+
+
+def audio_flash_checks(dev) -> list:
+    """Kernel 7 at AUDIO_FLASH_SHAPES against its plain forward (the
+    training check's limits: absolute, per (row, head) and lse), timed
+    beside the plain forward, SDPA and the bound (bytes of q, k, v, out
+    and lse; operations of the two products over every pair). Returns a
+    record per shape for the kernels line."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    out_rows = []
+    for b, s, h, d in AUDIO_FLASH_SHAPES:
+        q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(3))
+        out, lse = attention.flash_forward(q, k, v)
+        want, want_lse = attention.flash_forward_plain(q, k, v)
+        err = (out.float() - want.float()).abs()
+        fwd_err = err.max().item()
+        row = (err.amax(-1) / want.float().abs().amax(-1)).max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        note = (f"max|err| {fwd_err:.3e} (tol {TOL['flash_forward']}), "
+                f"(row, head) max|err|/max|ref| {row:.3e} (tol 2^-6), lse "
+                f"max|err| {lse_err:.3e} (tol {FLASH_LSE_TOL})")
+        if not (fwd_err <= TOL["flash_forward"] and row <= FLASH_ROW_TOL
+                and lse_err <= FLASH_LSE_TOL):
+            raise AssertionError(f"flash_forward audio {(b, s, h, d)}: "
+                                 f"{note}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = median_ms(lambda: attention.flash_forward(q, k, v))
+        plain_ms = median_ms(lambda: attention.flash_forward_plain(q, k, v))
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt,
+                                                                  vt))
+        ops = 4 * b * h * s * s * d
+        bound_ms, bound_by = bound(8 * q.numel() + 4 * lse.numel(), ops)
+        print(f"check flash_forward audio {(b, s, h, d)}: {note}; kernel "
+              f"{ms:.4f} ms ({ops / ms * 1e-9:.1f} TFLOP/s, "
+              f"{bound_ms / ms:.3f} of the bound), plain {plain_ms:.4f} ms, "
+              f"library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"{bound_by}", flush=True)
+        out_rows.append({"shape": [b, s, h, d], "max_abs_err": fwd_err,
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": lib_ms})
+        del q, k, v, out, lse, want, want_lse, err, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out_rows
+
+
+# Kernel 7's f32 body (csrc/flash_attention_f32.cu) at Whisper base's
+# encoder shape as the chat CLI's --use_asr transcriber gives it, one 30 s
+# chunk (the main path's shape, timed first) then two; then a ragged
+# causal GQA pair at d 128 and a ragged d 48. (b, sq, skv, h, h_kv, d,
+# causal)
+AUDIO_F32_SHAPES = ((1, 1500, 1500, 8, 8, 64, False),
+                    (2, 1500, 1500, 8, 8, 64, False),
+                    (2, 100, 130, 8, 2, 128, True),
+                    (3, 77, 77, 4, 4, 48, False))
+# f32 on both sides, every product and sum an f32 operation in another
+# order: outputs (magnitude < 4) and lse within a few f32 ulps of their
+# magnitude, 2e-5 absolute each. The plain version with the last key
+# tile dropped must fail it (the limit is fine enough to see a tile).
+F32_FLASH_TOL = 2e-5
+# The CLI transcriber's encoder on the card against the same f32 weights
+# on the CPU: 6 layers of width 512 in f32, cuBLAS against the CPU's sum
+# orders: max|err| / max|ref| <= 1e-4.
+BASE_ENCODER_TOL = 1e-4
+
+
+def audio_f32_checks(dev, results) -> None:
+    """Kernel 7's f32 body at AUDIO_F32_SHAPES against the plain forward
+    (out and lse within F32_FLASH_TOL; a dropped last key tile in the
+    plain version must fail the same check), timed beside the plain
+    forward, SDPA (non-causal shapes) and the bound (bytes of q, k, v,
+    out and lse; operations of the two products over the visible pairs
+    at the f32 rate). Kept in results["flash_forward_f32"]."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    for b, sq, skv, h, h_kv, d, causal in AUDIO_F32_SHAPES:
+        shape = (b, sq, skv, h, h_kv, d, causal)
+        q = torch.randn(b, sq, h, d, generator=g, device=dev)
+        k, v = (torch.randn(b, skv, h_kv, d, generator=g, device=dev)
+                for _ in range(2))
+        out, lse = attention.flash_forward(q, k, v, causal)
+        want, want_lse = attention.flash_forward_plain(q, k, v, causal)
+        mask = attention.flash_mask(sq, skv, causal, dev)
+        mask[:, (skv - 1) // 64 * 64:] = False
+        dropped, _ = attention.flash_forward_masked(q, k, v, mask, d ** -0.5)
+        torch.cuda.synchronize()
+        if out.dtype != torch.float32 or out.shape != want.shape:
+            raise AssertionError(f"flash_forward_f32 {shape}: {out.dtype} "
+                                 f"{tuple(out.shape)}")
+        fwd_err = (out - want).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        caught = (dropped - want).abs().max().item()
+        note = (f"max|err| {fwd_err:.3e}, lse max|err| {lse_err:.3e} (tol "
+                f"{F32_FLASH_TOL} each; the plain version without the last "
+                f"key tile is off by {caught:.3e})")
+        if not (fwd_err <= F32_FLASH_TOL and lse_err <= F32_FLASH_TOL
+                and caught > F32_FLASH_TOL):
+            raise AssertionError(f"flash_forward_f32 {shape}: {note}")
+        ms = median_ms(lambda: attention.flash_forward(q, k, v, causal))
+        plain_ms = median_ms(
+            lambda: attention.flash_forward_plain(q, k, v, causal))
+        lib_ms = None
+        if not causal and h == h_kv:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib_ms = median_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        ops = 4 * b * h * visible_pairs(sq, skv, causal) * d
+        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel() + lse.numel())
+        bound_ms, bound_by = record(results, "flash_forward_f32", fwd_err,
+                                    ms, plain_ms, lib_ms, nbytes, ops,
+                                    F32_PEAK)
+        lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+        print(f"check flash_forward_f32 {shape}: {note}; kernel {ms:.4f} ms "
+              f"({ops / ms * 1e-9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the "
+              f"bound), plain {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} "
+              f"ms by {bound_by}", flush=True)
+        del q, k, v, out, lse, want, want_lse, dropped, mask
+    torch.cuda.empty_cache()
+
+
+def base_transcriber_run(dev) -> int:
+    """The chat CLI's --use_asr transcriber, build_default_transcriber()
+    (Whisper base, f32), over 5 s: the launch counts set to 0 just before
+    and read just after (kernel 7's f32 body once an encoder layer, no
+    other kernel), and its encoder states held against the same weights
+    on the CPU (BASE_ENCODER_TOL). Returns the f32 body's launches."""
+    t = time.perf_counter()
+    base = build_default_transcriber(device=dev)
+    seen = {}
+
+    encode_fn = whisper_mod.encode
+
+    def encode(params, mel, cfg, *a, **kw):
+        seen["mel"] = mel
+        seen["out"] = encode_fn(params, mel, cfg, *a, **kw)
+        return seen["out"]
+
+    whisper_mod.encode = encode
+    try:
+        cuda_lib.reset_launch_counts()
+        segs = base.transcribe_audio(bench_wave(5))
+        torch.cuda.synchronize()
+        counts = dict(cuda_lib.LAUNCHES)
+    finally:
+        whisper_mod.encode = encode_fn
+    wall = time.perf_counter() - t
+    n = counts.get("flash_forward_f32", 0)
+    if counts != {"flash_forward_f32": base.cfg.encoder_layers} or len(
+            segs) != 1:
+        raise AssertionError(f"the f32 base transcriber: launches {counts}, "
+                             f"{len(segs)} segments")
+    with torch.inference_mode():
+        ref = whisper_mod.encode(tree_to(base.params, "cpu"),
+                                 seen["mel"].cpu(), base.cfg)
+    mx, mean = rel_errs(seen["out"], ref)
+    print(f"build_default_transcriber() (Whisper base, f32): 5 s "
+          f"transcribed in {wall:.2f} s (build included), {len(segs)} "
+          f"segment, launches {counts} (kernel 7's f32 body, one an encoder "
+          f"layer); encoder states {tuple(seen['out'].shape)} "
+          f"{seen['out'].dtype} vs the CPU: max|err|/max|ref| {mx:.3e} (tol "
+          f"{BASE_ENCODER_TOL}), mean|err|/mean|ref| {mean:.3e}", flush=True)
+    if not (bool(torch.isfinite(seen["out"]).all()) and mx
+            <= BASE_ENCODER_TOL):
+        raise AssertionError(f"the f32 base encoder: {mx}")
+    del base, seen
+    torch.cuda.empty_cache()
+    return n
+
+
+def rel_errs(got, want):
+    """(max|err| / max|ref|, mean|err| / mean|ref|) of got against the
+    f32 CPU reference."""
+    err = (got.float().cpu() - want).abs()
+    return ((err.max() / want.abs().max()).item(),
+            (err.mean() / want.abs().mean()).item())
+
+
+def small_audio_check(dev) -> None:
+    """The tiny Whisper (head dim 16), TL-TR head and wav2vec2 in bf16 on
+    the card against the same weights in f32 on the CPU: encoder states
+    (kernel 7 in every encoder layer), windowed TL-TR logits (kernel 7 in
+    both blocks), the greedy decode (see SMALL_AUDIO_MARGIN) and the
+    aligner's emissions (wav2vec2 computes in the audio's f32)."""
+    wcfg, atc = whisper_mod.WhisperConfig.tiny_test(), \
+        whisper_mod.WhisperATConfig.tiny_test()
+    w2cfg = w2v.Wav2Vec2Config.tiny_test()
+    init = TreeInit(3, "cpu", torch.bfloat16)
+    trees = {"whisper": {**whisper_mod.init_params(init, wcfg),
+                         "at_head": whisper_mod.init_at_head_tltr(init, atc)},
+             "w2v": w2v.init_params(init, w2cfg)}
+    cpu = {k: tree_to(v, torch.float32) for k, v in trees.items()}
+    card = {k: tree_to(v, dev) for k, v in trees.items()}
+    rng = np.random.default_rng(2)
+    mel = torch.from_numpy(rng.normal(size=(2, 80, 3000)).astype(np.float32))
+    wave = torch.from_numpy(bench_wave(3))
+    before = cuda_lib.LAUNCHES["flash_forward"]
+    with torch.inference_mode():
+        ref, ref_states = whisper_mod.encode(cpu["whisper"], mel, wcfg, True)
+        got, states = whisper_mod.encode(card["whisper"],
+                                         mel.to(dev, torch.bfloat16), wcfg,
+                                         True)
+        ref_tags = whisper_mod.audio_tag_logits_tltr(
+            cpu["whisper"]["at_head"], ref_states, atc, window_tokens=25)
+        tags = whisper_mod.audio_tag_logits_tltr(
+            card["whisper"]["at_head"], states, atc, window_tokens=25)
+        launched = cuda_lib.LAUNCHES["flash_forward"] - before
+        start = torch.tensor([[1, 3], [1, 4]], dtype=torch.int32)
+        toks, lens = whisper_mod.greedy_decode_cached(
+            card["whisper"], got, wcfg, start.to(dev), 12, eot_token=2)
+        seq = torch.cat([start, toks.cpu()], dim=1)[:, :-1].long()
+        ref_logits = whisper_mod.decoder_forward(cpu["whisper"], seq, ref,
+                                                 wcfg)[:, 1:]
+        ref_em = w2v.forward(cpu["w2v"], wave, w2cfg)
+        em = w2v.forward(card["w2v"], wave.to(dev), w2cfg)
+    if launched != wcfg.encoder_layers + atc.time_blocks + atc.layer_blocks:
+        raise AssertionError(f"small audio stack: kernel 7 launched "
+                             f"{launched} times")
+    chosen = ref_logits.gather(-1, toks.cpu().long()[..., None])[..., 0]
+    gap = (ref_logits.amax(-1) - chosen).max().item()
+    for label, a, b in (("encoder states", got, ref),
+                        ("layer states", states, ref_states),
+                        ("TL-TR window logits", tags, ref_tags),
+                        ("wav2vec2 emissions", em, ref_em)):
+        mx, mean = rel_errs(a, b)
+        print(f"small audio {label}: shape {tuple(a.shape)} {a.dtype}, "
+              f"max|err|/max|ref| {mx:.3e}, mean|err|/mean|ref| {mean:.3e} "
+              f"(bf16 CUDA vs f32 CPU, limits {SMALL_AUDIO_TOL})")
+        if not (bool(torch.isfinite(a).all()) and mx <= SMALL_AUDIO_TOL[0]
+                and mean <= SMALL_AUDIO_TOL[1]):
+            raise AssertionError(f"small audio {label}: {mx}, {mean}")
+    print(f"small audio greedy decode: {toks.tolist()}, lengths "
+          f"{lens.tolist()}; the CPU's f32 logit of each chosen token is "
+          f"within {gap:.3e} of its best (limit {SMALL_AUDIO_MARGIN})")
+    if gap > SMALL_AUDIO_MARGIN:
+        raise AssertionError(f"small audio decode: gap {gap}")
+
+
+def audio_stack(dev):
+    """bench.py's audio stack at full width on the card (its
+    _build_transcriber): Whisper large-v2 in bf16, the TL-TR head
+    WhisperATConfig() and the wav2vec2-base aligner, random weights from
+    seeds 11-13; ids decoded to letter words, every segment kept (random
+    tag logits would drop them), AUDIO_NEW_TOKENS new tokens a chunk."""
+    cfg, atc = whisper_mod.WhisperConfig.large_v2(), \
+        whisper_mod.WhisperATConfig()
+    params = whisper_mod.init_params(TreeInit(11, dev, torch.bfloat16), cfg)
+    params["at_head"] = whisper_mod.init_at_head_tltr(
+        TreeInit(12, dev, torch.bfloat16), atc)
+    w2cfg = w2v.Wav2Vec2Config.base()
+    n_letters = min(26, w2cfg.vocab_size - 5)
+    aligner = ForcedAligner(
+        w2v.init_params(TreeInit(13, dev, torch.bfloat16), w2cfg), w2cfg,
+        char_vocab(n_letters))
+    return Transcriber(params, cfg, letter_words(n_letters),
+                       start_tokens=(1,),
+                       eot_token=2, max_new_tokens=AUDIO_NEW_TOKENS,
+                       at_cfg=atc, music_tags=(), aligner=aligner)
+
+
+def audio_phase(engine, clips, dev, results) -> dict:
+    """--use_asr on the 7B int4 engine: kernel 7 at the audio shapes
+    (audio_flash_checks) and its f32 body at Whisper base's
+    (audio_f32_checks), the small stack against the CPU
+    (small_audio_check), the chat CLI's own transcriber (Whisper base in
+    f32, base_transcriber_run), then bench.py's stack at full width
+    (audio_stack): a warm-up transcribe of 10 s, then the counted run --
+    upload_frames(100-frame clip, audio=60 s waveform) (CLIP and pooling,
+    then the transcribe: mel, encode, decode, TL-TR), the aligner over
+    the kept segments, then add_text and answer (the transcript spliced
+    into the prompt) -- with stage times (host wall around synchronized
+    calls), every kernel's launches (counts set to 0 just before, kernel
+    7's read after the upload, the chat kernels' after the answer) and
+    peak memory; then one transcribe under torch.profiler. Returns
+    {"flash_forward": kernel 7's launches over the transcribe,
+    "flash_forward_f32": its f32 body's over the CLI transcriber's run,
+    "checks": the audio shapes' records}."""
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        checks = audio_flash_checks(dev)
+        audio_f32_checks(dev, results)
+    small_audio_check(dev)
+    print(f"audio checks: {time.perf_counter() - t0:.2f} s", flush=True)
+    f32_launches = base_transcriber_run(dev)
+
+    t = time.perf_counter()
+    tr = audio_stack(dev)
+    torch.cuda.synchronize()
+    print(f"bench audio stack (Whisper large-v2 bf16 + TL-TR + wav2vec2-"
+          f"base) on the card: {time.perf_counter() - t:.2f} s", flush=True)
+    wave = bench_wave()
+    tr.transcribe_audio(wave[:160000])  # warm-up: cuFFT, cuBLAS, caches
+    torch.cuda.synchronize()
+
+    stats: dict = {}
+    seen: dict = {}
+
+    def keep(key, fn):
+        def run(*a, **kw):
+            seen[key + " args"] = a
+            seen[key] = fn(*a, **kw)
+            return seen[key]
+        return run
+
+    patched = [(transcribe_mod, "log_mel_spectrogram", "mel"),
+               (whisper_mod, "encode", "encode"),
+               (whisper_mod, "greedy_decode_cached", "decode"),
+               (whisper_mod, "audio_tag_logits_tltr", "tltr"),
+               (tr, "transcribe_audio", "transcribe"),
+               (tr.aligner, "align_segments", "align"),
+               (chat_mod, "generate_with_keywords", "llm")]
+    saved = [(o, a, getattr(o, a)) for o, a, _ in patched]
+    for o, a, stage in patched:
+        setattr(o, a, keep(stage, timed(stats, stage, getattr(o, a))))
+    try:
+        chat = VideoChatGPTInterface(
+            engine, use_asr=True, transcriber=tr, temperature=0.0,
+            max_output_tokens=MAX_NEW_TOKENS,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        t = time.perf_counter()
+        chat.upload_frames(clips["long"], audio=wave)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t
+        launches = cuda_lib.LAUNCHES["flash_forward"]
+        segments = seen["transcribe"]
+        kept = [s for s in segments if s.keep and s.text]
+        words = tr.aligner.align_segments(wave, kept)
+        t = time.perf_counter()
+        chat.add_text(QUESTION, None)
+        text = chat.answer()
+        torch.cuda.synchronize()
+        splice_s = time.perf_counter() - t
+        chat_counts = {k: cuda_lib.LAUNCHES[k] for k in INT4_PATH}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        for o, a, fn in saved:
+            setattr(o, a, fn)
+    enc = seen["encode"][0]
+    tags = seen["tltr"]
+    toks, lens = seen["decode"]
+    want_launches = (tr.cfg.encoder_layers + tr.at_cfg.time_blocks
+                     + tr.at_cfg.layer_blocks)
+    n_words = len(chat.transcript_text.split())
+    bounds = [(s.start, s.end) for s in segments]
+    first = [(w.word, round(w.start, 2), round(w.end, 2)) for w in words[:3]]
+    print(f"audio: {len(segments)} segments {bounds}, decoded lengths "
+          f"{lens.tolist()}, transcript {n_words} words "
+          f"({len(chat.transcript_text)} chars), {len(words)} aligned words "
+          f"(first {first}), encoder states {tuple(enc.shape)} {enc.dtype}, "
+          f"TL-TR logits {tuple(tags.shape)}; answer {len(text)} chars")
+    print("audio stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                           stats.items())
+          + f"; upload_frames with audio {upload_s:.3f} (CLIP encode and "
+          f"pooling included), splice and answer {splice_s:.3f}")
+    print(f"audio launches: kernel 7 {launches} over the transcribe "
+          f"({want_launches}: a launch an encoder layer and a TL-TR block); "
+          f"over the upload and the answer {chat_counts}; peak device "
+          f"memory {peak:.2f} GiB", flush=True)
+    missing = [k for k in INT4_PATH if not chat_counts[k]]
+    if missing:
+        raise AssertionError(f"audio chat: kernels never launched on the "
+                             f"path: {missing}")
+    if not (bool(torch.isfinite(enc).all()) and bool(
+            torch.isfinite(tags).all())):
+        raise AssertionError("audio: non-finite encoder states or tags")
+    if (tuple(enc.shape) != (2, 1500, tr.cfg.d_model) or tuple(tags.shape)
+            != (2, 3, tr.at_cfg.n_class) or len(segments) != 2):
+        raise AssertionError(f"audio shapes: {enc.shape}, {tags.shape}, "
+                             f"{len(segments)} segments")
+    if launches != want_launches:
+        raise AssertionError(f"kernel 7 launched {launches} times over the "
+                             f"transcribe, not {want_launches}")
+    if not (n_words and words and all(
+            0 <= w.start <= w.end <= AUDIO_SECONDS for w in words)):
+        raise AssertionError("audio: no transcript or alignment")
+    _, _, ids, seq_lens = seen["llm args"][:4]
+    prompt = engine.tokenizer.decode(ids[0, :int(seq_lens[0])].tolist())
+    spliced = f'{DEFAULT_TRANSCRIPT_START}\n"{chat.transcript_text}"'
+    if spliced not in prompt or DEFAULT_AUDIO_TOKEN in prompt:
+        raise AssertionError("audio: the transcript was not spliced")
+    print(f"audio: the answer's prompt holds the {len(spliced)}-char "
+          f"transcript splice ({int(seq_lens[0])} tokens in all)")
+
+    wall = stats["transcribe"]  # the counted run's, unprofiled
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.transcribe_audio(wave)
+        torch.cuda.synchronize()
+    spans = [(e.name(), e.start_ns(), e.end_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    if not spans:
+        raise AssertionError("audio profile: no device activity")
+    busy_ms, by_name = busy_and_names(spans)
+    print(f"audio transcribe profile (60 s): device busy {busy_ms:.1f} ms "
+          f"over {len(spans)} device activities, wall {wall * 1e3:.1f} ms "
+          f"(the counted run's, unprofiled), idle share "
+          f"{1 - busy_ms / (wall * 1e3):.3f}")
+    for i, (name_, (total, calls)) in enumerate(sorted(
+            by_name.items(), key=lambda kv: -kv[1][0])):
+        if i < 10 or port_kernel(name_):
+            print(f"audio profile: {total / 1e3:9.2f} ms {calls:6d} calls  "
+                  f"{name_[:90]}")
+    del tr, chat, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"audio phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    return {"flash_forward": launches, "flash_forward_f32": f32_launches,
+            "checks": checks}
+
+
 def weight_bytes(module, leaves) -> int:
     return sum(p.numel() * p.element_size()
                for n, p in module.named_parameters()
@@ -2495,6 +2955,8 @@ def main() -> int:
                 engine, dev)["decode_attention_mxu"]
             launches["multi_scale_deformable_attention"] = grounding_phase(
                 engine, dev, results)
+            audio = audio_phase(engine, clips, dev, results)
+            launches["flash_forward_f32"] = audio["flash_forward_f32"]
         del engine, llm
         gc.collect()
         torch.cuda.empty_cache()
@@ -2503,6 +2965,10 @@ def main() -> int:
     trained = training_phase(dev, results)
     launches.update({k: trained[k] for k in TRAIN_PATH})
 
+    # kernel 7's entry also carries the audio path's launches (over the
+    # 60 s transcribe) and its checks at the audio shapes
+    results["flash_forward"].update(audio_launches=audio["flash_forward"],
+                                    audio=audio["checks"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], **results[name]}

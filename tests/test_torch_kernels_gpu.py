@@ -18,6 +18,8 @@ kernels form f32 group partials of exact products (integer nibbles times
 bf16 activations) as their plain versions do: the same limits as W4A8.
 Decode attention over a flat cache (kernels 9 and 11) as kernels 3 and
 10: 2e-2 absolute and, row by row, 2^-6 of each row's max |ref|.
+Kernel 7's f32 body: f32 on both sides, sums in another order, outputs
+of magnitude < 4 and lse: 2e-5 absolute.
 """
 
 import pytest
@@ -634,6 +636,78 @@ def test_flash_attention_autograd_on_the_card(dev):
     _assert_close(out, o, 2e-2)
 
 
+# b, s, h, d of the audio path (non-causal): the Whisper large-v2
+# encoder over two 30 s chunks, and the TL-TR head's time and layer
+# transformers over 60 s (32 layers x 2 chunks x 3 windows of 25 tokens;
+# 6 windows of 32 layer tokens)
+AUDIO_FLASH_SHAPES = [(2, 1500, 20, 64), (192, 25, 4, 128), (6, 32, 4, 128)]
+
+
+@pytest.mark.parametrize("b,s,h,d", AUDIO_FLASH_SHAPES)
+def test_flash_forward_at_audio_shapes(dev, b, s, h, d):
+    """Kernel 7 at the audio path's shapes, as multi_head_attention
+    reaches it (the TL-TR head's q, k, v are strided slices of one fused
+    product): absolute 2e-2 and 2^-6 of each (row, head)'s max |ref|
+    against the plain forward, one launch."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    qkv = _rand(gen, b, s, 3, h, d)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = cuda_lib.LAUNCHES.get("flash_forward", 0)
+    out = attention.multi_head_attention(q, k, v)
+    assert cuda_lib.LAUNCHES["flash_forward"] == before + 1
+    want, _ = attention.flash_forward_plain(q, k, v, False)
+    _assert_close(out, want, 2e-2)
+    err = (out.float() - want.float()).abs().amax(-1)
+    assert (err / want.float().abs().amax(-1)).max().item() <= 2 ** -6
+
+
+# Kernel 7's f32 body: Whisper base's encoder (one and two 30 s chunks),
+# a ragged causal GQA pair, and the other head dims.
+F32_FLASH_SHAPES = [(1, 1500, 1500, 8, 8, 64, False),
+                    (2, 1500, 1500, 8, 8, 64, False),
+                    (2, 100, 130, 8, 2, 128, True), (3, 77, 77, 4, 4, 48, False),
+                    (2, 64, 64, 2, 2, 16, True), (1, 200, 260, 6, 3, 32, True),
+                    (2, 65, 65, 3, 3, 80, False), (1, 130, 130, 2, 1, 96, True),
+                    (1, 33, 90, 2, 2, 112, False)]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,h_kv,d,causal", F32_FLASH_SHAPES)
+def test_flash_forward_f32_matches_plain(dev, b, sq, skv, h, h_kv, d,
+                                         causal):
+    """Kernel 7's f32 body against the plain forward: out and lse within
+    2e-5 absolute (f32 on both sides, sums in another order), one launch
+    counted as flash_forward_f32."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q = _rand(gen, b, sq, h, d, dtype=torch.float32)
+    k, v = (_rand(gen, b, skv, h_kv, d, dtype=torch.float32)
+            for _ in range(2))
+    before = cuda_lib.LAUNCHES["flash_forward_f32"]
+    out, lse = attention.flash_forward(q, k, v, causal)
+    assert cuda_lib.LAUNCHES["flash_forward_f32"] == before + 1
+    want, want_lse = attention.flash_forward_plain(q, k, v, causal)
+    assert out.dtype == torch.float32
+    _assert_close(out, want, 2e-5)
+    _assert_close(lse, want_lse, 2e-5)
+
+
+def test_f32_attention_takes_the_f32_body(dev):
+    """f32 CUDA operands (Whisper base as the chat CLI builds it) go from
+    multi_head_attention to kernel 7's f32 body, decided before any
+    launch; the TL-TR head's strided q, k, v slices are made contiguous
+    first. One launch, no other kernel."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    qkv = _rand(gen, 1, 100, 3, 8, 64, dtype=torch.float32)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = dict(cuda_lib.LAUNCHES)
+    out = attention.multi_head_attention(q, k, v)
+    after = dict(cuda_lib.LAUNCHES)
+    before["flash_forward_f32"] = before.get("flash_forward_f32", 0) + 1
+    assert after == before
+    want = attention.attention_reference(q, k, v)
+    assert out.dtype == torch.float32
+    _assert_close(out, want, 2e-5)
+
+
 def _int4_weight(g, d, f, group_size):
     w = torch.randn(d, f, generator=g, device=g.device) * d ** -0.5
     return quant4.quantize_tensor_int4(w, group_size)
@@ -859,8 +933,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):  # and write f32 or bf16
         quant4.w4a8_matvec(xb[:1], packed, scales, torch.float16)
     qf = _rand(g, 1, 8, 4, 64)
-    with pytest.raises(TypeError):  # the flash kernels read bf16
-        attention.flash_forward(qf.float(), qf.float(), qf.float())
+    with pytest.raises(TypeError):  # the flash kernels read bf16 or f32
+        attention.flash_forward(qf.half(), qf.half(), qf.half())
+    with pytest.raises(TypeError):  # one dtype for q, k and v
+        attention.flash_forward(qf.float(), qf, qf)
     with pytest.raises(ValueError):  # causal needs sq <= skv
         attention.flash_forward(qf, qf[:, :4], qf[:, :4], causal=True)
     with pytest.raises(ValueError):  # 4 query heads over 3 kv heads

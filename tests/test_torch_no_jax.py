@@ -26,8 +26,8 @@ def _run(code: str, *args: str) -> subprocess.CompletedProcess:
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imports with JAX
-    unimportable, and none pulls JAX in; the chat, serving and training
-    CLIs' --help run."""
+    unimportable, and none pulls JAX in; the chat (with --use_asr),
+    serving and training CLIs' --help run."""
     modules = [m.name for m in pkgutil.walk_packages(
         video_llava_tpu_torch.__path__, "video_llava_tpu_torch.")]
     assert "video_llava_tpu_torch.runtime.chat" in modules
@@ -45,6 +45,16 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert "--model_size" in proc.stdout
     assert "--with_grounding" in proc.stdout and "--sam_variant" in proc.stdout
+    assert "--use_asr" in proc.stdout
+    assert {"video_llava_tpu_torch.audio.builders",
+            "video_llava_tpu_torch.audio.transcribe",
+            "video_llava_tpu_torch.audio.align",
+            "video_llava_tpu_torch.audio.tokenizer",
+            "video_llava_tpu_torch.audio.synthetic",
+            "video_llava_tpu_torch.models.whisper",
+            "video_llava_tpu_torch.models.wav2vec2",
+            "video_llava_tpu_torch.ops.audio",
+            "video_llava_tpu_torch.media.audio"} <= set(modules)
     assert "video_llava_tpu_torch.grounding.builders" in modules
     assert "video_llava_tpu_torch.serving.server" in modules
     proc = _run(BLOCK_JAX + "import runpy; sys.argv = ['serve', '--help']; "

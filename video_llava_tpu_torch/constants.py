@@ -6,6 +6,7 @@ DEFAULT_VIDEO_TOKEN = "<video>"
 DEFAULT_VIDEO_PATCH_TOKEN = "<vid_patch>"
 DEFAULT_VID_START_TOKEN = "<vid_start>"
 DEFAULT_VID_END_TOKEN = "<vid_end>"
+DEFAULT_AUDIO_TOKEN = "<audio_transcript>"
 DEFAULT_TRANSCRIPT_START = "The noisy audio transcript of this video is:"
 
 # Label value the training loss ignores (the HF convention).

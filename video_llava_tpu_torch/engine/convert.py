@@ -15,7 +15,10 @@ scales} / {qvalues, scales} leaves keep their bytes and dtypes.
 
 The grounding models keep the JAX package's nested-dict trees as they
 are (tensors for arrays): tree_from_jax carries one across, checked
-against the port's own random tree of the same model.
+against the port's own random tree of the same model. The audio models
+(Whisper with its tag head, wav2vec2) keep them too, with their layers
+as lists and their conv kernels in torch's layout: whisper_from_jax and
+wav2vec2_from_jax make those two changes, then tree_from_jax.
 """
 
 from __future__ import annotations
@@ -142,3 +145,62 @@ def params_from_jax(tree_np, cfg: VideoLLaVAConfig, device=None,
     for p in model.parameters():
         p.requires_grad_(False)
     return model
+
+
+# -- audio models ---------------------------------------------------------
+
+
+def _unstack(stacked) -> list:
+    """A scan-stacked layer tree (every leaf (NL, ...)) -> a list of NL
+    per-layer trees."""
+    flat = flatten_tree(stacked)
+    n = len(np.asarray(next(iter(flat.values()))))
+    layers = [{} for _ in range(n)]
+    for path, leaf in flat.items():
+        for i, row in enumerate(np.asarray(leaf)):
+            node = layers[i]
+            *head, last = path.split(".")
+            for key in head:
+                node = node.setdefault(key, {})
+            node[last] = row
+    return layers
+
+
+def _conv_oiw(p) -> dict:
+    """The JAX package's conv {'kernel': (width, in, out), 'bias'} ->
+    {'weight': (out, in, width), 'bias'}."""
+    return {"weight": np.asarray(p["kernel"]).transpose(2, 1, 0),
+            "bias": p["bias"]}
+
+
+def whisper_from_jax(tree_np, like, device=None,
+                     dtype: Optional[torch.dtype] = None):
+    """The JAX package's Whisper tree (numpy leaves; its at_head the
+    linear probe or the TL-TR head) -> the port's tree (models/whisper.py
+    layout) on `device`: the scan-stacked encoder and decoder layers
+    split into lists, the conv stem's kernels transposed to (out, in,
+    width). `like` is the port's own tree of the same configuration."""
+    enc, dec = tree_np["encoder"], tree_np["decoder"]
+    tree = {
+        "encoder": {"conv1": _conv_oiw(enc["conv1"]),
+                    "conv2": _conv_oiw(enc["conv2"]),
+                    "layers": _unstack(enc["layers"]),
+                    "ln_post": enc["ln_post"]},
+        "decoder": {**dec, "layers": _unstack(dec["layers"])},
+    }
+    if "at_head" in tree_np:
+        tree["at_head"] = tree_np["at_head"]
+    return tree_from_jax(tree, like, device, dtype)
+
+
+def wav2vec2_from_jax(tree_np, like, device=None,
+                      dtype: Optional[torch.dtype] = None):
+    """The JAX package's wav2vec2 tree (numpy leaves) -> the port's
+    (models/wav2vec2.py layout) on `device`: the conv kernels (width,
+    in / groups, out) transposed to (out, in / groups, width); the layer
+    list stays a list."""
+    tree = dict(tree_np)
+    tree["convs"] = [{**c, "w": np.asarray(c["w"]).transpose(2, 1, 0)}
+                     for c in tree_np["convs"]]
+    tree["pos_conv_w"] = np.asarray(tree_np["pos_conv_w"]).transpose(2, 1, 0)
+    return tree_from_jax(tree, like, device, dtype)

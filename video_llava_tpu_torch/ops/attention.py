@@ -204,15 +204,15 @@ def flash_backward_plain(q, k, v, out, lse, g, causal: bool = False,
     return flash_backward_masked(q, k, v, out, lse, g, mask, scale)
 
 
-def _check_flash(q, k, v, causal: bool):
-    """Raise unless the kernels take these operands: bf16, contiguous
+def _check_flash(q, k, v, causal: bool, dtype=torch.bfloat16):
+    """Raise unless the kernels take these operands: `dtype`, contiguous
     BSHD, h a multiple of h_kv, d a multiple of 16 up to 128, and under
     the causal mask sq <= skv (every query row sees a key)."""
     b, sq, h, d = q.shape
     skv, h_kv = k.shape[1], k.shape[2]
-    cuda_lib.require(q, "q", torch.bfloat16, (b, sq, h, d))
-    cuda_lib.require(k, "k", torch.bfloat16, (b, skv, h_kv, d), q.device)
-    cuda_lib.require(v, "v", torch.bfloat16, (b, skv, h_kv, d), q.device)
+    cuda_lib.require(q, "q", dtype, (b, sq, h, d))
+    cuda_lib.require(k, "k", dtype, (b, skv, h_kv, d), q.device)
+    cuda_lib.require(v, "v", dtype, (b, skv, h_kv, d), q.device)
     if d % 16 or not 16 <= d <= 128:
         raise ValueError(f"head dim {d}: must be a multiple of 16 <= 128")
     if h % h_kv:
@@ -228,17 +228,21 @@ def _check_flash(q, k, v, causal: bool):
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = False, scale: Optional[float] = None):
     """Kernel 7. q (b, sq, h, d), k/v (b, skv, h_kv, d) -> (out (b, sq,
-    h, d) in q's dtype, lse (b, h, sq) f32). On CUDA: bf16, d a multiple
-    of 16 up to 128 (csrc/flash_attention.cu)."""
+    h, d) in q's dtype, lse (b, h, sq) f32). On CUDA, d a multiple of 16
+    up to 128: bf16 operands launch csrc/flash_attention.cu's forward,
+    f32 operands csrc/flash_attention_f32.cu's (counted as
+    "flash_forward_f32"); other dtypes raise."""
     b, sq, h, d = q.shape
     scale = _default_scale(d, scale)
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, causal, scale)
-    _check_flash(q, k, v, causal)
+    f32 = q.dtype == torch.float32
+    _check_flash(q, k, v, causal, torch.float32 if f32 else torch.bfloat16)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     cuda_lib.launch(
-        "flash_forward", "vlt_flash_fwd", q.device,
+        "flash_forward_f32" if f32 else "flash_forward",
+        "vlt_flash_fwd_f32" if f32 else "vlt_flash_fwd", q.device,
         cuda_lib.ptr(q), cuda_lib.ptr(k), cuda_lib.ptr(v), cuda_lib.ptr(out),
         cuda_lib.ptr(lse), b, sq, k.shape[1], h, k.shape[2], d, int(causal),
         scale,
@@ -280,7 +284,9 @@ def flash_backward_dkv(q, k, v, g, lse, delta, causal: bool, scale: float):
 def flash_backward(q, k, v, out, lse, g, causal: bool = False,
                    scale: Optional[float] = None):
     """Kernel 8 -> (dq, dk, dv) in the inputs' dtypes: D (flash_delta),
-    then the dq kernel and the dk/dv kernel (csrc/flash_attention.cu)."""
+    then the dq kernel and the dk/dv kernel (csrc/flash_attention.cu).
+    On CUDA the operands must be bf16: f32 ones raise (the f32 body of
+    kernel 7 is a forward only)."""
     b, sq, h, d = q.shape
     scale = _default_scale(d, scale)
     if q.device.type == "cpu":
@@ -338,12 +344,18 @@ def multi_head_attention(
     q_offset: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Dispatch (JAX ops/attention.py:736-778): the flash kernels for
-    CUDA tensors when no key mask or per-row offset is asked for and d %
-    8 == 0; the masked reference otherwise. The CPU takes the reference,
-    as the JAX package's CPU backend does."""
-    plain = kv_valid_len is None and q_offset is None and q.shape[-1] % 8 == 0
-    if plain and q.is_cuda:
+    """Dispatch (JAX ops/attention.py:736-778), decided from the operands
+    alone before anything launches: operands off the CPU with no key
+    mask, no per-row offset and d % 8 == 0, whatever their dtype, go to
+    kernel 7 through :func:`flash_attention` -- bf16 to its bf16 body
+    (kernel 8 its gradient), f32 (Whisper `base` as the chat CLI's
+    --use_asr builds it) to its f32 body -- as the JAX package sends them
+    to its Pallas forward on one TPU chip; operands that the kernels do
+    not take (d not a multiple of 16 up to 128, another dtype, mixed
+    dtypes) raise there. A mask, an offset, d % 8 != 0 and CPU tensors
+    take the masked reference, as the JAX package's CPU backend does."""
+    if (q.device.type != "cpu" and kv_valid_len is None
+            and q_offset is None and q.shape[-1] % 8 == 0):
         return flash_attention(q, k, v, causal, scale)
     return attention_reference(q, k, v, causal=causal,
                                kv_valid_len=kv_valid_len, q_offset=q_offset,

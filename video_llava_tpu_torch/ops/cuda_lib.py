@@ -80,6 +80,8 @@ _SIGNATURES = {
     # q, k, v, out, lse; b, sq, skv, h, h_kv, d, causal; scale
     "vlt_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                       _P),
+    "vlt_flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _F, _P),
     # q, k, v, dout, lse, delta, dq; the same shape arguments
     "vlt_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _F, _P),

@@ -1,16 +1,18 @@
 """Interactive video chat CLI and the grounded chat orchestrator.
 
-Counterpart of video_llava_tpu/runtime/chat.py without ASR:
+Counterpart of video_llava_tpu/runtime/chat.py:
   * VideoChatGPTInterface (reference video_chatgpt/chat.py:15-225):
-    upload_video, add_text (1536/1200-character cut-offs, <video>
-    injection on the first turn), answer (prompt replace, generate,
-    code-block post-processing) and the interact() REPL;
+    upload_video (with use_asr, the audio track's transcript),
+    add_text (1536/1200-character cut-offs, <video> and, with use_asr,
+    <audio_transcript> injection on the first turn), answer (prompt
+    replace, transcript splice, generate, code-block post-processing)
+    and the interact() REPL;
   * PGVideoLLaVA (reference chat.py:240-333): after the LLM answer, tag
     the frames -> top-10 unique tags -> entity matching -> class list ->
     scene split -> tracker per scene -> annotated output video.
 
 Run: python -m video_llava_tpu_torch.runtime.chat --model_size 7b
-[--quant int4] [--with_grounding [--sam_variant mobile]]
+[--quant int4] [--with_grounding [--sam_variant mobile]] [--use_asr]
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import numpy as np
 import torch
 
 from video_llava_tpu_torch.constants import (
+    DEFAULT_AUDIO_TOKEN,
+    DEFAULT_TRANSCRIPT_START,
     DEFAULT_VID_END_TOKEN,
     DEFAULT_VID_START_TOKEN,
     DEFAULT_VIDEO_PATCH_TOKEN,
@@ -45,13 +49,18 @@ from video_llava_tpu_torch.runtime.model_init import initialize_model
 
 class VideoChatGPTInterface:
     """Stateful multi-turn video chat. `generator` drives sampling at
-    temperature > 0; by default it is seeded at random."""
+    temperature > 0; by default it is seeded at random. With use_asr and
+    a transcriber (audio/transcribe.Transcriber), the video's speech
+    transcript joins the first prompt."""
 
-    def __init__(self, engine: InferenceEngine,
+    def __init__(self, engine: InferenceEngine, use_asr: bool = False,
                  conv_mode: str = "pg-video-llava",
                  temperature: float = 0.2, max_output_tokens: int = 1024,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 transcriber=None):
         self.engine = engine
+        self.use_asr = use_asr
+        self.transcriber = transcriber
         self.conv_mode = conv_mode
         self.temperature = temperature
         self.max_new_tokens = max_output_tokens
@@ -71,19 +80,32 @@ class VideoChatGPTInterface:
         self.video_features = None
         self.video_frames = None
         self.video_path: Optional[str] = None
+        self.transcript_text: Optional[str] = None
         self.first_run = True
+
+    def _asr(self) -> bool:
+        return self.use_asr and self.transcriber is not None
 
     def upload_video(self, video_path: str):
         size = self.engine.cfg.vision.image_size
         self.upload_frames(load_video(video_path, shape=(size, size)))
         self.video_path = video_path
+        if self._asr():
+            self.transcript_text, _ = self.transcriber.transcribe_video(
+                video_path)
 
-    def upload_frames(self, frames):
+    def upload_frames(self, frames, audio=None):
         """Encode already decoded (t, h, w, 3) uint8 frames as the
-        session's video."""
+        session's video; `audio`, the clip's 16 kHz float32 waveform, is
+        transcribed as upload_video transcribes the file's audio track
+        (with use_asr and a transcriber)."""
         self.video_frames = frames
         self.video_features = self.engine.encode_video_frames(
             frames, num_valid_frames=frames.shape[0])
+        self.transcript_text = None
+        if audio is not None and self._asr():
+            self.transcript_text, _ = self.transcriber.transcribe_waveform(
+                np.asarray(audio, np.float32))
 
     def add_text(self, text: str, video_path: Optional[str]):
         if len(text) <= 0 and video_path is None:
@@ -94,6 +116,8 @@ class VideoChatGPTInterface:
             text = text[:1200]  # hard cut-off for videos (chat.py:95)
             if DEFAULT_VIDEO_TOKEN not in text:
                 text = text + "\n" + DEFAULT_VIDEO_TOKEN
+            if self.use_asr:
+                text = text + "\n" + DEFAULT_AUDIO_TOKEN
             self.state = default_conversation.copy()
         self.state.append_message(self.state.roles[0], text)
         self.state.append_message(self.state.roles[1], None)
@@ -112,7 +136,9 @@ class VideoChatGPTInterface:
             self.first_run = False
 
         prompt = self.state.get_prompt().replace(
-            DEFAULT_VIDEO_TOKEN, self.replace_token, 1)
+            DEFAULT_VIDEO_TOKEN, self.replace_token, 1).replace(
+            DEFAULT_AUDIO_TOKEN,
+            f'{DEFAULT_TRANSCRIPT_START}\n"{self.transcript_text}"', 1)
         stop_str = self.state.stop_string()
         engine, tok = self.engine, self.engine.tokenizer
         input_ids, seq_lens, _ = engine.padded_prompt(prompt)
@@ -264,6 +290,9 @@ def main(argv=None):
                    help="CLIP checkpoint directory (not supported yet)")
     p.add_argument("--model_size", default="7b",
                    choices=("tiny", "7b", "13b"))
+    p.add_argument("--use_asr", action="store_true",
+                   help="transcribe the video's audio track (Whisper base, "
+                   "random weights) into the first prompt")
     p.add_argument("--with_grounding", action="store_true",
                    help="ground the answer's entities in the video "
                    "(GroundingDINO, MobileSAM, STM tracking, tagging; "
@@ -286,8 +315,17 @@ def main(argv=None):
     engine = initialize_model(args.model_name, model_size=args.model_size,
                               device="cuda", llm_quant=quant,
                               llm_fuse=bool(quant))
-    kw = dict(conv_mode=args.conv_mode, temperature=args.temperature,
-              max_output_tokens=args.max_output_tokens)
+    transcriber = None
+    if args.use_asr:
+        from video_llava_tpu_torch.audio.builders import (
+            build_default_transcriber,
+        )
+
+        transcriber = build_default_transcriber(device="cuda")
+    kw = dict(use_asr=args.use_asr, conv_mode=args.conv_mode,
+              temperature=args.temperature,
+              max_output_tokens=args.max_output_tokens,
+              transcriber=transcriber)
     if args.with_grounding:
         from video_llava_tpu_torch.grounding.builders import (
             build_grounding_stack,
