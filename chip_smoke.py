@@ -72,7 +72,9 @@ Phases, each of which raises on failure (exit code != 0):
      the engine, build Vicuna-7B with 8 KV heads (int4) and answer the
      100-frame request (gqa_chat_phase: kernel 11), profiled, and free it;
   10. train (training_phase): kernels 7 and 8 against their
-     plain versions at the training layer's shape and three others, a
+     plain versions at the training layer's shape and four others, then
+     (flash_limit_checks) at b*h = 65,600 through each body of kernel 7
+     (bf16 Hopper and WMMA, f32) and at head dim 24 (padded to 32), a
      small model's train steps on the card against the CPU (bf16 and an
      int8 LLM), then `python -m video_llava_tpu_torch.train.train
      --model_size 7b` for 4 optimizer steps on seeded features, with its
@@ -265,6 +267,7 @@ REL_TOL = {"w4a8_matvec": {torch.float32: 1e-4, torch.bfloat16: 2 ** -7},
 HBM_RATE = 3.35e12  # bytes/s
 BF16_PEAK = 989e12  # FLOP/s
 F32_PEAK = 67e12  # FLOP/s, outside the tensor cores
+TF32_PEAK = 495e12  # FLOP/s, the tensor cores
 INT8_PEAK = 1979e12  # OP/s
 
 
@@ -1752,6 +1755,68 @@ def flash_checks(dev, results) -> None:
         torch.cuda.empty_cache()
 
 
+# (d, dtype) of each body of kernel 7 at b*h = 65,600 (b 16,400, h 4,
+# s 16, causal): the Hopper body (bf16, d 64), the WMMA body (bf16, d
+# 32), the f32 body; then head dim 24 (zero-padded to 32) at (b, sq, skv,
+# h, h_kv) = FLASH_PAD_SHAPE, causal.
+FLASH_WIDE_BODIES = ((64, torch.bfloat16), (32, torch.bfloat16),
+                     (64, torch.float32))
+FLASH_PAD_SHAPE = (2, 300, 340, 8, 4)
+
+
+def flash_limit_checks(dev) -> None:
+    """The two raises kernel 7's wrapper lifted, on the card: b*h past
+    the grid's y limit (now along x) through each body, forward against
+    the plain forward and, in bf16, kernel 8 against the plain backward;
+    head dim 24 (d % 16 == 8, zero-padded with the unpadded d's scale)
+    through the bf16 forward and backward and the f32 forward. Limits:
+    flash_checks' in bf16 (absolute and lse; gradients of max |ref|),
+    F32_FLASH_TOL in f32. Not timed: no path runs these shapes."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = [((16400, 16, 16, 4, 4, d), dtype)
+             for d, dtype in FLASH_WIDE_BODIES]
+    cases += [(FLASH_PAD_SHAPE + (24,), dtype)
+              for dtype in (torch.bfloat16, torch.float32)]
+    for (b, sq, skv, h, h_kv, d), dtype in cases:
+        shape = (b, sq, skv, h, h_kv, d, True)
+        q, do = (torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(b, skv, h_kv, d, generator=g, device=dev).to(
+            dtype) for _ in range(2))
+        before = dict(cuda_lib.LAUNCHES)
+        out, lse = attention.flash_forward(q, k, v, True)
+        want, want_lse = attention.flash_forward_plain(q, k, v, True)
+        fwd_err = (out.float() - want.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        f32 = dtype == torch.float32
+        tol, lse_tol = ((F32_FLASH_TOL, F32_FLASH_TOL) if f32 else
+                        (TOL["flash_forward"], FLASH_LSE_TOL))
+        note = (f"max|err| {fwd_err:.3e} (tol {tol}), lse max|err| "
+                f"{lse_err:.3e} (tol {lse_tol})")
+        ok = (out.shape == want.shape and fwd_err <= tol
+              and lse_err <= lse_tol)
+        if not f32:
+            got = attention.flash_backward(q, k, v, out, lse, do, True)
+            ref = attention.flash_backward_plain(q, k, v, out, lse, do, True)
+            rels = grad_rel_errs(got, ref)
+            note += "; backward max|err|/max|ref| " + ", ".join(
+                f"{n} {e:.3e}" for n, e in zip(("dq", "dk", "dv"), rels))
+            note += f" (tol {FLASH_GRAD_TOL})"
+            ok = ok and all(np.isfinite(e) and e <= FLASH_GRAD_TOL
+                            for e in rels)
+            del got, ref
+        torch.cuda.synchronize()
+        ran = {n: cuda_lib.LAUNCHES[n] - before.get(n, 0)
+               for n in cuda_lib.LAUNCHES if cuda_lib.LAUNCHES[n] !=
+               before.get(n, 0)}
+        print(f"check flash limits {shape} {dtype}: {note}; launches {ran}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"flash limits {shape} {dtype}: {note}")
+        del q, k, v, do, out, lse, want, want_lse
+    torch.cuda.empty_cache()
+
+
 def small_train_check(dev, llm_weights: str = "bf16") -> None:
     """Two optimizer steps of a small VideoLLaVA (2 layers, GQA 4/2,
     head dim 64) tuning projector+embed, grad_accum 2, AdamW at lr 1e-3
@@ -2060,11 +2125,13 @@ def train_7b(dev) -> dict:
 
 
 def training_phase(dev, results) -> dict:
-    """Kernels 7 and 8 (flash_checks), the small train steps in bf16 and
-    with an int8 LLM (small_train_check), then 7B through the entry
-    point (train_7b). Returns the 7B run's launch counts."""
+    """Kernels 7 and 8 (flash_checks, then flash_limit_checks), the small
+    train steps in bf16 and with an int8 LLM (small_train_check), then 7B
+    through the entry point (train_7b). Returns the 7B run's launch
+    counts."""
     t0 = time.perf_counter()
     flash_checks(dev, results)
+    flash_limit_checks(dev)
     torch.cuda.empty_cache()
     small_train_check(dev)
     small_train_check(dev, "int8")
@@ -2518,9 +2585,12 @@ def audio_f32_checks(dev, results) -> None:
     """Kernel 7's f32 body at AUDIO_F32_SHAPES against the plain forward
     (out and lse within F32_FLASH_TOL; a dropped last key tile in the
     plain version must fail the same check), timed beside the plain
-    forward, SDPA (non-causal shapes) and the bound (bytes of q, k, v,
-    out and lse; operations of the two products over the visible pairs
-    at the f32 rate). Kept in results["flash_forward_f32"]."""
+    forward, SDPA (the causal shape through the right-aligned bool mask,
+    enable_gqa where h_kv < h) and the bound: bytes of q, k, v, out and
+    lse, or the body's operations, the two products over the visible
+    pairs three times over (3xTF32) at the TF32 rate; the same products
+    as f32 FMAs at the f32 rate printed beside it. Kept in
+    results["flash_forward_f32"]."""
     g = torch.Generator(device=dev).manual_seed(6)
     for b, sq, skv, h, h_kv, d, causal in AUDIO_F32_SHAPES:
         shape = (b, sq, skv, h, h_kv, d, causal)
@@ -2548,22 +2618,25 @@ def audio_f32_checks(dev, results) -> None:
         ms = median_ms(lambda: attention.flash_forward(q, k, v, causal))
         plain_ms = median_ms(
             lambda: attention.flash_forward_plain(q, k, v, causal))
-        lib_ms = None
-        if not causal and h == h_kv:
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            lib_ms = median_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask_kw = ({"attn_mask": attention.flash_mask(sq, skv, True, dev)}
+                   if causal else {})
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=h_kv < h, **mask_kw))
         ops = 4 * b * h * visible_pairs(sq, skv, causal) * d
         nbytes = 4 * (2 * q.numel() + k.numel() + v.numel() + lse.numel())
         bound_ms, bound_by = record(results, "flash_forward_f32", fwd_err,
-                                    ms, plain_ms, lib_ms, nbytes, ops,
-                                    F32_PEAK)
-        lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+                                    ms, plain_ms, lib_ms, nbytes, 3 * ops,
+                                    TF32_PEAK)
+        fma_ms, _ = bound(nbytes, ops, F32_PEAK)
         print(f"check flash_forward_f32 {shape}: {note}; kernel {ms:.4f} ms "
-              f"({ops / ms * 1e-9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the "
-              f"bound), plain {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} "
-              f"ms by {bound_by}", flush=True)
-        del q, k, v, out, lse, want, want_lse, dropped, mask
+              f"({ops / ms * 1e-9:.1f} TFLOP/s of the products, "
+              f"{bound_ms / ms:.3f} of the bound), plain {plain_ms:.4f} ms, "
+              f"library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"{bound_by} (3xTF32 at {TF32_PEAK * 1e-12:.0f} TFLOP/s; as "
+              f"f32 FMAs at {F32_PEAK * 1e-12:.0f} TFLOP/s {fma_ms:.4f} ms)",
+              flush=True)
+        del q, k, v, out, lse, want, want_lse, dropped, mask, qt, kt, vt
     torch.cuda.empty_cache()
 
 

@@ -708,6 +708,63 @@ def test_f32_attention_takes_the_f32_body(dev):
     _assert_close(out, want, 2e-5)
 
 
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16),
+                                     (32, torch.bfloat16),
+                                     (64, torch.float32)])
+def test_flash_kernels_past_65535_heads(dev, d, dtype):
+    """b*h = 65,600 (b*h runs along the grid's x): kernel 7's Hopper body
+    (d 64), its WMMA body (d 32) and its f32 body against the plain
+    forward, and kernel 8 (bf16) against the plain backward, with the
+    limits of test_flash_kernels_match_plain and
+    test_flash_forward_f32_matches_plain."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    q, k, v, do = (_rand(gen, 16400, 16, 4, d, dtype=dtype)
+                   for _ in range(4))
+    out, lse = attention.flash_forward(q, k, v, True)
+    want, want_lse = attention.flash_forward_plain(q, k, v, True)
+    if dtype == torch.float32:
+        _assert_close(out, want, 2e-5)
+        _assert_close(lse, want_lse, 2e-5)
+        return
+    _assert_close(out, want, 2e-2)
+    _assert_close(lse, want_lse, 1e-3)
+    got = attention.flash_backward(q, k, v, out, lse, do, True)
+    ref = attention.flash_backward_plain(q, k, v, out, lse, do, True)
+    for a, r in zip(got, ref):
+        _assert_rel(a, r, 2e-2)
+
+
+@pytest.mark.parametrize("d", [24, 40])
+def test_flash_kernels_at_head_dims_8_mod_16(dev, d):
+    """d % 16 == 8, zero-padded to the next multiple of 16 with the
+    unpadded d's scale: multi_head_attention's forward and gradient
+    (kernels 7 and 8, bf16) against the plain versions at the limits of
+    test_flash_kernels_match_plain, and the f32 body's forward at 2e-5;
+    out and the gradients keep d columns."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k, v, do = _flash_inputs(gen, 2, 70, 90, 4, 2, d)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(cuda_lib.LAUNCHES)
+    out = attention.multi_head_attention(*leaves, causal=True)
+    out.backward(do)
+    for name in ("flash_forward", "flash_backward_dq", "flash_backward_dkv"):
+        assert cuda_lib.LAUNCHES[name] == before.get(name, 0) + 1, name
+    want, lse = attention.flash_forward_plain(q, k, v, True)
+    assert out.shape == want.shape
+    _assert_close(out, want, 2e-2)
+    ref = attention.flash_backward_plain(q, k, v, out.detach(), lse, do,
+                                         True)
+    for leaf, r in zip(leaves, ref):
+        assert leaf.grad.shape == r.shape
+        _assert_rel(leaf.grad, r, 2e-2)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    got, got_lse = attention.flash_forward(qf, kf, vf, True)
+    want, want_lse = attention.flash_forward_plain(qf, kf, vf, True)
+    assert got.shape == want.shape
+    _assert_close(got, want, 2e-5)
+    _assert_close(got_lse, want_lse, 2e-5)
+
+
 def _int4_weight(g, d, f, group_size):
     w = torch.randn(d, f, generator=g, device=g.device) * d ** -0.5
     return quant4.quantize_tensor_int4(w, group_size)
@@ -942,9 +999,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # 4 query heads over 3 kv heads
         kv3 = qf[:, :, :3].contiguous()
         attention.flash_forward(qf, kv3, kv3)
-    q72 = _rand(g, 1, 8, 2, 72)
-    with pytest.raises(ValueError):  # d % 8 == 0 dispatches, 72 raises
-        attention.multi_head_attention(q72, q72, q72, causal=True)
+    q136 = _rand(g, 1, 8, 2, 136)
+    with pytest.raises(ValueError):  # d % 8 == 0 dispatches, 136 raises
+        attention.multi_head_attention(q136, q136, q136, causal=True)
 
 
 @pytest.mark.parametrize("shapes,q,b,nh,hd,p,dtype", [

@@ -10,37 +10,67 @@
 //   lse = m + log(l)                (f32, (b, h, sq); 1e30 where not finite)
 // with keys at or past skv masked and, with `causal`, key j seen by query
 // i iff j <= i + skv - sq. As in the Pallas body, q is scaled before the
-// first product and P stays f32 for the second: every product and sum is
-// an f32 FMA, so the result differs from the plain f32 version only by
-// the order of the sums.
+// first product and P stays f32 for the second.
 //
-// What bounds it: the f32 operands rule out the bf16 tensor cores, so the
-// products run on the FP32 pipes (67 TFLOP/s on H100 SXM). At Whisper
-// base's encoder shape (1, 1500, 8, 64) that is 4.6e9 operations, 0.069
-// ms, over 12.3 MB of q/k/v/o (0.004 ms): operations.
+// Every product runs on the tensor cores as 3xTF32: each operand x is
+// split into hi = x rounded to TF32 (as cvt.rna: 10 mantissa bits) and
+// lo = x - hi, and x y is taken as lo_x hi_y + hi_x lo_y + hi_x hi_y
+// (small terms first; lo lo dropped), each an m16n8k8 TF32 mma.sync
+// accumulating in f32. A product keeps about 21 bits, near f32: the
+// result differs from the plain f32 version by a few f32 ulps (2.5e-6 at
+// two 30 s chunks), where one TF32 pass would keep about 10 bits
+// (2.4e-4 to 2.8e-4 measured).
 //
-// The design, kept simple: a block of 256 threads owns 64 query rows of
-// one head and walks the key tiles (64 keys) that those rows see. The
-// threads form a 16 x 16 grid: thread (ty, tx) owns rows ty + 16 i and,
-// of each 64-key tile, columns tx + 16 j (i, j < 4), so the 16 lanes
-// that share a row sit in one half-warp and reduce the row's max and sum
-// with four shuffles. Q (scaled), K and V tiles sit in shared memory,
-// Q and K with an odd pitch so that the 16 lanes reading 16 rows at one
-// column hit 16 banks. P goes to shared memory (each half-warp writes and
-// reads only its own rows: a warp barrier suffices) and the output
-// accumulates in registers, columns tx + 16 n of the owned rows.
-// Head dims: multiples of 16 up to 128.
+// What bounds it: at Whisper base's encoder shape (1, 1500, 8, 64) the two
+// products are 4.6e9 operations, three times over as 3xTF32: 1.38e10 at
+// 495 TFLOP/s (TF32, dense) is 0.028 ms; the same work as f32 FMAs would
+// be 0.069 ms at 67 TFLOP/s; the 12.3 MB of q/k/v/o move in 0.004 ms at
+// 3.35 TB/s. Operations bound it, and mma.sync reaches about half of
+// the TF32 rate (wgmma's): the two extra products of 3xTF32 took 0.059
+// of 0.123 ms (against a one-pass variant), 8-9 cycles an m16n8k8 on
+// each quarter of an SM that runs two blocks.
+//
+// The design (FA2 on mma.sync): a block of 4 warps owns 64 query rows of
+// one (b, head), 16 rows a warp; b*h runs along grid x, the query tiles
+// along y (longest first under the causal mask). A warp's Q rows are
+// loaded once from global memory, scaled, and held as A fragments in
+// registers (split into hi and lo once at d <= 64; at larger d, where
+// that would take 2d registers, split at each use). K and V tiles of 64
+// keys stream through a ring of 3 stages (2 at d > 64) filled by 16-byte
+// cp.async copies, rows past skv zeroed; the pitch d + 4 floats (a pitch
+// of 4 mod 8 words) makes every fragment load below conflict-free. K's
+// fragments come four at a time by ldmatrix (a row of 4 f32 is a row of
+// 8 b16). Each warp splits the K and V elements as it loads its
+// fragments (splitting each tile once into hi and lo halves in shared
+// memory measured 0-4% slower). S = Q K^T lands in the m16n8
+// accumulator, where a row lives in the 4 lanes of a quad: the online
+// softmax takes two shuffles a row for the max, and the row sums stay
+// per lane until the end. P is then the A operand of P V
+// with no trip through shared memory: the accumulator holds keys
+// {2t, 2t+1} of each 8 where the TF32 A fragment wants {t, t+4}, and a sum
+// over keys does not depend on their order, so P stays where it is and
+// V's B fragment is read from key rows 2t and 2t + 1. The causal mask
+// skips the tiles past the diagonal and is applied only on the diagonal
+// and ragged tiles. At d 64 a block takes 102 KB of shared memory: two
+// blocks an SM. Head dims: multiples of 16 up to 128 (the wrapper pads
+// d % 16 == 8).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "async_ring.cuh"
+#include "hopper.cuh"  // ex2, quad_max, quad_sum, smem_addr
+
 namespace flash_f32 {
 
-constexpr int kRows = 64;     // query rows a block owns
-constexpr int kKeys = 64;     // keys a tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kPitchP = kKeys + 1;
+using flash::hopper::ex2;
+using flash::hopper::quad_max;
+using flash::hopper::quad_sum;
+
+constexpr int kRows = 64;      // query rows a block owns, 16 a warp
+constexpr int kKeys = 64;      // keys a tile
+constexpr int kThreads = 128;  // 4 warps
 constexpr float kSentinel = 1e30f;
 
 struct Shape {
@@ -49,63 +79,102 @@ struct Shape {
 };
 
 template <int D>
-struct Smem {
-  static constexpr int pq = D + 1;  // Q and K pitch (floats)
-  static constexpr int pv = D;      // V pitch
-  static constexpr size_t q = 0, k = q + (size_t)kRows * pq,
-                          v = k + (size_t)kKeys * pq,
-                          p = v + (size_t)kKeys * pv,
-                          floats = p + (size_t)kRows * kPitchP,
-                          bytes = floats * 4;
+struct Layout {
+  static constexpr int pitch = D + 4;  // floats; pitch / 4 is odd
+  static constexpr int stages = D <= 64 ? 3 : 2;
+  static constexpr size_t tile = (size_t)kKeys * pitch;  // floats
+  static constexpr size_t bytes = (size_t)stages * 2 * tile * 4;
 };
 
-// Rows [row0, row0 + 64) of one head (rows `stride` floats apart) into a
-// tile of pitch `pitch`, times `mul`; rows at or past `valid` are zero.
-// 16-byte loads: D / 4 of them a row.
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x: to nearest,
+// ties away from zero, the 13 low mantissa bits cleared.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo: hi TF32, lo = x - hi (exact in f32) as it is; the tensor
+// core reads a TF32 operand's top 19 bits, so lo is truncated there
+// (rounding it first measured the same error, 7-11% slower).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32: a = ah + al, b = (bh0, bh1) + (bl0, bl1).
+__device__ __forceinline__ void mma_3x(float (&d)[4], const uint32_t (&ah)[4],
+                                       const uint32_t (&al)[4], uint32_t bh0,
+                                       uint32_t bh1, uint32_t bl0,
+                                       uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// Four blocks of 8 rows x 4 f32 of shared memory (each an 8 x 8 b16
+// matrix to ldmatrix), lane l giving the address of row l % 8 of block
+// l / 8: r[i] is block i's element (row lane / 4, column lane % 4), a
+// tf32 B fragment's b0 or b1.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  const uint32_t a = flash::hopper::smem_addr(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// Key tile `kb` (rows `stride` floats apart) into ring slot `slot`: K then
+// V, 16-byte copies; rows at or past skv are zeroed (a zero V row times
+// p = 0 adds nothing, where stale shared memory could hold a NaN).
 template <int D>
-__device__ inline void load_tile(float* dst, int pitch, const float* src,
-                                 size_t stride, int row0, int valid,
-                                 float mul) {
+__device__ __forceinline__ void load_tile(float* smem, int slot,
+                                          const float* kh, const float* vh,
+                                          size_t stride, int kb, int skv) {
+  using L = Layout<D>;
   constexpr int kVec = D / 4;
-  for (int i = threadIdx.x; i < kRows * kVec; i += kThreads) {
+  float* ks = smem + (size_t)slot * 2 * L::tile;
+  float* vs = ks + L::tile;
+  const int k0 = kb * kKeys;
+  for (int i = threadIdx.x; i < kKeys * kVec; i += kThreads) {
     const int r = i / kVec, c = (i % kVec) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < valid)
-      x = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * stride
-                                           + c);
-    float* d = dst + r * pitch + c;
-    d[0] = x.x * mul;
-    d[1] = x.y * mul;
-    d[2] = x.z * mul;
-    d[3] = x.w * mul;
+    float* dk = ks + r * L::pitch + c;
+    float* dv = vs + r * L::pitch + c;
+    if (k0 + r < skv) {
+      const size_t at = (size_t)(k0 + r) * stride + c;
+      ring::cp_async16(dk, kh + at);
+      ring::cp_async16(dv, vh + at);
+    } else {
+      *reinterpret_cast<float4*>(dk) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(dv) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
 }
 
-__device__ inline float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ inline float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ o,
            float* __restrict__ lse, Shape sh) {
-  using L = Smem<D>;
-  constexpr int kCols = D / 16;  // output columns a thread owns, per row
+  using L = Layout<D>;
+  constexpr int P = L::pitch, S = L::stages;
+  constexpr int KS = D / 8;  // k-steps of Q K^T; n-tiles of the output
+  // At d <= 64 Q's fragments are held split, and each tile's P V is
+  // summed apart and then folded into O by an IEEE f32 FMA: the tensor
+  // core's sums do not round to nearest, and 24 tiles of 24 sums each
+  // into one accumulator drifted 5x further from the plain version
+  // (1.2e-5 against 2.5e-6 at two 30 s chunks, for 1.6% more time).
+  // Wider d has no registers for either.
+  constexpr bool kNarrow = D <= 64;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem + L::q;
-  float* ks = smem + L::k;
-  float* vs = smem + L::v;
-  float* ps = smem + L::p;
 
   const int bh = blockIdx.x;
   const int bi = bh / sh.h, hi = bh % sh.h;
@@ -113,107 +182,197 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t qstride = (size_t)sh.h * D, kstride = (size_t)sh.hkv * D;
   const size_t qhead = (size_t)bi * sh.sq * qstride + (size_t)hi * D;
   const size_t khead = (size_t)bi * sh.skv * kstride + (size_t)kvh * D;
-  const int q0 = blockIdx.y * kRows;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  load_tile<D>(qs, L::pq, q + qhead, qstride, q0, sh.sq, sh.scale);
-
-  float m[4], l[4], acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int n = 0; n < kCols; ++n) acc[i][n] = 0.f;
-  }
+  const float* kh = k + khead;
+  const float* vh = v + khead;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // quad, lane in the quad
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's rows
+  const int off = sh.skv - sh.sq;
+  // This lane's row address for ldsm_x4 over K: the blocks are keys
+  // 8j + (0-7) at dims 8kk + (0-3), 8kk + (4-7), then keys 8(j + 1) + ..
+  const int ldsm_at =
+      ((lane >> 4) * 8 + (lane & 7)) * P + ((lane >> 3) & 1) * 4;
 
   // Key tiles these rows see: all, or (causal) up to the key the last
   // real row sees. Key 0 is seen by every row (sq <= skv under the causal
   // mask), so m is finite after the first tile.
   int num_kb = (sh.skv + kKeys - 1) / kKeys;
-  if (sh.causal) {
-    const int last = min(q0 + kRows, sh.sq) - 1 + sh.skv - sh.sq;
-    num_kb = min(num_kb, last / kKeys + 1);
-  }
-  for (int kb = 0; kb < num_kb; ++kb) {
-    const int k0 = kb * kKeys;
-    __syncthreads();  // the previous tile's K and V consumed
-    load_tile<D>(ks, L::pq, k + khead, kstride, k0, sh.skv, 1.f);
-    load_tile<D>(vs, L::pv, v + khead, kstride, k0, sh.skv, 1.f);
-    __syncthreads();
+  if (sh.causal)
+    num_kb = min(num_kb, (min(q0 + kRows, sh.sq) - 1 + off) / kKeys + 1);
 
-    float s[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < num_kb) load_tile<D>(smem, s, kh, vh, kstride, s, sh.skv);
+    ring::commit();
+  }
+
+  // Q's A fragments, scaled: a0 (r0, 8kk + t), a1 (r1, 8kk + t),
+  // a2 (r0, 8kk + t + 4), a3 (r1, 8kk + t + 4); rows past sq are zero.
+  float qf[KS][4];
+  {
+    const float* q_r0 = q + qhead + (size_t)r0 * qstride;
+    const float* q_r1 = q + qhead + (size_t)r1 * qstride;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float a[4], b[4];
+    for (int kk = 0; kk < KS; ++kk) {
+      const int c = 8 * kk + t;
+      qf[kk][0] = r0 < sh.sq ? __ldg(q_r0 + c) * sh.scale : 0.f;
+      qf[kk][1] = r1 < sh.sq ? __ldg(q_r1 + c) * sh.scale : 0.f;
+      qf[kk][2] = r0 < sh.sq ? __ldg(q_r0 + c + 4) * sh.scale : 0.f;
+      qf[kk][3] = r1 < sh.sq ? __ldg(q_r1 + c + 4) * sh.scale : 0.f;
+    }
+  }
+  uint32_t qs[kNarrow ? KS : 1][2][4];
+  if constexpr (kNarrow) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * L::pq + c];
+    for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * L::pq + c];
+      for (int i = 0; i < 4; ++i) split(qf[kk][i], qs[kk][0][i], qs[kk][1][i]);
+  }
+
+  float acc[KS][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < KS; ++n)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int kb = 0; kb < num_kb; ++kb) {
+    ring::wait<S - 2>();  // this thread's copies of tile kb have landed
+    __syncthreads();      // ... everyone's; and tile kb - 1 is consumed
+    if (kb + S - 1 < num_kb)
+      load_tile<D>(smem, (kb + S - 1) % S, kh, vh, kstride, kb + S - 1,
+                   sh.skv);
+    ring::commit();
+    const float* ks = smem + (size_t)(kb % S) * 2 * L::tile;
+    const float* vs = ks + L::tile;
+    const int k0 = kb * kKeys;
+
+    // S = (Q scale) K^T: s[j] holds keys 8j + 2t, 8j + 2t + 1 of rows r0
+    // (s[j][0..1]) and r1 (s[j][2..3]).
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (kNarrow) {
+          ah[i] = qs[kk][0][i];
+          al[i] = qs[kk][1][i];
+        } else {
+          split(qf[kk][i], ah[i], al[i]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        // B (8 dims x 8 keys) of keys 8j' + g: b0 K[8j' + g][8kk + t],
+        // b1 K[8j' + g][8kk + t + 4], for j' = j, j + 1
+        uint32_t kr[4];
+        ldsm_x4(kr, ks + ldsm_at + 8 * j * P + 8 * kk);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split(__uint_as_float(kr[2 * jj]), bh0, bl0);
+          split(__uint_as_float(kr[2 * jj + 1]), bh1, bl1);
+          mma_3x(s[j + jj], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
     }
 
-    // Online softmax, a row's 64 scores over the 16 lanes of a half-warp.
+    if (k0 + kKeys > sh.skv || (sh.causal && k0 + kKeys - 1 > q0 + off)) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0 + 8 * j + 2 * t + (e & 1);
+          const int qi = e < 2 ? r0 : r1;
+          if (!(kj < sh.skv && (!sh.causal || kj <= qi + off)))
+            s[j][e] = -INFINITY;
+        }
+    }
+
+    // Online softmax, row r0 (i = 0) and r1 (i = 1): a row's 64 scores
+    // over the quad; the row sum stays a per-lane partial. exp(x) as
+    // 2^(x log2 e).
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const bool seen =
-            kj < sh.skv && (!sh.causal || kj <= qi + sh.skv - sh.sq);
-        s[i][j] = seen ? s[i][j] : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      const float m_new = fmaxf(m[i], quad_max(mx));
+      const float mb = m_new * kLog2e;
+      alpha[i] = ex2((m[i] - m_new) * kLog2e);
+      m[i] = m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(ty + 16 * i) * kPitchP + tx + 16 * j] = p;
-        sum += p;
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          s[j][e] = ex2(fmaf(s[j][e], kLog2e, -mb));
+          sum += s[j][e];
+        }
+      l[i] = alpha[i] * l[i] + sum;
+    }
+    float pv[kNarrow ? KS : 1][4];
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kNarrow)
+          pv[n][e] = 0.f;
+        else
+          acc[n][e] *= alpha[e >> 1];
       }
-      l[i] = alpha * l[i] + half_warp_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int n = 0; n < kCols; ++n) acc[i][n] *= alpha;
-    }
-    __syncwarp();  // P rows are written and read by their own half-warp
 
-#pragma unroll 4
-    for (int c = 0; c < kKeys; ++c) {
-      float p[4], x[kCols];
+    // O += P V over the tile's 8 steps of 8 keys. P's A fragment in key
+    // order (2t, 2t + 1) for the logical columns (t, t + 4).
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * kPitchP + c];
+    for (int j = 0; j < 8; ++j) {
+      uint32_t ah[4], al[4];
+      split(s[j][0], ah[0], al[0]);  // (r0, key 2t)
+      split(s[j][2], ah[1], al[1]);  // (r1, key 2t)
+      split(s[j][1], ah[2], al[2]);  // (r0, key 2t + 1)
+      split(s[j][3], ah[3], al[3]);  // (r1, key 2t + 1)
+      const float* vp = vs + (8 * j + 2 * t) * P + g;
 #pragma unroll
-      for (int n = 0; n < kCols; ++n) x[n] = vs[c * L::pv + tx + 16 * n];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int n = 0; n < kCols; ++n)
-          acc[i][n] = fmaf(p[i], x[n], acc[i][n]);
+      for (int n = 0; n < KS; ++n) {
+        // B (8 keys x 8 dims): b0 V[8j + 2t][8n + g], b1 V[8j + 2t + 1][..]
+        uint32_t bh0, bl0, bh1, bl1;
+        split(vp[8 * n], bh0, bl0);
+        split(vp[P + 8 * n], bh1, bl1);
+        if constexpr (kNarrow)
+          mma_3x(pv[n], ah, al, bh0, bh1, bl0, bl1);
+        else
+          mma_3x(acc[n], ah, al, bh0, bh1, bl0, bl1);
+      }
     }
-    __syncwarp();  // P read before the next tile's rows overwrite it
+    if constexpr (kNarrow) {
+#pragma unroll
+      for (int n = 0; n < KS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], pv[n][e]);
+    }
   }
 
+  // acc[n] holds columns 8n + 2t, 8n + 2t + 1 of rows r0 and r1.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const float lc = fmaxf(quad_sum(l[i]), 1e-30f);
+    const int qi = i ? r1 : r0;
     if (qi >= sh.sq) continue;
-    const float lc = fmaxf(l[i], 1e-30f);
-    float* orow = o + qhead + (size_t)qi * qstride;
+    float* orow = o + qhead + (size_t)qi * qstride + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kCols; ++n) orow[tx + 16 * n] = acc[i][n] / lc;
-    if (tx == 0) {
+    for (int n = 0; n < KS; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(acc[n][2 * i] / lc, acc[n][2 * i + 1] / lc);
+    if (t == 0) {
       const float x = m[i] + logf(lc);
       lse[(size_t)bh * sh.sq + qi] = isfinite(x) ? x : kSentinel;
     }
@@ -224,9 +383,13 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            const Shape& sh, cudaStream_t stream) {
   auto kernel = fwd_kernel<D>;
-  const size_t bytes = Smem<D>::bytes;
+  const size_t bytes = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(sh.b * sh.h, (sh.sq + kRows - 1) / kRows);
   kernel<<<grid, kThreads, bytes, stream>>>(

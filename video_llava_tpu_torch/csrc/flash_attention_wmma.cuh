@@ -1,6 +1,8 @@
 // The first, WMMA body of kernels 7 and 8 (csrc/flash_attention.cu), kept
 // for the head dims the Hopper body does not take (16, 32, 48, 80, 96, 112):
-// 64-row tiles, one block of 4 warps per (64 rows, head), every product
+// 64-row tiles, one block of 4 warps per (head, 64 rows): b*h (b*h_kv in
+// the dk/dv kernel) along grid x, whose limit is 2^31 - 1, and the tiles
+// along y (at most 65,535, so s up to about 4.2 M), every product
 // through WMMA 16x16x16 with scores and probabilities staged in shared
 // memory, K/V (or Q/dO) tiles loaded synchronously. The same function as
 // the Hopper body (see flash_attention.cu's header); the C entries there
@@ -175,12 +177,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* fs = reinterpret_cast<float*>(smem + L::f);
   float* os = reinterpret_cast<float*>(smem + L::o);
 
-  const int bi = blockIdx.y / sh.h, hi = blockIdx.y % sh.h;
+  const int bi = blockIdx.x / sh.h, hi = blockIdx.x % sh.h;
   const int kvh = hi / (sh.h / sh.hkv);
   const size_t qstride = (size_t)sh.h * D, kstride = (size_t)sh.hkv * D;
   const size_t qhead = (size_t)bi * sh.sq * qstride + (size_t)hi * D;
   const size_t khead = (size_t)bi * sh.skv * kstride + (size_t)kvh * D;
-  const int q0 = blockIdx.x * kB;
+  const int q0 = blockIdx.y * kB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   load_tile<D>(qs, q + qhead, qstride, q0, sh.sq);
@@ -261,7 +263,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       orow[c] = __float2bfloat16(os[row * L::ldo + c] * inv);
     if (half == 0) {
       const float x = m + logf(lc);
-      lse[(size_t)blockIdx.y * sh.sq + qi] = isfinite(x) ? x : kSentinel;
+      lse[(size_t)blockIdx.x * sh.sq + qi] = isfinite(x) ? x : kSentinel;
     }
   }
 }
@@ -298,12 +300,12 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* fs = reinterpret_cast<float*>(smem + L::f);
   float* dps = reinterpret_cast<float*>(smem + L::dp);
 
-  const int bi = blockIdx.y / sh.h, hi = blockIdx.y % sh.h;
+  const int bi = blockIdx.x / sh.h, hi = blockIdx.x % sh.h;
   const int kvh = hi / (sh.h / sh.hkv);
   const size_t qstride = (size_t)sh.h * D, kstride = (size_t)sh.hkv * D;
   const size_t qhead = (size_t)bi * sh.sq * qstride + (size_t)hi * D;
   const size_t khead = (size_t)bi * sh.skv * kstride + (size_t)kvh * D;
-  const int q0 = blockIdx.x * kB;
+  const int q0 = blockIdx.y * kB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   load_tile<D>(qs, q + qhead, qstride, q0, sh.sq);
@@ -312,7 +314,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row = warp * 16 + (lane >> 1);
   const int half = lane & 1;
   const int qi = q0 + row;
-  const size_t stat = (size_t)blockIdx.y * sh.sq + qi;
+  const size_t stat = (size_t)blockIdx.x * sh.sq + qi;
   const float lse_r = qi < sh.sq ? lse[stat] : 0.f;
   const float delta_r = qi < sh.sq ? delta[stat] : 0.f;
 
@@ -385,10 +387,10 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* deltas = reinterpret_cast<float*>(smem + L::delta);
 
   const int group = sh.h / sh.hkv;
-  const int bi = blockIdx.y / sh.hkv, kvh = blockIdx.y % sh.hkv;
+  const int bi = blockIdx.x / sh.hkv, kvh = blockIdx.x % sh.hkv;
   const size_t qstride = (size_t)sh.h * D, kstride = (size_t)sh.hkv * D;
   const size_t khead = (size_t)bi * sh.skv * kstride + (size_t)kvh * D;
-  const int k0 = blockIdx.x * kB;
+  const int k0 = blockIdx.y * kB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   load_tile<D>(ks, k + khead, kstride, k0, sh.skv);
@@ -470,7 +472,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   const size_t bytes = FwdSmem<D>::bytes;
   cudaError_t err = prepare(flash_fwd_kernel<D>, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((sh.sq + kB - 1) / kB, sh.b * sh.h);
+  dim3 grid(sh.b * sh.h, (sh.sq + kB - 1) / kB);
   flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
@@ -485,7 +487,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   const size_t bytes = DqSmem<D>::bytes;
   cudaError_t err = prepare(flash_bwd_dq_kernel<D>, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((sh.sq + kB - 1) / kB, sh.b * sh.h);
+  dim3 grid(sh.b * sh.h, (sh.sq + kB - 1) / kB);
   flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
@@ -501,7 +503,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   const size_t bytes = DkvSmem<D>::bytes;
   cudaError_t err = prepare(flash_bwd_dkv_kernel<D>, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((sh.skv + kB - 1) / kB, sh.b * sh.hkv);
+  dim3 grid(sh.b * sh.hkv, (sh.skv + kB - 1) / kB);
   flash_bwd_dkv_kernel<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),

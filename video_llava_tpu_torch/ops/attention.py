@@ -206,38 +206,81 @@ def flash_backward_plain(q, k, v, out, lse, g, causal: bool = False,
 
 def _check_flash(q, k, v, causal: bool, dtype=torch.bfloat16):
     """Raise unless the kernels take these operands: `dtype`, contiguous
-    BSHD, h a multiple of h_kv, d a multiple of 16 up to 128, and under
-    the causal mask sq <= skv (every query row sees a key)."""
+    BSHD, h a multiple of h_kv, d a multiple of 8 up to 128 (the
+    wrappers pad d % 16 == 8 to the next multiple of 16), under the
+    causal mask sq <= skv (every query row sees a key), and at most
+    65,535 tiles of 64 rows along the grid's y (b*h runs along x)."""
     b, sq, h, d = q.shape
     skv, h_kv = k.shape[1], k.shape[2]
     cuda_lib.require(q, "q", dtype, (b, sq, h, d))
     cuda_lib.require(k, "k", dtype, (b, skv, h_kv, d), q.device)
     cuda_lib.require(v, "v", dtype, (b, skv, h_kv, d), q.device)
-    if d % 16 or not 16 <= d <= 128:
-        raise ValueError(f"head dim {d}: must be a multiple of 16 <= 128")
+    if d % 8 or not 8 <= d <= 128:
+        raise ValueError(f"head dim {d}: must be a multiple of 8 <= 128")
     if h % h_kv:
         raise ValueError(f"{h} query heads do not group over {h_kv}")
     if sq < 1 or skv < 1:
         raise ValueError(f"empty sequence: sq {sq}, skv {skv}")
     if causal and sq > skv:
         raise ValueError(f"causal attention with sq {sq} > skv {skv}")
-    if b * h > 65535:
-        raise ValueError(f"b*h = {b * h} exceeds the grid's y limit")
+    if -(-max(sq, skv) // 64) > 65535:
+        raise ValueError(f"{max(sq, skv)} rows exceed the grid's y limit "
+                         f"of 65,535 tiles of 64")
+
+
+def pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
+    """`t` zero-padded along its last axis to `d` columns (`t` itself
+    when it has them)."""
+    n = t.shape[-1]
+    return t if n == d else torch.nn.functional.pad(t, (0, d - n))
+
+
+def flash_forward_padded(fwd, q, k, v, causal: bool = False,
+                         scale: Optional[float] = None):
+    """`fwd` (kernel 7's wrapper or :func:`flash_forward_plain`) on q, k
+    and v zero-padded along d to the next multiple of 16 -> (out sliced
+    back to d columns, lse). The scale is the unpadded d's: the zero
+    columns add nothing to q k^T, and the padded v columns only give
+    output columns that are sliced away, so the result is the unpadded
+    function's."""
+    d = q.shape[-1]
+    scale = _default_scale(d, scale)
+    dp = -(-d // 16) * 16
+    out, lse = fwd(*(pad_head_dim(t, dp) for t in (q, k, v)), causal, scale)
+    return out[..., :d].contiguous(), lse
+
+
+def flash_backward_padded(bwd, q, k, v, out, lse, g, causal: bool = False,
+                          scale: Optional[float] = None):
+    """`bwd` (kernel 8's wrapper or :func:`flash_backward_plain`) on its
+    operands zero-padded along d as :func:`flash_forward_padded` pads
+    them -> (dq, dk, dv) sliced back to d columns. The padded columns of
+    q, k, v, out and g are zero, so they add nothing to s, dP or D."""
+    d = q.shape[-1]
+    scale = _default_scale(d, scale)
+    dp = -(-d // 16) * 16
+    grads = bwd(*(pad_head_dim(t, dp) for t in (q, k, v, out)), lse,
+                pad_head_dim(g, dp), causal, scale)
+    return tuple(x[..., :d].contiguous() for x in grads)
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = False, scale: Optional[float] = None):
     """Kernel 7. q (b, sq, h, d), k/v (b, skv, h_kv, d) -> (out (b, sq,
-    h, d) in q's dtype, lse (b, h, sq) f32). On CUDA, d a multiple of 16
-    up to 128: bf16 operands launch csrc/flash_attention.cu's forward,
-    f32 operands csrc/flash_attention_f32.cu's (counted as
-    "flash_forward_f32"); other dtypes raise."""
+    h, d) in q's dtype, lse (b, h, sq) f32). On CUDA, d a multiple of 8
+    up to 128 (d % 16 == 8 zero-padded to the next multiple of 16 by
+    :func:`flash_forward_padded`): bf16 operands launch
+    csrc/flash_attention.cu's forward, f32 operands
+    csrc/flash_attention_f32.cu's (counted as "flash_forward_f32");
+    other dtypes raise."""
     b, sq, h, d = q.shape
     scale = _default_scale(d, scale)
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, causal, scale)
     f32 = q.dtype == torch.float32
     _check_flash(q, k, v, causal, torch.float32 if f32 else torch.bfloat16)
+    if d % 16:
+        return flash_forward_padded(flash_forward, q, k, v, causal, scale)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     cuda_lib.launch(
@@ -286,12 +329,16 @@ def flash_backward(q, k, v, out, lse, g, causal: bool = False,
     """Kernel 8 -> (dq, dk, dv) in the inputs' dtypes: D (flash_delta),
     then the dq kernel and the dk/dv kernel (csrc/flash_attention.cu).
     On CUDA the operands must be bf16: f32 ones raise (the f32 body of
-    kernel 7 is a forward only)."""
+    kernel 7 is a forward only). d % 16 == 8 is zero-padded as in
+    :func:`flash_forward` (:func:`flash_backward_padded`)."""
     b, sq, h, d = q.shape
     scale = _default_scale(d, scale)
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, out, lse, g, causal, scale)
     _check_flash(q, k, v, causal)
+    if d % 16:
+        return flash_backward_padded(flash_backward, q, k, v, out, lse, g,
+                                     causal, scale)
     dev = q.device
     cuda_lib.require(out, "out", torch.bfloat16, q.shape, dev)
     cuda_lib.require(g, "g", torch.bfloat16, q.shape, dev)
@@ -350,10 +397,11 @@ def multi_head_attention(
     kernel 7 through :func:`flash_attention` -- bf16 to its bf16 body
     (kernel 8 its gradient), f32 (Whisper `base` as the chat CLI's
     --use_asr builds it) to its f32 body -- as the JAX package sends them
-    to its Pallas forward on one TPU chip; operands that the kernels do
-    not take (d not a multiple of 16 up to 128, another dtype, mixed
-    dtypes) raise there. A mask, an offset, d % 8 != 0 and CPU tensors
-    take the masked reference, as the JAX package's CPU backend does."""
+    to its Pallas forward on one TPU chip (d % 16 == 8 zero-padded to
+    the next multiple of 16 there); operands that the kernels do not
+    take (d past 128, another dtype, mixed dtypes) raise there. A mask,
+    an offset, d % 8 != 0 and CPU tensors take the masked reference, as
+    the JAX package's CPU backend does."""
     if (q.device.type != "cpu" and kv_valid_len is None
             and q_offset is None and q.shape[-1] % 8 == 0):
         return flash_attention(q, k, v, causal, scale)
