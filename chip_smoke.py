@@ -8,7 +8,8 @@ Phases, each of which raises on failure (exit code != 0):
   2. build the CUDA kernels from video_llava_tpu_torch/csrc;
   3. check each kernel against its plain PyTorch version at the chat
      and serving paths' shapes (plus the 336 px CLIP shape, the 12-frame
-     pool and 9 valid frames of 12, the int8 caches, the paged pool with
+     pool and 9 valid frames of 12, the pool over a batch of 8 videos
+     with mixed valid counts in one launch, the int8 caches, the paged pool with
      bf16 and int8 values, kernels 3, 9 and 10 at 65,536 positions,
      for the W4A8 and W4A16 kernels Vicuna-7B's decode and prefill
      linears in the bf16-out build the path launches and in f32 out, a
@@ -17,8 +18,11 @@ Phases, each of which raises on failure (exit code != 0):
      head dim 32, kernels A and B at serving's 4-row decode, 36-row
      verify and 256-row prefill window, CLIP's pad keys and values set
      large, the W4A16 block matmul at 2, 8, 36, 256, 768 and 1100 rows,
-     and planted faults in the plain versions of kernels 1, 2, 9, 10, 11,
-     A, B and both W4A16 kernels that must fail), timing the
+     Vicuna-13B's shapes of the batched eval phase (A at 8 rows, B at
+     8 x 768 prefill rows and an 8 x 9 verify window, kernel 3 at 40
+     layers x 8 rows x 40 heads), and planted faults in the plain
+     versions of kernels 1, 2, 9, 10, 11, A, B and both W4A16 kernels
+     that must fail), timing the
      kernel, the plain version
      and, where one PyTorch call computes the same function, that call,
      each beside the kernel's bound; kernels 3, 9, A and the W4A16
@@ -71,10 +75,17 @@ Phases, each of which raises on failure (exit code != 0):
      launches, peak memory and a profile of the transcribe; then free
      the engine, build Vicuna-7B with 8 KV heads (int4) and answer the
      100-frame request (gqa_chat_phase: kernel 11), profiled, and free it;
+     then BASELINE config 3 (eval_13b_phase): `python -m
+     video_llava_tpu_torch.eval.run_inference --dataset activitynet
+     --runner batched --batch_size 8 --quant int4 --model_size 13b` over
+     9 samples (one video missing, one clip of 37 frames) through
+     eval.run_inference.main, then run_qa_continuous on its engine with 8
+     slots: stage times, launches, the b = 8 vs b = 1 prefill logits;
   10. train (training_phase): kernels 7 and 8 against their
      plain versions at the training layer's shape and four others, then
      (flash_limit_checks) at b*h = 65,600 through each body of kernel 7
-     (bf16 Hopper and WMMA, f32) and at head dim 24 (padded to 32), a
+     (bf16 Hopper and WMMA, f32) and at head dims 24 (padded to 32), 256
+     and 200 (padded to 256), then timed at d 256 (flash_d256_times), a
      small model's train steps on the card against the CPU (bf16 and an
      int8 LLM), then `python -m video_llava_tpu_torch.train.train
      --model_size 7b` for 4 optimizer steps on seeded features, with its
@@ -477,6 +488,8 @@ def kernel_checks(dev) -> dict:
             if not err.item() > TOL["spatio_temporal_pool"]:
                 raise AssertionError("the pool check passes the planted "
                                      "n + 1 fault")
+    del x
+    batched_pool_check(dev, rnd, results)
     # decode attention at the first chat turn's cache, mid-answer
     n_prompt, L = chat_cache_len(VideoLLaVAConfig())
     n = n_prompt + MAX_NEW_TOKENS // 2
@@ -518,7 +531,136 @@ def kernel_checks(dev) -> dict:
     # after every kernel's main-path shape: record() keeps the first
     long_decode_checks(dev, g, rnd, results)
     w4a16_checks(dev, g, results)
+    checks_13b(dev, g, rnd, results)
     return results
+
+
+# Valid counts of the batched pool check: a batch of 8 videos padded to 100
+# frames, two short clips and one of a single frame among them.
+BATCH_POOL_COUNTS = (100, 100, 73, 100, 12, 100, 100, 1)
+
+
+def batched_pool_check(dev, rnd, results) -> None:
+    """Kernel 2 over a batch of 8 videos of (100, 256, 1024) in one launch,
+    a valid count a video from a device tensor (BATCH_POOL_COUNTS), as
+    the batched eval runners pool (eval/run_inference.run_qa_batched):
+    against the batched plain version, then bit for bit against one
+    launch a video (whose time is printed beside it); the library call is
+    the two means over each video's valid frames. A planted fault in the
+    plain version (each video pooled with its neighbour's count) must fail
+    the check."""
+    b, t = len(BATCH_POOL_COUNTS), 100
+    x = rnd(b, t, 256, 1024)
+    n = torch.tensor(BATCH_POOL_COUNTS, dtype=torch.int32, device=dev)
+    fused = lambda: pooling.spatio_temporal_pool_fused(x, n)  # noqa: E731
+    check(results, "spatio_temporal_pool",
+          (b, t, 256, 1024, f"counts {BATCH_POOL_COUNTS}"), fused,
+          # the plain version reads the counts on the host (a graph
+          # capture takes no device-to-host copy)
+          lambda: pooling.spatio_temporal_pool(x, BATCH_POOL_COUNTS),
+          nbytes=(sum(BATCH_POOL_COUNTS) * 256 + b * (100 + 256)) * 1024 * 2,
+          library=lambda: [torch.cat([x[i, :k].mean(1), x[i, :k].mean(0)])
+                           for i, k in enumerate(BATCH_POOL_COUNTS)])
+    got = fused()
+    singles = lambda: [  # noqa: E731
+        pooling.spatio_temporal_pool_fused(x[i], k)
+        for i, k in enumerate(BATCH_POOL_COUNTS)]
+    same = all(torch.equal(got[i], one) for i, one in enumerate(singles()))
+    print(f"batched kernel 2 against {b} single launches: "
+          f"{'bit-identical' if same else 'DIFFERENT'}; {b} single launches "
+          f"{median_ms(singles):.4f} ms", flush=True)
+    if not same:
+        raise AssertionError("the batched pool differs from its single "
+                             "launches")
+    want = pooling.spatio_temporal_pool(x, BATCH_POOL_COUNTS)
+    faulty = pooling.spatio_temporal_pool(
+        x, BATCH_POOL_COUNTS[-1:] + BATCH_POOL_COUNTS[:-1])
+    err = (faulty.float() - want.float()).abs().max().item()
+    print(f"planted fault in kernel 2's batched plain version, each video "
+          f"pooled with its neighbour's count: max|err| {err:.3e}",
+          flush=True)
+    if not err > TOL["spatio_temporal_pool"]:
+        raise AssertionError("the batched pool check passes the planted "
+                             "count fault")
+    del x, got, want, faulty
+
+
+def chunked(plain, rows: int = 512):
+    """`plain` over x in chunks of `rows` rows (the W4A8 plain versions
+    hold a (groups, rows, F) f32 partial: 27 GB at 6,144 rows of 13B's
+    gate_up at once); rows are independent, so the result is plain's."""
+    return lambda x, p, s: torch.cat([plain(x[i:i + rows], p, s)
+                                      for i in range(0, len(x), rows)])
+
+
+def checks_13b(dev, g, rnd, results) -> None:
+    """Kernels A, B and 3 at the shapes of the 13B batched eval phase
+    (BASELINE config 3: Vicuna-13B, 40 layers of width 5120, 40 heads of
+    128, MLP 13824; a batch of 8): A at 8 rows (the A8_MAX_BATCH edge)
+    of wqkv (5120 -> 15360), gate_up (5120 -> 27648) and down (13824 ->
+    5120); B at the 8 x 768 prefill rows of gate_up and down and at one 8
+    x 9 verify window of gate_up; both in the bf16-out build the path
+    launches, against the plain versions rounded to bf16; kernel 3 at
+    (40 layers, b 8, 40 heads, d 128) over the batch's cache mid-answer
+    (8 rows of mixed lengths), also from HBM over the 40 layers. Times
+    print on the check lines; the kernels line keeps each kernel's 7B
+    main-path shape."""
+    cfg = LlamaConfig.vicuna_13b()
+    d, f = cfg.hidden_size, cfg.intermediate_size
+
+    def weight(k, n):
+        w = torch.randn(1, k, n, generator=g, device=dev)
+        packed, scales = quant4.quantize_tensor_int4(w * k ** -0.5, 128)
+        return packed[0], scales[0]
+
+    weights = {"wqkv": weight(d, 3 * d), "gate_up": weight(d, 2 * f),
+               "down": weight(f, d)}
+    bf16 = torch.bfloat16
+    prefill = 8 * 768
+    for name, nb, key in (("w4a8_matvec", 8, "wqkv"),
+                          ("w4a8_matvec", 8, "gate_up"),
+                          ("w4a8_matvec", 8, "down"),
+                          ("w4a8_block", prefill, "gate_up"),
+                          ("w4a8_block", prefill, "down"),
+                          ("w4a8_block", 8 * 9, "gate_up")):
+        p, s = weights[key]
+        x = torch.randn(nb, 2 * p.shape[0], generator=g, device=dev).to(bf16)
+        kernel = getattr(quant4, name)
+        plain = (quant4.int4_matmul_w4a8_xla if name == "w4a8_matvec"
+                 else chunked(quant4.int4_matmul_w4a8_block_xla))
+        check(results, name,
+              (nb, 2 * p.shape[0], p.shape[1], "13B", "bf16 out", key),
+              lambda: kernel(x, p, s, bf16), lambda: plain(x, p, s).to(bf16),
+              nbytes=(p.numel() + 2 * s.numel() + 2 * x.numel()
+                      + nb * p.shape[1] * 2),
+              ops=2 * nb * x.shape[1] * p.shape[1], peak=INT8_PEAK)
+        del x
+    del weights
+    torch.cuda.empty_cache()
+    # kernel 3: the batch's cache, 768 prompt positions + 128 new tokens
+    L = 768 + 128
+    nl, b, h, hd = cfg.num_layers, 8, cfg.num_heads, cfg.head_dim
+    lens = torch.tensor([700, 712, 705, 731, 698, 740, 702, 721],
+                        dtype=torch.int32, device=dev) + 64
+    q = rnd(b, 1, h, hd)
+    kc, vc = rnd(nl, b, L, h, hd), rnd(nl, b, L, h, hd)
+    mask = (torch.arange(L, device=dev)[None] < lens[:, None])[:, None, None]
+    sdpa_layer = lambda li: F.scaled_dot_product_attention(  # noqa: E731
+        q.transpose(1, 2), kc[li].transpose(1, 2), vc[li].transpose(1, 2),
+        attn_mask=mask)
+    n_read = int(lens.sum())
+    check(results, "decode_attention_stacked", (nl, b, L, h, hd, "bf16",
+                                                "13B batch"),
+          lambda: attention.decode_attention_stacked(q, kc, vc, 17, lens),
+          lambda: attention.decode_attention_stacked_plain(q, kc, vc, 17,
+                                                           lens),
+          nbytes=2 * n_read * h * hd * 2, ops=4 * n_read * h * hd,
+          library=lambda: sdpa_layer(17),
+          hbm=([lambda li=li: attention.decode_attention_stacked(
+              q, kc, vc, li, lens) for li in range(nl)],
+               [lambda li=li: sdpa_layer(li) for li in range(nl)]))
+    del q, kc, vc
+    torch.cuda.empty_cache()
 
 
 def random_table(g, dev, row_lens, bs, maxb, nb):
@@ -1598,6 +1740,292 @@ def gqa_chat_phase(clips, requests, dev) -> dict:
     return counts
 
 
+# The 13B batched eval phase (BASELINE config 3): 9 ActivityNet-layout
+# samples, the last without a video file; one clip of 37 frames, the
+# others of 100 (240 x 320, from a seed keyed by the video's name).
+EVAL_VIDEOS = ("bike", "cook", "dog", "skate", "swim", "dance", "guitar",
+               "paint")
+EVAL_SHORT = {"dog": 37}
+EVAL_QUESTIONS = ("What is happening in this video?", "Who is in the video?",
+                  "What color is the main object?", "Where does it happen?",
+                  "Describe the scene.", "What happens at the end?",
+                  "How many people are there?", "Is it indoors?",
+                  "What is the weather like?")
+# b = 8 vs b = 1 prefill logits of one row, as fractions of max |logit|
+# (max, mean): the W4A8 slice limits of tests/torch_slice_pair.py. Both
+# sides run the same bf16 kernels; the activations quantize per row, so
+# only the f32 sum order of B's K splits and the padding differ.
+EVAL_LOGIT_LIMITS = (0.05, 0.01)
+
+
+def eval_frames(name: str, num_frm: int = 100) -> np.ndarray:
+    """The stand-in for the runner's load_video: (n, 240, 320, 3) uint8
+    frames from a seed keyed by `name` (no mp4 decodes on the card's
+    machine, which has no libav)."""
+    seed = int(hashlib.sha256(name.encode()).hexdigest()[:8], 16)
+    n = min(EVAL_SHORT.get(name, 100), num_frm)
+    return np.random.default_rng(seed).integers(
+        0, 256, size=(n, 240, 320, 3), dtype=np.uint8)
+
+
+def write_eval_data(root: str) -> dict:
+    """ActivityNet-QA's layout under `root`: question and answer JSON
+    files, and an empty v_<name>.mp4 a video (find_video's test; the
+    frames come from eval_frames). The ninth sample's video is absent."""
+    vdir = os.path.join(root, "videos")
+    os.makedirs(vdir)
+    for name in EVAL_VIDEOS:
+        open(os.path.join(vdir, f"v_{name}.mp4"), "w").close()
+    names = EVAL_VIDEOS + ("missing",)
+    questions = [{"question_id": f"q{i}", "video_name": n, "question": q}
+                 for i, (n, q) in enumerate(zip(names, EVAL_QUESTIONS))]
+    answers = [{"answer": f"answer {i}"} for i in range(len(names))]
+    paths = {"video_dir": vdir,
+             "gt_file_question": os.path.join(root, "q.json"),
+             "gt_file_answers": os.path.join(root, "a.json")}
+    with open(paths["gt_file_question"], "w") as f:
+        json.dump(questions, f)
+    with open(paths["gt_file_answers"], "w") as f:
+        json.dump(answers, f)
+    return paths
+
+
+def eval_13b_phase(dev, results) -> dict:
+    """BASELINE config 3, batched Vicuna-13B zero-shot QA over
+    ActivityNet-QA, through the entry point: `python -m
+    video_llava_tpu_torch.eval.run_inference --dataset activitynet
+    --runner batched --batch_size 8 --quant int4` (eval.run_inference.main:
+    full width and depth, int4 W4A8 fused, 100 frames, 128 new tokens) on
+    9 samples written to a temporary directory, then run_qa_continuous on
+    the same engine with 8 slots. Two stand-ins, set up here and not
+    paths of the program: the runner module's load_video is eval_frames
+    (no libav on the card's machine), and initialize_model is wrapped to
+    keep the engine it builds, turn its speculation off for the batched
+    run (so that decode runs kernel A at 8 rows and kernel 3 at b = 8, as
+    the chat phases decode) and time its stages. The continuous run
+    speculates (the engine's default): its verify windows run B at 8 x 9
+    rows. Asserts 8 predictions with the missing video skipped; kernels
+    1, 2, 3, A and B launched in the batched run, A at least 4 x 40 times
+    a decode step and B 4 x 40 times a prefill; and the batched prefill's
+    last logits of the 37-frame clip's row within EVAL_LOGIT_LIMITS of
+    the same sample encoded and prefilled alone at b = 1. Prints stage
+    walls, tok/s, the share of rows where both runners answer alike and
+    peak memory. Returns the launches of both runs, summed."""
+    from video_llava_tpu_torch.engine import continuous as cont_mod
+    from video_llava_tpu_torch.eval import run_inference as ri
+
+    t_phase = time.perf_counter()
+    label = "13B int4 batched eval"
+    print(f"{label}: frames for the runner's load_video come from a seed "
+          "keyed by the video's name (eval_frames), not through an mp4 (no "
+          "libav on this machine)", flush=True)
+    stats = {"encode_s": 0.0, "prefill_s": 0.0, "prefills": 0,
+             "decode_steps": 0, "init_s": 0.0, "generate_s": 0.0,
+             "tokens": 0}
+    kept: dict = {}
+    delivered: list = []
+
+    def timed_call(fn, key):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stats[key] += time.perf_counter() - t
+            return out
+        return call
+
+    real_init, real_load = ri.initialize_model, ri.load_video
+    real_generate, real_result = ri.generate, cont_mod.RequestHandle.result
+    timed_generate = timed_call(real_generate, "generate_s")
+
+    def generate(*a, **kw):  # the batched runner's generate call
+        out = timed_generate(*a, **kw)
+        stats["tokens"] += int(out.lengths.sum())
+        return out
+
+    def result(handle, timeout=None):  # a continuous request's tokens
+        toks = real_result(handle, timeout)
+        delivered.append(len(toks))
+        return toks
+
+    def init(*a, **kw):
+        t = time.perf_counter()
+        engine = real_init(*a, **kw)
+        torch.cuda.synchronize()
+        stats["init_s"] = time.perf_counter() - t
+        engine.speculative = False
+        model, llm = engine.model, engine.model.llm
+        timed_encode = timed_call(engine.batched_encode, "encode_s")
+
+        def encode(*a2, **kw2):  # the first: and the peak it adds
+            if "encode_peak" in stats:
+                return timed_encode(*a2, **kw2)
+            base = torch.cuda.memory_allocated()
+            stats["peak_before"] = max(stats.get("peak_before", 0),
+                                       torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            out = timed_encode(*a2, **kw2)
+            stats["encode_peak"] = (torch.cuda.max_memory_allocated()
+                                    - base) / 2 ** 30
+            return out
+
+        engine.batched_encode = encode
+        prefill_fn, decode_fn = model.prefill, llm.decode_step
+        timed_prefill = timed_call(prefill_fn, "prefill_s")
+
+        def prefill(input_ids, seq_lens, feats, *rest, **kw2):
+            out = timed_prefill(input_ids, seq_lens, feats, *rest, **kw2)
+            stats["prefills"] += 1
+            if input_ids.shape[0] == len(EVAL_VIDEOS) and "batch" not in kept:
+                kept["batch"] = (input_ids.clone(), seq_lens.clone(),
+                                 feats.clone(), out.logits_last.clone(),
+                                 rest, kw2)
+            return out
+
+        def decode_step(*a2, **kw2):
+            stats["decode_steps"] += 1
+            return decode_fn(*a2, **kw2)
+
+        model.prefill, llm.decode_step = prefill, decode_step
+        kept["engine"] = engine
+        return engine
+
+    tmp = tempfile.mkdtemp(prefix="eval13b_")
+    ri.initialize_model, ri.generate = init, generate
+    cont_mod.RequestHandle.result = result
+    ri.load_video = lambda path, num_frm=100, shape=None: eval_frames(
+        os.path.basename(path)[2:].rsplit(".", 1)[0], num_frm)
+    try:
+        paths = write_eval_data(tmp)
+        argv = ["--dataset", "activitynet", "--runner", "batched",
+                "--batch_size", "8", "--quant", "int4", "--model_size",
+                "13b", "--output_dir", os.path.join(tmp, "out"),
+                "--output_name", "batched"]
+        for key, path in paths.items():
+            argv += [f"--{key}", path]
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        t = time.perf_counter()
+        batched = ri.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t - stats["init_s"]
+        counts = dict(cuda_lib.LAUNCHES)
+        peak = max(stats["peak_before"],
+                   torch.cuda.max_memory_allocated()) / 2 ** 30
+        engine = kept["engine"]
+        with open(os.path.join(tmp, "out", "batched.json")) as f:
+            written = json.load(f)
+        ids = [r["id"] for r in batched]
+        if written != batched or ids != [f"q{i}" for i in range(8)]:
+            raise AssertionError(f"{label}: predictions {ids}, expected "
+                                 "q0-q7 (q8's video is missing)")
+        decode_s = stats["generate_s"] - stats["prefill_s"]
+        steps = stats["decode_steps"]
+        print(f"{label}: initialize_model(13b, int4) {stats['init_s']:.2f} "
+              f"s; 8 videos x 100 frames (one of 37): encode "
+              f"{stats['encode_s'] * 1e3:.1f} ms (CLIP over the 800 frames "
+              f"at once: {stats['encode_peak']:.2f} GiB above the weights "
+              f"at its peak), prefill (8 x "
+              f"{kept['batch'][0].shape[1]}) {stats['prefill_s'] * 1e3:.1f} "
+              f"ms, decode {steps} steps in {decode_s * 1e3:.1f} ms, "
+              f"{stats['tokens']} tokens generated over the batch "
+              f"({stats['tokens'] / decode_s:.2f} tok/s); runner wall "
+              f"{wall:.2f} s (model build excluded); peak {peak:.2f} GiB",
+              flush=True)
+        print(f"{label} launches: {counts} ({stats['prefills']} prefills, "
+              f"{steps} decode steps)", flush=True)
+        missing = [k for k in INT4_PATH if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched: "
+                                 f"{missing}")
+        per_step = len(engine.model.llm.layers) * 4
+        if counts["w4a8_matvec"] < per_step * steps:
+            raise AssertionError("kernel A launched fewer than 4 x 40 times "
+                                 "a decode step")
+        if counts["w4a8_block"] < per_step * stats["prefills"]:
+            raise AssertionError("kernel B launched fewer than 4 x 40 times "
+                                 "a prefill")
+        if counts["spatio_temporal_pool"] != 1:
+            raise AssertionError("kernel 2 pooled the batch in "
+                                 f"{counts['spatio_temporal_pool']} launches")
+
+        # the 37-frame clip's row against the same sample alone at b = 1
+        input_ids, seq_lens, feats, logits, rest, kw = kept["batch"]
+        row = EVAL_VIDEOS.index("dog")
+        n = int(seq_lens[row])
+        with torch.inference_mode():
+            alone = engine.encode_video_frames(eval_frames("dog"), 37)
+            pad = -(-n // engine.seq_pad_multiple) * engine.seq_pad_multiple
+            one = engine.model.prefill(input_ids[row:row + 1, :pad],
+                                       seq_lens[row:row + 1], alone[None],
+                                       *rest, **kw).logits_last[0].float()
+        feat_err = (alone.float() - feats[row].float()).abs().max().item()
+        want = logits[row].float()
+        err = (one - want).abs()
+        scale = want.abs().max().item()
+        print(f"{label}: row {row} (37 valid frames, {n} prompt tokens) "
+              f"prefilled at b = 1 ({pad} positions) against b = 8 ("
+              f"{input_ids.shape[1]}): logits max|err| {err.max().item():.3e}"
+              f", mean {err.mean().item():.3e} of max|logit| {scale:.3e} "
+              f"(limits {EVAL_LOGIT_LIMITS[0]} and {EVAL_LOGIT_LIMITS[1]} of "
+              f"it); its pooled features alone vs in the batch max|err| "
+              f"{feat_err:.3e}; argmax {int(one.argmax())} / "
+              f"{int(want.argmax())}", flush=True)
+        if not (torch.isfinite(one).all() and torch.isfinite(want).all()
+                and err.max().item() <= EVAL_LOGIT_LIMITS[0] * scale
+                and err.mean().item() <= EVAL_LOGIT_LIMITS[1] * scale):
+            raise AssertionError(f"{label}: b = 8 and b = 1 prefill logits "
+                                 "disagree")
+        del kept["batch"], input_ids, feats, logits, alone
+
+        # the continuous runner on the same engine, speculating
+        engine.speculative = True
+        samples = ri.load_dataset(types.SimpleNamespace(
+            dataset="activitynet", **paths))
+        cuda_lib.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cont = ri.run_qa_continuous(engine, samples, paths["video_dir"],
+                                    "pg-video-llava", batch_size=8,
+                                    num_slots=8, video_prefix="v_")
+        torch.cuda.synchronize()
+        cont_s = time.perf_counter() - t
+        cont_counts = dict(cuda_lib.LAUNCHES)
+        if [r["id"] for r in cont] != ids:
+            raise AssertionError(f"{label}: continuous ids "
+                                 f"{[r['id'] for r in cont]}")
+        new_tokens = sum(delivered)
+        same = sum(a["pred"] == b["pred"] for a, b in zip(batched, cont))
+        print(f"{label}: run_qa_continuous (8 slots, speculative) "
+              f"{cont_s:.2f} s (encode included), {new_tokens} tokens "
+              f"generated ({new_tokens / cont_s:.2f} tok/s); rows answering "
+              f"as the batched runner (greedy, "
+              f"without speculation): {same} of {len(cont)}; launches "
+              f"{cont_counts}; peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+              flush=True)
+        for k in ("flash_attention_bhsd", "spatio_temporal_pool",
+                  "w4a8_block"):
+            if not cont_counts.get(k):
+                raise AssertionError(f"{label}: the continuous run never "
+                                     f"launched {k}")
+        for name in set(counts) | set(cont_counts):
+            if name in results:
+                results[name]["eval_13b_launches"] = (
+                    counts.get(name, 0) + cont_counts.get(name, 0))
+    finally:
+        ri.initialize_model, ri.load_video = real_init, real_load
+        ri.generate = real_generate
+        cont_mod.RequestHandle.result = real_result
+        shutil.rmtree(tmp, ignore_errors=True)
+        kept.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"{label} phase: {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return counts
+
 # Kernels 7 and 8 at (b, sq, skv, h, h_kv, d, causal): Vicuna-7B's
 # training layer (4 rows of 1,024 tokens, causal) first, then GQA, a
 # ragged right-aligned pair (no length a multiple of a tile), no mask, and
@@ -1765,17 +2193,19 @@ FLASH_PAD_SHAPE = (2, 300, 340, 8, 4)
 
 
 def flash_limit_checks(dev) -> None:
-    """The two raises kernel 7's wrapper lifted, on the card: b*h past
-    the grid's y limit (now along x) through each body, forward against
-    the plain forward and, in bf16, kernel 8 against the plain backward;
-    head dim 24 (d % 16 == 8, zero-padded with the unpadded d's scale)
-    through the bf16 forward and backward and the f32 forward. Limits:
-    flash_checks' in bf16 (absolute and lse; gradients of max |ref|),
-    F32_FLASH_TOL in f32. Not timed: no path runs these shapes."""
+    """The raises kernel 7's wrapper lifted, on the card: b*h past the
+    grid's y limit (now along x) through each body, forward against the
+    plain forward and, in bf16, kernel 8 against the plain backward; head
+    dims 24 (d % 16 == 8, zero-padded to 32 with the unpadded d's
+    scale), 256 (the WMMA and f32 bodies in slabs of 128 output columns)
+    and 200 (zero-padded to 256) through the bf16 forward and backward
+    and the f32 forward. Limits: flash_checks' in bf16 (absolute and lse;
+    gradients of max |ref|), F32_FLASH_TOL in f32. Not timed here (no
+    path runs these shapes; flash_d256_times times d 256)."""
     g = torch.Generator(device=dev).manual_seed(7)
     cases = [((16400, 16, 16, 4, 4, d), dtype)
              for d, dtype in FLASH_WIDE_BODIES]
-    cases += [(FLASH_PAD_SHAPE + (24,), dtype)
+    cases += [(FLASH_PAD_SHAPE + (d,), dtype) for d in (24, 256, 200)
               for dtype in (torch.bfloat16, torch.float32)]
     for (b, sq, skv, h, h_kv, d), dtype in cases:
         shape = (b, sq, skv, h, h_kv, d, True)
@@ -1815,6 +2245,85 @@ def flash_limit_checks(dev) -> None:
             raise AssertionError(f"flash limits {shape} {dtype}: {note}")
         del q, k, v, do, out, lse, want, want_lse
     torch.cuda.empty_cache()
+
+
+# (b, sq, skv, h, h_kv) of the timed d 256 shape: causal GQA, 1,024 rows
+FLASH_D256_SHAPE = (2, 1024, 1024, 8, 4)
+
+
+def flash_d256_times(dev) -> None:
+    """Kernels 7 and 8 at head dim 256 (no ported model has it; the JAX
+    package's Pallas forward takes it): the bf16 forward, dq and dk/dv
+    and the f32 forward at FLASH_D256_SHAPE, causal, each against its
+    plain version at flash_checks' limits (F32_FLASH_TOL in f32), then
+    timed beside the plain version, the library call (SDPA and its
+    backward, enable_gqa) and the bound of the visible pairs' products
+    (TF32's peak as 3xTF32 for the f32 body). Printed only: the kernels
+    line keeps the training layer's shape."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    b, sq, skv, h, h_kv = FLASH_D256_SHAPE
+    d = 256
+    prod = 2 * b * h * visible_pairs(sq, skv, True) * d
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        q, do = (torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(b, skv, h_kv, d, generator=g, device=dev).to(
+            dtype) for _ in range(2))
+        out, lse = attention.flash_forward(q, k, v, True)
+        want, want_lse = attention.flash_forward_plain(q, k, v, True)
+        fwd_err = (out.float() - want.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        tol = F32_FLASH_TOL if f32 else TOL["flash_forward"]
+        lse_tol = F32_FLASH_TOL if f32 else FLASH_LSE_TOL
+        if not (fwd_err <= tol and lse_err <= lse_tol):
+            raise AssertionError(f"flash d 256 {dtype}: max|err| {fwd_err}, "
+                                 f"lse {lse_err}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = lambda *a: F.scaled_dot_product_attention(  # noqa: E731
+            *a, enable_gqa=True, is_causal=True)
+        qb, kb, sb = q.element_size() * q.numel(), k.element_size() * \
+            k.numel(), 4 * lse.numel()
+        rows = [("flash_forward_f32" if f32 else "flash_forward", fwd_err,
+                 lambda: attention.flash_forward(q, k, v, True),
+                 lambda: attention.flash_forward_plain(q, k, v, True),
+                 lambda: sdpa(qt, kt, vt), True, 2 * qb + 2 * kb + sb,
+                 2 * prod * (3 if f32 else 1))]
+        if not f32:
+            delta = attention.flash_delta(out, do)
+            got = attention.flash_backward(q, k, v, out, lse, do, True)
+            ref = attention.flash_backward_plain(q, k, v, out, lse, do, True)
+            rels = grad_rel_errs(got, ref)
+            if not all(np.isfinite(e) and e <= FLASH_GRAD_TOL for e in rels):
+                raise AssertionError(f"flash d 256 backward: {rels}")
+            leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+            lib_out = sdpa(*leaves)
+            lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                lib_out, leaves, do.transpose(1, 2), retain_graph=True)
+            plain_bwd = lambda: attention.flash_backward_plain(  # noqa
+                q, k, v, out, lse, do, True)
+            scale = d ** -0.5
+            rows += [
+                ("flash_backward_dq", rels[0],
+                 lambda: attention.flash_backward_dq(
+                     q, k, v, do, lse, delta, True, scale), plain_bwd,
+                 lib_bwd, False, 3 * qb + 2 * kb + 2 * sb, 3 * prod),
+                ("flash_backward_dkv", max(rels[1:]),
+                 lambda: attention.flash_backward_dkv(
+                     q, k, v, do, lse, delta, True, scale), plain_bwd,
+                 lib_bwd, False, 2 * qb + 4 * kb + 2 * sb, 4 * prod)]
+        for name, err, fn, plain, lib, capture, nbytes, ops in rows:
+            ms, plain_ms = median_ms(fn), median_ms(plain)
+            lib_ms = median_ms(lib, capture=capture)
+            bound_ms, bound_by = bound(nbytes, ops,
+                                       TF32_PEAK if f32 else BF16_PEAK)
+            print(f"check {name} {FLASH_D256_SHAPE + (d, True)} {dtype}: "
+                  f"err {err:.3e}, kernel {ms:.4f} ms ({bound_ms / ms:.3f} of "
+                  f"the bound), plain {plain_ms:.4f} ms, library "
+                  f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}",
+                  flush=True)
+        del q, k, v, do, out, lse, want, want_lse, rows
+        torch.cuda.empty_cache()
 
 
 def small_train_check(dev, llm_weights: str = "bf16") -> None:
@@ -2132,6 +2641,7 @@ def training_phase(dev, results) -> dict:
     t0 = time.perf_counter()
     flash_checks(dev, results)
     flash_limit_checks(dev)
+    flash_d256_times(dev)
     torch.cuda.empty_cache()
     small_train_check(dev)
     small_train_check(dev, "int8")
@@ -3035,6 +3545,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     launches["decode_attention_pallas"] = gqa_chat_phase(
         clips, requests[:1], dev)["decode_attention_pallas"]
+    eval_13b_phase(dev, results)
     trained = training_phase(dev, results)
     launches.update({k: trained[k] for k in TRAIN_PATH})
 

@@ -95,6 +95,35 @@ def test_pool_kernel_matches_plain(dev, t, s, c, n, out_dtype):
     _assert_close(got, want, 1e-2 if out_dtype == torch.bfloat16 else 1e-5)
 
 
+@pytest.mark.parametrize("b,t,s,c,counts,out_dtype", [
+    (8, 100, 256, 1024, (100, 100, 73, 100, 12, 100, 100, 1),
+     torch.bfloat16),
+    (3, 8, 256, 1024, (8, 5, 1), torch.float32),
+    (4, 12, 33, 100, (0, 12, 13, 7), torch.float32),
+])
+def test_batched_pool_kernel_matches_plain(dev, b, t, s, c, counts,
+                                           out_dtype):
+    """Kernel 2 over a batch of videos in one launch, a valid count a
+    video read from a device tensor (mixed counts, one of none and one
+    past t): against the batched plain version at the limits of
+    test_pool_kernel_matches_plain, and bit for bit against one launch a
+    video."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = _rand(g, b, t, s, c)
+    n = torch.tensor(counts, dtype=torch.int32, device=dev)
+    before = cuda_lib.LAUNCHES["spatio_temporal_pool"]
+    got = pooling.spatio_temporal_pool_fused(x, n, out_dtype=out_dtype)
+    assert cuda_lib.LAUNCHES["spatio_temporal_pool"] == before + 1
+    want = pooling.spatio_temporal_pool(x, n, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == want.shape == (
+        b, 100 + s, c)
+    _assert_close(got, want, 1e-2 if out_dtype == torch.bfloat16 else 1e-5)
+    for i, ni in enumerate(counts):
+        one = pooling.spatio_temporal_pool_fused(x[i], ni,
+                                                 out_dtype=out_dtype)
+        assert torch.equal(got[i], one), i
+
+
 def test_pool_kernel_is_deterministic(dev):
     """Kernel 2's sums run in a fixed order (the temporal partials added
     in run order): the same bits on every launch."""
@@ -765,6 +794,46 @@ def test_flash_kernels_at_head_dims_8_mod_16(dev, d):
     _assert_close(got_lse, want_lse, 2e-5)
 
 
+@pytest.mark.parametrize("d", [256, 200])
+def test_flash_kernels_at_head_dim_256(dev, d):
+    """Head dims past 128 (d in (128, 256] zero-padded to 256, the WMMA
+    and f32 bodies' slabs of 128 output columns along grid z):
+    multi_head_attention's forward and gradient (kernels 7 and 8, bf16)
+    against the plain versions at the limits of
+    test_flash_kernels_match_plain, causal GQA and non-causal ragged, and
+    the f32 body's forward at 2e-5; out and the gradients keep d
+    columns."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for b, sq, skv, h, h_kv, causal in ((2, 70, 90, 4, 2, True),
+                                        (1, 130, 65, 2, 2, False)):
+        q, k, v, do = _flash_inputs(gen, b, sq, skv, h, h_kv, d)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = dict(cuda_lib.LAUNCHES)
+        out = attention.multi_head_attention(*leaves, causal=causal)
+        out.backward(do)
+        for name in ("flash_forward", "flash_backward_dq",
+                     "flash_backward_dkv"):
+            assert cuda_lib.LAUNCHES[name] == before.get(name, 0) + 1, name
+        want, lse = attention.flash_forward_plain(q, k, v, causal)
+        assert out.shape == want.shape
+        _assert_close(out, want, 2e-2)
+        err = (out.float() - want.float()).abs().amax(-1)
+        assert (err / want.float().abs().amax(-1)).max().item() <= 2 ** -6
+        ref = attention.flash_backward_plain(q, k, v, out.detach(), lse, do,
+                                             causal)
+        for leaf, r in zip(leaves, ref):
+            assert leaf.grad.shape == r.shape
+            _assert_rel(leaf.grad, r, 2e-2)
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        before = cuda_lib.LAUNCHES["flash_forward_f32"]
+        got, got_lse = attention.flash_forward(qf, kf, vf, causal)
+        assert cuda_lib.LAUNCHES["flash_forward_f32"] == before + 1
+        want, want_lse = attention.flash_forward_plain(qf, kf, vf, causal)
+        assert got.shape == want.shape
+        _assert_close(got, want, 2e-5)
+        _assert_close(got_lse, want_lse, 2e-5)
+
+
 def _int4_weight(g, d, f, group_size):
     w = torch.randn(d, f, generator=g, device=g.device) * d ** -0.5
     return quant4.quantize_tensor_int4(w, group_size)
@@ -999,9 +1068,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # 4 query heads over 3 kv heads
         kv3 = qf[:, :, :3].contiguous()
         attention.flash_forward(qf, kv3, kv3)
-    q136 = _rand(g, 1, 8, 2, 136)
-    with pytest.raises(ValueError):  # d % 8 == 0 dispatches, 136 raises
-        attention.multi_head_attention(q136, q136, q136, causal=True)
+    q264 = _rand(g, 1, 8, 2, 264)
+    with pytest.raises(ValueError):  # d % 8 == 0 dispatches, 264 raises
+        attention.multi_head_attention(q264, q264, q264, causal=True)
 
 
 @pytest.mark.parametrize("shapes,q,b,nh,hd,p,dtype", [

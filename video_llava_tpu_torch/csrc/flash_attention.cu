@@ -716,8 +716,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace flash
 
 // Head dims 64 and 128 take the Hopper body, the other multiples of 16 up
-// to 128 the WMMA body.
-#define VLT_WMMA_HEAD_DIMS(X) X(16) X(32) X(48) X(80) X(96) X(112)
+// to 128 and 256 the WMMA body.
+#define VLT_WMMA_HEAD_DIMS(X) X(16) X(32) X(48) X(80) X(96) X(112) X(256)
 
 extern "C" int vlt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int b, int sq, int skv,

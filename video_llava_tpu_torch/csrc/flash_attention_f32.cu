@@ -52,8 +52,18 @@
 // V's B fragment is read from key rows 2t and 2t + 1. The causal mask
 // skips the tiles past the diagonal and is applied only on the diagonal
 // and ragged tiles. At d 64 a block takes 102 KB of shared memory: two
-// blocks an SM. Head dims: multiples of 16 up to 128 (the wrapper pads
-// d % 16 == 8).
+// blocks an SM. Head dims: multiples of 16 up to 128, and 256 (the
+// wrapper pads d % 16 == 8, and d in (128, 256] to 256).
+//
+// At d 256 neither Q's fragments (128 registers a lane) nor O's
+// accumulators over all 256 columns (another 128) fit beside the scores,
+// and 64-key tiles of K and V in two stages would take 266 KB. So there:
+// Q, scaled, sits in shared memory (66.5 KB at a pitch of 260 floats,
+// conflict-free for the fragment loads as K's pitch is) and its fragments
+// are read and split at each use; the output columns split into slabs of
+// 128 along grid z, each block recomputing S over the whole d and reading
+// only its slab of V; and the tiles hold 32 keys. A block then takes 163
+// KB, one an SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,7 +79,6 @@ using flash::hopper::quad_max;
 using flash::hopper::quad_sum;
 
 constexpr int kRows = 64;      // query rows a block owns, 16 a warp
-constexpr int kKeys = 64;      // keys a tile
 constexpr int kThreads = 128;  // 4 warps
 constexpr float kSentinel = 1e30f;
 
@@ -80,10 +89,16 @@ struct Shape {
 
 template <int D>
 struct Layout {
+  static constexpr bool wide = D > 128;  // Q in shared memory, slabs of O
+  static constexpr int cols = wide ? 128 : D;  // output columns a block
+  static constexpr int keys = wide ? 32 : 64;  // keys a tile
   static constexpr int pitch = D + 4;  // floats; pitch / 4 is odd
+  static constexpr int vpitch = cols + 4;  // V's slab
   static constexpr int stages = D <= 64 ? 3 : 2;
-  static constexpr size_t tile = (size_t)kKeys * pitch;  // floats
-  static constexpr size_t bytes = (size_t)stages * 2 * tile * 4;
+  static constexpr size_t ktile = (size_t)keys * pitch;  // floats
+  static constexpr size_t stage = ktile + (size_t)keys * vpitch;
+  static constexpr size_t qtile = wide ? (size_t)kRows * pitch : 0;
+  static constexpr size_t bytes = (stages * stage + qtile) * 4;
 };
 
 // x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x: to nearest,
@@ -132,30 +147,34 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
       : "r"(a));
 }
 
-// Key tile `kb` (rows `stride` floats apart) into ring slot `slot`: K then
-// V, 16-byte copies; rows at or past skv are zeroed (a zero V row times
-// p = 0 adds nothing, where stale shared memory could hold a NaN).
+// Key tile `kb` (rows `stride` floats apart) into ring slot `slot`: K's d
+// columns, then V's slab (vh points at its first column), 16-byte copies;
+// rows at or past skv are zeroed (a zero V row times p = 0 adds nothing,
+// where stale shared memory could hold a NaN).
 template <int D>
 __device__ __forceinline__ void load_tile(float* smem, int slot,
                                           const float* kh, const float* vh,
                                           size_t stride, int kb, int skv) {
   using L = Layout<D>;
-  constexpr int kVec = D / 4;
-  float* ks = smem + (size_t)slot * 2 * L::tile;
-  float* vs = ks + L::tile;
-  const int k0 = kb * kKeys;
-  for (int i = threadIdx.x; i < kKeys * kVec; i += kThreads) {
+  constexpr int kVec = D / 4, vVec = L::cols / 4;
+  float* ks = smem + (size_t)slot * L::stage;
+  float* vs = ks + L::ktile;
+  const int k0 = kb * L::keys;
+  for (int i = threadIdx.x; i < L::keys * kVec; i += kThreads) {
     const int r = i / kVec, c = (i % kVec) * 4;
     float* dk = ks + r * L::pitch + c;
-    float* dv = vs + r * L::pitch + c;
-    if (k0 + r < skv) {
-      const size_t at = (size_t)(k0 + r) * stride + c;
-      ring::cp_async16(dk, kh + at);
-      ring::cp_async16(dv, vh + at);
-    } else {
+    if (k0 + r < skv)
+      ring::cp_async16(dk, kh + (size_t)(k0 + r) * stride + c);
+    else
       *reinterpret_cast<float4*>(dk) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int i = threadIdx.x; i < L::keys * vVec; i += kThreads) {
+    const int r = i / vVec, c = (i % vVec) * 4;
+    float* dv = vs + r * L::vpitch + c;
+    if (k0 + r < skv)
+      ring::cp_async16(dv, vh + (size_t)(k0 + r) * stride + c);
+    else
       *reinterpret_cast<float4*>(dv) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
   }
 }
 
@@ -165,15 +184,18 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ o,
            float* __restrict__ lse, Shape sh) {
   using L = Layout<D>;
-  constexpr int P = L::pitch, S = L::stages;
-  constexpr int KS = D / 8;  // k-steps of Q K^T; n-tiles of the output
+  constexpr int P = L::pitch, PV = L::vpitch, S = L::stages;
+  constexpr int KS = D / 8;        // k-steps of Q K^T
+  constexpr int NT = L::cols / 8;  // n-tiles of the block's output slab
+  constexpr int NJ = L::keys / 8;  // n-tiles of S, k-steps of P V
   // At d <= 64 Q's fragments are held split, and each tile's P V is
   // summed apart and then folded into O by an IEEE f32 FMA: the tensor
   // core's sums do not round to nearest, and 24 tiles of 24 sums each
   // into one accumulator drifted 5x further from the plain version
   // (1.2e-5 against 2.5e-6 at two 30 s chunks, for 1.6% more time).
-  // Wider d has no registers for either.
-  constexpr bool kNarrow = D <= 64;
+  // Wider d has no registers for either; past 128, Q's fragments are read
+  // from shared memory at each use.
+  constexpr bool kNarrow = D <= 64, kWide = L::wide;
   extern __shared__ __align__(16) float smem[];
 
   const int bh = blockIdx.x;
@@ -182,8 +204,9 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t qstride = (size_t)sh.h * D, kstride = (size_t)sh.hkv * D;
   const size_t qhead = (size_t)bi * sh.sq * qstride + (size_t)hi * D;
   const size_t khead = (size_t)bi * sh.skv * kstride + (size_t)kvh * D;
+  const int col0 = blockIdx.z * L::cols;  // this block's slab of o and V
   const float* kh = k + khead;
-  const float* vh = v + khead;
+  const float* vh = v + khead + col0;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest first
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // quad, lane in the quad
@@ -197,9 +220,9 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // Key tiles these rows see: all, or (causal) up to the key the last
   // real row sees. Key 0 is seen by every row (sq <= skv under the causal
   // mask), so m is finite after the first tile.
-  int num_kb = (sh.skv + kKeys - 1) / kKeys;
+  int num_kb = (sh.skv + L::keys - 1) / L::keys;
   if (sh.causal)
-    num_kb = min(num_kb, (min(q0 + kRows, sh.sq) - 1 + off) / kKeys + 1);
+    num_kb = min(num_kb, (min(q0 + kRows, sh.sq) - 1 + off) / L::keys + 1);
 
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
@@ -209,8 +232,23 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // Q's A fragments, scaled: a0 (r0, 8kk + t), a1 (r1, 8kk + t),
   // a2 (r0, 8kk + t + 4), a3 (r1, 8kk + t + 4); rows past sq are zero.
-  float qf[KS][4];
-  {
+  // kWide: the block's 64 rows, scaled, into shared memory past the ring
+  // (read after the first tile's barrier).
+  float* qsm = smem + S * L::stage;
+  if constexpr (kWide) {
+    for (int i = threadIdx.x; i < kRows * (D / 4); i += kThreads) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < sh.sq)
+        x = __ldg(reinterpret_cast<const float4*>(
+            q + qhead + (size_t)(q0 + r) * qstride + c));
+      *reinterpret_cast<float4*>(qsm + r * P + c) = make_float4(
+          x.x * sh.scale, x.y * sh.scale, x.z * sh.scale, x.w * sh.scale);
+    }
+  }
+  const float* qw = qsm + (warp * 16 + g) * P + t;  // this lane's a0
+  float qf[kWide ? 1 : KS][4];
+  if constexpr (!kWide) {
     const float* q_r0 = q + qhead + (size_t)r0 * qstride;
     const float* q_r1 = q + qhead + (size_t)r1 * qstride;
 #pragma unroll
@@ -230,9 +268,9 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) split(qf[kk][i], qs[kk][0][i], qs[kk][1][i]);
   }
 
-  float acc[KS][4];
+  float acc[NT][4];
 #pragma unroll
-  for (int n = 0; n < KS; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -244,15 +282,15 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       load_tile<D>(smem, (kb + S - 1) % S, kh, vh, kstride, kb + S - 1,
                    sh.skv);
     ring::commit();
-    const float* ks = smem + (size_t)(kb % S) * 2 * L::tile;
-    const float* vs = ks + L::tile;
-    const int k0 = kb * kKeys;
+    const float* ks = smem + (size_t)(kb % S) * L::stage;
+    const float* vs = ks + L::ktile;
+    const int k0 = kb * L::keys;
 
     // S = (Q scale) K^T: s[j] holds keys 8j + 2t, 8j + 2t + 1 of rows r0
     // (s[j][0..1]) and r1 (s[j][2..3]).
-    float s[8][4];
+    float s[NJ][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
@@ -263,12 +301,15 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if constexpr (kNarrow) {
           ah[i] = qs[kk][0][i];
           al[i] = qs[kk][1][i];
+        } else if constexpr (kWide) {
+          // a_i at row + 8 (i odd), column + 4 (i >= 2)
+          split(qw[(i & 1) * 8 * P + (i >> 1) * 4 + 8 * kk], ah[i], al[i]);
         } else {
           split(qf[kk][i], ah[i], al[i]);
         }
       }
 #pragma unroll
-      for (int j = 0; j < 8; j += 2) {
+      for (int j = 0; j < NJ; j += 2) {
         // B (8 dims x 8 keys) of keys 8j' + g: b0 K[8j' + g][8kk + t],
         // b1 K[8j' + g][8kk + t + 4], for j' = j, j + 1
         uint32_t kr[4];
@@ -283,9 +324,10 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
 
-    if (k0 + kKeys > sh.skv || (sh.causal && k0 + kKeys - 1 > q0 + off)) {
+    if (k0 + L::keys > sh.skv ||
+        (sh.causal && k0 + L::keys - 1 > q0 + off)) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kj = k0 + 8 * j + 2 * t + (e & 1);
@@ -295,15 +337,15 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
     }
 
-    // Online softmax, row r0 (i = 0) and r1 (i = 1): a row's 64 scores
-    // over the quad; the row sum stays a per-lane partial. exp(x) as
-    // 2^(x log2 e).
+    // Online softmax, row r0 (i = 0) and r1 (i = 1): a row's scores of
+    // the tile over the quad; the row sum stays a per-lane partial. exp(x)
+    // as 2^(x log2 e).
     float alpha[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NJ; ++j)
         mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
       const float m_new = fmaxf(m[i], quad_max(mx));
       const float mb = m_new * kLog2e;
@@ -311,7 +353,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       m[i] = m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int e = 2 * i; e < 2 * i + 2; ++e) {
           s[j][e] = ex2(fmaf(s[j][e], kLog2e, -mb));
@@ -319,9 +361,9 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       l[i] = alpha[i] * l[i] + sum;
     }
-    float pv[kNarrow ? KS : 1][4];
+    float pv[kNarrow ? NT : 1][4];
 #pragma unroll
-    for (int n = 0; n < KS; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if constexpr (kNarrow)
@@ -330,22 +372,22 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           acc[n][e] *= alpha[e >> 1];
       }
 
-    // O += P V over the tile's 8 steps of 8 keys. P's A fragment in key
+    // O += P V over the tile's steps of 8 keys. P's A fragment in key
     // order (2t, 2t + 1) for the logical columns (t, t + 4).
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       uint32_t ah[4], al[4];
       split(s[j][0], ah[0], al[0]);  // (r0, key 2t)
       split(s[j][2], ah[1], al[1]);  // (r1, key 2t)
       split(s[j][1], ah[2], al[2]);  // (r0, key 2t + 1)
       split(s[j][3], ah[3], al[3]);  // (r1, key 2t + 1)
-      const float* vp = vs + (8 * j + 2 * t) * P + g;
+      const float* vp = vs + (8 * j + 2 * t) * PV + g;
 #pragma unroll
-      for (int n = 0; n < KS; ++n) {
+      for (int n = 0; n < NT; ++n) {
         // B (8 keys x 8 dims): b0 V[8j + 2t][8n + g], b1 V[8j + 2t + 1][..]
         uint32_t bh0, bl0, bh1, bl1;
         split(vp[8 * n], bh0, bl0);
-        split(vp[P + 8 * n], bh1, bl1);
+        split(vp[PV + 8 * n], bh1, bl1);
         if constexpr (kNarrow)
           mma_3x(pv[n], ah, al, bh0, bh1, bl0, bl1);
         else
@@ -354,7 +396,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     if constexpr (kNarrow) {
 #pragma unroll
-      for (int n = 0; n < KS; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], pv[n][e]);
@@ -367,12 +409,12 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float lc = fmaxf(quad_sum(l[i]), 1e-30f);
     const int qi = i ? r1 : r0;
     if (qi >= sh.sq) continue;
-    float* orow = o + qhead + (size_t)qi * qstride + 2 * t;
+    float* orow = o + qhead + (size_t)qi * qstride + col0 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < KS; ++n)
+    for (int n = 0; n < NT; ++n)
       *reinterpret_cast<float2*>(orow + 8 * n) =
           make_float2(acc[n][2 * i] / lc, acc[n][2 * i + 1] / lc);
-    if (t == 0) {
+    if (t == 0 && blockIdx.z == 0) {
       const float x = m[i] + logf(lc);
       lse[(size_t)bh * sh.sq + qi] = isfinite(x) ? x : kSentinel;
     }
@@ -391,7 +433,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(sh.b * sh.h, (sh.sq + kRows - 1) / kRows);
+  dim3 grid(sh.b * sh.h, (sh.sq + kRows - 1) / kRows, D / Layout<D>::cols);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
@@ -412,7 +454,7 @@ extern "C" int vlt_flash_fwd_f32(const void* q, const void* k, const void* v,
   case D:           \
     return flash_f32::launch<D>(q, k, v, o, lse, sh, st);
     VLT_CASE(16) VLT_CASE(32) VLT_CASE(48) VLT_CASE(64) VLT_CASE(80)
-    VLT_CASE(96) VLT_CASE(112) VLT_CASE(128)
+    VLT_CASE(96) VLT_CASE(112) VLT_CASE(128) VLT_CASE(256)
 #undef VLT_CASE
     default:
       return (int)cudaErrorInvalidValue;

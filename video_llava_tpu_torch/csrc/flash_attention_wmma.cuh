@@ -1,12 +1,21 @@
 // The first, WMMA body of kernels 7 and 8 (csrc/flash_attention.cu), kept
-// for the head dims the Hopper body does not take (16, 32, 48, 80, 96, 112):
-// 64-row tiles, one block of 4 warps per (head, 64 rows): b*h (b*h_kv in
-// the dk/dv kernel) along grid x, whose limit is 2^31 - 1, and the tiles
-// along y (at most 65,535, so s up to about 4.2 M), every product
-// through WMMA 16x16x16 with scores and probabilities staged in shared
-// memory, K/V (or Q/dO) tiles loaded synchronously. The same function as
-// the Hopper body (see flash_attention.cu's header); the C entries there
-// choose between the two by head dim alone.
+// for the head dims the Hopper body does not take (16, 32, 48, 80, 96, 112,
+// 256): 64-row tiles, one block of 4 warps per (head, 64 rows): b*h
+// (b*h_kv in the dk/dv kernel) along grid x, whose limit is 2^31 - 1, and
+// the tiles along y (at most 65,535, so s up to about 4.2 M), every
+// product through WMMA 16x16x16 with scores and probabilities staged in
+// shared memory, K/V (or Q/dO) tiles loaded synchronously. The same
+// function as the Hopper body (see flash_attention.cu's header); the C
+// entries there choose between the two by head dim alone.
+//
+// Past d 128 (the wrappers pad d in (128, 256] to 256) a block's f32
+// accumulators and staging for all d output columns would not fit its
+// registers and shared memory, so the output columns split into slabs of
+// 128 along grid z: each block computes the scores over the whole d (Q
+// K^T, and dO V^T in the backward) and writes its slab of o, dq, or dk
+// and dv (the forward reads only its slab of V). The slabs recompute the
+// same scores: twice the first products' work at d 256, for a body whose
+// tiles fit (forward 158 KB of shared memory, dq 191 KB, dk/dv 201 KB).
 
 #pragma once
 
@@ -40,13 +49,18 @@ using FragBCol =
     wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
+// Output columns a block writes (its slab): all D up to 128, else 128.
+template <int D>
+constexpr int kCols = D > 128 ? 128 : D;
+
 // Shared-memory pitches: bf16 tiles of D columns, bf16 64-column
-// probability tiles, f32 staging wide enough for 64 scores or D outputs.
+// probability tiles, f32 staging wide enough for 64 scores or a slab of
+// outputs.
 template <int D>
 struct Pitch {
   static constexpr int h = D + 8;
   static constexpr int p = kB + 8;
-  static constexpr int f = (D > kB ? D : kB) + 4;
+  static constexpr int f = (kCols<D> > kB ? kCols<D> : kB) + 4;
   static constexpr int s = kB + 4;
   static constexpr size_t tile = (size_t)kB * h * 2;
   static constexpr size_t ptile = (size_t)kB * p * 2;
@@ -91,44 +105,45 @@ __device__ inline void rows_times_tile_t(float* out, int ldo, const bf16* a,
   }
 }
 
-// acc[n] += P_w(16 x 64, bf16, pitch Pitch::p) . T(64 x D tile), n over
-// the D / 16 column blocks.
-template <int D>
+// acc[n] += P_w(16 x 64, bf16, pitch Pitch::p) . T(64 x N columns of a
+// tile of pitch LD), n over the N / 16 column blocks.
+template <int N, int LD>
 __device__ inline void accumulate(FragC* acc, const bf16* p, const bf16* t) {
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
+  for (int n = 0; n < N / 16; ++n) {
 #pragma unroll
     for (int kk = 0; kk < kB; kk += 16) {
       FragA fa;
       FragBRow fb;
-      wmma::load_matrix_sync(fa, p + kk, Pitch<D>::p);
-      wmma::load_matrix_sync(fb, t + kk * Pitch<D>::h + n * 16, Pitch<D>::h);
+      wmma::load_matrix_sync(fa, p + kk, Pitch<N>::p);
+      wmma::load_matrix_sync(fb, t + kk * LD + n * 16, LD);
       wmma::mma_sync(acc[n], fa, fb, acc[n]);
     }
   }
 }
 
-// Store scale * acc (this warp's 16 x D rows) as bf16 rows of a BSHD head:
-// staged through `stage` (f32, pitch Pitch::f); rows at or past `valid`
-// are not written. Two lanes per row, each half of the columns.
-template <int D>
+// Store scale * acc (this warp's 16 x N rows) as bf16 rows of a BSHD head
+// (N columns from dst on): staged through `stage` (f32, pitch Pitch::f);
+// rows at or past `valid` are not written. Two lanes per row, each half of
+// the columns.
+template <int N>
 __device__ inline void store_rows(FragC* acc, float scale, float* stage,
                                   bf16* dst, size_t stride, int row0,
                                   int valid) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
+  for (int n = 0; n < N / 16; ++n) {
 #pragma unroll
     for (int i = 0; i < acc[n].num_elements; ++i) acc[n].x[i] *= scale;
-    wmma::store_matrix_sync(stage + warp * 16 * Pitch<D>::f + n * 16, acc[n],
-                            Pitch<D>::f, wmma::mem_row_major);
+    wmma::store_matrix_sync(stage + warp * 16 * Pitch<N>::f + n * 16, acc[n],
+                            Pitch<N>::f, wmma::mem_row_major);
   }
   __syncwarp();
-  const int row = warp * 16 + (lane >> 1), d0 = (lane & 1) * (D / 2);
+  const int row = warp * 16 + (lane >> 1), d0 = (lane & 1) * (N / 2);
   if (row0 + row < valid) {
     bf16* out = dst + (size_t)(row0 + row) * stride;
-    for (int c = d0; c < d0 + D / 2; ++c)
-      out[c] = __float2bfloat16(stage[row * Pitch<D>::f + c]);
+    for (int c = d0; c < d0 + N / 2; ++c)
+      out[c] = __float2bfloat16(stage[row * Pitch<N>::f + c]);
   }
   __syncwarp();
 }
@@ -155,9 +170,9 @@ __device__ inline int key_tiles(const Shape& sh, int q0) {
 template <int D>
 struct FwdSmem {
   using P = Pitch<D>;
-  static constexpr int ldo = D + 4;
+  static constexpr int ldo = kCols<D> + 4;
   static constexpr size_t q = 0, k = q + P::tile, v = k + P::tile,
-                          p = v + P::tile, f = p + P::ptile,
+                          p = v + Pitch<kCols<D>>::tile, f = p + P::ptile,
                           o = f + P::ftile,
                           bytes = o + (size_t)kB * ldo * 4;
 };
@@ -169,6 +184,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  float* __restrict__ lse, Shape sh) {
   using P = Pitch<D>;
   using L = FwdSmem<D>;
+  constexpr int DO = kCols<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem + L::q);
   bf16* ks = reinterpret_cast<bf16*>(smem + L::k);
@@ -183,6 +199,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t qhead = (size_t)bi * sh.sq * qstride + (size_t)hi * D;
   const size_t khead = (size_t)bi * sh.skv * kstride + (size_t)kvh * D;
   const int q0 = blockIdx.y * kB;
+  const int col0 = blockIdx.z * DO;  // this block's slab of o (and V)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   load_tile<D>(qs, q + qhead, qstride, q0, sh.sq);
@@ -198,7 +215,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int kb = 0; kb < num_kb; ++kb) {
     __syncthreads();  // the previous tile's K/V fully consumed
     load_tile<D>(ks, k + khead, kstride, kb * kB, sh.skv);
-    load_tile<D>(vs, v + khead, kstride, kb * kB, sh.skv);
+    load_tile<DO>(vs, v + khead + col0, kstride, kb * kB, sh.skv);
     __syncthreads();
 
     rows_times_tile_t<D>(fs + warp * 16 * P::f, P::f,
@@ -231,9 +248,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     m = m_new;
     __syncwarp();
 
-    // PV(16 x D) = P_w V, staged in the (now free) score rows.
+    // PV(16 x DO) = P_w V, staged in the (now free) score rows.
 #pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
+    for (int n = 0; n < DO / 16; ++n) {
       FragC acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
@@ -241,15 +258,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         FragA fa;
         FragBRow fb;
         wmma::load_matrix_sync(fa, ps + warp * 16 * P::p + kk, P::p);
-        wmma::load_matrix_sync(fb, vs + kk * P::h + n * 16, P::h);
+        wmma::load_matrix_sync(fb, vs + kk * Pitch<DO>::h + n * 16,
+                               Pitch<DO>::h);
         wmma::mma_sync(acc, fa, fb, acc);
       }
       wmma::store_matrix_sync(fs + warp * 16 * P::f + n * 16, acc, P::f,
                               wmma::mem_row_major);
     }
     __syncwarp();
-    const int d0 = half * (D / 2);
-    for (int c = d0; c < d0 + D / 2; ++c)
+    const int d0 = half * (DO / 2);
+    for (int c = d0; c < d0 + DO / 2; ++c)
       os[row * L::ldo + c] = alpha * os[row * L::ldo + c] + srow[c];
     __syncwarp();
   }
@@ -257,11 +275,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (qi < sh.sq) {
     const float lc = fmaxf(l, 1e-30f);
     const float inv = 1.f / lc;
-    bf16* orow = o + qhead + (size_t)qi * qstride;
-    const int d0 = half * (D / 2);
-    for (int c = d0; c < d0 + D / 2; ++c)
+    bf16* orow = o + qhead + (size_t)qi * qstride + col0;
+    const int d0 = half * (DO / 2);
+    for (int c = d0; c < d0 + DO / 2; ++c)
       orow[c] = __float2bfloat16(os[row * L::ldo + c] * inv);
-    if (half == 0) {
+    if (half == 0 && blockIdx.z == 0) {
       const float x = m + logf(lc);
       lse[(size_t)blockIdx.x * sh.sq + qi] = isfinite(x) ? x : kSentinel;
     }
@@ -305,7 +323,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t qstride = (size_t)sh.h * D, kstride = (size_t)sh.hkv * D;
   const size_t qhead = (size_t)bi * sh.sq * qstride + (size_t)hi * D;
   const size_t khead = (size_t)bi * sh.skv * kstride + (size_t)kvh * D;
+  constexpr int DO = kCols<D>;
   const int q0 = blockIdx.y * kB;
+  const int col0 = blockIdx.z * DO;  // this block's slab of dq
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   load_tile<D>(qs, q + qhead, qstride, q0, sh.sq);
@@ -318,9 +338,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float lse_r = qi < sh.sq ? lse[stat] : 0.f;
   const float delta_r = qi < sh.sq ? delta[stat] : 0.f;
 
-  FragC acc[D / 16];
+  FragC acc[DO / 16];
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
+  for (int n = 0; n < DO / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
 
   const int num_kb = key_tiles(sh, q0);
   for (int kb = 0; kb < num_kb; ++kb) {
@@ -345,9 +365,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           __float2bfloat16(pv * (dps[row * P::s + c] - delta_r));
     }
     __syncwarp();
-    accumulate<D>(acc, dss + warp * 16 * P::p, ks);  // dq += dS K
+    accumulate<DO, P::h>(acc, dss + warp * 16 * P::p, ks + col0);  // dS K
   }
-  store_rows<D>(acc, sh.scale, fs, dq + qhead, qstride, q0, sh.sq);
+  store_rows<DO>(acc, sh.scale, fs, dq + qhead + col0, qstride, q0, sh.sq);
 }
 
 // ---------------------------------------------------------------------------
@@ -390,7 +410,9 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bi = blockIdx.x / sh.hkv, kvh = blockIdx.x % sh.hkv;
   const size_t qstride = (size_t)sh.h * D, kstride = (size_t)sh.hkv * D;
   const size_t khead = (size_t)bi * sh.skv * kstride + (size_t)kvh * D;
+  constexpr int DO = kCols<D>;
   const int k0 = blockIdx.y * kB;
+  const int col0 = blockIdx.z * DO;  // this block's slab of dk and dv
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   load_tile<D>(ks, k + khead, kstride, k0, sh.skv);
@@ -401,9 +423,9 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int half = lane & 1;
   const int kj = k0 + row;
 
-  FragC dk_acc[D / 16], dv_acc[D / 16];
+  FragC dk_acc[DO / 16], dv_acc[DO / 16];
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
+  for (int n = 0; n < DO / 16; ++n) {
     wmma::fill_fragment(dk_acc[n], 0.f);
     wmma::fill_fragment(dv_acc[n], 0.f);
   }
@@ -447,12 +469,14 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             __float2bfloat16(pv * (dps[row * P::s + c] - deltas[c]));
       }
       __syncwarp();
-      accumulate<D>(dv_acc, pts + warp * 16 * P::p, dos);  // dv += P^T dO
-      accumulate<D>(dk_acc, dsts + warp * 16 * P::p, qs);  // dk += dS^T Q
+      // dv += P^T dO, dk += dS^T Q (this block's slab)
+      accumulate<DO, P::h>(dv_acc, pts + warp * 16 * P::p, dos + col0);
+      accumulate<DO, P::h>(dk_acc, dsts + warp * 16 * P::p, qs + col0);
     }
   }
-  store_rows<D>(dk_acc, sh.scale, fs, dk + khead, kstride, k0, sh.skv);
-  store_rows<D>(dv_acc, 1.f, fs, dv + khead, kstride, k0, sh.skv);
+  store_rows<DO>(dk_acc, sh.scale, fs, dk + khead + col0, kstride, k0,
+                 sh.skv);
+  store_rows<DO>(dv_acc, 1.f, fs, dv + khead + col0, kstride, k0, sh.skv);
 }
 
 // ---------------------------------------------------------------------------
@@ -472,7 +496,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   const size_t bytes = FwdSmem<D>::bytes;
   cudaError_t err = prepare(flash_fwd_kernel<D>, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(sh.b * sh.h, (sh.sq + kB - 1) / kB);
+  dim3 grid(sh.b * sh.h, (sh.sq + kB - 1) / kB, D / kCols<D>);
   flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
@@ -487,7 +511,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   const size_t bytes = DqSmem<D>::bytes;
   cudaError_t err = prepare(flash_bwd_dq_kernel<D>, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(sh.b * sh.h, (sh.sq + kB - 1) / kB);
+  dim3 grid(sh.b * sh.h, (sh.sq + kB - 1) / kB, D / kCols<D>);
   flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
@@ -503,7 +527,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   const size_t bytes = DkvSmem<D>::bytes;
   cudaError_t err = prepare(flash_bwd_dkv_kernel<D>, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(sh.b * sh.hkv, (sh.skv + kB - 1) / kB);
+  dim3 grid(sh.b * sh.hkv, (sh.skv + kB - 1) / kB, D / kCols<D>);
   flash_bwd_dkv_kernel<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),

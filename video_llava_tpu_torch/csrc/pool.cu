@@ -1,7 +1,12 @@
 // Fused spatio-temporal pooling of per-frame CLIP patch features.
 //
 // Replaces video_llava_tpu/ops/pooling.py::spatio_temporal_pool_pallas
-// (via _pool_call, Pallas body _pool_kernel). From x (t, s, c), in one read:
+// (via _pool_call, Pallas body _pool_kernel), and the same kernel under the
+// JAX package's vmap over a batch of videos (its scalar-prefetched valid
+// count batched, ops/pooling.py:58-64): x (B, t, s, c) with a valid count
+// n_b a video, every video in one launch, the videos along grid z, each
+// block reading its video's count from device memory (or one host count
+// for all). For each video, from x_b (t, s, c), in one read:
 //     out[f, :]     = mean_s x[f, s, :]   for f < min(t, n), else 0,
 //                     for f < T (T = max_temporal_tokens, rows zero-padded)
 //     out[T + j, :] = sum_{f < n} x[f, j, :] / max(n, 1)
@@ -134,13 +139,19 @@ __device__ inline void store8(float* out, const float (&v)[8], int ch, int c) {
 template <typename TOut, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 pool_kernel(const __nv_bfloat16* __restrict__ x, TOut* __restrict__ out,
-            float* __restrict__ partial, int t, int s, int c, int T,
-            int n) {
+            float* __restrict__ partial, const int* __restrict__ nvalid,
+            int t, int s, int c, int T, int n) {
   extern __shared__ uint4 smem[];
   uint4* ring = smem;  // (kDepth, kThreads): stage f % kDepth holds frame f
   auto tp = reinterpret_cast<float (*)[kRun][kChannels]>(
       reinterpret_cast<char*>(smem) + kRingBytes);  // (kGroup, kRun, kChannels)
   const int lane = threadIdx.x % kLanes, row = threadIdx.x / kLanes;
+  // video blockIdx.z: its count, and its slices of x, out and partial
+  const int vid = blockIdx.z;
+  if (nvalid != nullptr) n = nvalid[vid];
+  x += (size_t)vid * t * s * c;
+  out += (size_t)vid * (T + s) * c;
+  partial += (size_t)vid * gridDim.y * t * c;
   const int c0 = blockIdx.x * kChannels;
   const int ch = c0 + lane * 8;
   const int run = blockIdx.y;
@@ -219,10 +230,15 @@ constexpr int kCombineThreads = 256;
 template <typename TOut>
 __global__ void __launch_bounds__(kCombineThreads)
 pool_temporal_kernel(const float* __restrict__ partial, TOut* __restrict__ out,
-                     int t, int s, int c, int n, int runs) {
+                     const int* __restrict__ nvalid, int t, int s, int c,
+                     int T, int n, int runs) {
   const int ch = blockIdx.x * kCombineThreads + threadIdx.x;
   const int f = blockIdx.y;
+  const int vid = blockIdx.z;
   if (ch >= c) return;
+  if (nvalid != nullptr) n = nvalid[vid];
+  partial += (size_t)vid * runs * t * c;
+  out += (size_t)vid * (T + s) * c;
   float acc = 0.f;
   if (f < min(n, t)) {
     const float* pr = partial + (size_t)f * c + ch;
@@ -234,10 +250,10 @@ pool_temporal_kernel(const float* __restrict__ partial, TOut* __restrict__ out,
 }
 
 template <typename TOut>
-int launch(const void* x, void* out, void* partial, int t, int s, int c,
-           int T, int n, cudaStream_t stream) {
+int launch(const void* x, void* out, void* partial, const int* nvalid,
+           int nb, int t, int s, int c, int T, int n, cudaStream_t stream) {
   const int runs = (s + kRun - 1) / kRun;
-  const dim3 grid((c + kChannels - 1) / kChannels, runs);
+  const dim3 grid((c + kChannels - 1) / kChannels, runs, nb);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   auto* o = static_cast<TOut*>(out);
   auto* pt = static_cast<float*>(partial);
@@ -245,12 +261,13 @@ int launch(const void* x, void* out, void* partial, int t, int s, int c,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid, kThreads, kSmemBytes, stream>>>(xb, o, pt, t, s, c, T, n);
+  kern<<<grid, kThreads, kSmemBytes, stream>>>(xb, o, pt, nvalid, t, s, c, T,
+                                               n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 g2((c + kCombineThreads - 1) / kCombineThreads, T);
+  const dim3 g2((c + kCombineThreads - 1) / kCombineThreads, T, nb);
   pool_temporal_kernel<TOut><<<g2, kCombineThreads, 0, stream>>>(
-      pt, o, t, s, c, n, runs);
+      pt, o, nvalid, t, s, c, T, n, runs);
   return (int)cudaGetLastError();
 }
 
@@ -258,15 +275,19 @@ int launch(const void* x, void* out, void* partial, int t, int s, int c,
 
 extern "C" int vlt_pool_rows_per_block() { return kRun; }
 
-// x: (t, s, c) bf16. out_bf16: 1 for a bf16 output, 0 for f32.
-// partial: (ceil(s / vlt_pool_rows_per_block()), t, c) f32 scratch.
+// x: (nb, t, s, c) bf16, out: (nb, T + s, c). nvalid: nb int32 valid
+// counts on the device, or null for n in every video. out_bf16: 1 for a
+// bf16 output, 0 for f32. partial: (nb, ceil(s /
+// vlt_pool_rows_per_block()), t, c) f32 scratch.
 extern "C" int vlt_spatio_temporal_pool(const void* x, void* out,
-                                        void* partial, int t, int s, int c,
-                                        int T, int n, int out_bf16,
-                                        void* stream) {
-  if (t < 1 || s < 1 || c < 1 || T < t) return (int)cudaErrorInvalidValue;
+                                        void* partial, const void* nvalid,
+                                        int nb, int t, int s, int c, int T,
+                                        int n, int out_bf16, void* stream) {
+  if (nb < 1 || nb > 65535 || t < 1 || s < 1 || c < 1 || T < t)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const int* nv = static_cast<const int*>(nvalid);
   if (out_bf16)
-    return launch<__nv_bfloat16>(x, out, partial, t, s, c, T, n, st);
-  return launch<float>(x, out, partial, t, s, c, T, n, st);
+    return launch<__nv_bfloat16>(x, out, partial, nv, nb, t, s, c, T, n, st);
+  return launch<float>(x, out, partial, nv, nb, t, s, c, T, n, st);
 }

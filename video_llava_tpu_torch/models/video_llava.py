@@ -87,6 +87,25 @@ class VideoLLaVA(nn.Module):
             out_dtype=feats.dtype,
         )
 
+    def encode_videos(self, pixels: torch.Tensor,
+                      num_valid_frames: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """A batch of videos: (b, t, H, W, 3) normalized frames and (b,)
+        int32 valid counts on their device -> pooled features (b,
+        video_token_len, mm_hidden), what :meth:`encode_video` gives each
+        video (the JAX package vmaps encode_video over the batch). CLIP
+        runs once over all b*t frames; the pooling kernel takes every
+        video in one launch."""
+        b, t = pixels.shape[:2]
+        feats = self.vision.encode_frames(pixels.reshape(b * t,
+                                                         *pixels.shape[2:]))
+        return spatio_temporal_pool_fused(
+            feats.reshape(b, t, *feats.shape[1:]),
+            num_valid_frames=num_valid_frames,
+            max_temporal_tokens=self.cfg.max_temporal_tokens,
+            out_dtype=feats.dtype,
+        )
+
     def build_inputs_embeds(self, input_ids: torch.Tensor,
                             video_features: Optional[torch.Tensor]):
         """Token embeddings with projected video features spliced in;

@@ -206,17 +206,17 @@ def flash_backward_plain(q, k, v, out, lse, g, causal: bool = False,
 
 def _check_flash(q, k, v, causal: bool, dtype=torch.bfloat16):
     """Raise unless the kernels take these operands: `dtype`, contiguous
-    BSHD, h a multiple of h_kv, d a multiple of 8 up to 128 (the
-    wrappers pad d % 16 == 8 to the next multiple of 16), under the
-    causal mask sq <= skv (every query row sees a key), and at most
-    65,535 tiles of 64 rows along the grid's y (b*h runs along x)."""
+    BSHD, h a multiple of h_kv, d a multiple of 8 up to 256 (the
+    wrappers pad d to :func:`padded_head_dim`), under the causal mask sq
+    <= skv (every query row sees a key), and at most 65,535 tiles of 64
+    rows along the grid's y (b*h runs along x)."""
     b, sq, h, d = q.shape
     skv, h_kv = k.shape[1], k.shape[2]
     cuda_lib.require(q, "q", dtype, (b, sq, h, d))
     cuda_lib.require(k, "k", dtype, (b, skv, h_kv, d), q.device)
     cuda_lib.require(v, "v", dtype, (b, skv, h_kv, d), q.device)
-    if d % 8 or not 8 <= d <= 128:
-        raise ValueError(f"head dim {d}: must be a multiple of 8 <= 128")
+    if d % 8 or not 8 <= d <= 256:
+        raise ValueError(f"head dim {d}: must be a multiple of 8 <= 256")
     if h % h_kv:
         raise ValueError(f"{h} query heads do not group over {h_kv}")
     if sq < 1 or skv < 1:
@@ -226,6 +226,13 @@ def _check_flash(q, k, v, causal: bool, dtype=torch.bfloat16):
     if -(-max(sq, skv) // 64) > 65535:
         raise ValueError(f"{max(sq, skv)} rows exceed the grid's y limit "
                          f"of 65,535 tiles of 64")
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim kernels 7 and 8 run a d of the wrappers at: the next
+    multiple of 16 up to 128 (their bodies take 16, 32, ..., 128), and
+    256 for d in (128, 256] (the one wider instance)."""
+    return 256 if d > 128 else -(-d // 16) * 16
 
 
 def pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
@@ -238,14 +245,14 @@ def pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
 def flash_forward_padded(fwd, q, k, v, causal: bool = False,
                          scale: Optional[float] = None):
     """`fwd` (kernel 7's wrapper or :func:`flash_forward_plain`) on q, k
-    and v zero-padded along d to the next multiple of 16 -> (out sliced
+    and v zero-padded along d to :func:`padded_head_dim` -> (out sliced
     back to d columns, lse). The scale is the unpadded d's: the zero
     columns add nothing to q k^T, and the padded v columns only give
     output columns that are sliced away, so the result is the unpadded
     function's."""
     d = q.shape[-1]
     scale = _default_scale(d, scale)
-    dp = -(-d // 16) * 16
+    dp = padded_head_dim(d)
     out, lse = fwd(*(pad_head_dim(t, dp) for t in (q, k, v)), causal, scale)
     return out[..., :d].contiguous(), lse
 
@@ -258,7 +265,7 @@ def flash_backward_padded(bwd, q, k, v, out, lse, g, causal: bool = False,
     q, k, v, out and g are zero, so they add nothing to s, dP or D."""
     d = q.shape[-1]
     scale = _default_scale(d, scale)
-    dp = -(-d // 16) * 16
+    dp = padded_head_dim(d)
     grads = bwd(*(pad_head_dim(t, dp) for t in (q, k, v, out)), lse,
                 pad_head_dim(g, dp), causal, scale)
     return tuple(x[..., :d].contiguous() for x in grads)
@@ -268,8 +275,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = False, scale: Optional[float] = None):
     """Kernel 7. q (b, sq, h, d), k/v (b, skv, h_kv, d) -> (out (b, sq,
     h, d) in q's dtype, lse (b, h, sq) f32). On CUDA, d a multiple of 8
-    up to 128 (d % 16 == 8 zero-padded to the next multiple of 16 by
-    :func:`flash_forward_padded`): bf16 operands launch
+    up to 256 (zero-padded to :func:`padded_head_dim` by
+    :func:`flash_forward_padded` where the bodies lack d): bf16 operands
+    launch
     csrc/flash_attention.cu's forward, f32 operands
     csrc/flash_attention_f32.cu's (counted as "flash_forward_f32");
     other dtypes raise."""
@@ -279,7 +287,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_forward_plain(q, k, v, causal, scale)
     f32 = q.dtype == torch.float32
     _check_flash(q, k, v, causal, torch.float32 if f32 else torch.bfloat16)
-    if d % 16:
+    if d != padded_head_dim(d):
         return flash_forward_padded(flash_forward, q, k, v, causal, scale)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -329,14 +337,14 @@ def flash_backward(q, k, v, out, lse, g, causal: bool = False,
     """Kernel 8 -> (dq, dk, dv) in the inputs' dtypes: D (flash_delta),
     then the dq kernel and the dk/dv kernel (csrc/flash_attention.cu).
     On CUDA the operands must be bf16: f32 ones raise (the f32 body of
-    kernel 7 is a forward only). d % 16 == 8 is zero-padded as in
+    kernel 7 is a forward only). d is zero-padded as in
     :func:`flash_forward` (:func:`flash_backward_padded`)."""
     b, sq, h, d = q.shape
     scale = _default_scale(d, scale)
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, out, lse, g, causal, scale)
     _check_flash(q, k, v, causal)
-    if d % 16:
+    if d != padded_head_dim(d):
         return flash_backward_padded(flash_backward, q, k, v, out, lse, g,
                                      causal, scale)
     dev = q.device
@@ -397,9 +405,9 @@ def multi_head_attention(
     kernel 7 through :func:`flash_attention` -- bf16 to its bf16 body
     (kernel 8 its gradient), f32 (Whisper `base` as the chat CLI's
     --use_asr builds it) to its f32 body -- as the JAX package sends them
-    to its Pallas forward on one TPU chip (d % 16 == 8 zero-padded to
-    the next multiple of 16 there); operands that the kernels do not
-    take (d past 128, another dtype, mixed dtypes) raise there. A mask,
+    to its Pallas forward on one TPU chip (d zero-padded to
+    :func:`padded_head_dim` there); operands that the kernels do not
+    take (d past 256, another dtype, mixed dtypes) raise there. A mask,
     an offset, d % 8 != 0 and CPU tensors take the masked reference, as
     the JAX package's CPU backend does."""
     if (q.device.type != "cpu" and kv_valid_len is None

@@ -44,8 +44,9 @@ _F = ctypes.c_float
 # C signature of every entry point (all return int: a cudaError_t).
 _SIGNATURES = {
     "vlt_flash_bhsd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # x, out, partial; t, s, c, T, n, out_bf16
-    "vlt_spatio_temporal_pool": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, out, partial, nvalid (or null); b, t, s, c, T, n, out_bf16
+    "vlt_spatio_temporal_pool": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _P),
     "vlt_pool_rows_per_block": (),
     # q, k, v, ks, vs, lengths, o, ws, counters; layer, b, L, h, d, int8,
     # chunk, splits; scale

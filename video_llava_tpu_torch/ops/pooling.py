@@ -8,8 +8,12 @@ Counterpart of video_llava_tpu/ops/pooling.py:
     spatial   = mean over the valid frames -> (s, c)
     output    = concat([temporal, spatial])  # (max_temporal_tokens + s, c)
 
+or, batched as the JAX package pools under vmap, (b, t, s, c) features
+with a valid count a video -> (b, max_temporal_tokens + s, c).
+
 :func:`spatio_temporal_pool` is the plain version;
-:func:`spatio_temporal_pool_fused` runs csrc/pool.cu on CUDA tensors.
+:func:`spatio_temporal_pool_fused` runs csrc/pool.cu on CUDA tensors
+(every video of a batch in one launch).
 :func:`pool_partials_plain` and :func:`pool_combine_plain` are the plain
 versions of the kernel's two stages (a block's temporal partial over a
 run of patches, then their run-order sum).
@@ -32,7 +36,14 @@ def spatio_temporal_pool(
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """Pool (t, s, c) features -> (max_temporal_tokens + s, c), sums in
-    f32."""
+    f32. Batched (b, t, s, c) features take None or b valid counts (a
+    sequence or a (b,) tensor) -> (b, max_temporal_tokens + s, c)."""
+    if features.ndim == 4:
+        counts = (None,) * len(features) if num_valid_frames is None else [
+            int(n) for n in num_valid_frames]
+        return torch.stack([
+            spatio_temporal_pool(f, n, max_temporal_tokens, out_dtype)
+            for f, n in zip(features, counts)])
     t, s, c = features.shape
     if t > max_temporal_tokens:
         raise ValueError(
@@ -85,33 +96,46 @@ def pool_combine_plain(partial: torch.Tensor, spatial_sum: torch.Tensor,
 
 def spatio_temporal_pool_fused(
     features: torch.Tensor,
-    num_valid_frames: Optional[int] = None,
+    num_valid_frames=None,
     max_temporal_tokens: int = MAX_TEMPORAL_TOKENS,
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """Same contract as :func:`spatio_temporal_pool`. On CUDA one read of
     the valid frames produces both means (csrc/pool.cu); bf16 in, bf16 or
-    f32 out, any s and c."""
-    t, s, c = features.shape
+    f32 out, any s and c. (t, s, c) features take an int count or None;
+    batched (b, t, s, c) features take None or a (b,) int32 tensor of
+    counts on their device, and every video pools in the same launch
+    (the (t, s, c) call is its b = 1 case)."""
     if features.device.type == "cpu":
         return spatio_temporal_pool(features, num_valid_frames,
                                     max_temporal_tokens, out_dtype)
+    batched = features.ndim == 4
+    b, t, s, c = features.shape if batched else (1, *features.shape)
     if not 1 <= t <= max_temporal_tokens:
         raise ValueError(
             f"t={t} outside [1, max_temporal_tokens={max_temporal_tokens}]")
+    if not 1 <= b <= 65535:
+        raise ValueError(f"{b} videos: the grid takes 1 to 65,535")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype: bf16 or f32, got {out_dtype}")
     cuda_lib.require(features, "features", torch.bfloat16)
-    n = t if num_valid_frames is None else int(num_valid_frames)
+    counts, n = None, t
+    if batched and num_valid_frames is not None:
+        counts = num_valid_frames
+        cuda_lib.require(counts, "num_valid_frames", torch.int32, (b,),
+                         features.device)
+    elif not batched and num_valid_frames is not None:
+        n = int(num_valid_frames)
     lib = cuda_lib.library()
     runs = -(-s // lib.vlt_pool_rows_per_block())
-    out = torch.empty((max_temporal_tokens + s, c), dtype=out_dtype,
+    out = torch.empty((b, max_temporal_tokens + s, c), dtype=out_dtype,
                       device=features.device)
-    partial = torch.empty((runs, t, c), dtype=torch.float32,
+    partial = torch.empty((b, runs, t, c), dtype=torch.float32,
                           device=features.device)
     cuda_lib.launch(
         "spatio_temporal_pool", "vlt_spatio_temporal_pool", features.device,
         cuda_lib.ptr(features), cuda_lib.ptr(out), cuda_lib.ptr(partial),
-        t, s, c, max_temporal_tokens, n, int(out_dtype == torch.bfloat16),
+        None if counts is None else cuda_lib.ptr(counts), b, t, s, c,
+        max_temporal_tokens, n, int(out_dtype == torch.bfloat16),
     )
-    return out
+    return out if batched else out[0]

@@ -89,6 +89,22 @@ class InferenceEngine:
         return self.model.encode_video(pixels, num_valid_frames)
 
     @torch.inference_mode()
+    def batched_encode(self, frames: np.ndarray, num_valid_frames):
+        """(b, t, h, w, 3) uint8 frames, padded to one t, and b valid
+        counts -> pooled features (b, video_token_len, c): each row is
+        :meth:`encode_video_frames` of its video's first count frames.
+        The JAX package's eval/run_inference._batched_encode_jit (a vmap
+        of preprocess_frames + encode_video)."""
+        x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+        b, t = x.shape[:2]
+        pixels = preprocess_frames(x.reshape(b * t, *x.shape[2:]),
+                                   self.cfg.vision.image_size)
+        counts = torch.as_tensor(np.asarray(num_valid_frames, np.int32),
+                                 device=self.device)
+        return self.model.encode_videos(
+            pixels.reshape(b, t, *pixels.shape[1:]), counts)
+
+    @torch.inference_mode()
     def infer(self, video_frames: Optional[np.ndarray], question: str,
               conv_mode: str = "pg-video-llava",
               transcript: Optional[str] = None,
