@@ -39,7 +39,16 @@ Phases, each of which raises on failure (exit code != 0):
      temperature 0.2; frames from a seed; no speculation, as in the chat
      CLI), with every kernel's launch count taken over exactly that
      run; then profile the 100-frame request once more (see
-     profile_request);
+     profile_request); then checkpoint loading (checkpoint_phase): that
+     seed engine written as HF-layout checkpoints (BF16 safetensors
+     shards in Vicuna's names with a synthetic 32,000-piece
+     tokenizer.json, CLIP's pytorch_model.bin, mm_projector.bin) and
+     read back by initialize_model(model_name, projection_path,
+     clip_path), in bf16 (every parameter equal to the seed engine's)
+     and at --quant int4 (every leaf equal to quantizing the bf16
+     reload on the card, the load's added device peak within a random
+     int4 build's plus one bf16 layer), then the int4 chat's first two
+     requests from it;
   6. free it, build the same model with int4 W4A8 LLM weights (fused
      wqkv/gate_up, int8 lm_head and embedding: --quant int4) and answer
      the 100-frame request and a second turn, launch counts again taken
@@ -81,13 +90,18 @@ Phases, each of which raises on failure (exit code != 0):
      9 samples (one video missing, one clip of 37 frames) through
      eval.run_inference.main, then run_qa_continuous on its engine with 8
      slots: stage times, launches, the b = 8 vs b = 1 prefill logits;
+     then the batched runner made greedy must answer row for row as
+     run_qa_continuous without speculation;
   10. train (training_phase): kernels 7 and 8 against their
      plain versions at the training layer's shape and four others, then
      (flash_limit_checks) at b*h = 65,600 through each body of kernel 7
-     (bf16 Hopper and WMMA, f32) and at head dims 24 (padded to 32), 256
-     and 200 (padded to 256), then timed at d 256 (flash_d256_times), a
-     small model's train steps on the card against the CPU (bf16 and an
-     int8 LLM), then `python -m video_llava_tpu_torch.train.train
+     (bf16 Hopper and WMMA, f32) and at head dims 24 (padded to 32), 256,
+     200 (padded to 256), 264 and 384 (padded to 384) and 512, forward
+     and backward in bf16 and f32, then timed at d 256, 384 and 512
+     (flash_wide_times), kernel 8's f32 body against its plain version
+     and timed (flash_f32_bwd_checks), a small model's train steps on the
+     card against the CPU (bf16, an int8 LLM, and f32: kernel 8's f32
+     body's launches), then `python -m video_llava_tpu_torch.train.train
      --model_size 7b` for 4 optimizer steps on seeded features, with its
      checkpoint, export and a profile of step 3;
   11. print stage times, the kernels' JSON line, the card line and, last,
@@ -99,6 +113,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
@@ -108,6 +123,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 import urllib.request
@@ -141,6 +157,7 @@ from video_llava_tpu_torch.constants import (
     DEFAULT_VIDEO_PATCH_TOKEN,
     DEFAULT_VIDEO_TOKEN,
 )
+from video_llava_tpu_torch.engine import weights as weights_mod
 from video_llava_tpu_torch.engine.continuous import SlotRequest
 from video_llava_tpu_torch.grounding import fused_clip, results as gresults
 from video_llava_tpu_torch.grounding.builders import build_grounding_stack
@@ -217,6 +234,12 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                           "video_llava_tpu/ops/attention.py:625"),
     "flash_backward_dkv": ("video_llava_tpu_torch/csrc/flash_attention.cu",
                            "video_llava_tpu/ops/attention.py:649"),
+    "flash_backward_dq_f32": (
+        "video_llava_tpu_torch/csrc/flash_attention_f32.cu",
+        "video_llava_tpu/ops/attention.py:625"),
+    "flash_backward_dkv_f32": (
+        "video_llava_tpu_torch/csrc/flash_attention_f32.cu",
+        "video_llava_tpu/ops/attention.py:649"),
     "multi_scale_deformable_attention": (
         "video_llava_tpu_torch/csrc/deformable_attention.cu",
         "video_llava_tpu/ops/deformable_pallas.py:196"),
@@ -236,6 +259,8 @@ BF16_PATH = ("flash_attention_bhsd", "spatio_temporal_pool",
 INT4_PATH = BF16_PATH + ("w4a8_matvec", "w4a8_block")
 SERVING_PATH = ("decode_attention_paged", "w4a8_matvec", "w4a8_block")
 TRAIN_PATH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+TRAIN_PATH_F32 = ("flash_forward_f32", "flash_backward_dq_f32",
+                  "flash_backward_dkv_f32")
 GROUNDING_PATH = ("multi_scale_deformable_attention",)
 # Kernel vs plain on the card, both bf16 out. flash: the kernel rounds P
 # to bf16 for its second product and accumulates in another order;
@@ -1697,6 +1722,377 @@ def w4a16_chat_phase(engine, clips, requests, dev) -> dict:
     return counts
 
 
+# -- checkpoints ----------------------------------------------------------
+
+CKPT_VOCAB = 32000  # Vicuna's tokenizer pieces; the model has 32,006 rows
+CKPT_SHARD_BYTES = 2 * 2 ** 30
+_ST_NAMES = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32"}
+
+
+def synthetic_llama_tokenizer(n: int = CKPT_VOCAB, seed: int = 0) -> dict:
+    """A LLaMA-layout tokenizer.json of n pieces: <unk> <s> </s>, the 256
+    byte pieces, ▁ and the printable ASCII characters, then pieces that
+    merge two earlier ones (at most 16 characters), drawn from a seed,
+    each merge ranked in the order it was drawn; the legacy normalizer
+    and decoder of LLaMA's fast tokenizer."""
+    rng = np.random.default_rng(seed)
+    chars = ["▁"] + [chr(c) for c in range(33, 127)]
+    pieces = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    pieces += chars
+    have, words, merges = set(pieces), list(chars), []
+    while len(pieces) < n:
+        for x, y in rng.random((4096, 2)):
+            a, b = words[int(x * len(words))], words[int(y * len(words))]
+            if a + b in have or len(a + b) > 16:
+                continue
+            have.add(a + b)
+            pieces.append(a + b)
+            words.append(a + b)
+            merges.append(f"{a} {b}")
+            if len(pieces) == n:
+                break
+    return {
+        "version": "1.0",
+        "added_tokens": [{"id": i, "content": t, "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True}
+                         for i, t in enumerate(pieces[:3])],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "▁"},
+            {"type": "Replace", "pattern": {"String": " "},
+             "content": "▁"}]},
+        "pre_tokenizer": None,
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "unk_token": "<unk>", "fuse_unk": True,
+                  "byte_fallback": True,
+                  "vocab": {p: i for i, p in enumerate(pieces)},
+                  "merges": merges},
+    }
+
+
+def write_safetensors(path: str, tensors) -> None:
+    """A .safetensors file written by hand: the 8-byte little-endian
+    header length, the JSON header (padded to 8 bytes), then each
+    tensor's bytes in order. `tensors`: [(name, tensor)], copied to the
+    host one at a time."""
+    header, off = {}, 0
+    for name, t in tensors:
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for _, t in tensors:
+            f.write(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                    .tobytes())
+
+
+def hf_llama_tensors(llm, rows: int = CKPT_VOCAB):
+    """The port Llama's weights in Vicuna's (HF LlamaForCausalLM) names
+    and layouts, as (name, device tensor) pairs: kernels (out, in), the
+    embedding's and lm_head's first `rows` rows."""
+    yield "model.embed_tokens.weight", llm.embed_tokens.weight[:rows]
+    hf = {v: k for k, v in weights_mod.LLAMA_LINEARS.items()}
+    norms = {v.split(".")[0]: k for k, v in weights_mod.LLAMA_NORMS.items()}
+    for i, layer in enumerate(llm.layers):
+        for ours, name in norms.items():
+            yield (f"model.layers.{i}.{name}",
+                   getattr(layer, ours).scale)
+        for ours, name in hf.items():
+            yield (f"model.layers.{i}.{name}",
+                   getattr(layer, ours).kernel.t())
+    yield "model.norm.weight", llm.final_norm.scale
+    yield "lm_head.weight", llm.lm_head.kernel[:, :rows].t()
+
+
+def hf_clip_state(vision) -> dict:
+    """The port CLIP tower's weights in CLIPVisionModel's names on the
+    host: linears (out, in), the patchify kernel back to the stride-14
+    conv (hidden, 3, 14, 14)."""
+    p = vision.cfg.patch_size
+    sd = {"vision_model.embeddings.patch_embedding.weight":
+          vision.patch_embedding.reshape(p, p, 3, -1).permute(3, 2, 0, 1)}
+    ours = dict(vision.named_parameters())
+    for hf, name in weights_mod.CLIP_VISION_TOP.items():
+        if name != "patch_embedding":
+            sd["vision_model." + hf] = ours[name]
+    for i in range(len(vision.layers)):
+        for hf, name in weights_mod.CLIP_LAYER.items():
+            t = ours[f"layers.{i}.{name}"]
+            sd[f"vision_model.encoder.layers.{i}.{hf}"] = (
+                t.t() if name.endswith(".kernel") else t)
+    return {k: v.detach().contiguous().cpu() for k, v in sd.items()}
+
+
+def export_checkpoint(model, root: str) -> dict:
+    """The seed engine's VideoLLaVA as the reference's three checkpoints:
+    llm/ (BF16 safetensors shards of about CKPT_SHARD_BYTES with
+    model.safetensors.index.json, Vicuna's names, the synthetic
+    tokenizer.json, a quant_preflight.json approving int4), clip/
+    (pytorch_model.bin, CLIPVisionModel's names) and mm_projector.bin
+    (the reference's keys). Returns the paths and the bytes written."""
+    llm_dir, clip_dir = os.path.join(root, "llm"), os.path.join(root, "clip")
+    os.makedirs(llm_dir)
+    os.makedirs(clip_dir)
+    shards, cur, size = [], [], 0
+    for name, t in hf_llama_tensors(model.llm):
+        n = t.numel() * t.element_size()
+        if cur and size + n > CKPT_SHARD_BYTES:
+            shards.append(cur)
+            cur, size = [], 0
+        cur.append((name, t))
+        size += n
+    shards.append(cur)
+    weight_map, total = {}, 0
+    for i, part in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        write_safetensors(os.path.join(llm_dir, fname), part)
+        for name, t in part:
+            weight_map[name] = fname
+            total += t.numel() * t.element_size()
+    with open(os.path.join(llm_dir, "model.safetensors.index.json"),
+              "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    with open(os.path.join(llm_dir, "tokenizer.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(synthetic_llama_tokenizer(), f, ensure_ascii=False)
+    with open(os.path.join(llm_dir, "tokenizer_config.json"), "w") as f:
+        json.dump({"add_bos_token": True, "bos_token": "<s>",
+                   "eos_token": "</s>", "unk_token": "<unk>"}, f)
+    with open(os.path.join(llm_dir, "quant_preflight.json"), "w") as f:
+        json.dump({"preflight_llm_format": "int4"}, f)
+    clip = hf_clip_state(model.vision)
+    torch.save(clip, os.path.join(clip_dir, "pytorch_model.bin"))
+    total += sum(t.numel() * t.element_size() for t in clip.values())
+    proj = {"model.mm_projector.weight":
+            model.projector.layers[0].kernel.t().contiguous().cpu(),
+            "model.mm_projector.bias": model.projector.layers[0].bias.cpu()}
+    proj_path = os.path.join(root, "mm_projector.bin")
+    torch.save(proj, proj_path)
+    return {"llm": llm_dir, "clip": clip_dir, "projector": proj_path,
+            "bytes": total, "shards": len(shards)}
+
+
+def host_rss_gib() -> float:
+    """This process's resident set in GiB (/proc/self/statm), or nan."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+    except (OSError, IndexError, ValueError):
+        return float("nan")
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2 ** 30
+
+
+def with_host_peak(fn):
+    """(fn(), the process's peak resident set in GiB while fn ran),
+    sampled every 10 ms by a thread."""
+    peak, done = [host_rss_gib()], threading.Event()
+
+    def sample():
+        while not done.wait(0.01):
+            peak[0] = max(peak[0], host_rss_gib())
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        thread.join()
+    return out, max(peak[0], host_rss_gib())
+
+
+def compare_reload(seed, loaded, rows: int = CKPT_VOCAB) -> str:
+    """Every parameter of `loaded` equal to `seed`'s bit for bit, but the
+    embedding's rows and lm_head's columns past `rows`, which must equal
+    row_mean of the first `rows` (the loader's mean, computed here the
+    same way from the same values) in bf16; their distance to the f64
+    mean is printed. Raises on any other difference."""
+    own = dict(loaded.named_parameters())
+    dists = []
+    for name, p in seed.named_parameters():
+        q = own[name]
+        if name not in ("llm.embed_tokens.weight", "llm.lm_head.kernel"):
+            if not (q.dtype == p.dtype and torch.equal(q, p)):
+                raise AssertionError(f"checkpoint reload: {name} differs")
+            continue
+        if name == "llm.lm_head.kernel":  # (d, vocab): rows as columns
+            p, q = p.t(), q.t()
+        if not torch.equal(q[:rows], p[:rows]):
+            raise AssertionError(f"checkpoint reload: {name}'s first "
+                                 f"{rows} rows differ")
+        w = p[:rows].contiguous()
+        want = weights_mod.row_mean(w).to(q.dtype)
+        if not torch.equal(q[rows:], want.expand_as(q[rows:])):
+            raise AssertionError(f"checkpoint reload: {name}'s added rows "
+                                 "are not the mean of the others")
+        dists.append((q[rows].double() - w.double().mean(0)).abs().max()
+                     .item())
+    return (f"every parameter equal bit for bit; rows {rows}+ of the "
+            f"embedding and lm_head equal their row_mean (max|diff| from "
+            f"the f64 mean {max(dists):.3e})")
+
+
+def compare_int4(bf16, q) -> None:
+    """The int4 fused LLM `q` against quantize_params_int4 (min_size 0,
+    group 128) and fuse_layer_kernels applied on the card to the bf16
+    reload's weights, layer by layer, and the int8 embedding and
+    lm_head against quantize_params_int4 of the bf16 ones: every packed
+    leaf and scale equal."""
+    from video_llava_tpu_torch.engine.convert import flatten_tree
+    from video_llava_tpu_torch.models.llama import (
+        fuse_layer_kernels,
+        layer_layout,
+    )
+    from video_llava_tpu_torch.ops.quant4 import quantize_params_int4
+
+    quant = functools.partial(quantize_params_int4, min_size=0,
+                              group_size=q.group_size)
+    own = dict(q.named_parameters())
+    formats = {n: fmt for n, (_, _, fmt, _) in
+               layer_layout(q.cfg, "int4", q.group_size).items()}
+
+    def same(prefix, tree):
+        for name, t in flatten_tree(tree).items():
+            if not torch.equal(own[prefix + name], t):
+                raise AssertionError(f"int4 reload: {prefix}{name} differs "
+                                     "from quantizing the bf16 reload")
+
+    for i, layer in enumerate(bf16.layers):
+        tree = {n: {"kernel": getattr(layer, n).kernel} for n in formats}
+        tree = {**{n: v for n, v in tree.items() if not formats[n]},
+                **quant({n: v for n, v in tree.items() if formats[n]})}
+        same(f"layers.{i}.", fuse_layer_kernels({"layers": tree})["layers"])
+        same(f"layers.{i}.", {"input_norm": {"scale": layer.input_norm.scale},
+                              "post_norm": {"scale": layer.post_norm.scale}})
+    same("", quant({"embed_tokens": {"weight": bf16.embed_tokens.weight},
+                    "lm_head": {"kernel": bf16.lm_head.kernel}}))
+    same("", {"final_norm": {"scale": bf16.final_norm.scale}})
+
+
+def checkpoint_phase(engine, clips, requests, dev, card) -> dict:
+    """Checkpoint loading at full width and depth: the seed engine (7B
+    bf16, seed 0) exported as HF-layout checkpoints (export_checkpoint,
+    about 14 GB on the temp directory's disk), then through the entry
+    point initialize_model(model_name, projection_path, clip_path):
+    (1) in bf16, every parameter equal to the seed engine's
+    (compare_reload), with the load's wall time and the host's peak
+    resident set; (2) at --quant int4 with the fused layout, every
+    packed leaf and scale equal to quantizing the bf16 reload on the
+    card (compare_int4), and the device memory the load adds at its
+    peak at most that of a random int4 initialize_model in this run plus
+    one layer of bf16 weights (no whole bf16 LLM is built); then the
+    int4 chat's first two requests on it, through the checkpoint's
+    tokenizer (video ids 32000-32002), with kernels 1, 2, 3, A and B
+    launched. The directory is removed at the end. Returns the chat's
+    launch counts."""
+    t_phase = time.perf_counter()
+    label = "checkpoint"
+    root = tempfile.mkdtemp(prefix="ckpt_")
+    free = shutil.disk_usage(root).free / 2 ** 30
+    print(f"{label}: {free:.1f} GiB free under {os.path.dirname(root)}",
+          flush=True)
+    try:
+        t = time.perf_counter()
+        paths = export_checkpoint(engine.model, root)
+        print(f"{label}: wrote {paths['bytes'] / 2 ** 30:.2f} GiB "
+              f"({paths['shards']} safetensors shards, CLIP .bin, "
+              f"mm_projector.bin) in {time.perf_counter() - t:.2f} s",
+              flush=True)
+
+        def load(quant):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0, rss0 = time.perf_counter(), host_rss_gib()
+            eng, host = with_host_peak(lambda: initialize_model(
+                paths["llm"], paths["projector"], paths["clip"],
+                model_size="7b", device=dev, llm_quant=quant,
+                llm_fuse=bool(quant)))
+            torch.cuda.synchronize()
+            return eng, (time.perf_counter() - t0,
+                         (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                         f"{host:.2f} GiB ({rss0:.2f} before the load)")
+
+        quant = chat_mod.resolve_quant("auto", paths["llm"])
+        if quant != "int4":
+            raise AssertionError(f"{label}: --quant auto resolved to {quant}")
+        bf16, (secs, added, host) = load(None)
+        note = compare_reload(engine.model, bf16.model)
+        tok = bf16.tokenizer
+        ids = (tok.vid_patch_token_id, tok.vid_start_token_id,
+               tok.vid_end_token_id)
+        if ids != (32000, 32001, 32002) or tok.vocab_size != 32003:
+            raise AssertionError(f"{label}: tokenizer video ids {ids}, "
+                                 f"vocab {tok.vocab_size}")
+        print(f"{label} bf16 load: {secs:.2f} s, device memory added "
+              f"{added:.2f} GiB, host peak RSS {host}; {note}; "
+              f"tokenizer: {tok.vocab_size} tokens, video ids {ids} "
+              f"[{card}]", flush=True)
+
+        # the random int4 build's peak in this run, the bound's base
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rnd = initialize_model(model_size="7b", device=dev, seed=0,
+                               llm_quant="int4", llm_fuse=True)
+        torch.cuda.synchronize()
+        rnd_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        del rnd
+        layer = bf16.model.llm.layers[0]
+        layer_gib = sum(getattr(layer, n).kernel.numel() * 2 for n in
+                        weights_mod.LLAMA_LINEARS.values()) / 2 ** 30
+
+        q, (secs, added, host) = load(quant)
+        compare_int4(bf16.model.llm, q.model.llm)
+        for name in ("vision", "projector"):
+            for (n, a), b in zip(getattr(q.model, name).named_parameters(),
+                                 getattr(bf16.model, name).parameters()):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"int4 reload: {name}.{n} differs")
+        limit = rnd_peak + layer_gib
+        print(f"{label} int4 load (fused): {secs:.2f} s, device memory "
+              f"added at its peak {added:.2f} GiB (random int4 "
+              f"initialize_model in this run {rnd_peak:.2f} GiB + one bf16 "
+              f"layer {layer_gib:.3f} GiB = limit {limit:.2f}), host peak "
+              f"RSS {host}; every packed leaf and scale equal to "
+              f"quantize_params_int4 + fuse_layer_kernels of the bf16 "
+              f"reload on the card [{card}]", flush=True)
+        if added > limit:
+            raise AssertionError(f"{label}: the int4 load added {added:.2f} "
+                                 f"GiB at its peak, over {limit:.2f}")
+        del bf16
+        gc.collect()
+        torch.cuda.empty_cache()
+        q.speculative = False
+        counts = chat_requests(q, clips, requests[:2], dev,
+                               "checkpoint int4 chat (speculative=False)")
+        missing = [k for k in INT4_PATH if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"{label} int4 chat: kernels never "
+                                 f"launched: {missing}")
+        del q
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"{label} phase: {time.perf_counter() - t_phase:.2f} s [{card}]",
+          flush=True)
+    return counts
+
+
 def gqa_chat_phase(clips, requests, dev) -> dict:
     """Vicuna-7B with 8 KV heads for its 32 query heads (int4, fused, as
     --quant int4 builds it): `requests` through the chat interface, the
@@ -1810,7 +2206,11 @@ def eval_13b_phase(dev, results) -> dict:
     last logits of the 37-frame clip's row within EVAL_LOGIT_LIMITS of
     the same sample encoded and prefilled alone at b = 1. Prints stage
     walls, tok/s, the share of rows where both runners answer alike and
-    peak memory. Returns the launches of both runs, summed."""
+    peak memory. Last, the batched runner with engine.gen made greedy
+    must answer row for row as run_qa_continuous without speculation
+    (the sampled batched run parts from the greedy continuous one by
+    sampling alone). Returns the launches of the first two runs,
+    summed."""
     from video_llava_tpu_torch.engine import continuous as cont_mod
     from video_llava_tpu_torch.eval import run_inference as ri
 
@@ -1842,11 +2242,13 @@ def eval_13b_phase(dev, results) -> dict:
     def generate(*a, **kw):  # the batched runner's generate call
         out = timed_generate(*a, **kw)
         stats["tokens"] += int(out.lengths.sum())
+        kept["gen"] = (a, kw, out.tokens.cpu(), out.lengths.cpu())
         return out
 
     def result(handle, timeout=None):  # a continuous request's tokens
         toks = real_result(handle, timeout)
         delivered.append(len(toks))
+        kept.setdefault("cont_tokens", []).append((handle, list(toks)))
         return toks
 
     def init(*a, **kw):
@@ -2000,8 +2402,8 @@ def eval_13b_phase(dev, results) -> dict:
         print(f"{label}: run_qa_continuous (8 slots, speculative) "
               f"{cont_s:.2f} s (encode included), {new_tokens} tokens "
               f"generated ({new_tokens / cont_s:.2f} tok/s); rows answering "
-              f"as the batched runner (greedy, "
-              f"without speculation): {same} of {len(cont)}; launches "
+              f"as the batched runner (which samples by engine.gen, without "
+              f"speculation): {same} of {len(cont)}; launches "
               f"{cont_counts}; peak "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
               flush=True)
@@ -2014,6 +2416,30 @@ def eval_13b_phase(dev, results) -> dict:
             if name in results:
                 results[name]["eval_13b_launches"] = (
                     counts.get(name, 0) + cont_counts.get(name, 0))
+        # the batched runner samples by engine.gen (temperature 0.2, as
+        # the reference), the continuous runner's requests are greedy:
+        # made greedy, the batched runner answers row for row as the
+        # continuous runner without speculation (PERF.md section 7)
+        sampled, engine.speculative = engine.gen, False
+        engine.gen = dataclasses.replace(sampled, do_sample=False,
+                                         temperature=0.0)
+        try:
+            greedy = ri.run_qa_batched(engine, samples, paths["video_dir"],
+                                       "pg-video-llava", batch_size=8,
+                                       video_prefix="v_")
+        finally:
+            engine.gen = sampled
+        plain = ri.run_qa_continuous(engine, samples, paths["video_dir"],
+                                     "pg-video-llava", batch_size=8,
+                                     num_slots=8, video_prefix="v_")
+        parted = [g["id"] for g, c in zip(greedy, plain)
+                  if g["pred"] != c["pred"]]
+        print(f"{label}: the batched runner made greedy against "
+              f"run_qa_continuous without speculation: {len(parted)} of "
+              f"{len(plain)} rows answer otherwise {parted}", flush=True)
+        if parted or len(greedy) != len(plain):
+            raise AssertionError(f"{label}: greedy runners part on rows "
+                                 f"{parted}")
     finally:
         ri.initialize_model, ri.load_video = real_init, real_load
         ri.generate = real_generate
@@ -2197,15 +2623,18 @@ def flash_limit_checks(dev) -> None:
     grid's y limit (now along x) through each body, forward against the
     plain forward and, in bf16, kernel 8 against the plain backward; head
     dims 24 (d % 16 == 8, zero-padded to 32 with the unpadded d's
-    scale), 256 (the WMMA and f32 bodies in slabs of 128 output columns)
-    and 200 (zero-padded to 256) through the bf16 forward and backward
-    and the f32 forward. Limits: flash_checks' in bf16 (absolute and lse;
-    gradients of max |ref|), F32_FLASH_TOL in f32. Not timed here (no
-    path runs these shapes; flash_d256_times times d 256)."""
+    scale), 256 (the WMMA and f32 bodies in slabs of 128 output columns),
+    200 (zero-padded to 256), and past 256 264 and 384 (padded to 384)
+    and 512 (the SIMT body), each through the forward and backward in
+    bf16 and f32. Limits: flash_checks' in bf16 (absolute and lse;
+    gradients of max |ref|), F32_FLASH_TOL and F32_GRAD_TOL in f32. Not
+    timed here (no path runs these shapes; flash_wide_times times d 256,
+    384 and 512)."""
     g = torch.Generator(device=dev).manual_seed(7)
     cases = [((16400, 16, 16, 4, 4, d), dtype)
              for d, dtype in FLASH_WIDE_BODIES]
-    cases += [(FLASH_PAD_SHAPE + (d,), dtype) for d in (24, 256, 200)
+    cases += [(FLASH_PAD_SHAPE + (d,), dtype)
+              for d in (24, 256, 200, 264, 384, 512)
               for dtype in (torch.bfloat16, torch.float32)]
     for (b, sq, skv, h, h_kv, d), dtype in cases:
         shape = (b, sq, skv, h, h_kv, d, True)
@@ -2225,7 +2654,17 @@ def flash_limit_checks(dev) -> None:
                 f"{lse_err:.3e} (tol {lse_tol})")
         ok = (out.shape == want.shape and fwd_err <= tol
               and lse_err <= lse_tol)
-        if not f32:
+        if b < 1000:  # the backward, but at b*h = 65,600
+            gtol = F32_GRAD_TOL if f32 else FLASH_GRAD_TOL
+            got = attention.flash_backward(q, k, v, out, lse, do, True)
+            ref = attention.flash_backward_plain(q, k, v, out, lse, do, True)
+            rels = grad_rel_errs(got, ref)
+            note += "; backward max|err|/max|ref| " + ", ".join(
+                f"{n} {e:.3e}" for n, e in zip(("dq", "dk", "dv"), rels))
+            note += f" (tol {gtol})"
+            ok = ok and all(np.isfinite(e) and e <= gtol for e in rels)
+            del got, ref
+        elif not f32:
             got = attention.flash_backward(q, k, v, out, lse, do, True)
             ref = attention.flash_backward_plain(q, k, v, out, lse, do, True)
             rels = grad_rel_errs(got, ref)
@@ -2247,86 +2686,180 @@ def flash_limit_checks(dev) -> None:
     torch.cuda.empty_cache()
 
 
-# (b, sq, skv, h, h_kv) of the timed d 256 shape: causal GQA, 1,024 rows
+# (b, sq, skv, h, h_kv) of the timed wide head dims: causal GQA, 1,024
+# rows
 FLASH_D256_SHAPE = (2, 1024, 1024, 8, 4)
 
 
-def flash_d256_times(dev) -> None:
-    """Kernels 7 and 8 at head dim 256 (no ported model has it; the JAX
-    package's Pallas forward takes it): the bf16 forward, dq and dk/dv
-    and the f32 forward at FLASH_D256_SHAPE, causal, each against its
-    plain version at flash_checks' limits (F32_FLASH_TOL in f32), then
-    timed beside the plain version, the library call (SDPA and its
-    backward, enable_gqa) and the bound of the visible pairs' products
-    (TF32's peak as 3xTF32 for the f32 body). Printed only: the kernels
-    line keeps the training layer's shape."""
+def flash_wide_times(dev) -> None:
+    """Kernels 7 and 8 at head dims 256, 384 and 512 (no ported model has
+    them; the JAX package's Pallas forward takes them): the bf16
+    forward, dq and dk/dv and the f32 forward at FLASH_D256_SHAPE,
+    causal (past 256, the f32 dq and dk/dv too), each against its plain
+    version at flash_checks' limits (F32_FLASH_TOL, F32_GRAD_TOL in
+    f32), then timed beside the plain version, the library call (SDPA
+    and its backward, enable_gqa) and the bound of the visible pairs'
+    products: bf16 at the bf16 peak, f32 (whichever body runs) three
+    times over at the TF32 peak, the least time for f32-accurate products
+    on the tensor cores (3xTF32), with the f32-FMA bound printed beside
+    it. Printed only: the kernels line keeps the training layer's
+    shape."""
+    for d in (256, 384, 512):
+        for dtype in (torch.bfloat16, torch.float32):
+            flash_wide_time(dev, d, dtype)
+
+
+def flash_wide_time(dev, d: int, dtype) -> None:
+    """flash_wide_times at one head dim and dtype."""
     g = torch.Generator(device=dev).manual_seed(8)
     b, sq, skv, h, h_kv = FLASH_D256_SHAPE
-    d = 256
     prod = 2 * b * h * visible_pairs(sq, skv, True) * d
-    for dtype in (torch.bfloat16, torch.float32):
-        f32 = dtype == torch.float32
-        q, do = (torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+    f32 = dtype == torch.float32
+    q, do = (torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, skv, h_kv, d, generator=g, device=dev).to(
+        dtype) for _ in range(2))
+    out, lse = attention.flash_forward(q, k, v, True)
+    want, want_lse = attention.flash_forward_plain(q, k, v, True)
+    fwd_err = (out.float() - want.float()).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    tol = F32_FLASH_TOL if f32 else TOL["flash_forward"]
+    lse_tol = F32_FLASH_TOL if f32 else FLASH_LSE_TOL
+    if not (fwd_err <= tol and lse_err <= lse_tol):
+        raise AssertionError(f"flash d {d} {dtype}: max|err| {fwd_err}, "
+                             f"lse {lse_err}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda *a: F.scaled_dot_product_attention(  # noqa: E731
+        *a, enable_gqa=True, is_causal=True)
+    qb, kb, sb = q.element_size() * q.numel(), k.element_size() * \
+        k.numel(), 4 * lse.numel()
+    simt = d > 256
+    rows = [("flash_forward_f32" if f32 else "flash_forward", fwd_err,
+             lambda: attention.flash_forward(q, k, v, True),
+             lambda: attention.flash_forward_plain(q, k, v, True),
+             lambda: sdpa(qt, kt, vt), True, 2 * qb + 2 * kb + sb,
+             2 * prod)]
+    if not f32 or simt:
+        sfx = "_f32" if f32 else ""
+        gtol = F32_GRAD_TOL if f32 else FLASH_GRAD_TOL
+        delta = attention.flash_delta(out, do)
+        got = attention.flash_backward(q, k, v, out, lse, do, True)
+        ref = attention.flash_backward_plain(q, k, v, out, lse, do, True)
+        rels = grad_rel_errs(got, ref)
+        if not all(np.isfinite(e) and e <= gtol for e in rels):
+            raise AssertionError(f"flash d {d} {dtype} backward: {rels}")
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        lib_out = sdpa(*leaves)
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, leaves, do.transpose(1, 2), retain_graph=True)
+        plain_bwd = lambda: attention.flash_backward_plain(  # noqa
+            q, k, v, out, lse, do, True)
+        scale = d ** -0.5
+        rows += [
+            ("flash_backward_dq" + sfx, rels[0],
+             lambda: attention.flash_backward_dq(
+                 q, k, v, do, lse, delta, True, scale), plain_bwd,
+             lib_bwd, False, 3 * qb + 2 * kb + 2 * sb, 3 * prod),
+            ("flash_backward_dkv" + sfx, max(rels[1:]),
+             lambda: attention.flash_backward_dkv(
+                 q, k, v, do, lse, delta, True, scale), plain_bwd,
+             lib_bwd, False, 2 * qb + 4 * kb + 2 * sb, 4 * prod)]
+    for name, err, fn, plain, lib, capture, nbytes, ops in rows:
+        ms, plain_ms = median_ms(fn), median_ms(plain)
+        lib_ms = median_ms(lib, capture=capture)
+        bound_ms, bound_by = (bound(nbytes, 3 * ops, TF32_PEAK) if f32
+                              else bound(nbytes, ops, BF16_PEAK))
+        fma = (f" (as f32 FMAs {bound(nbytes, ops, F32_PEAK)[0]:.4f} ms)"
+               if f32 else "")
+        print(f"check {name} {FLASH_D256_SHAPE + (d, True)} {dtype}: "
+              f"err {err:.3e}, kernel {ms:.4f} ms ({bound_ms / ms:.3f} of "
+              f"the bound), plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}"
+              f"{fma}", flush=True)
+    del q, k, v, do, out, lse, want, want_lse, rows
+    torch.cuda.empty_cache()
+
+
+# Kernel 8's f32 body (the SIMT body) at (b, sq, skv, h, h_kv, d,
+# causal): Whisper base's encoder over one 30 s chunk (the first, the
+# kernels line's shape), a ragged causal GQA pair, d 256
+FLASH_F32_BWD_SHAPES = ((1, 1500, 1500, 8, 8, 64, False),
+                        (2, 100, 130, 8, 2, 128, True),
+                        (2, 300, 340, 8, 4, 256, True))
+
+
+def flash_f32_bwd_checks(dev, results) -> None:
+    """Kernel 8's f32 body against the plain backward on the same f32
+    inputs at FLASH_F32_BWD_SHAPES (fed the f32 forward's out and lse):
+    dq, dk, dv each within F32_GRAD_TOL of its max |ref|; then timed as
+    flash_checks times the bf16 body: the dq and dk/dv kernels, the
+    plain backward, SDPA's f32 backward (torch.autograd.grad, no graph),
+    beside the bound of the visible pairs' products three times over at
+    the TF32 peak (3xTF32: the least time for f32-accurate products on
+    the tensor cores, as audio_f32_checks bounds the f32 forward; the
+    body itself runs f32 FMAs), the f32-FMA bound printed beside it."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    for shape in FLASH_F32_BWD_SHAPES:
+        b, sq, skv, h, hkv, d, causal = shape
+        q, do = (torch.randn(b, sq, h, d, generator=g, device=dev)
                  for _ in range(2))
-        k, v = (torch.randn(b, skv, h_kv, d, generator=g, device=dev).to(
-            dtype) for _ in range(2))
-        out, lse = attention.flash_forward(q, k, v, True)
-        want, want_lse = attention.flash_forward_plain(q, k, v, True)
-        fwd_err = (out.float() - want.float()).abs().max().item()
-        lse_err = (lse - want_lse).abs().max().item()
-        tol = F32_FLASH_TOL if f32 else TOL["flash_forward"]
-        lse_tol = F32_FLASH_TOL if f32 else FLASH_LSE_TOL
-        if not (fwd_err <= tol and lse_err <= lse_tol):
-            raise AssertionError(f"flash d 256 {dtype}: max|err| {fwd_err}, "
-                                 f"lse {lse_err}")
+        k, v = (torch.randn(b, skv, hkv, d, generator=g, device=dev)
+                for _ in range(2))
+        scale = d ** -0.5
+        out, lse = attention.flash_forward(q, k, v, causal)
+        delta = attention.flash_delta(out, do)
+        dq_fn = lambda: attention.flash_backward_dq(  # noqa: E731
+            q, k, v, do, lse, delta, causal, scale)
+        dkv_fn = lambda: attention.flash_backward_dkv(  # noqa: E731
+            q, k, v, do, lse, delta, causal, scale)
+        plain = lambda: attention.flash_backward_plain(  # noqa: E731
+            q, k, v, out, lse, do, causal, scale)
+        got, ref = (dq_fn(), *dkv_fn()), plain()
+        rels = grad_rel_errs(got, ref)
+        note = ", ".join(f"{n} {e:.3e}" for n, e in
+                         zip(("dq", "dk", "dv"), rels))
+        if not all(np.isfinite(e) and e <= F32_GRAD_TOL for e in rels):
+            raise AssertionError(f"flash f32 backward {shape}: "
+                                 f"max|err|/max|ref| {note} (tol "
+                                 f"{F32_GRAD_TOL})")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        sdpa = lambda *a: F.scaled_dot_product_attention(  # noqa: E731
-            *a, enable_gqa=True, is_causal=True)
-        qb, kb, sb = q.element_size() * q.numel(), k.element_size() * \
-            k.numel(), 4 * lse.numel()
-        rows = [("flash_forward_f32" if f32 else "flash_forward", fwd_err,
-                 lambda: attention.flash_forward(q, k, v, True),
-                 lambda: attention.flash_forward_plain(q, k, v, True),
-                 lambda: sdpa(qt, kt, vt), True, 2 * qb + 2 * kb + sb,
-                 2 * prod * (3 if f32 else 1))]
-        if not f32:
-            delta = attention.flash_delta(out, do)
-            got = attention.flash_backward(q, k, v, out, lse, do, True)
-            ref = attention.flash_backward_plain(q, k, v, out, lse, do, True)
-            rels = grad_rel_errs(got, ref)
-            if not all(np.isfinite(e) and e <= FLASH_GRAD_TOL for e in rels):
-                raise AssertionError(f"flash d 256 backward: {rels}")
-            leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
-            lib_out = sdpa(*leaves)
-            lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
-                lib_out, leaves, do.transpose(1, 2), retain_graph=True)
-            plain_bwd = lambda: attention.flash_backward_plain(  # noqa
-                q, k, v, out, lse, do, True)
-            scale = d ** -0.5
-            rows += [
-                ("flash_backward_dq", rels[0],
-                 lambda: attention.flash_backward_dq(
-                     q, k, v, do, lse, delta, True, scale), plain_bwd,
-                 lib_bwd, False, 3 * qb + 2 * kb + 2 * sb, 3 * prod),
-                ("flash_backward_dkv", max(rels[1:]),
-                 lambda: attention.flash_backward_dkv(
-                     q, k, v, do, lse, delta, True, scale), plain_bwd,
-                 lib_bwd, False, 2 * qb + 4 * kb + 2 * sb, 4 * prod)]
-        for name, err, fn, plain, lib, capture, nbytes, ops in rows:
-            ms, plain_ms = median_ms(fn), median_ms(plain)
-            lib_ms = median_ms(lib, capture=capture)
-            bound_ms, bound_by = bound(nbytes, ops,
-                                       TF32_PEAK if f32 else BF16_PEAK)
-            print(f"check {name} {FLASH_D256_SHAPE + (d, True)} {dtype}: "
-                  f"err {err:.3e}, kernel {ms:.4f} ms ({bound_ms / ms:.3f} of "
+        mask_kw = ({"attn_mask": attention.flash_mask(sq, skv, True, dev)}
+                   if causal and sq != skv else {"is_causal": causal})
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        lib_out = F.scaled_dot_product_attention(
+            *leaves, enable_gqa=hkv < h, **mask_kw)
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, leaves, do.transpose(1, 2), retain_graph=True)
+        dq_ms, dkv_ms = median_ms(dq_fn), median_ms(dkv_fn)
+        plain_ms = median_ms(plain)
+        lib_ms = median_ms(lib_bwd, capture=False)
+        del leaves, lib_out
+        prod = 2 * b * h * visible_pairs(sq, skv, causal) * d
+        qb, kb, sb = 4 * q.numel(), 4 * k.numel(), 4 * lse.numel()
+        for name, e, ms, nbytes, ops in (
+                ("flash_backward_dq_f32", (got[0] - ref[0]).abs().max()
+                 .item(), dq_ms, 3 * qb + 2 * kb + 2 * sb, 3 * prod),
+                ("flash_backward_dkv_f32", max(
+                    (a - r).abs().max().item()
+                    for a, r in zip(got[1:], ref[1:])), dkv_ms,
+                 2 * qb + 4 * kb + 2 * sb, 4 * prod)):
+            bound_ms, bound_by = record(results, name, e, ms, plain_ms,
+                                        lib_ms, nbytes, 3 * ops, TF32_PEAK)
+            fma_ms, _ = bound(nbytes, ops, F32_PEAK)
+            print(f"check {name} {shape}: max|err|/max|ref| {note} (tol "
+                  f"{F32_GRAD_TOL}), kernel {ms:.4f} ms "
+                  f"({ops / ms * 1e-9:.1f} TFLOP/s, {bound_ms / ms:.3f} of "
                   f"the bound), plain {plain_ms:.4f} ms, library "
-                  f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}",
+                  f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                  f"(3xTF32 at {TF32_PEAK * 1e-12:.0f} TFLOP/s; as f32 FMAs "
+                  f"at {F32_PEAK * 1e-12:.0f} TFLOP/s {fma_ms:.4f} ms)",
                   flush=True)
-        del q, k, v, do, out, lse, want, want_lse, rows
+        del q, k, v, do, out, lse, delta, got, ref
         torch.cuda.empty_cache()
 
 
-def small_train_check(dev, llm_weights: str = "bf16") -> None:
+def small_train_check(dev, llm_weights: str = "bf16",
+                      card_dtype=torch.bfloat16) -> dict:
     """Two optimizer steps of a small VideoLLaVA (2 layers, GQA 4/2,
     head dim 64) tuning projector+embed, grad_accum 2, AdamW at lr 1e-3
     with no warmup, built by the entry point's build_model from one seed:
@@ -2337,7 +2870,10 @@ def small_train_check(dev, llm_weights: str = "bf16") -> None:
     layout. Loss within 2e-2 and the gradient's global norm within 5e-2
     of the CPU's, relative: bf16 activations through 2 layers move both
     by ~1e-2, and step 2 sees step 1's Adam update, which a sign flip of
-    a near-zero gradient moves by 2 lr."""
+    a near-zero gradient moves by 2 lr. card_dtype float32: the card's
+    model in f32 (kernel 7's f32 body and kernel 8's), within 1e-3 and
+    1e-2 (f32 on both sides, but for such sign flips). Returns the
+    launches of the card's two steps."""
     tok = load_tokenizer(None)
     cfg = dataclasses.replace(
         VideoLLaVAConfig.tiny(),
@@ -2354,7 +2890,7 @@ def small_train_check(dev, llm_weights: str = "bf16") -> None:
     int8 = dict(llm_quant="int8", llm_skip_keys=("embed_tokens",))
     layout = int8 if llm_weights == "int8" else {}
     models = {}
-    for where, dtype in ((dev, torch.bfloat16), ("cpu", torch.float32)):
+    for where, dtype in ((dev, card_dtype), ("cpu", torch.float32)):
         models[where] = VideoLLaVA(cfg, device=where, dtype=dtype, **layout)
         models[where].load_state_dict(src.state_dict())
     rng = np.random.default_rng(0)
@@ -2370,7 +2906,7 @@ def small_train_check(dev, llm_weights: str = "bf16") -> None:
              "video_features": rng.standard_normal(
                  (b, n, cfg.vision.hidden_size)).astype(np.float32)}
     metrics = {}
-    before = dict(cuda_lib.LAUNCHES)
+    cuda_lib.reset_launch_counts()
     for where, model in models.items():
         tx = make_optimizer(1e-3, 0.0, warmup_steps=0, total_steps=4)
         state = init_train_state(model, tx, trainable_mask(model))
@@ -2380,20 +2916,27 @@ def small_train_check(dev, llm_weights: str = "bf16") -> None:
         for _ in range(2):
             state, m = step(state, mb)
             metrics[where].append((float(m["loss"]), float(m["grad_norm"])))
-    if not all(cuda_lib.LAUNCHES[k] > before.get(k, 0) for k in TRAIN_PATH):
-        raise AssertionError("small train step did not run kernels 7 and 8")
+    launches = dict(cuda_lib.LAUNCHES)
+    path = TRAIN_PATH_F32 if card_dtype == torch.float32 else TRAIN_PATH
+    if not all(launches.get(k) for k in path):
+        raise AssertionError(f"small train step did not run {path}: "
+                             f"{launches}")
+    f32 = card_dtype == torch.float32
+    limits = (1e-3, 1e-2) if f32 else (2e-2, 5e-2)
+    label = f"small {llm_weights} train step{' (f32 on the card)' * f32}"
     for i, ((loss, norm), (loss_ref, norm_ref)) in enumerate(
             zip(metrics[dev], metrics["cpu"])):
         rel_loss = abs(loss - loss_ref) / abs(loss_ref)
         rel_norm = abs(norm - norm_ref) / norm_ref
-        print(f"small {llm_weights} train step {i}: loss {loss:.5f} (CPU f32 "
-              f"{loss_ref:.5f}, rel {rel_loss:.2e}, limit 2e-2), grad norm "
-              f"{norm:.5f} (CPU f32 {norm_ref:.5f}, rel {rel_norm:.2e}, "
-              "limit 5e-2)", flush=True)
-        if not (np.isfinite(loss) and np.isfinite(norm) and rel_loss <= 2e-2
-                and rel_norm <= 5e-2):
-            raise AssertionError(f"small {llm_weights} train step {i} "
-                                 "disagrees with the CPU")
+        print(f"{label} {i}: loss {loss:.5f} (CPU f32 {loss_ref:.5f}, rel "
+              f"{rel_loss:.2e}, limit {limits[0]}), grad norm {norm:.5f} "
+              f"(CPU f32 {norm_ref:.5f}, rel {rel_norm:.2e}, limit "
+              f"{limits[1]})", flush=True)
+        if not (np.isfinite(loss) and np.isfinite(norm)
+                and rel_loss <= limits[0] and rel_norm <= limits[1]):
+            raise AssertionError(f"{label} {i} disagrees with the CPU")
+    print(f"{label}: launches {launches}", flush=True)
+    return launches
 
 
 TRAIN_SAMPLES, TRAIN_LAYER = 32, 7  # samples; the frozen layer checksummed
@@ -2641,11 +3184,16 @@ def training_phase(dev, results) -> dict:
     t0 = time.perf_counter()
     flash_checks(dev, results)
     flash_limit_checks(dev)
-    flash_d256_times(dev)
+    flash_wide_times(dev)
+    flash_f32_bwd_checks(dev, results)
     torch.cuda.empty_cache()
     small_train_check(dev)
     small_train_check(dev, "int8")
+    # an f32 train step on the card: kernel 7's f32 body and kernel 8's
+    # f32 body, whose launches the kernels line carries
+    f32 = small_train_check(dev, card_dtype=torch.float32)
     launches = train_7b(dev)
+    launches.update({k: f32[k] for k in TRAIN_PATH_F32[1:]})
     gc.collect()
     torch.cuda.empty_cache()
     print(f"training phase: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -3085,6 +3633,10 @@ AUDIO_F32_SHAPES = ((1, 1500, 1500, 8, 8, 64, False),
 # magnitude, 2e-5 absolute each. The plain version with the last key
 # tile dropped must fail it (the limit is fine enough to see a tile).
 F32_FLASH_TOL = 2e-5
+# Kernel 8's f32 body against the plain backward: f32 on both sides, sums
+# in another order (dk and dv over up to 2 x 1,500 query rows), each
+# gradient within this share of its max |ref|.
+F32_GRAD_TOL = 1e-5
 # The CLI transcriber's encoder on the card against the same f32 weights
 # on the CPU: 6 layers of width 512 in f32, cuBLAS against the CPU's sum
 # orders: max|err| / max|ref| <= 1e-4.
@@ -3524,6 +4076,8 @@ def main() -> int:
                 raise AssertionError("kernel B launched fewer than 4 x 32 "
                                      "times a prefill")
         profile_request(engine, clips, dev, label)
+        if quant is None:  # the seed engine's weights as checkpoints
+            checkpoint_phase(engine, clips, requests, dev, card)
         # the bf16 kernels' launches are the bf16 path's, A's and B's
         # the int4 path's, kernel 10's the serving path's
         launches.update({k: counts[k] for k in path if k not in launches})
@@ -3547,7 +4101,7 @@ def main() -> int:
         clips, requests[:1], dev)["decode_attention_pallas"]
     eval_13b_phase(dev, results)
     trained = training_phase(dev, results)
-    launches.update({k: trained[k] for k in TRAIN_PATH})
+    launches.update({k: trained[k] for k in TRAIN_PATH + TRAIN_PATH_F32[1:]})
 
     # kernel 7's entry also carries the audio path's launches (over the
     # 60 s transcribe) and its checks at the audio shapes

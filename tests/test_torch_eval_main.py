@@ -5,7 +5,9 @@ import json
 import runpy
 import sys
 
+import numpy as np
 import pytest
+import torch
 
 from torch_eval_pair import eval_pair  # noqa: F401 (fixture)
 from video_llava_tpu.eval import run_inference as jax_ri
@@ -26,10 +28,21 @@ def test_eval_main_matches_jax(eval_pair, tmp_path, monkeypatch):
     write the JSON the JAX package's main and alias write, field for
     field (exact: the same f32 weights, greedy), each model built through
     initialize_model (stood in for by the shared tiny engines) with the
-    JAX CLI's layout flags and the port's --device; the checkpoint and
-    mesh flags raise before any model is built."""
-    import numpy as np
+    JAX CLI's layout flags and the port's --device; the checkpoint flags
+    reach initialize_model as the JAX CLI passes them, and --mesh_model 2
+    raises before any model is built."""
+    # one torch thread: the tiny models' CPU ops gain nothing from more,
+    # and beside the tier's other workers a pool of 8 spins on shared
+    # cores (about 2x this test's time under load)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _eval_main_matches_jax(eval_pair, tmp_path, monkeypatch)
+    finally:
+        torch.set_num_threads(threads)
 
+
+def _eval_main_matches_jax(eval_pair, tmp_path, monkeypatch):
     jax_engine, engine, _, _ = eval_pair
     jax_calls, calls = [], []
     monkeypatch.setattr(jax_ri, "initialize_model",
@@ -85,9 +98,27 @@ def test_eval_main_matches_jax(eval_pair, tmp_path, monkeypatch):
     assert alias("video_llava_tpu_torch", tmp_path / "port",
                  ("--device", "cpu")) == want
 
+    # the checkpoint flags reach initialize_model as the JAX CLI passes
+    # them (tests/test_torch_model_init_ckpt.py holds the loads equal);
+    # the stand-in stops each main once the model is asked for
+    class Built(Exception):
+        pass
+
+    def stop(record):
+        def init(*a, **kw):
+            record.append((a, kw))
+            raise Built
+        return init
+
+    monkeypatch.setattr(jax_ri, "initialize_model", stop(jax_calls))
+    monkeypatch.setattr(run_inference, "initialize_model", stop(calls))
+    flags = ["--model_name", "ckpt", "--projection_path", "p.bin",
+             "--clip_path", "clip"]
+    for main, out in ((jax_ri.main, "jax"), (run_inference.main, "port")):
+        with pytest.raises(Built):
+            main(args(tmp_path / out) + flags)
+    assert calls[-1][0] == jax_calls[-1][0] == ("ckpt", "p.bin", "clip")
     n = len(calls)
-    for extra in (("--model_name", "ckpt"), ("--projection_path", "p.bin"),
-                  ("--clip_path", "clip"), ("--mesh_model", "2")):
-        with pytest.raises(NotImplementedError):
-            run_inference.main(args(tmp_path / "port") + list(extra))
+    with pytest.raises(NotImplementedError):  # still not ported
+        run_inference.main(args(tmp_path / "port") + ["--mesh_model", "2"])
     assert len(calls) == n

@@ -19,7 +19,8 @@ bf16 activations) as their plain versions do: the same limits as W4A8.
 Decode attention over a flat cache (kernels 9 and 11) as kernels 3 and
 10: 2e-2 absolute and, row by row, 2^-6 of each row's max |ref|.
 Kernel 7's f32 body: f32 on both sides, sums in another order, outputs
-of magnitude < 4 and lse: 2e-5 absolute.
+of magnitude < 4 and lse: 2e-5 absolute; kernel 8's f32 body: 1e-5 of
+each gradient's max |ref|.
 """
 
 import pytest
@@ -834,6 +835,79 @@ def test_flash_kernels_at_head_dim_256(dev, d):
         _assert_close(got_lse, want_lse, 2e-5)
 
 
+# Kernel 8's f32 body (the SIMT body of csrc/flash_attention_simt.cuh):
+# Whisper base's encoder shape, a ragged causal GQA pair, d 256 and a
+# small head dim.
+F32_BWD_SHAPES = [(1, 1500, 1500, 8, 8, 64, False),
+                  (2, 100, 130, 8, 2, 128, True),
+                  (1, 70, 90, 4, 2, 256, True), (2, 65, 65, 3, 3, 16, False)]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,h_kv,d,causal", F32_BWD_SHAPES)
+def test_flash_backward_f32_matches_plain(dev, b, sq, skv, h, h_kv, d,
+                                          causal):
+    """Kernel 8 on f32 operands against the plain backward (fed the f32
+    forward's out and lse): dq, dk, dv f32, each within 1e-5 of its
+    tensor's max |ref| (f32 on both sides, sums in another order); one
+    launch each, counted as flash_backward_dq_f32 and
+    flash_backward_dkv_f32, and none of the bf16 body."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    q, k, v, do = (t.float() for t in
+                   _flash_inputs(gen, b, sq, skv, h, h_kv, d))
+    out, lse = attention.flash_forward(q, k, v, causal)
+    before = dict(cuda_lib.LAUNCHES)
+    got = attention.flash_backward(q, k, v, out, lse, do, causal)
+    ran = {n: c - before.get(n, 0) for n, c in cuda_lib.LAUNCHES.items()
+           if c != before.get(n, 0)}
+    assert ran == {"flash_backward_dq_f32": 1, "flash_backward_dkv_f32": 1}
+    ref = attention.flash_backward_plain(q, k, v, out, lse, do, causal)
+    for a, r in zip(got, ref):
+        assert a.dtype == r.dtype == torch.float32 and a.shape == r.shape
+        _assert_rel(a, r, 1e-5)
+
+
+@pytest.mark.parametrize("d", [384, 264, 512])
+def test_flash_kernels_past_head_dim_256(dev, d):
+    """Head dims past 256 (zero-padded to a multiple of 128, the SIMT
+    body in slabs of 128 output columns): multi_head_attention's forward
+    and gradient in bf16 (kernels 7 and 8) against the plain versions at
+    the limits of test_flash_kernels_match_plain, and in f32 (the f32
+    forward and backward) at 2e-5 absolute and 1e-5 of max |ref|; out and
+    the gradients keep d columns."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for b, sq, skv, h, h_kv, causal in ((2, 70, 90, 4, 2, True),
+                                        (1, 130, 65, 2, 2, False)):
+        q, k, v, do = _flash_inputs(gen, b, sq, skv, h, h_kv, d)
+        for dtype in (torch.bfloat16, torch.float32):
+            sfx = "_f32" if dtype == torch.float32 else ""
+            leaves = [t.to(dtype).clone().requires_grad_()
+                      for t in (q, k, v)]
+            before = dict(cuda_lib.LAUNCHES)
+            out = attention.multi_head_attention(*leaves, causal=causal)
+            out.backward(do.to(dtype))
+            for name in ("flash_forward", "flash_backward_dq",
+                         "flash_backward_dkv"):
+                name += sfx
+                assert cuda_lib.LAUNCHES[name] == before.get(name, 0) + 1
+            qd, kd, vd = (t.detach() for t in leaves)
+            want, lse = attention.flash_forward_plain(qd, kd, vd, causal)
+            assert out.shape == want.shape
+            ref = attention.flash_backward_plain(qd, kd, vd, out.detach(),
+                                                 lse, do.to(dtype), causal)
+            if dtype == torch.float32:
+                _assert_close(out, want, 2e-5)
+                for leaf, r in zip(leaves, ref):
+                    assert leaf.grad.shape == r.shape
+                    _assert_rel(leaf.grad, r, 1e-5)
+                continue
+            _assert_close(out, want, 2e-2)
+            err = (out.float() - want.float()).abs().amax(-1)
+            assert (err / want.float().abs().amax(-1)).max().item() <= 2 ** -6
+            for leaf, r in zip(leaves, ref):
+                assert leaf.grad.shape == r.shape
+                _assert_rel(leaf.grad, r, 2e-2)
+
+
 def _int4_weight(g, d, f, group_size):
     w = torch.randn(d, f, generator=g, device=g.device) * d ** -0.5
     return quant4.quantize_tensor_int4(w, group_size)
@@ -1068,9 +1142,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # 4 query heads over 3 kv heads
         kv3 = qf[:, :, :3].contiguous()
         attention.flash_forward(qf, kv3, kv3)
+    q260 = _rand(g, 1, 8, 2, 260)
+    with pytest.raises(ValueError):  # the kernels take d % 8 == 0 only
+        attention.flash_forward(q260, q260, q260)
+    with pytest.raises(ValueError):
+        attention.flash_backward(q260, q260, q260, q260,
+                                 torch.zeros((1, 2, 8), device=dev), q260)
+    # d 264 is taken (padded to 384, the SIMT body): one forward launch
     q264 = _rand(g, 1, 8, 2, 264)
-    with pytest.raises(ValueError):  # d % 8 == 0 dispatches, 264 raises
-        attention.multi_head_attention(q264, q264, q264, causal=True)
+    before = cuda_lib.LAUNCHES["flash_forward"]
+    out = attention.multi_head_attention(q264, q264, q264, causal=True)
+    assert out.shape == q264.shape
+    assert cuda_lib.LAUNCHES["flash_forward"] == before + 1
 
 
 @pytest.mark.parametrize("shapes,q,b,nh,hd,p,dtype", [

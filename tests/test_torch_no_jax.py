@@ -1,5 +1,6 @@
-"""The port and chip_smoke.py run where JAX, `transformers` and
-`requests` are not installed (the card's machine has none of them)."""
+"""The port and chip_smoke.py run where JAX, `transformers`, `requests`,
+`tokenizers`, `safetensors`, `sentencepiece` and `google.protobuf` are
+not installed (the card's machine has none of them)."""
 
 import os
 import pkgutil
@@ -9,11 +10,16 @@ import sys
 import video_llava_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# Makes `import jax` (transformers, requests) raise ImportError, as on a
-# machine without them.
+# Makes `import jax` (transformers, requests, tokenizers, safetensors,
+# sentencepiece, google.protobuf) raise ImportError, as on a machine
+# without them.
 BLOCK_JAX = ("import sys; sys.modules['jax'] = None; "
              "sys.modules['transformers'] = None; "
-             "sys.modules['requests'] = None; ")
+             "sys.modules['requests'] = None; "
+             "sys.modules['tokenizers'] = None; "
+             "sys.modules['safetensors'] = None; "
+             "sys.modules['sentencepiece'] = None; "
+             "sys.modules['google.protobuf'] = None; ")
 
 
 def _run(code: str, *args: str) -> subprocess.CompletedProcess:
@@ -24,10 +30,12 @@ def _run(code: str, *args: str) -> subprocess.CompletedProcess:
     )
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     """Every module of the port, and chip_smoke.py, imports with JAX
-    unimportable, and none pulls JAX in; the chat (with --use_asr),
-    serving, training and eval CLIs' --help run."""
+    unimportable, and none pulls JAX in; the chat (with --use_asr and
+    the checkpoint flags), serving, training and eval CLIs' --help run;
+    a checkpoint's tokenizer.json and safetensors shards load without
+    the tokenizer and safetensors libraries."""
     modules = [m.name for m in pkgutil.walk_packages(
         video_llava_tpu_torch.__path__, "video_llava_tpu_torch.")]
     assert "video_llava_tpu_torch.runtime.chat" in modules
@@ -35,9 +43,27 @@ def test_port_imports_no_jax():
             f"for m in {modules + ['chip_smoke']!r}: "
             "importlib.import_module(m)\n"
             "assert sys.modules['jax'] is None\n"
-            "assert not [m for m in sys.modules if m.startswith('jax.')]\n")
+            "assert not [m for m in sys.modules if m.startswith(("
+            "'jax.', 'tokenizers.', 'safetensors.', 'sentencepiece.', "
+            "'google.protobuf.'))]\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
+
+    from torch_ckpt_pair import hf_llama, write_shards, write_tokenizer_json
+
+    write_shards(str(tmp_path), hf_llama(layers=1).state_dict(),
+                 "safetensors", shards=2)
+    write_tokenizer_json(str(tmp_path))
+    proc = _run(BLOCK_JAX + (
+        "from video_llava_tpu_torch.engine import weights\n"
+        "from video_llava_tpu_torch.runtime.tokenizer import load_tokenizer\n"
+        f"sd = weights.load_checkpoint_dir({str(tmp_path)!r})\n"
+        "assert sd['model.norm.weight'].shape == (256,)\n"
+        f"tok = load_tokenizer({str(tmp_path)!r})\n"
+        "assert tok.decode(tok.encode('Hello world')) == 'Hello world'\n"
+        "print(tok.vid_patch_token_id)"))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["400"]
 
     proc = _run(BLOCK_JAX + "import runpy; sys.argv = ['chat', '--help']; "
                 "runpy.run_module('video_llava_tpu_torch.runtime.chat', "
@@ -46,6 +72,8 @@ def test_port_imports_no_jax():
     assert "--model_size" in proc.stdout
     assert "--with_grounding" in proc.stdout and "--sam_variant" in proc.stdout
     assert "--use_asr" in proc.stdout
+    assert all(f in proc.stdout for f in ("--model-name", "--clip_path",
+                                          "--projection_path"))
     assert {"video_llava_tpu_torch.audio.builders",
             "video_llava_tpu_torch.audio.transcribe",
             "video_llava_tpu_torch.audio.align",

@@ -82,7 +82,49 @@ def test_train_cli_runs_saves_exports_and_resumes(tmp_path, capsys):
     assert summary["steps"] == 8 and len(summary["loss"]) == 4
     assert _state(out, 8)["opt_state"]["count"] == 8
 
-    for extra in (["--mesh_data", "2"], ["--mesh_model", "2"],
-                  ["--pretrained_dir", str(tmp_path)]):
+    for extra in (["--mesh_data", "2"], ["--mesh_model", "2"]):
         with pytest.raises(NotImplementedError):
             train.main(argv + extra)
+
+    # --pretrained_dir: the LLM from an HF LLaMA directory, as the JAX
+    # trainer builds it (convert_llama in bf16, then with --llm_weights
+    # int8 quantize_params with embed_tokens kept): every leaf equal but
+    # for the mean-initialised vocabulary rows, within one bf16 ulp of
+    # the row's scale
+    import jax
+    import jax.numpy as jnp
+    from torch_ckpt_pair import BASE_VOCAB, hf_llama, write_shards
+    from video_llava_tpu.config import LlamaConfig as JaxLlamaConfig
+    from video_llava_tpu.engine import weights as jax_weights
+    from video_llava_tpu.ops.quant import quantize_params
+    from video_llava_tpu_torch.engine.convert import flatten_tree
+
+    ckpt = str(tmp_path / "llama")
+    write_shards(ckpt, hf_llama().state_dict(), "bin", shards=2)
+    cfg = model_config("tiny")
+    jllm = jax_weights.convert_llama(
+        jax_weights.load_checkpoint_dir(ckpt),
+        JaxLlamaConfig(**cfg.llm.__dict__), jnp.bfloat16)
+    for fmt in ("bf16", "int8"):
+        args = train.parse_args(argv + ["--pretrained_dir", ckpt,
+                                        "--llm_weights", fmt])
+        model = train.build_model(args, cfg, "cpu")
+        ref = jllm if fmt == "bf16" else quantize_params(jllm, skip_keys=(
+            "class_embedding", "position_embedding", "embed_tokens"))
+        want = flatten_tree(jax.tree.map(np.asarray, ref))
+        own = dict(model.llm.named_parameters())
+        assert set(own) == set(want)
+        for name, p in own.items():
+            w = torch.from_numpy(np.array(want[name]).view(np.int16)).view(
+                torch.bfloat16) if want[name].dtype.name == "bfloat16" \
+                else torch.from_numpy(np.array(want[name]))
+            assert p.dtype == w.dtype and p.shape == w.shape, name
+            if "embed_tokens" in name or "lm_head" in name:
+                old = (slice(None, BASE_VOCAB) if "embed" in name
+                       else (..., slice(None, BASE_VOCAB)))
+                assert torch.equal(p[old], w[old]), name
+                err = (p.float() - w.float()).abs().amax().item()
+                assert err <= 2 ** -7 * w.float().abs().amax().item() + (
+                    1 if p.dtype == torch.int8 else 0), (name, err)
+            else:
+                assert torch.equal(p, w), name

@@ -86,8 +86,10 @@ def test_keep_rule_and_chunks():
 def test_builders_random_branch():
     """build_default_transcriber / build_default_aligner through the
     random-init branch on the CPU: the JAX builders' configurations,
-    start and eot tokens, filter mode and vocabulary; the checkpoint
-    arguments raise."""
+    start and eot tokens, filter mode and vocabulary; checkpoint
+    arguments that name no directory (no file for the head) take the
+    random-init branch as in the JAX package, an aligner attached where
+    one is asked for."""
     from video_llava_tpu.audio import builders as jb
     from video_llava_tpu_torch.audio import builders as tb
 
@@ -100,7 +102,13 @@ def test_builders_random_branch():
     assert ta.vocab == ja.vocab and ta.cfg.__dict__ == ja.cfg.__dict__
     for kw in ({"checkpoint_dir": "ckpt"}, {"at_checkpoint": "at.pth"},
                {"align_checkpoint_dir": "w2v"}):
-        with pytest.raises(NotImplementedError):
-            tb.build_default_transcriber(device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        tb.build_default_aligner("w2v", device="cpu")
+        t = tb.build_default_transcriber(size="tiny-test", device="cpu",
+                                         **kw)
+        j = jb.build_default_transcriber(size="tiny-test", **kw)
+        assert (t.start_tokens, t.eot_token, t._at_mode) == (
+            j.start_tokens, j.eot_token, j._at_mode), kw
+        assert (t.aligner is None) == (j.aligner is None), kw
+        assert t.decode_text([5, 6]) == j.decode_text([5, 6]) == ""
+    ta, ja = (tb.build_default_aligner("w2v", device="cpu"),
+              jb.build_default_aligner("w2v"))
+    assert ta.vocab == ja.vocab and ta.cfg.__dict__ == ja.cfg.__dict__

@@ -50,7 +50,10 @@ def make_pair():
         vid_start_token_id=tok.vid_start_token_id,
         vid_end_token_id=tok.vid_end_token_id,
     )
-    params = jax_vl.init_params(jax.random.PRNGKey(0), cfg, jnp.float32)
+    # one compiled program (drawn op by op, each op compiles on its own:
+    # ~60 compilations, the slowest part of a loaded tier run)
+    params = jax.jit(lambda key: jax_vl.init_params(key, cfg, jnp.float32))(
+        jax.random.PRNGKey(0))
     gen = GenerationConfig(max_new_tokens=4, do_sample=False)
     jax_engine = JaxEngine(params=params, cfg=cfg, tokenizer=tok, gen=gen,
                            seq_pad_multiple=64, cache_dtype=jnp.float32)

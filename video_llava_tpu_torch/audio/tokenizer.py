@@ -60,30 +60,42 @@ def _get_pairs(word: Tuple[str, ...]):
 class WhisperTokenizer:
     """Byte-level BPE with Whisper special/timestamp tokens.
 
-    asset_dir must contain vocab.json and merges.txt; added_tokens.json
-    and special_tokens_map.json are merged in when present (the HF
-    layout stores <|...|> tokens there for some checkpoints).
+    asset_dir must contain vocab.json and merges.txt, or else a fast
+    tokenizer.json (its model.vocab, model.merges and added_tokens: the
+    port's stand-in for the JAX package's transformers.AutoTokenizer
+    fallback); added_tokens.json and special_tokens_map.json are merged
+    in when present (the HF layout stores <|...|> tokens there for some
+    checkpoints).
     """
 
     def __init__(self, asset_dir: str):
         vocab_path = os.path.join(asset_dir, "vocab.json")
-        merges_path = os.path.join(asset_dir, "merges.txt")
-        with open(vocab_path, encoding="utf-8") as f:
-            self.vocab: Dict[str, int] = json.load(f)
+        merges: List[Tuple[str, str]] = []
+        if os.path.exists(vocab_path):
+            with open(vocab_path, encoding="utf-8") as f:
+                self.vocab: Dict[str, int] = json.load(f)
+            with open(os.path.join(asset_dir, "merges.txt"),
+                      encoding="utf-8") as f:
+                for line in f:
+                    line = line.rstrip("\n")
+                    if not line or line.startswith("#version"):
+                        continue
+                    a, _, b = line.partition(" ")
+                    merges.append((a, b))
+        else:
+            with open(os.path.join(asset_dir, "tokenizer.json"),
+                      encoding="utf-8") as f:
+                spec = json.load(f)
+            self.vocab = dict(spec["model"]["vocab"])
+            merges = [tuple(m.split(" ", 1)) if isinstance(m, str)
+                      else tuple(m) for m in spec["model"]["merges"]]
+            self.vocab.update({t["content"]: t["id"]
+                               for t in spec.get("added_tokens", [])})
         added = os.path.join(asset_dir, "added_tokens.json")
         if os.path.exists(added):
             with open(added, encoding="utf-8") as f:
                 self.vocab.update(json.load(f))
         self.id_to_token = {v: k for k, v in self.vocab.items()}
-
-        merges: List[Tuple[str, str]] = []
-        with open(merges_path, encoding="utf-8") as f:
-            for line in f:
-                line = line.rstrip("\n")
-                if not line or line.startswith("#version"):
-                    continue
-                a, _, b = line.partition(" ")
-                merges.append((a, b))
         self.bpe_ranks = {pair: i for i, pair in enumerate(merges)}
 
         self._byte_enc = _bytes_to_unicode()

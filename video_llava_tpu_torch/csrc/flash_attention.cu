@@ -53,6 +53,7 @@
 
 #include <math.h>
 
+#include "flash_attention_simt.cuh"
 #include "flash_attention_wmma.cuh"
 #include "hopper.cuh"
 
@@ -716,7 +717,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace flash
 
 // Head dims 64 and 128 take the Hopper body, the other multiples of 16 up
-// to 128 and 256 the WMMA body.
+// to 128 and 256 the WMMA body, multiples of 16 past 256 the SIMT body
+// (flash_attention_simt.cuh; the wrappers pad d there to a multiple of 128).
 #define VLT_WMMA_HEAD_DIMS(X) X(16) X(32) X(48) X(80) X(96) X(112) X(256)
 
 extern "C" int vlt_flash_fwd(const void* q, const void* k, const void* v,
@@ -735,8 +737,11 @@ extern "C" int vlt_flash_fwd(const void* q, const void* k, const void* v,
     return flash::wmma_body::launch_fwd<D>(q, k, v, o, lse, sh, st);
       VLT_WMMA_HEAD_DIMS(VLT_CASE)
 #undef VLT_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
+    default: {
+      if (d <= 256) return (int)cudaErrorInvalidValue;
+      const flash_simt::Shape wide{b, sq, skv, h, hkv, d, causal, scale};
+      return flash_simt::launch_fwd<__nv_bfloat16>(q, k, v, o, lse, wide, st);
+    }
   }
 }
 
@@ -760,8 +765,12 @@ extern "C" int vlt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                           sh, st);
       VLT_WMMA_HEAD_DIMS(VLT_CASE)
 #undef VLT_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
+    default: {
+      if (d <= 256) return (int)cudaErrorInvalidValue;
+      const flash_simt::Shape wide{b, sq, skv, h, hkv, d, causal, scale};
+      return flash_simt::launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta,
+                                                  dq, wide, st);
+    }
   }
 }
 
@@ -785,7 +794,11 @@ extern "C" int vlt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                            dv, sh, st);
       VLT_WMMA_HEAD_DIMS(VLT_CASE)
 #undef VLT_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
+    default: {
+      if (d <= 256) return (int)cudaErrorInvalidValue;
+      const flash_simt::Shape wide{b, sq, skv, h, hkv, d, causal, scale};
+      return flash_simt::launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta,
+                                                   dk, dv, wide, st);
+    }
   }
 }

@@ -53,7 +53,10 @@
 // skips the tiles past the diagonal and is applied only on the diagonal
 // and ragged tiles. At d 64 a block takes 102 KB of shared memory: two
 // blocks an SM. Head dims: multiples of 16 up to 128, and 256 (the
-// wrapper pads d % 16 == 8, and d in (128, 256] to 256).
+// wrapper pads d % 16 == 8, and d in (128, 256] to 256). Past 256 (padded
+// to a multiple of 128) the entry takes the SIMT body of
+// flash_attention_simt.cuh, which also gives kernel 8's f32 entries at the
+// end of this file.
 //
 // At d 256 neither Q's fragments (128 registers a lane) nor O's
 // accumulators over all 256 columns (another 128) fit beside the scores,
@@ -70,6 +73,7 @@
 #include <stdint.h>
 
 #include "async_ring.cuh"
+#include "flash_attention_simt.cuh"
 #include "hopper.cuh"  // ex2, quad_max, quad_sum, smem_addr
 
 namespace flash_f32 {
@@ -456,7 +460,36 @@ extern "C" int vlt_flash_fwd_f32(const void* q, const void* k, const void* v,
     VLT_CASE(16) VLT_CASE(32) VLT_CASE(48) VLT_CASE(64) VLT_CASE(80)
     VLT_CASE(96) VLT_CASE(112) VLT_CASE(128) VLT_CASE(256)
 #undef VLT_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
+    default: {
+      // past 256: the SIMT body (flash_attention_simt.cuh)
+      if (d <= 256) return (int)cudaErrorInvalidValue;
+      const flash_simt::Shape wide{b, sq, skv, h, hkv, d, causal, scale};
+      return flash_simt::launch_fwd<float>(q, k, v, o, lse, wide, st);
+    }
   }
+}
+
+// Kernel 8 on f32 operands, at every head dim the wrappers give (multiples
+// of 16 up to 128, 256, multiples of 128 past it): the SIMT body of
+// flash_attention_simt.cuh, f32 throughout.
+extern "C" int vlt_flash_bwd_dq_f32(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dq, int b, int sq, int skv, int h,
+                                    int hkv, int d, int causal, float scale,
+                                    void* stream) {
+  const flash_simt::Shape sh{b, sq, skv, h, hkv, d, causal, scale};
+  return flash_simt::launch_dq<float>(q, k, v, dout, lse, delta, dq, sh,
+                                      (cudaStream_t)stream);
+}
+
+extern "C" int vlt_flash_bwd_dkv_f32(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     void* dk, void* dv, int b, int sq,
+                                     int skv, int h, int hkv, int d,
+                                     int causal, float scale, void* stream) {
+  const flash_simt::Shape sh{b, sq, skv, h, hkv, d, causal, scale};
+  return flash_simt::launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, sh,
+                                       (cudaStream_t)stream);
 }

@@ -17,7 +17,8 @@ over every video in one launch, one generate call) and a continuous one
 over the slot engine (engine/continuous.py).
 
 Run: python -m video_llava_tpu_torch.eval.run_inference --dataset
-activitynet ... (random weights; on `cuda` unless --device says
+activitynet ... (random weights unless --model_name, --clip_path and
+--projection_path give checkpoints; on `cuda` unless --device says
 otherwise).
 """
 
@@ -46,11 +47,6 @@ from video_llava_tpu_torch.runtime.inference import (
 from video_llava_tpu_torch.runtime.model_init import initialize_model
 
 VIDEO_FORMATS = [".mp4", ".avi", ".mov", ".mkv", ".webm", ".gif"]
-
-CHECKPOINTS_NOT_PORTED = ("checkpoint loading (--model_name, "
-                          "--projection_path, --clip_path) is not ported "
-                          "yet: ROADMAP Queue 1 item 3")
-
 
 def find_video(video_dir: str, video_name: str, prefix: str = "") -> Optional[str]:
     for fmt in VIDEO_FORMATS:
@@ -347,11 +343,11 @@ def main(argv=None) -> List[Dict]:
                  "consistency"],
     )
     p.add_argument("--model_name", default=None,
-                   help="checkpoint directory (not ported yet)")
+                   help="HF Vicuna/LLaMA checkpoint directory")
     p.add_argument("--projection_path", default=None,
-                   help="mm_projector.bin (not ported yet)")
+                   help="reference-style mm_projector.bin")
     p.add_argument("--clip_path", default=None,
-                   help="CLIP checkpoint directory (not ported yet)")
+                   help="HF CLIP checkpoint directory")
     p.add_argument("--model_size", default="7b")
     p.add_argument("--video_dir", required=True)
     p.add_argument("--gt_file", default=None)
@@ -379,8 +375,6 @@ def main(argv=None) -> List[Dict]:
                    help="torch device of the model (default cuda)")
     args = p.parse_args(argv)
     # refuse what is not ported before the (slow) model build
-    if args.model_name or args.projection_path or args.clip_path:
-        raise NotImplementedError(CHECKPOINTS_NOT_PORTED)
     if args.mesh_model and args.mesh_model > 1:
         raise NotImplementedError(
             "--mesh_model > 1 (multi-GPU inference) is not ported yet: "
@@ -391,6 +385,8 @@ def main(argv=None) -> List[Dict]:
     quant = resolve_quant(args.quant, args.model_name)
     engine = initialize_model(
         args.model_name,
+        args.projection_path,
+        args.clip_path,
         model_size=args.model_size,
         device=args.device,
         llm_quant=quant,

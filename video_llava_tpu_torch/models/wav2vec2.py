@@ -164,3 +164,63 @@ def forward(params, audio: torch.Tensor, cfg: Wav2Vec2Config):
         x = _encoder_layer(lp, x, cfg.num_heads)
     logits = dense(params["lm_head"], x)
     return torch.log_softmax(logits.float(), dim=-1)
+
+
+def convert_hf_wav2vec2(sd, cfg: Wav2Vec2Config, device=None,
+                        dtype: torch.dtype = torch.float32) -> dict:
+    """An HF Wav2Vec2ForCTC state dict (keys with or without the
+    'wav2vec2.' prefix) -> the port's tree (init_params' layout) on
+    `device` in `dtype` (JAX convert_hf_wav2vec2): conv kernels kept in
+    torch's (out, in / groups, width), linears (in, out), the positional
+    conv's weight norm folded in (w = g v / ||v||, the norm over (in,
+    width) of each output channel, in f32; weight_g / weight_v, or the
+    parametrizations.weight.original0 / 1 of newer saves)."""
+    sd = {k.removeprefix("wav2vec2."): torch.as_tensor(v).float()
+          for k, v in sd.items()}
+
+    def t(name):
+        return sd[name].to(device=device, dtype=dtype)
+
+    def lin(pre):
+        p = {"kernel": t(f"{pre}.weight").t().contiguous()}
+        if f"{pre}.bias" in sd:
+            p["bias"] = t(f"{pre}.bias")
+        return p
+
+    def ln(pre):
+        return {"scale": t(f"{pre}.weight"), "bias": t(f"{pre}.bias")}
+
+    convs = []
+    for i in range(len(cfg.conv_dim)):
+        pre = f"feature_extractor.conv_layers.{i}"
+        layer = {"w": t(f"{pre}.conv.weight")}
+        if f"{pre}.layer_norm.weight" in sd:
+            layer["gn_scale"] = t(f"{pre}.layer_norm.weight")
+            layer["gn_bias"] = t(f"{pre}.layer_norm.bias")
+        convs.append(layer)
+    pos = "encoder.pos_conv_embed.conv."
+    if pos + "weight_g" in sd:
+        g, v = sd[pos + "weight_g"], sd[pos + "weight_v"]
+    else:  # torch's parametrized weight norm, as newer saves name it
+        g = sd[pos + "parametrizations.weight.original0"]
+        v = sd[pos + "parametrizations.weight.original1"]
+    pos_w = g * v / v.square().sum(dim=(1, 2), keepdim=True).sqrt()
+    return {
+        "convs": convs,
+        "proj_ln": ln("feature_projection.layer_norm"),
+        "proj": lin("feature_projection.projection"),
+        "pos_conv_w": pos_w.to(device=device, dtype=dtype),
+        "pos_conv_b": t("encoder.pos_conv_embed.conv.bias"),
+        "enc_ln": ln("encoder.layer_norm"),
+        "layers": [{
+            "q": lin(f"encoder.layers.{i}.attention.q_proj"),
+            "k": lin(f"encoder.layers.{i}.attention.k_proj"),
+            "v": lin(f"encoder.layers.{i}.attention.v_proj"),
+            "o": lin(f"encoder.layers.{i}.attention.out_proj"),
+            "ln1": ln(f"encoder.layers.{i}.layer_norm"),
+            "fc1": lin(f"encoder.layers.{i}.feed_forward.intermediate_dense"),
+            "fc2": lin(f"encoder.layers.{i}.feed_forward.output_dense"),
+            "ln2": ln(f"encoder.layers.{i}.final_layer_norm"),
+        } for i in range(cfg.num_layers)],
+        "lm_head": lin("lm_head"),
+    }

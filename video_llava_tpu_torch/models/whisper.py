@@ -413,3 +413,117 @@ def greedy_decode(params, enc_states: torch.Tensor, cfg: WhisperConfig,
         done = done | (nxt == eot_token)
         i += 1
     return buf[:, s0:], (buf[:, s0:] != eot_token).sum(dim=1)
+
+
+# -- HF weight conversion -----------------------------------------------------
+
+
+def _hf_tensors(sd, device, dtype):
+    """A torch state dict's tensors on `device`, floating ones in
+    `dtype`."""
+    def to(v):
+        v = torch.as_tensor(v)
+        return v.to(device=device, dtype=dtype) if v.is_floating_point() \
+            else v.to(device)
+    return {k: to(v) for k, v in sd.items()}
+
+
+def _hf_linear(sd, name: str) -> dict:
+    """torch Linear {name}.weight (out, in) [, bias] -> {'kernel' (in,
+    out), 'bias'}."""
+    p = {"kernel": sd[f"{name}.weight"].t().contiguous()}
+    if f"{name}.bias" in sd:
+        p["bias"] = sd[f"{name}.bias"]
+    return p
+
+
+def _hf_ln(sd, name: str) -> dict:
+    return {"scale": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"]}
+
+
+def convert_whisper_at(sd, atcfg: WhisperATConfig, device=None,
+                       dtype: torch.dtype = torch.float32) -> dict:
+    """A whisper-at TL-TR checkpoint (torch state dict, timm-Block names:
+    [mlp_down], time_tr.{i} and layer_tr.{i} with norm1, attn.qkv,
+    attn.proj, norm2, mlp.fc1, mlp.fc2, then mlp_head.0 (LayerNorm) and
+    mlp_head.1 (Linear)) -> the at_head tree (init_at_head_tltr's
+    layout) on `device` in `dtype` (JAX convert_whisper_at). A missing
+    tensor raises KeyError."""
+    sd = _hf_tensors(sd, device, dtype)
+
+    def block(pre):
+        return {"norm1": _hf_ln(sd, f"{pre}.norm1"),
+                "qkv": _hf_linear(sd, f"{pre}.attn.qkv"),
+                "proj": _hf_linear(sd, f"{pre}.attn.proj"),
+                "norm2": _hf_ln(sd, f"{pre}.norm2"),
+                "fc1": _hf_linear(sd, f"{pre}.mlp.fc1"),
+                "fc2": _hf_linear(sd, f"{pre}.mlp.fc2")}
+
+    head = {
+        "time_tr": [block(f"time_tr.{i}") for i in range(atcfg.time_blocks)],
+        "layer_tr": [block(f"layer_tr.{i}")
+                     for i in range(atcfg.layer_blocks)],
+        "ln": _hf_ln(sd, "mlp_head.0"),
+        "head": _hf_linear(sd, "mlp_head.1"),
+    }
+    if "mlp_down.weight" in sd:
+        head["down"] = _hf_linear(sd, "mlp_down")
+    return head
+
+
+def convert_hf_whisper(sd, cfg: WhisperConfig, device=None,
+                       dtype: torch.dtype = torch.float32, at_sd=None,
+                       at_cfg: Optional[WhisperATConfig] = None) -> dict:
+    """A transformers WhisperModel state dict (the 'model.' prefix of
+    WhisperForConditionalGeneration removed) -> the port's Whisper tree
+    (init_params' layout) on `device` in `dtype` (JAX
+    convert_hf_whisper): linears (in, out), the conv stem kept in
+    torch's (out, in, width), k_proj without a bias where HF has none.
+    at_sd / at_cfg: an optional whisper-at TL-TR head checkpoint,
+    attached as 'at_head' (convert_whisper_at); without it the tree has
+    no at_head, so the transcript filter keeps every segment."""
+    sd = _hf_tensors(sd, device, dtype)
+
+    def attn(pre):
+        return {"q": _hf_linear(sd, pre + "q_proj"),
+                "k": _hf_linear(sd, pre + "k_proj"),
+                "v": _hf_linear(sd, pre + "v_proj"),
+                "o": _hf_linear(sd, pre + "out_proj")}
+
+    enc_layers = [{
+        "ln1": _hf_ln(sd, f"encoder.layers.{i}.self_attn_layer_norm"),
+        "attn": attn(f"encoder.layers.{i}.self_attn."),
+        "ln2": _hf_ln(sd, f"encoder.layers.{i}.final_layer_norm"),
+        "fc1": _hf_linear(sd, f"encoder.layers.{i}.fc1"),
+        "fc2": _hf_linear(sd, f"encoder.layers.{i}.fc2"),
+    } for i in range(cfg.encoder_layers)]
+    dec_layers = [{
+        "ln1": _hf_ln(sd, f"decoder.layers.{i}.self_attn_layer_norm"),
+        "self_attn": attn(f"decoder.layers.{i}.self_attn."),
+        "ln2": _hf_ln(sd, f"decoder.layers.{i}.encoder_attn_layer_norm"),
+        "cross_attn": attn(f"decoder.layers.{i}.encoder_attn."),
+        "ln3": _hf_ln(sd, f"decoder.layers.{i}.final_layer_norm"),
+        "fc1": _hf_linear(sd, f"decoder.layers.{i}.fc1"),
+        "fc2": _hf_linear(sd, f"decoder.layers.{i}.fc2"),
+    } for i in range(cfg.decoder_layers)]
+    params = {
+        "encoder": {
+            "conv1": {"weight": sd["encoder.conv1.weight"],
+                      "bias": sd["encoder.conv1.bias"]},
+            "conv2": {"weight": sd["encoder.conv2.weight"],
+                      "bias": sd["encoder.conv2.bias"]},
+            "layers": enc_layers,
+            "ln_post": _hf_ln(sd, "encoder.layer_norm"),
+        },
+        "decoder": {
+            "token_embedding": {"weight": sd["decoder.embed_tokens.weight"]},
+            "position_embedding": sd["decoder.embed_positions.weight"],
+            "layers": dec_layers,
+            "ln_post": _hf_ln(sd, "decoder.layer_norm"),
+        },
+    }
+    if at_sd is not None:
+        params["at_head"] = convert_whisper_at(
+            at_sd, at_cfg or WhisperATConfig(rep_dim=cfg.d_model), device,
+            dtype)
+    return params

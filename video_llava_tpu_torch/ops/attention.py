@@ -206,8 +206,8 @@ def flash_backward_plain(q, k, v, out, lse, g, causal: bool = False,
 
 def _check_flash(q, k, v, causal: bool, dtype=torch.bfloat16):
     """Raise unless the kernels take these operands: `dtype`, contiguous
-    BSHD, h a multiple of h_kv, d a multiple of 8 up to 256 (the
-    wrappers pad d to :func:`padded_head_dim`), under the causal mask sq
+    BSHD, h a multiple of h_kv, d a multiple of 8 (the wrappers pad d to
+    :func:`padded_head_dim`), under the causal mask sq
     <= skv (every query row sees a key), and at most 65,535 tiles of 64
     rows along the grid's y (b*h runs along x)."""
     b, sq, h, d = q.shape
@@ -215,8 +215,8 @@ def _check_flash(q, k, v, causal: bool, dtype=torch.bfloat16):
     cuda_lib.require(q, "q", dtype, (b, sq, h, d))
     cuda_lib.require(k, "k", dtype, (b, skv, h_kv, d), q.device)
     cuda_lib.require(v, "v", dtype, (b, skv, h_kv, d), q.device)
-    if d % 8 or not 8 <= d <= 256:
-        raise ValueError(f"head dim {d}: must be a multiple of 8 <= 256")
+    if d % 8 or d < 8:
+        raise ValueError(f"head dim {d}: must be a positive multiple of 8")
     if h % h_kv:
         raise ValueError(f"{h} query heads do not group over {h_kv}")
     if sq < 1 or skv < 1:
@@ -230,8 +230,12 @@ def _check_flash(q, k, v, causal: bool, dtype=torch.bfloat16):
 
 def padded_head_dim(d: int) -> int:
     """The head dim kernels 7 and 8 run a d of the wrappers at: the next
-    multiple of 16 up to 128 (their bodies take 16, 32, ..., 128), and
-    256 for d in (128, 256] (the one wider instance)."""
+    multiple of 16 up to 128 (their bodies take 16, 32, ..., 128), 256
+    for d in (128, 256] (the one wider instance), and past 256 the next
+    multiple of 128 (the SIMT body, csrc/flash_attention_simt.cuh, in
+    slabs of 128 output columns)."""
+    if d > 256:
+        return -(-d // 128) * 128
     return 256 if d > 128 else -(-d // 16) * 16
 
 
@@ -275,12 +279,11 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = False, scale: Optional[float] = None):
     """Kernel 7. q (b, sq, h, d), k/v (b, skv, h_kv, d) -> (out (b, sq,
     h, d) in q's dtype, lse (b, h, sq) f32). On CUDA, d a multiple of 8
-    up to 256 (zero-padded to :func:`padded_head_dim` by
+    (zero-padded to :func:`padded_head_dim` by
     :func:`flash_forward_padded` where the bodies lack d): bf16 operands
-    launch
-    csrc/flash_attention.cu's forward, f32 operands
-    csrc/flash_attention_f32.cu's (counted as "flash_forward_f32");
-    other dtypes raise."""
+    launch csrc/flash_attention.cu's forward, f32 operands
+    csrc/flash_attention_f32.cu's (counted as "flash_forward_f32"), each
+    taking the SIMT body past d 256; other dtypes raise."""
     b, sq, h, d = q.shape
     scale = _default_scale(d, scale)
     if q.device.type == "cpu":
@@ -313,43 +316,58 @@ def _flash_bwd_args(q, k, v, g, lse, delta, causal: bool, scale: float):
     return ins, (b, sq, k.shape[1], h, k.shape[2], d, int(causal), scale)
 
 
+def _bwd_body(q: torch.Tensor) -> str:
+    """The suffix of kernel 8's body for q's dtype: "_f32" (the SIMT f32
+    body in csrc/flash_attention_f32.cu) or "" (bf16)."""
+    return "_f32" if q.dtype == torch.float32 else ""
+
+
 def flash_backward_dq(q, k, v, g, lse, delta, causal: bool, scale: float):
-    """Kernel 8's dq kernel on operands :func:`flash_backward` checked."""
+    """Kernel 8's dq kernel on operands :func:`flash_backward` checked
+    (counted as "flash_backward_dq", or "flash_backward_dq_f32")."""
     dq = torch.empty_like(q)
     ins, shape = _flash_bwd_args(q, k, v, g, lse, delta, causal, scale)
-    cuda_lib.launch("flash_backward_dq", "vlt_flash_bwd_dq", q.device, *ins,
-                    cuda_lib.ptr(dq), *shape)
+    sfx = _bwd_body(q)
+    cuda_lib.launch("flash_backward_dq" + sfx, "vlt_flash_bwd_dq" + sfx,
+                    q.device, *ins, cuda_lib.ptr(dq), *shape)
     return dq
 
 
 def flash_backward_dkv(q, k, v, g, lse, delta, causal: bool, scale: float):
     """Kernel 8's dk/dv kernel (each kv head's group summed in the block)
-    on operands :func:`flash_backward` checked."""
+    on operands :func:`flash_backward` checked (counted as
+    "flash_backward_dkv", or "flash_backward_dkv_f32")."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     ins, shape = _flash_bwd_args(q, k, v, g, lse, delta, causal, scale)
-    cuda_lib.launch("flash_backward_dkv", "vlt_flash_bwd_dkv", q.device,
-                    *ins, cuda_lib.ptr(dk), cuda_lib.ptr(dv), *shape)
+    sfx = _bwd_body(q)
+    cuda_lib.launch("flash_backward_dkv" + sfx, "vlt_flash_bwd_dkv" + sfx,
+                    q.device, *ins, cuda_lib.ptr(dk), cuda_lib.ptr(dv),
+                    *shape)
     return dk, dv
 
 
 def flash_backward(q, k, v, out, lse, g, causal: bool = False,
                    scale: Optional[float] = None):
     """Kernel 8 -> (dq, dk, dv) in the inputs' dtypes: D (flash_delta),
-    then the dq kernel and the dk/dv kernel (csrc/flash_attention.cu).
-    On CUDA the operands must be bf16: f32 ones raise (the f32 body of
-    kernel 7 is a forward only). d is zero-padded as in
-    :func:`flash_forward` (:func:`flash_backward_padded`)."""
+    then the dq kernel and the dk/dv kernel. On CUDA the body goes by
+    dtype, as :func:`flash_forward`'s does: bf16 operands launch
+    csrc/flash_attention.cu's, f32 operands the SIMT f32 body
+    (csrc/flash_attention_f32.cu's vlt_flash_bwd_dq_f32 and
+    vlt_flash_bwd_dkv_f32); other or mixed dtypes raise. d is
+    zero-padded as in :func:`flash_forward`
+    (:func:`flash_backward_padded`)."""
     b, sq, h, d = q.shape
     scale = _default_scale(d, scale)
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, out, lse, g, causal, scale)
-    _check_flash(q, k, v, causal)
+    dtype = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
+    _check_flash(q, k, v, causal, dtype)
     if d != padded_head_dim(d):
         return flash_backward_padded(flash_backward, q, k, v, out, lse, g,
                                      causal, scale)
     dev = q.device
-    cuda_lib.require(out, "out", torch.bfloat16, q.shape, dev)
-    cuda_lib.require(g, "g", torch.bfloat16, q.shape, dev)
+    cuda_lib.require(out, "out", dtype, q.shape, dev)
+    cuda_lib.require(g, "g", dtype, q.shape, dev)
     cuda_lib.require(lse, "lse", torch.float32, (b, h, sq), dev)
     delta = flash_delta(out, g)
     dq = flash_backward_dq(q, k, v, g, lse, delta, causal, scale)
@@ -402,12 +420,12 @@ def multi_head_attention(
     """Dispatch (JAX ops/attention.py:736-778), decided from the operands
     alone before anything launches: operands off the CPU with no key
     mask, no per-row offset and d % 8 == 0, whatever their dtype, go to
-    kernel 7 through :func:`flash_attention` -- bf16 to its bf16 body
-    (kernel 8 its gradient), f32 (Whisper `base` as the chat CLI's
-    --use_asr builds it) to its f32 body -- as the JAX package sends them
+    kernel 7 through :func:`flash_attention` -- bf16 to its bf16 body,
+    f32 (Whisper `base` as the chat CLI's --use_asr builds it) to its f32
+    body, kernel 8 the gradient of either -- as the JAX package sends them
     to its Pallas forward on one TPU chip (d zero-padded to
     :func:`padded_head_dim` there); operands that the kernels do not
-    take (d past 256, another dtype, mixed dtypes) raise there. A mask,
+    take (another dtype, mixed dtypes) raise there. A mask,
     an offset, d % 8 != 0 and CPU tensors take the masked reference, as
     the JAX package's CPU backend does."""
     if (q.device.type != "cpu" and kv_valid_len is None

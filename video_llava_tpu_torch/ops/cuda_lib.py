@@ -89,6 +89,10 @@ _SIGNATURES = {
     # q, k, v, dout, lse, delta, dk, dv; the same shape arguments
     "vlt_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _F, _P),
+    "vlt_flash_bwd_dq_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _F, _P),
+    "vlt_flash_bwd_dkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _F, _P),
     # value, locs, weights, out; b, sum_hw, q, nh, hd, L, P; host (h, w)
     # ints; bf16
     "vlt_msda": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P),

@@ -281,13 +281,15 @@ class PGVideoLLaVA(VideoChatGPTInterface):
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        description="Video chat on the PyTorch port (random weights).")
+        description="Video chat on the PyTorch port (random weights unless "
+        "checkpoints are given).")
     p.add_argument("--model-name", default=None,
-                   help="checkpoint directory (not supported yet)")
+                   help="HF Vicuna/LLaMA checkpoint directory (tokenizer "
+                   "and LLM weights)")
     p.add_argument("--projection_path", default=None,
-                   help="mm_projector.bin (not supported yet)")
+                   help="reference-style mm_projector.bin")
     p.add_argument("--clip_path", default=None,
-                   help="CLIP checkpoint directory (not supported yet)")
+                   help="HF CLIP checkpoint directory")
     p.add_argument("--model_size", default="7b",
                    choices=("tiny", "7b", "13b"))
     p.add_argument("--use_asr", action="store_true",
@@ -309,10 +311,9 @@ def main(argv=None):
                    "kernels); resolved against the checkpoint's "
                    "quant_preflight.json as in the JAX package")
     args = p.parse_args(argv)
-    if args.projection_path or args.clip_path:
-        raise NotImplementedError("checkpoint loading is not ported yet")
     quant = resolve_quant(args.quant, args.model_name)
-    engine = initialize_model(args.model_name, model_size=args.model_size,
+    engine = initialize_model(args.model_name, args.projection_path,
+                              args.clip_path, model_size=args.model_size,
                               device="cuda", llm_quant=quant,
                               llm_fuse=bool(quant))
     transcriber = None

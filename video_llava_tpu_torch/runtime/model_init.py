@@ -1,19 +1,27 @@
-"""Model initialization with random weights.
+"""Model initialization: random weights or a checkpoint.
 
 Counterpart of video_llava_tpu/runtime/model_init.py::initialize_model
-for the random-weight path: the configuration by size, video special
-token ids from the tokenizer, and weights drawn on the device from a
-seeded ``torch.Generator`` with the JAX package's init scales. With
-``llm_quant`` the LLM's weights are drawn in bf16 one layer at a time
-and quantized on the device with the port's quantize_params(_int4), so
-no whole bf16 LLM is ever held. Loading checkpoints and meshes are not
-ported yet.
+(reference video_chatgpt/eval/model_utils.py:82-150): the configuration
+by size, the tokenizer (a checkpoint directory's own, else the byte
+fallback) and the video special token ids from it, then the weights:
+drawn on the device from a seeded ``torch.Generator`` with the JAX
+package's init scales, and overwritten where a checkpoint is given --
+the LLM from `model_name`, the CLIP tower from `clip_path`, then the
+non-strict projector overlay from `projection_path` (engine/weights.py).
+Paths that are not there fall back to random init, as in the JAX package.
+With ``llm_quant`` the LLM's weights arrive one layer at a time in bf16,
+drawn or read, and are quantized on the device with the port's
+quantize_params(_int4), so no whole bf16 LLM is ever held (the JAX
+package builds one on the device before it loads a checkpoint, and its
+overlay raises on a quantized embedding: the port does neither). Meshes
+are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import Optional
 
 import torch
@@ -24,6 +32,7 @@ from video_llava_tpu_torch.config import (
     LlamaConfig,
     VideoLLaVAConfig,
 )
+from video_llava_tpu_torch.engine import weights
 from video_llava_tpu_torch.engine.convert import flatten_tree
 from video_llava_tpu_torch.models.layers import Int8Kernel
 from video_llava_tpu_torch.models.llama import (
@@ -113,6 +122,8 @@ def random_init_quantized_llm_(llm: Llama, generator: torch.Generator,
 
 def initialize_model(
     model_name: Optional[str] = None,
+    projection_path: Optional[str] = None,
+    clip_path: Optional[str] = None,
     model_size: str = "7b",
     device="cuda",
     seed: int = 0,
@@ -121,17 +132,18 @@ def initialize_model(
     llm_quant: Optional[str] = None,
     llm_fuse: bool = False,
 ) -> InferenceEngine:
-    """Build an InferenceEngine with random weights made on `device`.
-    llm_quant: None, "int8" or "int4" weights-only LLM quantization
-    (the JAX package's layouts, made without a whole bf16 LLM);
-    llm_fuse: the fused wqkv/gate_up layout. model_name (a checkpoint
-    directory) is not supported yet; the tokenizer is the byte-level
-    fallback."""
+    """Build an InferenceEngine on `device`.
+    model_name: an HF Vicuna/LLaMA checkpoint directory (tokenizer and
+    LLM weights); projection_path: a reference-style mm_projector.bin;
+    clip_path: an HF CLIP checkpoint directory. A path that is not there
+    falls back to random init (and the byte tokenizer), as in the JAX
+    package. llm_quant: None, "int8" or "int4" weights-only LLM
+    quantization (the JAX package's layouts, made one layer at a time on
+    the device); llm_fuse: the fused wqkv/gate_up layout."""
     if llm_quant not in (None, "int8", "int4"):
         raise ValueError(f"llm_quant: None, int8 or int4; got {llm_quant}")
-    if model_name is not None:
-        raise NotImplementedError("checkpoint loading is not ported yet")
-    tokenizer = load_tokenizer(None)
+    llm_dir = model_name if model_name and os.path.isdir(model_name) else None
+    tokenizer = load_tokenizer(llm_dir)
     cfg = dataclasses.replace(
         model_config(model_size, image_size),
         vid_patch_token_id=tokenizer.vid_patch_token_id,
@@ -142,9 +154,23 @@ def initialize_model(
     model = VideoLLaVA(cfg, device=device, dtype=dtype, llm_quant=llm_quant,
                        llm_fuse=llm_fuse)
     generator = torch.Generator(device=device).manual_seed(seed)
-    random_init_(model, generator)
-    if llm_quant:
-        random_init_quantized_llm_(model.llm, generator, dtype=dtype)
+    if llm_dir is None:
+        random_init_(model, generator)
+        if llm_quant:
+            random_init_quantized_llm_(model.llm, generator, dtype=dtype)
+    else:  # the LLM comes from the checkpoint: draw the rest only
+        random_init_(model.vision, generator)
+        random_init_(model.projector, generator)
+        weights.convert_llama(weights.checkpoint_shards(llm_dir), model.llm)
+    if clip_path and os.path.isdir(clip_path):
+        weights.convert_clip_vision(weights.checkpoint_shards(clip_path),
+                                    model.vision)
+    if projection_path and os.path.exists(projection_path):
+        report = weights.apply_projector_overlay(
+            model, weights.load_torch_bin(projection_path))
+        if report["unexpected"]:
+            print(f"Unexpected Keys: {report['unexpected']}.\n"
+                  "The Video-ChatGPT weights are not loaded correctly.")
     return InferenceEngine(
         model=model, cfg=cfg, tokenizer=tokenizer,
         gen=GenerationConfig(eos_token_id=tokenizer.eos_token_id,

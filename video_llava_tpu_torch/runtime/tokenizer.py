@@ -1,14 +1,37 @@
-"""The byte-level tokenizer of video_llava_tpu/runtime/tokenizer.py: the
-same ids for the same text (tests/test_torch_conversation_parity.py)."""
+"""Tokenizers: the byte-level tokenizer of
+video_llava_tpu/runtime/tokenizer.py (the same ids for the same text,
+tests/test_torch_conversation_parity.py) and a checkpoint's own LLaMA
+tokenizer, read without any tokenizer library (the JAX package's
+HFTokenizer is transformers.AutoTokenizer plus the three video tokens).
+
+:class:`LlamaTokenizer` reads a checkpoint directory's ``tokenizer.json``
+(the fast layout: BPE over a vocabulary and ranked merges with byte
+fallback, its normalizer, pre-tokenizer and decoder) or, without one,
+its ``tokenizer.model`` (SentencePiece BPE: the pieces, scores and types
+read from the protobuf by a minimal wire-format reader; the best-scored
+pair merges first), plus ``added_tokens.json``,
+``special_tokens_map.json`` and ``tokenizer_config.json``.
+"""
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import heapq
+import json
+import os
+import re
+import struct
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from video_llava_tpu_torch.constants import (
     DEFAULT_VID_END_TOKEN,
     DEFAULT_VID_START_TOKEN,
     DEFAULT_VIDEO_PATCH_TOKEN,
+)
+
+VIDEO_SPECIAL_TOKENS = (
+    DEFAULT_VIDEO_PATCH_TOKEN,
+    DEFAULT_VID_START_TOKEN,
+    DEFAULT_VID_END_TOKEN,
 )
 
 class Tokenizer:
@@ -91,10 +114,498 @@ class ByteTokenizer(Tokenizer):
         return "".join(out)
 
 
+# -- the LLaMA tokenizer ------------------------------------------------------
+
+SPIECE_UNDERLINE = "▁"
+_BYTE_RE = re.compile(r"^<0x([0-9A-Fa-f]{2})>$")
+
+
+def _byte_token(b: int) -> str:
+    return f"<0x{b:02X}>"
+
+
+def _read_json(path: str):
+    if not os.path.exists(path):
+        return None
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def _token_str(value) -> Optional[str]:
+    """A special token in tokenizer_config / special_tokens_map: a string
+    or an AddedToken dict."""
+    if isinstance(value, dict):
+        return value.get("content")
+    return value
+
+
+# -- SentencePiece model protobuf ---------------------------------------------
+
+
+def _varint(buf: bytes, i: int) -> Tuple[int, int]:
+    result = shift = 0
+    while True:
+        b = buf[i]
+        i += 1
+        result |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return result, i
+        shift += 7
+
+
+def _fields(buf: bytes):
+    """(field number, value) of each field of a protobuf message: an int
+    for a varint, bytes for a length-delimited field, the raw 4 or 8
+    bytes for fixed32 / fixed64."""
+    i = 0
+    while i < len(buf):
+        key, i = _varint(buf, i)
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            value, i = _varint(buf, i)
+        elif wire == 2:
+            n, i = _varint(buf, i)
+            value, i = buf[i:i + n], i + n
+        elif wire == 5:
+            value, i = buf[i:i + 4], i + 4
+        elif wire == 1:
+            value, i = buf[i:i + 8], i + 8
+        else:
+            raise ValueError(f"protobuf wire type {wire} not supported")
+        yield field, value
+
+
+# SentencePiece piece types (sentencepiece_model.proto)
+SP_NORMAL, SP_UNKNOWN, SP_CONTROL, SP_USER_DEFINED, SP_UNUSED, SP_BYTE = (
+    1, 2, 3, 4, 5, 6)
+
+
+def read_sentencepiece_model(path: str) -> dict:
+    """The parts of a SentencePiece ModelProto the BPE encoder needs:
+    pieces [(piece, score, type)], and from the trainer and normalizer
+    specs model_type, byte_fallback, unk/bos/eos/pad ids, name,
+    add_dummy_prefix, remove_extra_whitespaces and escape_whitespaces
+    (with the proto's defaults)."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    out = {"pieces": [], "model_type": 1, "byte_fallback": False,
+           "unk_id": 0, "bos_id": 1, "eos_id": 2, "pad_id": -1,
+           "name": "", "add_dummy_prefix": True,
+           "remove_extra_whitespaces": True, "escape_whitespaces": True}
+    signed = lambda v: v - (1 << 64) if v >= 1 << 63 else v  # noqa: E731
+    for field, value in _fields(buf):
+        if field == 1:
+            piece, score, kind = "", 0.0, SP_NORMAL
+            for f, v in _fields(value):
+                if f == 1:
+                    piece = v.decode("utf-8")
+                elif f == 2:
+                    (score,) = struct.unpack("<f", v)
+                elif f == 3:
+                    kind = v
+            out["pieces"].append((piece, score, kind))
+        elif field == 2:
+            names = {3: "model_type", 35: "byte_fallback", 40: "unk_id",
+                     41: "bos_id", 42: "eos_id", 43: "pad_id"}
+            for f, v in _fields(value):
+                if f in names:
+                    out[names[f]] = (bool(v) if f == 35 else signed(v))
+        elif field == 3:
+            names = {3: "add_dummy_prefix", 4: "remove_extra_whitespaces",
+                     5: "escape_whitespaces"}
+            for f, v in _fields(value):
+                if f == 1:
+                    out["name"] = v.decode("utf-8")
+                elif f in names:
+                    out[names[f]] = bool(v)
+    return out
+
+
+# -- tokenizer.json pieces ---------------------------------------------
+
+
+def _normalize(spec, text: str) -> str:
+    """tokenizers' normalizers of the legacy LLaMA layout: Sequence,
+    Prepend, Replace (a string pattern)."""
+    if spec is None:
+        return text
+    kind = spec["type"]
+    if kind == "Sequence":
+        for sub in spec["normalizers"]:
+            text = _normalize(sub, text)
+        return text
+    if kind == "Prepend":
+        return spec["prepend"] + text if text else text
+    if kind == "Replace":
+        return text.replace(spec["pattern"]["String"], spec["content"])
+    raise ValueError(f"tokenizer.json normalizer {kind!r} not supported")
+
+
+def _pre_tokenize(spec, text: str, first: bool) -> List[str]:
+    """tokenizers' pre-tokenizers of the LLaMA layouts: none, or Metaspace
+    (spaces to the replacement; prepend_scheme always / first (only the
+    piece at the text's start) / never; split before each replacement).
+    `first`: the piece starts the original text."""
+    if spec is None:
+        return [text] if text else []
+    kind = spec["type"]
+    if kind != "Metaspace":
+        raise ValueError(f"tokenizer.json pre_tokenizer {kind!r} not "
+                         "supported")
+    rep = spec.get("replacement", SPIECE_UNDERLINE)
+    scheme = spec.get("prepend_scheme",
+                      "always" if spec.get("add_prefix_space", True)
+                      else "never")
+    text = text.replace(" ", rep)
+    if text and not text.startswith(rep) and (
+            scheme == "always" or (scheme == "first" and first)):
+        text = rep + text
+    if not spec.get("split", True):
+        return [text] if text else []
+    pieces, start = [], 0
+    for i in range(1, len(text)):
+        if text[i] == rep:
+            pieces.append(text[start:i])
+            start = i
+    pieces.append(text[start:])
+    return [p for p in pieces if p]
+
+
+def _decode_chain(spec, tokens: List[str]) -> List[str]:
+    """tokenizers' decoders of the LLaMA layouts: Sequence, Replace,
+    ByteFallback, Fuse, Strip, Metaspace."""
+    if spec is None:
+        return tokens
+    kind = spec["type"]
+    if kind == "Sequence":
+        for sub in spec["decoders"]:
+            tokens = _decode_chain(sub, tokens)
+        return tokens
+    if kind == "Replace":
+        pat, content = spec["pattern"]["String"], spec["content"]
+        return [t.replace(pat, content) for t in tokens]
+    if kind == "ByteFallback":
+        out, run = [], []
+
+        def flush():
+            if run:
+                try:
+                    out.append(bytes(run).decode("utf-8"))
+                except UnicodeDecodeError:
+                    out.extend("�" for _ in run)
+                run.clear()
+
+        for t in tokens:
+            m = _BYTE_RE.match(t)
+            if m:
+                run.append(int(m.group(1), 16))
+            else:
+                flush()
+                out.append(t)
+        flush()
+        return out
+    if kind == "Fuse":
+        return ["".join(tokens)]
+    if kind == "Strip":
+        content, start, stop = spec["content"], spec["start"], spec["stop"]
+        out = []
+        for t in tokens:
+            i, j = 0, len(t)
+            while i < start and i < j and t[i] == content:
+                i += 1
+            while len(t) - j < stop and j > i and t[j - 1] == content:
+                j -= 1
+            out.append(t[i:j])
+        return out
+    if kind == "Metaspace":
+        rep = spec.get("replacement", SPIECE_UNDERLINE)
+        scheme = spec.get("prepend_scheme",
+                          "always" if spec.get("add_prefix_space", True)
+                          else "never")
+        return ["".join(("" if i == 0 and scheme != "never" else " ")
+                        if c == rep else c for c in t)
+                for i, t in enumerate(tokens)]
+    raise ValueError(f"tokenizer.json decoder {kind!r} not supported")
+
+
+# SentencePiece decodes as the legacy LLaMA tokenizer.json decoder does
+_SPM_DECODER = {"type": "Sequence", "decoders": [
+    {"type": "Replace", "pattern": {"String": SPIECE_UNDERLINE},
+     "content": " "},
+    {"type": "ByteFallback"}, {"type": "Fuse"},
+    {"type": "Strip", "content": " ", "start": 1, "stop": 0}]}
+
+# transformers' clean_up_tokenization
+_CLEANUP = ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","),
+            (" ' ", "'"), (" n't", "n't"), (" 'm", "'m"), (" 's", "'s"),
+            (" 've", "'ve"), (" 're", "'re"))
+
+
+class LlamaTokenizer(Tokenizer):
+    """A LLaMA checkpoint's tokenizer, as the JAX package's HFTokenizer
+    (transformers.AutoTokenizer, then add_tokens of <vid_patch>,
+    <vid_start> and <vid_end> with special_tokens=True) gives it, with no
+    tokenizer library.
+
+    Text is first split at the added tokens (leftmost-longest, on the
+    raw text); each other piece is normalized, pre-tokenized and encoded
+    by BPE: its characters (a character not in the vocabulary becomes
+    its UTF-8 bytes' <0xXX> tokens with byte fallback, else unk), then
+    the adjacent pair of best priority merges first, ties to the left:
+    the lowest merge rank (tokenizer.json), or the best score of the
+    merged piece (tokenizer.model, SentencePiece BPE, where each piece
+    takes the dummy prefix as the legacy LLaMA tokenizer gives it).
+    add_bos prepends bos (and eos follows with add_eos_token). Decode
+    drops special tokens when asked, then runs the decoder (Replace
+    "▁", ByteFallback, Fuse, strip one leading space). A token that
+    is already in the vocabulary keeps its id when added; a new one
+    takes the next id past the vocabulary and the added tokens."""
+
+    def __init__(self, path: str, use_vid_start_end: bool = True):
+        cfg = _read_json(os.path.join(path, "tokenizer_config.json")) or {}
+        smap = _read_json(os.path.join(path, "special_tokens_map.json")) or {}
+        self.vocab: Dict[str, int] = {}
+        self.special: set = set()  # ids dropped by skip_special_tokens
+        self.added: Dict[str, int] = {}
+        self.ranks: Optional[Dict[Tuple[str, str], int]] = None
+        self.scores: Optional[Dict[str, float]] = None
+        self.normalizer = self.pre_tokenizer = None
+        self.legacy_prefix = False  # SentencePiece's dummy prefix
+        fast = os.path.join(path, "tokenizer.json")
+        slow = os.path.join(path, "tokenizer.model")
+        if os.path.exists(fast):
+            self._read_fast(fast)
+        elif os.path.exists(slow):
+            self._read_sentencepiece(slow)
+        else:
+            raise FileNotFoundError(f"no tokenizer.json or tokenizer.model "
+                                    f"under {path}")
+        names = {}
+        defaults = {"bos_token": "<s>", "eos_token": "</s>",
+                    "unk_token": "<unk>", "pad_token": None}
+        for key, default in defaults.items():
+            names[key] = _token_str(smap.get(key, cfg.get(key, default)))
+        extra = (smap.get("additional_special_tokens")
+                 or cfg.get("additional_special_tokens") or [])
+        added_json = _read_json(os.path.join(path, "added_tokens.json")) or {}
+        for tok, idx in sorted(added_json.items(), key=lambda kv: kv[1]):
+            self._add(tok, special=tok in {_token_str(t) for t in extra},
+                      idx=idx)
+        for tok in [names[k] for k in names if names[k]] + [
+                _token_str(t) for t in extra]:
+            self._add(tok, special=True)
+        self._add(DEFAULT_VIDEO_PATCH_TOKEN, special=True)
+        if use_vid_start_end:
+            self._add(DEFAULT_VID_START_TOKEN, special=True)
+            self._add(DEFAULT_VID_END_TOKEN, special=True)
+        self.id_to_token = {i: t for t, i in self.vocab.items()}
+        self.id_to_token.update({i: t for t, i in self.added.items()})
+        self._split_re = re.compile("|".join(
+            re.escape(t) for t in sorted(self.added, key=len, reverse=True)))
+        ids = [self.token_to_id(t) for t in VIDEO_SPECIAL_TOKENS]
+        self.vid_patch_token_id, self.vid_start_token_id, \
+            self.vid_end_token_id = ids
+        self.bos_token_id = self.token_to_id(names["bos_token"])
+        self.eos_token_id = self.token_to_id(names["eos_token"])
+        self.unk_token_id = self.token_to_id(names["unk_token"])
+        pad = self.token_to_id(names["pad_token"])
+        self.pad_token_id = (pad if pad is not None
+                             else self.unk_token_id or 0)
+        self.add_bos = cfg.get("add_bos_token", True)
+        self.add_eos = cfg.get("add_eos_token", False)
+        self.clean_up = cfg.get("clean_up_tokenization_spaces", False)
+
+    # -- reading --
+
+    def _read_fast(self, path: str) -> None:
+        spec = _read_json(path)
+        model = spec["model"]
+        if model.get("type") != "BPE":
+            raise ValueError(f"{path}: model {model.get('type')!r}, only "
+                             "BPE is supported")
+        self.vocab = dict(model["vocab"])
+        merges = [m.split(" ", 1) if isinstance(m, str) else m
+                  for m in model["merges"]]
+        self.ranks = {(a, b): i for i, (a, b) in enumerate(merges)}
+        self.byte_fallback = model.get("byte_fallback", False)
+        self.fuse_unk = model.get("fuse_unk", False)
+        self.ignore_merges = model.get("ignore_merges", False)
+        self.unk_piece = model.get("unk_token")
+        self.normalizer = spec.get("normalizer")
+        self.pre_tokenizer = spec.get("pre_tokenizer")
+        self.decoder = spec.get("decoder")
+        for tok in sorted(spec.get("added_tokens", []),
+                          key=lambda t: t["id"]):
+            self._add(tok["content"], special=tok.get("special", False),
+                      idx=tok["id"])
+
+    def _read_sentencepiece(self, path: str) -> None:
+        sp = read_sentencepiece_model(path)
+        if sp["model_type"] != 2:
+            raise ValueError(f"{path}: SentencePiece model type "
+                             f"{sp['model_type']}, only BPE (2) is supported")
+        if sp["name"] not in ("", "identity"):
+            raise ValueError(f"{path}: normalizer {sp['name']!r}, only "
+                             "'identity' (LLaMA's) is supported")
+        self.vocab = {p: i for i, (p, _, _) in enumerate(sp["pieces"])}
+        self.scores = {p: s for p, s, kind in sp["pieces"]
+                       if kind in (SP_NORMAL, SP_USER_DEFINED)}
+        self.byte_fallback = sp["byte_fallback"]
+        self.fuse_unk = True
+        self.ignore_merges = False
+        unk = sp["unk_id"]
+        self.unk_piece = sp["pieces"][unk][0] if unk >= 0 else None
+        self.sp = sp
+        self.legacy_prefix = True
+        self.decoder = _SPM_DECODER
+        for i, (piece, _, kind) in enumerate(sp["pieces"]):
+            if kind in (SP_CONTROL, SP_UNKNOWN, SP_USER_DEFINED):
+                self._add(piece, special=kind != SP_USER_DEFINED, idx=i)
+
+    def _add(self, token: str, special: bool,
+             idx: Optional[int] = None) -> None:
+        """Add `token` as an added token (split out of the text before
+        BPE): an existing token keeps its id, a new one takes `idx` or the
+        next id past the vocabulary and the added tokens."""
+        have = self.token_to_id(token)
+        if have is None:
+            have = idx if idx is not None else max(
+                [len(self.vocab)] + [i + 1 for i in self.added.values()])
+        self.added[token] = have
+        if special:
+            self.special.add(have)
+
+    def token_to_id(self, token: Optional[str]) -> Optional[int]:
+        if token is None:
+            return None
+        if token in self.added:
+            return self.added[token]
+        return self.vocab.get(token)
+
+    @property
+    def vocab_size(self) -> int:
+        return len(set(self.vocab) | set(self.added))
+
+    # -- encoding --
+
+    def _priority(self, a: str, b: str):
+        if self.ranks is not None:
+            return self.ranks.get((a, b))
+        score = self.scores.get(a + b)
+        return None if score is None else -score
+
+    def _bpe(self, word: str) -> List[int]:
+        """BPE of one pre-tokenized piece -> ids."""
+        if self.ignore_merges and word in self.vocab:
+            return [self.vocab[word]]
+        syms: List[str] = []
+        flags: List[bool] = []  # a symbol that never merges (bytes, unk)
+        for ch in word:
+            if ch in self.vocab or self.scores is not None:
+                syms.append(ch)
+                flags.append(False)
+                continue
+            bts = [_byte_token(b) for b in ch.encode("utf-8")]
+            if self.byte_fallback and all(t in self.vocab for t in bts):
+                syms.extend(bts)
+                flags.extend(True for _ in bts)
+            else:
+                syms.append(ch)
+                flags.append(True)
+        n = len(syms)
+        nxt = list(range(1, n)) + [-1]
+        prv = list(range(-1, n - 1))
+        alive = [True] * n
+        heap = []
+
+        def push(i):
+            j = nxt[i]
+            if j < 0 or flags[i] or flags[j]:
+                return
+            p = self._priority(syms[i], syms[j])
+            if p is not None:
+                heapq.heappush(heap, (p, i, syms[i], syms[j]))
+
+        for i in range(n - 1):
+            push(i)
+        while heap:
+            _, i, a, b = heapq.heappop(heap)
+            j = nxt[i]
+            if not alive[i] or j < 0 or syms[i] != a or syms[j] != b:
+                continue
+            syms[i] = a + b
+            alive[j] = False
+            nxt[i] = nxt[j]
+            if nxt[j] >= 0:
+                prv[nxt[j]] = i
+            if prv[i] >= 0:
+                push(prv[i])
+            push(i)
+        out: List[int] = []
+        unk_id = self.vocab.get(self.unk_piece) if self.unk_piece else None
+        i = 0 if n else -1
+        while i >= 0:
+            sym = syms[i]
+            if sym in self.vocab:
+                out.append(self.vocab[sym])
+            else:
+                bts = [_byte_token(b) for b in sym.encode("utf-8")]
+                if self.byte_fallback and all(t in self.vocab for t in bts):
+                    out.extend(self.vocab[t] for t in bts)
+                elif unk_id is not None and not (
+                        self.fuse_unk and out and out[-1] == unk_id):
+                    out.append(unk_id)
+            i = nxt[i]
+        return out
+
+    def _pieces(self, text: str, first: bool) -> List[str]:
+        """A text segment between added tokens -> the pieces BPE takes."""
+        if self.legacy_prefix:  # SentencePiece normalization
+            sp = self.sp
+            if sp["remove_extra_whitespaces"]:
+                text = " ".join(text.split())
+            if not text:
+                return []
+            if sp["add_dummy_prefix"]:
+                text = " " + text
+            if sp["escape_whitespaces"]:
+                text = text.replace(" ", SPIECE_UNDERLINE)
+            return [text]
+        return _pre_tokenize(self.pre_tokenizer,
+                             _normalize(self.normalizer, text), first)
+
+    def encode(self, text: str, add_bos: bool = True) -> List[int]:
+        ids: List[int] = []
+        pos = 0
+        for m in [*self._split_re.finditer(text), None]:
+            end = m.start() if m else len(text)
+            if end > pos:
+                for piece in self._pieces(text[pos:end], pos == 0):
+                    ids.extend(self._bpe(piece))
+            if m:
+                ids.append(self.added[m.group(0)])
+                pos = m.end()
+        if add_bos and self.add_bos and self.bos_token_id is not None:
+            ids.insert(0, self.bos_token_id)
+        if add_bos and self.add_eos and self.eos_token_id is not None:
+            ids.append(self.eos_token_id)
+        return ids
+
+    def decode(self, ids: Sequence[int],
+               skip_special_tokens: bool = True) -> str:
+        tokens = [self.id_to_token[i] for i in map(int, ids)
+                  if i in self.id_to_token
+                  and not (skip_special_tokens and i in self.special)]
+        text = "".join(_decode_chain(self.decoder, tokens))
+        if self.clean_up:
+            for a, b in _CLEANUP:
+                text = text.replace(a, b)
+        return text
+
+
 def load_tokenizer(path: Optional[str] = None) -> Tokenizer:
-    """The byte tokenizer. A checkpoint's own tokenizer (`path`) comes
-    with checkpoint loading, which the port does not have yet."""
-    if path:
-        raise NotImplementedError(f"tokenizer files {path!r}: the port "
-                                  "has only the byte tokenizer")
+    """A checkpoint directory's LLaMA tokenizer (:class:`LlamaTokenizer`),
+    else the byte tokenizer."""
+    if path and os.path.isdir(path):
+        return LlamaTokenizer(path)
     return ByteTokenizer()

@@ -6,7 +6,8 @@ defaults:
     python -m video_llava_tpu_torch.serving --model_size 7b --quant int4 \
         --continuous --paged
 
-Random weights (no checkpoint loading yet), on the card. --quant int8
+Random weights unless --model_name names a checkpoint directory, on the
+card. --quant int8
 also takes an int8 KV cache. --batching (the windowed batcher) with its
 --max_batch and --window_ms, and --mesh_model > 1 (multi-GPU), are not
 ported and raise.
@@ -30,7 +31,8 @@ from video_llava_tpu_torch.serving.server import (
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="video_llava_tpu_torch.serving")
     ap.add_argument("--model_name", default=None,
-                    help="HF Vicuna checkpoint dir (not supported yet)")
+                    help="HF Vicuna checkpoint directory (tokenizer and "
+                    "LLM weights; random weights without one)")
     ap.add_argument("--model_size", default="13b",
                     choices=["tiny", "7b", "13b"])
     ap.add_argument("--quant", default=None,

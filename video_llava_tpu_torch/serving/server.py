@@ -41,7 +41,7 @@ from video_llava_tpu_torch.runtime.inference import build_video_question
 from video_llava_tpu_torch.runtime.tokenizer import Tokenizer
 
 BATCHING_NOT_PORTED = ("the windowed batcher (--batching, BatchingChatModel) "
-                       "is not ported yet: ROADMAP Queue 1 item 4")
+                       "is not ported yet: ROADMAP Queue 1 item 6")
 
 
 def _split_content(content) -> Tuple[str, List[str]]:

@@ -8,8 +8,8 @@ weighted gradient accumulation, periodic checkpoints with a projector
 export beside each, resume from the newest checkpoint-*, and the final
 checkpoint, ``mm_projector.bin`` and ``train_summary.json``. It runs on
 ``--device`` (cuda unless told otherwise); random weights come from
---seed (a checkpoint directory, --pretrained_dir, is not ported), and a
-mesh larger than one device raises.
+--seed, the LLM's from --pretrained_dir when given (an HF LLaMA
+directory), and a mesh larger than one device raises.
 
 Run:
   python -m video_llava_tpu_torch.train.train --data_path data.json \\
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from video_llava_tpu_torch.engine import weights
 from video_llava_tpu_torch.engine.checkpoint import (
     export_projector,
     latest_checkpoint,
@@ -66,7 +67,7 @@ def parse_args(argv=None):
     p.add_argument("--model_size", default="7b", choices=["7b", "13b", "tiny"])
     p.add_argument("--tokenizer_path", default=None)
     p.add_argument("--pretrained_dir", default=None,
-                   help="HF LLaMA/Vicuna checkpoint dir (not ported: raises)")
+                   help="HF LLaMA/Vicuna checkpoint dir: the LLM's weights")
     p.add_argument("--tune_mm_mlp_adapter", action="store_true", default=True,
                    help="accepted for the reference's command lines: the "
                    "projector always trains (--tune_mode sets the rest)")
@@ -96,12 +97,11 @@ def parse_args(argv=None):
 
 def build_model(args, cfg, device) -> VideoLLaVA:
     """bf16 VideoLLaVA with random weights from --seed (as
-    runtime/model_init draws them); with --llm_weights int8 every LLM
-    linear is int8 (quantize_params' layout) and embed_tokens stays
-    bf16, drawn and quantized one layer at a time on the device."""
-    if args.pretrained_dir:
-        raise NotImplementedError("--pretrained_dir: checkpoint loading "
-                                  "(engine/weights.py) is not ported")
+    runtime/model_init draws them), its LLM read from --pretrained_dir
+    when given (an HF LLaMA directory, JAX train.py:120-128); with
+    --llm_weights int8 every LLM linear is int8 (quantize_params'
+    layout) and embed_tokens stays bf16, drawn or read and quantized one
+    layer at a time on the device."""
     int8 = args.llm_weights == "int8"
     if int8 and args.tune_mode == "full":
         raise SystemExit("--llm_weights int8 requires a frozen LLM "
@@ -110,6 +110,12 @@ def build_model(args, cfg, device) -> VideoLLaVA:
                        llm_quant="int8" if int8 else None,
                        llm_skip_keys=("embed_tokens",) if int8 else ())
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    if args.pretrained_dir:
+        random_init_(model.vision, gen)
+        random_init_(model.projector, gen)
+        weights.convert_llama(weights.checkpoint_shards(args.pretrained_dir),
+                              model.llm)
+        return model
     random_init_(model, gen)
     if int8:
         random_init_quantized_llm_(model.llm, gen)
