@@ -22,7 +22,8 @@ Phases, each of which raises on failure (exit code != 0):
      8 x 768 prefill rows and an 8 x 9 verify window, kernel 3 at 40
      layers x 8 rows x 40 heads), and planted faults in the plain
      versions of kernels 1, 2, 9, 10, 11, A, B and both W4A16 kernels
-     that must fail), timing the
+     that must fail; kernel 1's f32 body at the crop filter's ViT-B/32
+     shape and CLIP-L's), timing the
      kernel, the plain version
      and, where one PyTorch call computes the same function, that call,
      each beside the kernel's bound; kernels 3, 9, A and the W4A16
@@ -91,7 +92,11 @@ Phases, each of which raises on failure (exit code != 0):
      eval.run_inference.main, then run_qa_continuous on its engine with 8
      slots: stage times, launches, the b = 8 vs b = 1 prefill logits;
      then the batched runner made greedy must answer row for row as
-     run_qa_continuous without speculation;
+     run_qa_continuous without speculation; then bench_grounding.py's
+     learned build (learned_grounding_phase: GroundingDINO, MobileSAM, the
+     ViT-B/32 crop filter in f32, XMem) over 100 seeded 480 x 832 frames,
+     the fused path and the chunked host loop agreeing, with stage times,
+     launches, 12 frames against the plain versions and a profile;
   10. train (training_phase): kernels 7 and 8 against their
      plain versions at the training layer's shape and four others, then
      (flash_limit_checks) at b*h = 65,600 through each body of kernel 7
@@ -160,12 +165,22 @@ from video_llava_tpu_torch.constants import (
 from video_llava_tpu_torch.engine import weights as weights_mod
 from video_llava_tpu_torch.engine.continuous import SlotRequest
 from video_llava_tpu_torch.grounding import fused_clip, results as gresults
-from video_llava_tpu_torch.grounding.builders import build_grounding_stack
+from video_llava_tpu_torch.grounding.builders import (
+    build_grounding_stack,
+    build_sam,
+    random_clip_filter,
+)
+from video_llava_tpu_torch.grounding.memory_tracker import (
+    LearnedMemoryTracker,
+    TrackerConfig,
+)
+from video_llava_tpu_torch.grounding.tracker import GroundedTracker
 from video_llava_tpu_torch.media import scene as scene_mod
 from video_llava_tpu_torch.models.video_llava import VideoLLaVA
 from video_llava_tpu_torch.models import grounding_dino as gdino
 from video_llava_tpu_torch.models import wav2vec2 as w2v
 from video_llava_tpu_torch.models import whisper as whisper_mod
+from video_llava_tpu_torch.models import xmem as xmem_mod
 from video_llava_tpu_torch.models.layers import TreeInit
 from video_llava_tpu_torch.ops import (
     attention,
@@ -230,6 +245,9 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                       "video_llava_tpu/ops/attention.py:324"),
     "flash_forward_f32": ("video_llava_tpu_torch/csrc/flash_attention_f32.cu",
                           "video_llava_tpu/ops/attention.py:324"),
+    "flash_attention_bhsd_f32": (
+        "video_llava_tpu_torch/csrc/flash_attention_f32.cu",
+        "video_llava_tpu/ops/attention.py:360"),
     "flash_backward_dq": ("video_llava_tpu_torch/csrc/flash_attention.cu",
                           "video_llava_tpu/ops/attention.py:625"),
     "flash_backward_dkv": ("video_llava_tpu_torch/csrc/flash_attention.cu",
@@ -262,6 +280,10 @@ TRAIN_PATH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
 TRAIN_PATH_F32 = ("flash_forward_f32", "flash_backward_dq_f32",
                   "flash_backward_dkv_f32")
 GROUNDING_PATH = ("multi_scale_deformable_attention",)
+# the learned grounding build: GroundingDINO, the ViT-B/32 crop filter's
+# vision tower (f32) and text tower (kernel 7's f32 body), XMem
+LEARNED_PATH = ("multi_scale_deformable_attention", "flash_attention_bhsd_f32",
+                "flash_forward_f32")
 # Kernel vs plain on the card, both bf16 out. flash: the kernel rounds P
 # to bf16 for its second product and accumulates in another order;
 # decode: the plain version dequantizes int8 to bf16, the kernel keeps
@@ -493,6 +515,7 @@ def kernel_checks(dev) -> dict:
                                      "planted pad-key fault")
             del want, faulty
     del q, k, v
+    bhsd_f32_checks(dev, results)
     # pooling: 100 frames, a 12-frame clip, then 9 valid frames of 12
     # (the kernel reads only those); the library call is the two means
     # over the valid frames. A planted fault in the plain version (n + 1
@@ -558,6 +581,65 @@ def kernel_checks(dev) -> dict:
     w4a16_checks(dev, g, results)
     checks_13b(dev, g, rnd, results)
     return results
+
+
+# Kernel 1's f32 body at (b, h, s_pad, d, kv_len): the crop filter's
+# ViT-B/32 over a chunk of 4 detection frames x 8 boxes (the learned
+# grounding path's shape, first), then CLIP-L's 100 frames at 224 px.
+BHSD_F32_SHAPES = ((32, 12, 64, 64, 50), (100, 16, 272, 64, 257))
+
+
+def bhsd_f32_checks(dev, results) -> None:
+    """Kernel 1's f32 body (3xTF32, csrc/flash_attention_f32.cu's
+    head-major entry) against its plain version at BHSD_F32_SHAPES,
+    within F32_FLASH_TOL, the pad rows of k and v large (keys of 30,
+    values of 100); a planted fault in the plain version (kv_len + 1)
+    must fail the check. Timed beside the plain version, SDPA in f32 with
+    the same boolean key mask, and the bound: the bytes of q and o at
+    s_pad rows and of k and v at kv_len rows, or the two products three
+    times over (3xTF32) at the TF32 rate (the f32-FMA bound printed)."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    name = "flash_attention_bhsd_f32"
+    for b, h, s_pad, d, s in BHSD_F32_SHAPES:
+        q, k, v = (torch.randn(b, h, s_pad, d, generator=g, device=dev)
+                   for _ in range(3))
+        k[:, :, s:], v[:, :, s:] = 30.0, 100.0
+        before = cuda_lib.LAUNCHES[name]
+        got = attention.flash_attention_bhsd(q, k, v, kv_len=s)
+        want = attention.flash_attention_bhsd_plain(q, k, v, kv_len=s)
+        faulty = attention.flash_attention_bhsd_plain(q, k, v, kv_len=s + 1)
+        torch.cuda.synchronize()
+        if cuda_lib.LAUNCHES[name] != before + 1 or got.dtype != q.dtype:
+            raise AssertionError(f"{name}: not launched, or {got.dtype}")
+        err = (got - want).abs().max().item()
+        caught = (faulty - want).abs().max().item()
+        note = (f"max|err| {err:.3e} (tol {F32_FLASH_TOL}; the plain "
+                f"version at kv_len + 1 is off by {caught:.3e})")
+        if not (err <= F32_FLASH_TOL and caught > F32_FLASH_TOL):
+            raise AssertionError(f"{name} {(b, h, s_pad, d, s)}: {note}")
+        mask = (torch.arange(s_pad, device=dev) < s)[None, None, None]
+        ms = median_ms(lambda: attention.flash_attention_bhsd(q, k, v,
+                                                              kv_len=s))
+        plain_ms = median_ms(lambda: attention.flash_attention_bhsd_plain(
+            q, k, v, kv_len=s))
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask))
+        ops = 4 * b * h * s_pad * s * d
+        nbytes = (2 * s_pad + 2 * s) * b * h * d * 4
+        bound_ms, bound_by = record(results, name, err, ms, plain_ms, lib_ms,
+                                    nbytes, 3 * ops, TF32_PEAK)
+        if s_pad != BHSD_F32_SHAPES[0][2]:  # CLIP-L's, beside the path's
+            results[name]["clip_l"] = dict(
+                shape=[b, h, s_pad, d, s], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+        print(f"check {name} {(b, h, s_pad, d, s)}: {note}; kernel "
+              f"{ms:.4f} ms ({bound_ms / ms:.3f} of the bound), plain "
+              f"{plain_ms:.4f} ms, library (SDPA f32) {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} (as f32 FMAs "
+              f"{bound(nbytes, ops, F32_PEAK)[0]:.4f} ms)", flush=True)
+        del q, k, v, got, want, faulty, mask
+    torch.cuda.empty_cache()
 
 
 # Valid counts of the batched pool check: a batch of 8 videos padded to 100
@@ -1366,7 +1448,8 @@ def port_kernel(name: str) -> bool:
     """Whether a profiled device activity is a kernel of csrc/ (the names
     of a few of PyTorch's own kernels also start so)."""
     return name.startswith(("void (anonymous namespace)::",
-                            "(anonymous namespace)::", "void flash::"))
+                            "(anonymous namespace)::", "void flash::",
+                            "void flash_f32::"))
 
 
 def busy_and_names(spans):
@@ -3994,6 +4077,295 @@ def audio_phase(engine, clips, dev, results) -> dict:
             "checks": checks}
 
 
+# -- learned grounding ------------------------------------------------------
+
+# bench_grounding.py's build (BASELINE config 5): 100 seeded frames of 480
+# x 832, a detection every 5 frames, the detector's top 8 boxes, box
+# threshold 0, the random ViT-B/32 crop filter at thresholds 0 / 0, XMem
+# (ResNet-50 / ResNet-18, key 64, value 512) with 4 object slots, binary
+# masks, classes "person" and "dog".
+LEARNED_FRAMES, LEARNED_HW = 100, (480, 832)
+LEARNED_CLASSES = ["person", "dog"]
+LEARNED_BOXES, LEARNED_OBJECTS = 8, 4
+LEARNED_MASK_SHARE = 5e-3  # masks may differ on under 0.5% of a frame
+LEARNED_SCORE_TOL = 1e-4  # detection scores, kernels against plain
+# Kernel 7's f32 body at the crop filter's text tower: 10 templates x 2
+# classes, 77 tokens, 8 heads of 64, causal (b, sq, skv, h, h_kv, d, causal)
+TEXT_F32_SHAPE = (20, 77, 77, 8, 8, 64, True)
+
+
+class TopKDetector:
+    """bench_grounding.py's _TopKDetector: the detector's raw detections
+    cut to the top `k` a frame (random weights clear the detector's
+    threshold on most of its 900 queries); counts and times the
+    forwards."""
+
+    def __init__(self, det, k: int, stats: dict, forwards: list):
+        self._det, self._k = det, k
+        self._stats, self._forwards = stats, forwards
+
+    def detect_batch(self, images, prompts):
+        self._forwards[0] += 1
+        out = []
+        for boxes, conf, cids in timed(self._stats, "detection",
+                                       self._det.detect_batch)(images,
+                                                               prompts):
+            order = np.argsort(-conf)[:self._k]
+            out.append((boxes[order], conf[order], cids[order]))
+        return out
+
+    def __call__(self, image, prompts):
+        return self.detect_batch(np.asarray(image)[None], prompts)[0]
+
+
+class TimedSegmenter:
+    """A segmenter whose SAM calls (the per-frame decode, the batched
+    encodes and the clip-wide batched decode) add to stats['sam']."""
+
+    def __init__(self, seg, stats: dict):
+        self._seg, self._stats = seg, stats
+
+    def __getattr__(self, name):
+        attr = getattr(self._seg, name)
+        if name in ("precompute_embeddings", "decode_masks_batch_device"):
+            return timed(self._stats, "sam", attr)
+        return attr
+
+    def __call__(self, *a, **kw):
+        return timed(self._stats, "sam", self._seg)(*a, **kw)
+
+
+def text_f32_check(dev, results) -> None:
+    """Kernel 7's f32 body at TEXT_F32_SHAPE (the crop filter's text
+    tower) against the plain forward within F32_FLASH_TOL; timed beside
+    the plain forward, SDPA in f32 with the causal boolean mask, and the
+    bound (bytes, or the visible pairs' two products three times over at
+    the TF32 rate). Its error joins results['flash_forward_f32'] (whose
+    times stay Whisper base's), its times that entry's "text_tower"."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    b, sq, skv, h, h_kv, d, causal = TEXT_F32_SHAPE
+    q = torch.randn(b, sq, h, d, generator=g, device=dev)
+    k, v = (torch.randn(b, skv, h_kv, d, generator=g, device=dev)
+            for _ in range(2))
+    out, lse = attention.flash_forward(q, k, v, causal)
+    want, want_lse = attention.flash_forward_plain(q, k, v, causal)
+    err = max((out - want).abs().max().item(),
+              (lse - want_lse).abs().max().item())
+    if not err <= F32_FLASH_TOL:
+        raise AssertionError(f"flash_forward_f32 {TEXT_F32_SHAPE}: {err}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = attention.flash_mask(sq, skv, True, dev)
+    ms = median_ms(lambda: attention.flash_forward(q, k, v, causal))
+    plain_ms = median_ms(lambda: attention.flash_forward_plain(q, k, v,
+                                                               causal))
+    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    ops = 4 * b * h * visible_pairs(sq, skv, causal) * d
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel() + lse.numel())
+    record(results, "flash_forward_f32", err, ms, plain_ms, lib_ms, nbytes,
+           3 * ops, TF32_PEAK)
+    bound_ms, bound_by = bound(nbytes, 3 * ops, TF32_PEAK)
+    results["flash_forward_f32"]["text_tower"] = dict(
+        shape=list(TEXT_F32_SHAPE), max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+        bound_by=bound_by)
+    print(f"check flash_forward_f32 {TEXT_F32_SHAPE} (the text tower): "
+          f"max|err| {err:.3e} (tol {F32_FLASH_TOL}), kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library (SDPA f32, bool mask) "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}",
+          flush=True)
+
+
+def same_tracks(got, want, label, score_tol=1e-6) -> float:
+    """Frame indices and objects (id, category; scores within
+    score_tol) equal and masks differing on under LEARNED_MASK_SHARE of
+    each frame's pixels; returns the largest share."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} != {len(want)} frames")
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g.frame_index != w.frame_index or [
+                (o.id, o.category_id) for o in g.objects] != [
+                (o.id, o.category_id) for o in w.objects] or any(
+                abs(a.score - b.score) > score_tol
+                for a, b in zip(g.objects, w.objects)):
+            raise AssertionError(f"{label}: frame {g.frame_index} objects "
+                                 f"{g.objects} != {w.objects}")
+        share = float(np.mean(g.masks != w.masks))
+        worst = max(worst, share)
+        if share >= LEARNED_MASK_SHARE:
+            shares = [round(float(np.mean(a.masks != b.masks)), 4)
+                      for a, b in zip(got, want)]
+            raise AssertionError(f"{label}: frame {g.frame_index} masks "
+                                 f"differ on {share:.4f} of the pixels "
+                                 f"(each frame's share: {shares})")
+    return worst
+
+
+def learned_grounding_phase(dev, results) -> dict:
+    """bench_grounding.py's learned build at full width on the card
+    (LEARNED_*: GroundingDINO Swin-T at 800 px, MobileSAM, the ViT-B/32
+    crop filter in f32, XMem with random weights from seeds): kernel 7's
+    f32 check at the text tower's shape (its times join the kernels
+    line's flash_forward_f32 entry as "text_tower"); a warm-up of both
+    paths on 10
+    frames; then, each with the launch counts set to 0 just before and
+    read just after, GroundedTracker.run_on_list_of_images (the fused
+    path) and run_host_loop (the chunked host loop) over the 100 frames,
+    with wall, stage seconds (host clock around synchronized calls;
+    host glue the rest), detector forwards and kernel 1 / 7 / 12
+    launches; the two must agree (same_tracks), the filter must drop a
+    detection, the masks must not be all empty, and the path's kernels
+    must all launch. Then 12 frames with the kernels against the same
+    path on their plain versions (set_default_impl('xla') for attention
+    and deformable attention: nothing launches), and a profiled fused
+    run (device busy, idle share, the top device activities). Returns
+    the fused run's launches."""
+    t0 = time.perf_counter()
+    text_f32_check(dev, results)
+    stats: dict = {}
+    forwards, dropped, scored = [0], [0], [0]
+    detector = gdino.build_detector(device=dev, seed=0)
+    segmenter = build_sam(device=dev, seed=1)
+    crop_filter = random_clip_filter(seed=2, prob_threshold=0.0,
+                                     score_threshold=0.0, device=dev)
+    xcfg = xmem_mod.XMemConfig(max_objects=LEARNED_OBJECTS)
+    xparams = xmem_mod.init_params(TreeInit(3, dev), xcfg)
+    filter_device = crop_filter.filter_frames_device
+
+    def count_filter(frames, boxes, valid, class_ids, classes, chunk=4):
+        keep = timed(stats, "filter", filter_device)(
+            frames, boxes, valid, class_ids, classes, chunk=chunk)
+        dropped[0] += int((np.asarray(valid, bool) & ~keep).sum())
+        scored[0] += int(np.asarray(valid, bool).sum())
+        return keep
+
+    crop_filter.filter_frames_device = count_filter
+
+    def tracker():
+        prop = LearnedMemoryTracker(xparams, xcfg)
+        for name in ("step", "step_chunk", "add_reference"):
+            setattr(prop, name, timed(stats, "propagation",
+                                      getattr(prop, name)))
+        return GroundedTracker(
+            detector=TopKDetector(detector, LEARNED_BOXES, stats, forwards),
+            segmenter=TimedSegmenter(segmenter, stats),
+            crop_filter=crop_filter, detection_every=5, box_threshold=0.0,
+            tracker_cfg=TrackerConfig(max_objects=LEARNED_OBJECTS),
+            propagator=prop, binary_masks=True)
+
+    fused_tracker, host_tracker = tracker(), tracker()
+    if not fused_tracker.fused_eligible():
+        raise AssertionError("the learned build is not fused-eligible")
+    torch.cuda.synchronize()
+    print(f"learned grounding build on the card: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    frames = list(np.random.default_rng(1).integers(
+        0, 255, size=(LEARNED_FRAMES,) + LEARNED_HW + (3,), dtype=np.uint8))
+    run_fused = fused_clip.run_clip_fused
+
+    def run(path, clip):
+        stats.clear()
+        forwards[0] = dropped[0] = scored[0] = 0
+        crop_filter._text_cache.clear()  # the text tower runs, as for a
+        # request with a new class list
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t = time.perf_counter()
+        out = (fused_tracker.run_on_list_of_images(clip, LEARNED_CLASSES)
+               if path == "fused"
+               else host_tracker.run_host_loop(clip, LEARNED_CLASSES))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(cuda_lib.LAUNCHES)
+        glue = wall - sum(stats.values())
+        print(f"learned {path} over {len(clip)} frames: wall {wall:.3f} s; "
+              "stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                         sorted(stats.items()))
+              + f", host glue {glue:.3f}; {forwards[0]} detector forwards, "
+              f"{dropped[0]} of {scored[0]} detections dropped by the "
+              f"filter; launches "
+              f"{launches}", flush=True)
+        return out, launches, wall
+
+    fused_clip.run_clip_fused = timed(stats, "propagation", run_fused)
+    try:
+        for path in ("fused", "host"):  # warm-up
+            run(path, frames[:10])
+        torch.cuda.reset_peak_memory_stats()
+        fused, launches, fused_wall = run("fused", frames)
+        fused_dropped = dropped[0]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        host, host_launches, _ = run("host", frames)
+        missing = [k for k in LEARNED_PATH if not launches.get(k)]
+        if missing or any(not host_launches.get(k) for k in LEARNED_PATH):
+            raise AssertionError(f"learned grounding: kernels never "
+                                 f"launched on the path: {missing}")
+        if not (fused_dropped and dropped[0]):
+            raise AssertionError("the crop filter dropped no detection")
+        if not any(fr.masks.any() for fr in fused):
+            raise AssertionError("the learned build's masks are all empty")
+        if {fr.masks.shape for fr in fused} != {
+                (LEARNED_OBJECTS,) + LEARNED_HW}:
+            raise AssertionError("learned grounding: mask shapes")
+        worst = same_tracks(fused, host, "fused vs host loop")
+        masked = sum(int(fr.masks.any()) for fr in fused)
+        print(f"learned fused vs host loop: objects equal, masks differ on "
+              f"at most {worst:.5f} of a frame's pixels (limit "
+              f"{LEARNED_MASK_SHARE}); {masked} frames with a mask, "
+              f"{len(fused[-1].objects)} objects; peak device memory "
+              f"{peak:.2f} GiB", flush=True)
+
+        # the same 12 frames with the kernels and on their plain versions
+        with_kernels, _, _ = run("fused", frames[:12])
+        attention.set_default_impl("xla")
+        deformable.set_default_impl("xla")
+        try:
+            plain, plain_launches, _ = run("fused", frames[:12])
+        finally:
+            attention.set_default_impl("auto")
+            deformable.set_default_impl("auto")
+        if plain_launches:
+            raise AssertionError(f"the plain run launched {plain_launches}")
+        worst = same_tracks(with_kernels, plain, "kernels vs plain",
+                            score_tol=LEARNED_SCORE_TOL)
+        print(f"learned fused, 12 frames, kernels vs plain versions: objects "
+              f"equal (scores within {LEARNED_SCORE_TOL}), masks differ on "
+              f"at most {worst:.5f} of a frame's pixels (limit "
+              f"{LEARNED_MASK_SHARE})", flush=True)
+
+        wall = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run("fused", frames)
+        profiled_s = time.perf_counter() - wall
+    finally:
+        fused_clip.run_clip_fused = run_fused
+        crop_filter.filter_frames_device = filter_device
+    spans = [(e.name(), e.start_ns(), e.end_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    if not spans:
+        raise AssertionError("learned grounding profile: no device activity")
+    busy_ms, by_name = busy_and_names(spans)
+    print(f"learned fused profile: device busy {busy_ms:.1f} ms over "
+          f"{len(spans)} device activities, wall {fused_wall * 1e3:.1f} ms "
+          f"(unprofiled run), idle share "
+          f"{1 - busy_ms / (fused_wall * 1e3):.3f} (profiled pass "
+          f"{profiled_s:.2f} s)", flush=True)
+    for i, (name_, (total, calls)) in enumerate(sorted(
+            by_name.items(), key=lambda kv: -kv[1][0])):
+        if i < 15 or port_kernel(name_):
+            print(f"learned profile: {total / 1e3:9.2f} ms {calls:6d} calls  "
+                  f"{name_[:90]}")
+    del fused_tracker, host_tracker, fused, host, xparams, crop_filter
+    del detector, segmenter
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"learned grounding phase: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return launches
+
+
 def weight_bytes(module, leaves) -> int:
     return sum(p.numel() * p.element_size()
                for n, p in module.named_parameters()
@@ -4100,6 +4472,8 @@ def main() -> int:
     launches["decode_attention_pallas"] = gqa_chat_phase(
         clips, requests[:1], dev)["decode_attention_pallas"]
     eval_13b_phase(dev, results)
+    learned = learned_grounding_phase(dev, results)
+    launches["flash_attention_bhsd_f32"] = learned["flash_attention_bhsd_f32"]
     trained = training_phase(dev, results)
     launches.update({k: trained[k] for k in TRAIN_PATH + TRAIN_PATH_F32[1:]})
 

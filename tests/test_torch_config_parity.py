@@ -9,8 +9,8 @@ import video_llava_tpu.constants as jconst
 import video_llava_tpu_torch.config as tcfg
 import video_llava_tpu_torch.constants as tconst
 
-CLASSES = ("CLIPVisionConfig", "LlamaConfig", "ProjectorConfig",
-           "VideoLLaVAConfig", "GenerationConfig")
+CLASSES = ("CLIPVisionConfig", "CLIPTextConfig", "LlamaConfig",
+           "ProjectorConfig", "VideoLLaVAConfig", "GenerationConfig")
 
 
 def _fields(cls):
@@ -22,6 +22,9 @@ def test_configs_and_constants_match_jax():
         jc, tc = getattr(jcfg, name), getattr(tcfg, name)
         assert _fields(tc) == _fields(jc), name
         assert dataclasses.asdict(tc()) == dataclasses.asdict(jc()), name
+    for name in ("CLIPVisionConfig", "CLIPTextConfig"):
+        assert (dataclasses.asdict(getattr(tcfg, name).b32())
+                == dataclasses.asdict(getattr(jcfg, name).b32())), name
     for make in ("vicuna_7b", "vicuna_13b", "tiny"):
         assert (dataclasses.asdict(getattr(tcfg.LlamaConfig, make)())
                 == dataclasses.asdict(getattr(jcfg.LlamaConfig, make)()))

@@ -136,13 +136,17 @@ def test_zz_grounding_stack_builds_at_full_width():
     """build_grounding_stack's default configuration, drawn on the meta
     device (shapes only): GroundingDINO Swin-T with 4 levels and 900
     queries, MobileSAM at 1024 px, the Swin-L tagger over the default tag
-    list; the unported options raise."""
+    list; the unported options raise, a missing XMem file warns and keeps
+    the STM, a missing CLIP directory raises; and random_clip_filter's
+    ViT-B/32 towers."""
     import pytest
 
     from video_llava_tpu_torch.grounding.builders import (
         DEFAULT_TAG_LIST,
         build_grounding_stack,
+        random_clip_filter,
     )
+    from video_llava_tpu_torch.grounding.memory_tracker import MemoryTracker
 
     tracker, tagger, matcher = build_grounding_stack(device="meta")
     det = tracker.detector
@@ -154,7 +158,16 @@ def test_zz_grounding_stack_builds_at_full_width():
     assert tracker.fused_eligible() and tracker.tracker_cfg.max_objects == 5
     assert tagger.head_params["head"]["kernel"].shape == (
         1536, len(DEFAULT_TAG_LIST))
-    for kw in ({"sam_variant": "vit_b"}, {"xmem_checkpoint": "x.pth"},
-               {"clip_checkpoint": "clip"}, {"dino_checkpoint": "d"}):
+    for kw in ({"sam_variant": "vit_b"}, {"dino_checkpoint": "d"}):
         with pytest.raises(NotImplementedError):
             build_grounding_stack(device="meta", **kw)
+    with pytest.warns(UserWarning, match="not found"):
+        stm = build_grounding_stack(device="meta",
+                                    xmem_checkpoint="x.pth")[0]
+    assert isinstance(stm.tracker, MemoryTracker)
+    with pytest.raises(FileNotFoundError):
+        build_grounding_stack(device="meta", clip_checkpoint="clip")
+    f = random_clip_filter(device="meta")
+    assert f.vision_cfg.patch_size == 32 and f.vision_cfg.num_layers == 12
+    assert f.text_params["token_embedding"]["weight"].shape == (49408, 512)
+    assert f.visual_projection["kernel"].shape == (768, 512)

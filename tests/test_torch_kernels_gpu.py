@@ -75,6 +75,28 @@ def test_flash_bhsd_kernel_matches_plain(dev, b, h, s, kv_len, d):
     _assert_close(got, want, 2e-2)
 
 
+@pytest.mark.parametrize("b,h,s,kv_len,d", [
+    (32, 12, 64, 50, 64), (2, 4, 32, 23, 64), (3, 2, 100, 100, 128),
+    (2, 3, 48, 17, 16), (2, 16, 272, 257, 64), (1, 2, 272, 1, 64),
+    (1, 65537, 16, 9, 16),
+])
+def test_flash_bhsd_f32_kernel_matches_plain(dev, b, h, s, kv_len, d):
+    """Kernel 1's f32 body (the ViT-B/32 crop filter's (32, 12, 64, 64)
+    at 50 keys, CLIP-L's tiling, one valid key, d 16 and 128, more than
+    65,535 heads): 3xTF32 against the plain f32 version within 2e-5, the
+    pad rows of k and v large."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(b, h, s, d, generator=g, device=dev)
+               for _ in range(3))
+    k[:, :, kv_len:], v[:, :, kv_len:] = 30.0, 100.0
+    before = cuda_lib.LAUNCHES["flash_attention_bhsd_f32"]
+    got = attention.flash_attention_bhsd(q, k, v, kv_len=kv_len)
+    assert cuda_lib.LAUNCHES["flash_attention_bhsd_f32"] == before + 1
+    assert got.dtype == torch.float32
+    want = attention.flash_attention_bhsd_plain(q, k, v, kv_len=kv_len)
+    _assert_close(got, want, 2e-5)
+
+
 @pytest.mark.parametrize("t,s,c,n,out_dtype", [
     (100, 256, 1024, 100, torch.bfloat16), (12, 256, 1024, 12,
                                             torch.bfloat16),
@@ -1116,8 +1138,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         attention.decode_attention_pallas(q[..., :64].contiguous(), kv3, kv3,
                                           lens)
     x = _rand(g, 1, 2, 32, 64)
-    with pytest.raises(TypeError):
-        attention.flash_attention_bhsd(x.float(), x.float(), x.float())
+    with pytest.raises(TypeError):  # bf16 or f32 only
+        attention.flash_attention_bhsd(x.half(), x.half(), x.half())
+    with pytest.raises(TypeError):  # mixed dtypes
+        attention.flash_attention_bhsd(x.float(), x, x)
     with pytest.raises(ValueError):
         attention.flash_attention_bhsd(x, x, x.transpose(2, 3))
     with pytest.raises(TypeError):  # the pool kernel reads bf16 only

@@ -84,6 +84,31 @@ def test_port_imports_no_jax(tmp_path):
             "video_llava_tpu_torch.ops.audio",
             "video_llava_tpu_torch.media.audio"} <= set(modules)
     assert "video_llava_tpu_torch.grounding.builders" in modules
+    # the learned grounding build: XMem with its ResNet trunks, the CLIP
+    # crop filter and text tower, and the CLIP tokenizer read without a
+    # tokenizer library
+    assert {"video_llava_tpu_torch.models.resnet",
+            "video_llava_tpu_torch.models.xmem",
+            "video_llava_tpu_torch.models.clip",
+            "video_llava_tpu_torch.grounding.clip_filter",
+            "video_llava_tpu_torch.grounding.memory_tracker",
+            "video_llava_tpu_torch.grounding.fused_clip",
+            "video_llava_tpu_torch.grounding.tracker"} <= set(modules)
+    from torch_xmem_pair import write_clip_vocab
+    from video_llava_tpu_torch.runtime.tokenizer import CLIPTokenizer
+
+    clip_dir = tmp_path / "clip"
+    clip_dir.mkdir()
+    write_clip_vocab(clip_dir)
+    text = "A photo of a Dog."
+    proc = _run(BLOCK_JAX + (
+        "from video_llava_tpu_torch.runtime.tokenizer import CLIPTokenizer\n"
+        "from video_llava_tpu_torch.grounding import builders, tracker\n"
+        "from video_llava_tpu_torch.models import xmem, resnet, clip\n"
+        f"print(*CLIPTokenizer({str(clip_dir)!r}).encode({text!r}))"))
+    assert proc.returncode == 0, proc.stderr
+    want = CLIPTokenizer(str(clip_dir)).encode(text)
+    assert len(want) > 2 and proc.stdout.split() == [str(i) for i in want]
     assert "video_llava_tpu_torch.serving.server" in modules
     proc = _run(BLOCK_JAX + "import runpy; sys.argv = ['serve', '--help']; "
                 "runpy.run_module('video_llava_tpu_torch.serving', "

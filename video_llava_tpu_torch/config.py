@@ -3,7 +3,7 @@
 The same dataclasses, fields and defaults as video_llava_tpu/config.py,
 so that one configuration names the same model in both packages
 (tests/test_torch_config_parity.py holds them equal). Only what the port
-runs is here: no CLIP text tower, ViT-B/32 or mesh.
+runs is here: no mesh.
 """
 
 from __future__ import annotations
@@ -42,6 +42,36 @@ class CLIPVisionConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    @classmethod
+    def b32(cls) -> "CLIPVisionConfig":
+        """OpenAI CLIP ViT-B/32: the grounding crop filter's tower
+        (reference clip.load('ViT-B/32'), grounding_new_api.py:295)."""
+        return cls(image_size=224, patch_size=32, hidden_size=768,
+                   intermediate_size=3072, num_layers=12, num_heads=12,
+                   projection_dim=512)
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """CLIP text tower (ViT-L/14's by default): the grounding crop
+    filter's zero-shot class embeddings."""
+
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_layers: int = 12
+    num_heads: int = 12
+    max_position_embeddings: int = 77
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"
+    projection_dim: int = 768
+
+    @classmethod
+    def b32(cls) -> "CLIPTextConfig":
+        """ViT-B/32's text tower."""
+        return cls(hidden_size=512, intermediate_size=2048, num_layers=12,
+                   num_heads=8, projection_dim=512)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
 // Flash attention forward in f32, over BSHD tensors: kernel 7's body for
-// f32 operands.
+// f32 operands, and kernel 1's (vlt_flash_bhsd_f32, at the end: head-major
+// operands with a key-length mask).
 //
 // Replaces video_llava_tpu/ops/attention.py::_flash_forward (kernel 7)
 // where its operands are f32, as the JAX package's Whisper `base` (f32
@@ -86,9 +87,12 @@ constexpr int kRows = 64;      // query rows a block owns, 16 a warp
 constexpr int kThreads = 128;  // 4 warps
 constexpr float kSentinel = 1e30f;
 
+// skv: K's and V's rows a batch entry (their addressing); kv_len <= skv:
+// the keys seen (rows at or past kv_len are masked and never read).
 struct Shape {
   int b, sq, skv, h, hkv, causal;
   float scale;
+  int kv_len;
 };
 
 template <int D>
@@ -224,13 +228,13 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // Key tiles these rows see: all, or (causal) up to the key the last
   // real row sees. Key 0 is seen by every row (sq <= skv under the causal
   // mask), so m is finite after the first tile.
-  int num_kb = (sh.skv + L::keys - 1) / L::keys;
+  int num_kb = (sh.kv_len + L::keys - 1) / L::keys;
   if (sh.causal)
     num_kb = min(num_kb, (min(q0 + kRows, sh.sq) - 1 + off) / L::keys + 1);
 
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
-    if (s < num_kb) load_tile<D>(smem, s, kh, vh, kstride, s, sh.skv);
+    if (s < num_kb) load_tile<D>(smem, s, kh, vh, kstride, s, sh.kv_len);
     ring::commit();
   }
 
@@ -284,7 +288,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();      // ... everyone's; and tile kb - 1 is consumed
     if (kb + S - 1 < num_kb)
       load_tile<D>(smem, (kb + S - 1) % S, kh, vh, kstride, kb + S - 1,
-                   sh.skv);
+                   sh.kv_len);
     ring::commit();
     const float* ks = smem + (size_t)(kb % S) * L::stage;
     const float* vs = ks + L::ktile;
@@ -328,7 +332,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
 
-    if (k0 + L::keys > sh.skv ||
+    if (k0 + L::keys > sh.kv_len ||
         (sh.causal && k0 + L::keys - 1 > q0 + off)) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
@@ -336,7 +340,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const int kj = k0 + 8 * j + 2 * t + (e & 1);
           const int qi = e < 2 ? r0 : r1;
-          if (!(kj < sh.skv && (!sh.causal || kj <= qi + off)))
+          if (!(kj < sh.kv_len && (!sh.causal || kj <= qi + off)))
             s[j][e] = -INFINITY;
         }
     }
@@ -418,7 +422,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<float2*>(orow + 8 * n) =
           make_float2(acc[n][2 * i] / lc, acc[n][2 * i + 1] / lc);
-    if (t == 0 && blockIdx.z == 0) {
+    if (lse != nullptr && t == 0 && blockIdx.z == 0) {
       const float x = m[i] + logf(lc);
       lse[(size_t)bh * sh.sq + qi] = isfinite(x) ? x : kSentinel;
     }
@@ -451,7 +455,7 @@ extern "C" int vlt_flash_fwd_f32(const void* q, const void* k, const void* v,
                                  void* o, void* lse, int b, int sq, int skv,
                                  int h, int hkv, int d, int causal,
                                  float scale, void* stream) {
-  const flash_f32::Shape sh{b, sq, skv, h, hkv, causal, scale};
+  const flash_f32::Shape sh{b, sq, skv, h, hkv, causal, scale, skv};
   const cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
 #define VLT_CASE(D) \
@@ -466,6 +470,32 @@ extern "C" int vlt_flash_fwd_f32(const void* q, const void* k, const void* v,
       const flash_simt::Shape wide{b, sq, skv, h, hkv, d, causal, scale};
       return flash_simt::launch_fwd<float>(q, k, v, o, lse, wide, st);
     }
+  }
+}
+
+// Kernel 1 on f32 operands (JAX flash_attention_bhsd, ops/attention.py:360,
+// where the grounding crop filter's ViT-B/32 gives it f32): non-causal
+// attention over head-major, once-padded (bh, s, d) q, k, v -> o, keys at
+// or past kv_len masked, no lse. Head-major is BSHD with one head, so the
+// body above runs it as b = bh, h = h_kv = 1; the pad rows of q are
+// computed as every row is, and k's and v's pad rows are never read. Head
+// dims: multiples of 16 up to 128, as kernel 1's bf16 entry takes.
+extern "C" int vlt_flash_bhsd_f32(const void* q, const void* k,
+                                  const void* v, void* o, int bh, int s,
+                                  int d, int kv_len, float scale,
+                                  void* stream) {
+  if (kv_len < 1 || kv_len > s) return (int)cudaErrorInvalidValue;
+  const flash_f32::Shape sh{bh, s, s, 1, 1, 0, scale, kv_len};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (d) {
+#define VLT_CASE(D) \
+  case D:           \
+    return flash_f32::launch<D>(q, k, v, o, nullptr, sh, st);
+    VLT_CASE(16) VLT_CASE(32) VLT_CASE(48) VLT_CASE(64) VLT_CASE(80)
+    VLT_CASE(96) VLT_CASE(112) VLT_CASE(128)
+#undef VLT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -18,7 +18,10 @@ are (tensors for arrays): tree_from_jax carries one across, checked
 against the port's own random tree of the same model. The audio models
 (Whisper with its tag head, wav2vec2) keep them too, with their layers
 as lists and their conv kernels in torch's layout: whisper_from_jax and
-wav2vec2_from_jax make those two changes, then tree_from_jax.
+wav2vec2_from_jax make those two changes, then tree_from_jax. So do
+xmem_from_jax (the XMem network and its ResNet trunks: HWIO conv kernels
+to OIHW weights) and clip_text_from_jax (the crop filter's text tower);
+clip_vision_from_jax fills a CLIPVisionTower module.
 """
 
 from __future__ import annotations
@@ -204,3 +207,62 @@ def wav2vec2_from_jax(tree_np, like, device=None,
                      for c in tree_np["convs"]]
     tree["pos_conv_w"] = np.asarray(tree_np["pos_conv_w"]).transpose(2, 1, 0)
     return tree_from_jax(tree, like, device, dtype)
+
+
+# -- grounding crop filter and propagator -------------------------------------
+
+
+def clip_vision_from_jax(tree_np, cfg, device=None,
+                         dtype: Optional[torch.dtype] = None):
+    """The JAX package's CLIP vision tree (init_vision_params: stacked
+    layers) -> a CLIPVisionTower of `cfg` holding its values."""
+    from video_llava_tpu_torch.models.clip import CLIPVisionTower
+
+    flat = flatten_tree(tree_np)
+    tower = CLIPVisionTower(cfg, device="meta")
+    expected = dict(tower.named_parameters())
+    if set(flat) != set(expected):
+        raise KeyError(f"tree does not match the tower: missing "
+                       f"{sorted(set(expected) - set(flat))}, unexpected "
+                       f"{sorted(set(flat) - set(expected))}")
+    state = {}
+    for name, param in expected.items():
+        t = _to_tensor(flat[name])
+        if tuple(t.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: tree shape {tuple(t.shape)} != "
+                             f"tower shape {tuple(param.shape)}")
+        state[name] = t.to(device=device, dtype=dtype or t.dtype)
+    tower.load_state_dict(state, assign=True)
+    return tower.requires_grad_(False)
+
+
+def clip_text_from_jax(tree_np, like, device=None,
+                       dtype: Optional[torch.dtype] = None):
+    """The JAX package's CLIP text tree (init_text_params /
+    convert_clip_text: stacked layers) -> the port's (models/clip.py
+    init_text_params layout: a list of layers)."""
+    return tree_from_jax({**tree_np, "layers": _unstack(tree_np["layers"])},
+                         like, device, dtype)
+
+
+def _convs_to_torch(tree):
+    """Every conv {'kernel': (kh, kw, in, out), 'bias'} of a tree ->
+    {'weight': (out, in, kh, kw), 'bias'}; other leaves as they are."""
+    if isinstance(tree, (list, tuple)):
+        return [_convs_to_torch(v) for v in tree]
+    if not isinstance(tree, dict):
+        return tree
+    if "kernel" in tree and np.ndim(tree["kernel"]) == 4:
+        out = {"weight": np.asarray(tree["kernel"]).transpose(3, 2, 0, 1)}
+        if "bias" in tree:
+            out["bias"] = tree["bias"]
+        return out
+    return {k: _convs_to_torch(v) for k, v in tree.items()}
+
+
+def xmem_from_jax(tree_np, like, device=None,
+                  dtype: Optional[torch.dtype] = None):
+    """The JAX package's XMem (or ResNet trunk) tree -> the port's
+    (models/xmem.py, models/resnet.py layout): conv kernels HWIO -> OIHW
+    weights, the CBAM linears and BN statistics as they are."""
+    return tree_from_jax(_convs_to_torch(tree_np), like, device, dtype)

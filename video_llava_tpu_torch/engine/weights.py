@@ -88,10 +88,11 @@ def load_torch_bin(path: str) -> StateDict:
 
 def load_torch_checkpoint_file(path: str) -> StateDict:
     """A research-repo .pth/.pt checkpoint: unwraps the common
-    {'model': sd} / {'state_dict': sd} / {'module': sd} nesting (RAM and
-    GroundingDINO releases) and drops entries that are not tensors."""
+    {'model': sd} / {'state_dict': sd} / {'module': sd} / {'network': sd}
+    nesting (RAM, GroundingDINO and XMem/DEVA training checkpoints) and
+    drops entries that are not tensors."""
     obj = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
-    for key in ("model", "state_dict", "module"):
+    for key in ("model", "state_dict", "module", "network"):
         if isinstance(obj, dict) and isinstance(obj.get(key), dict):
             obj = obj[key]
             break
@@ -413,8 +414,8 @@ def convert_clip_text(sd: StateDict, cfg, device=None,
     convert_clip_text tree with its stacked layers as a list (the port's
     nested-dict trees, as the grounding models keep them), kernels (in,
     out). The identity text projection when the checkpoint has none.
-    (The port has no text tower module yet: the grounding crop filter
-    that reads it is still to port.)"""
+    models/clip.text_forward runs it (the grounding crop filter's
+    zero-shot class embeddings)."""
     def g(key):
         return sd[prefix + key].to(device=device, dtype=dtype)
 

@@ -1,32 +1,44 @@
-"""Assembly of the grounding stack: detector, MobileSAM, tagger, STM
-tracker and entity matching.
+"""Assembly of the grounding stack: detector, MobileSAM, the CLIP crop
+filter, the STM or XMem tracker, tagger and entity matching.
 
-Counterpart of video_llava_tpu/grounding/builders.py with random weights
-(checkpoint loading is not ported yet): every model draws its parameters
-on `device` from a seeded torch.Generator, in the JAX package's layout.
+Counterpart of video_llava_tpu/grounding/builders.py. The detector, SAM
+and the tagger have random weights (their checkpoint loading is not
+ported yet): every model draws its parameters on `device` from a seeded
+torch.Generator, in the JAX package's layout. The crop filter reads an HF
+CLIP directory (build_clip_filter) or draws a random ViT-B/32
+(random_clip_filter); XMem reads an official .pth.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
+import zlib
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from video_llava_tpu_torch.config import CLIPTextConfig, CLIPVisionConfig
+from video_llava_tpu_torch.grounding.clip_filter import ClipCropFilter
 from video_llava_tpu_torch.grounding.entity_matching import (
     EntityMatchingModule,
 )
-from video_llava_tpu_torch.grounding.memory_tracker import TrackerConfig
+from video_llava_tpu_torch.grounding.memory_tracker import (
+    LearnedMemoryTracker,
+    TrackerConfig,
+)
 from video_llava_tpu_torch.grounding.tagging import (
     TaggingModule,
     init_tag_head,
 )
 from video_llava_tpu_torch.grounding.tracker import GroundedTracker
+from video_llava_tpu_torch.models import clip as clip_mod
 from video_llava_tpu_torch.models import sam as sam_mod
 from video_llava_tpu_torch.models import swin as swin_mod
 from video_llava_tpu_torch.models import tiny_vit as tv
+from video_llava_tpu_torch.models import xmem as xmem_mod
 from video_llava_tpu_torch.models.layers import TreeInit
 from video_llava_tpu_torch.models.sam import SamConfig
 from video_llava_tpu_torch.models.swin import SwinConfig
@@ -197,6 +209,141 @@ def build_tagger(swin_checkpoint: Optional[str] = None,
     return TaggingModule(backbone, head, cfg, tag_list)
 
 
+def random_clip_filter(seed: int = 0, dtype=torch.float32,
+                       prob_threshold: float = 0.1,
+                       score_threshold: float = 0.2,
+                       device="cuda") -> ClipCropFilter:
+    """A random ViT-B/32 crop filter on `device` (the card unless the
+    caller asks for the CPU) with a deterministic hash tokenizer: not for
+    quality (random towers score noise) but the real filter's compute
+    shape, for benches and tests. The weights are drawn by a CPU
+    generator from `seed` and then moved, so a seed gives the same
+    filter on every device. The tokenizer: a word's crc32 modulo
+    vocab_size - 2, plus 1, then EOT = the largest id, where
+    text_forward's argmax pooling finds it."""
+    vcfg, tcfg = CLIPVisionConfig.b32(), CLIPTextConfig.b32()
+    draw_on = "meta" if torch.device(device).type == "meta" else "cpu"
+    init = TreeInit(seed, draw_on, dtype)
+    tower = clip_mod.CLIPVisionTower(vcfg, device=draw_on, dtype=dtype)
+    tower.requires_grad_(False)
+    for name, p in tower.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "bias":
+            p.zero_()
+        elif leaf == "scale":
+            p.fill_(1.0)
+        else:  # kernels N(0, 1/in); class and position embeddings 0.02
+            p.copy_(init.normal(p.shape, p.shape[0] ** -0.5
+                                if leaf in ("kernel", "patch_embedding")
+                                else 0.02))
+    text = _tree_to(clip_mod.init_text_params(init, tcfg), device)
+    proj = init.normal((vcfg.hidden_size, vcfg.projection_dim),
+                       vcfg.hidden_size ** -0.5).to(device)
+    tower.to(device)
+
+    def tokenize(s: str):
+        ids = [zlib.crc32(w.encode()) % (tcfg.vocab_size - 2) + 1
+               for w in s.split()]
+        return ids[:tcfg.max_position_embeddings - 1] + [tcfg.vocab_size - 1]
+
+    return ClipCropFilter(tower, text, tcfg, tokenize,
+                          visual_projection={"kernel": proj},
+                          prob_threshold=prob_threshold,
+                          score_threshold=score_threshold)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _check_clip_shapes(sd, vcfg: CLIPVisionConfig,
+                       tcfg: CLIPTextConfig) -> None:
+    """Raise unless the checkpoint's towers have the configs' sizes."""
+    v, t = vcfg.hidden_size, tcfg.hidden_size
+    want = {
+        "vision_model.embeddings.patch_embedding.weight":
+            (v, 3, vcfg.patch_size, vcfg.patch_size),
+        "vision_model.embeddings.position_embedding.weight":
+            (vcfg.num_positions, v),
+        "vision_model.encoder.layers.0.mlp.fc1.weight":
+            (vcfg.intermediate_size, v),
+        "text_model.embeddings.token_embedding.weight":
+            (tcfg.vocab_size, t),
+        "text_model.embeddings.position_embedding.weight":
+            (tcfg.max_position_embeddings, t),
+        "text_model.encoder.layers.0.mlp.fc1.weight":
+            (tcfg.intermediate_size, t),
+        "visual_projection.weight": (vcfg.projection_dim, v),
+        "text_projection.weight": (tcfg.projection_dim, t),
+    }
+    for i, cfg, tower in ((vcfg.num_layers - 1, vcfg, "vision_model"),
+                          (tcfg.num_layers - 1, tcfg, "text_model")):
+        want[f"{tower}.encoder.layers.{i}.layer_norm1.weight"] = (
+            cfg.hidden_size,)
+    for key, shape in want.items():
+        have = tuple(sd[key].shape) if key in sd else None
+        if have != shape:
+            raise ValueError(
+                f"CLIP checkpoint {key}: {have} where the crop filter's "
+                f"configs (vision {vcfg}, text {tcfg}) give {shape}; "
+                "build_clip_filter builds the default (ViT-L/14) towers, "
+                "as the JAX package's does")
+
+
+def build_clip_filter(clip_checkpoint: Optional[str] = None,
+                      device="cuda") -> Optional[ClipCropFilter]:
+    """The CLIP zero-shot crop filter from an HF CLIPModel directory
+    (weights, and vocab.json + merges.txt or tokenizer.json), on `device`;
+    None without a directory (random towers would score noise). As the
+    JAX package's build_clip_filter, the towers take the default
+    CLIPVisionConfig / CLIPTextConfig (ViT-L/14), whatever the checkpoint
+    holds; a checkpoint of other sizes raises (_check_clip_shapes)."""
+    if not clip_checkpoint:
+        return None
+    from video_llava_tpu_torch.engine.weights import (
+        convert_clip_text,
+        convert_clip_vision,
+        load_checkpoint_dir,
+    )
+    from video_llava_tpu_torch.runtime.tokenizer import CLIPTokenizer
+
+    sd = load_checkpoint_dir(clip_checkpoint)
+    vcfg, tcfg = CLIPVisionConfig(), CLIPTextConfig()
+    _check_clip_shapes(sd, vcfg, tcfg)
+    tower = clip_mod.CLIPVisionTower(vcfg, device=device)
+    tower.requires_grad_(False)
+    convert_clip_vision(sd, tower)
+    text = convert_clip_text(sd, tcfg, device=device)
+    proj = sd["visual_projection.weight"].to(device=device,
+                                             dtype=torch.float32)
+    tok = CLIPTokenizer(clip_checkpoint)
+    return ClipCropFilter(tower, text, tcfg, tokenize=tok.encode,
+                          visual_projection={"kernel": proj.T.contiguous()})
+
+
+def build_xmem_propagator(xmem_checkpoint: str, max_objects: int,
+                          device="cuda") -> Optional[LearnedMemoryTracker]:
+    """LearnedMemoryTracker from an XMem/DEVA-propagation .pth (its
+    'network' nesting unwrapped), or None with a warning when the file is
+    missing (the caller keeps the handcrafted STM)."""
+    from video_llava_tpu_torch.engine.weights import (
+        load_torch_checkpoint_file,
+    )
+
+    if not os.path.isfile(xmem_checkpoint):
+        warnings.warn(f"xmem checkpoint {xmem_checkpoint} not found; using "
+                      "handcrafted-feature propagation")
+        return None
+    sd = load_torch_checkpoint_file(xmem_checkpoint)
+    cfg = xmem_mod.XMemConfig(max_objects=max_objects)
+    return LearnedMemoryTracker(
+        xmem_mod.convert_xmem_checkpoint(sd, cfg, device=device), cfg)
+
+
 def build_grounding_stack(
     dino_checkpoint: Optional[str] = None,
     sam_checkpoint: Optional[str] = None,
@@ -207,29 +354,33 @@ def build_grounding_stack(
     temporal_setting: str = "online",
     max_objects: int = 5,
     sam_variant: str = "mobile",
-    device=None,
+    device="cuda",
     seed: int = 0,
 ):
     """The PGVideoLLaVA grounding stack (reference chat.py:243-252):
-    GroundingDINO Swin-T at 800 px, MobileSAM, no CLIP crop filter, the
-    handcrafted STM propagator, a Swin-L tagger, entity matching; all on
-    `device`, random weights from `seed`."""
+    GroundingDINO Swin-T at 800 px, MobileSAM, the CLIP crop filter when
+    clip_checkpoint names an HF CLIP directory, the XMem propagator when
+    xmem_checkpoint names its .pth (else the handcrafted STM, with a
+    warning when the file is missing), a Swin-L tagger, entity matching;
+    all on `device` (the card unless the caller asks for the CPU), the
+    detector, SAM and tagger with random weights
+    from `seed`."""
     from video_llava_tpu_torch.models import grounding_dino as gdino_mod
 
     if sam_variant != "mobile":
         raise NotImplementedError(f"SAM variant {sam_variant!r}: only "
                                   "'mobile' is ported")
-    if clip_checkpoint:
-        raise NotImplementedError("the CLIP crop filter is not ported yet")
-    if xmem_checkpoint:
-        raise NotImplementedError("the XMem propagator is not ported yet")
     detector = gdino_mod.build_detector(dino_checkpoint, device=device,
                                         seed=seed)
     segmenter = build_sam(sam_checkpoint, variant=sam_variant, device=device,
                           seed=seed + 1)
+    crop_filter = build_clip_filter(clip_checkpoint, device=device)
+    propagator = (build_xmem_propagator(xmem_checkpoint, max_objects, device)
+                  if xmem_checkpoint else None)
     tracker = GroundedTracker(
-        detector=detector, segmenter=segmenter,
+        detector=detector, segmenter=segmenter, crop_filter=crop_filter,
         detection_every=detection_every, temporal_setting=temporal_setting,
-        tracker_cfg=TrackerConfig(max_objects=max_objects), device=device)
+        tracker_cfg=TrackerConfig(max_objects=max_objects),
+        propagator=propagator, device=device)
     tagger = build_tagger(swin_checkpoint, device=device, seed=seed + 2)
     return tracker, tagger, EntityMatchingModule()

@@ -1,10 +1,13 @@
-"""Space-time memory mask propagation with handcrafted features (STM).
+"""Space-time memory mask propagation: handcrafted features (STM) or the
+learned XMem network.
 
-Counterpart of video_llava_tpu/grounding/memory_tracker.py:30-270 (the
-weights-free propagator of build_grounding_stack): masks carry across
-frames by attending from the query frame's patch features (patch-mean
-RGB plus position) to a ring buffer of (key, per-object value) memory
-slots, top-k sparse. The learned XMem propagator is not ported.
+Counterpart of video_llava_tpu/grounding/memory_tracker.py. MemoryTracker
+(the weights-free propagator of build_grounding_stack) carries masks
+across frames by attending from the query frame's patch features
+(patch-mean RGB plus position) to a ring buffer of (key, per-object
+value) memory slots, top-k sparse. LearnedMemoryTracker has the same
+lifecycle over models/xmem.py (the trained propagator of the reference's
+deva.step, grounding_new_api.py:503-509).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from video_llava_tpu_torch.models import xmem
 from video_llava_tpu_torch.ops.topk import stable_topk
 
 
@@ -215,6 +219,125 @@ class MemoryTracker:
         if binary:
             masks = (masks > 0.5).to(torch.uint8)
         return masks.cpu().numpy()
+
+    @property
+    def num_objects(self) -> int:
+        return self.state.num_objects if self.state is not None else 0
+
+
+def edge_pad16(frames: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, C) -> the same with H and W padded to multiples of 16
+    by repeating the last row and column (numpy's 'edge' pad), any
+    dtype, on the frames' device."""
+    h, w = frames.shape[-3], frames.shape[-2]
+    ph, pw = -h % 16, -w % 16
+    if not (ph or pw):
+        return frames
+    dev = frames.device
+    rows = torch.arange(h + ph, device=dev).clamp(max=h - 1)
+    cols = torch.arange(w + pw, device=dev).clamp(max=w - 1)
+    return frames.index_select(-3, rows).index_select(-2, cols)
+
+
+class LearnedMemoryTracker:
+    """XMem propagation with MemoryTracker's lifecycle (GroundedTracker's
+    `propagator`): the trained key/value encoders and grouped decoder of
+    models/xmem.py, weights from xmem.convert_xmem_checkpoint (random
+    weights work for tests). Frames (numpy or tensors, uint8 or float in
+    [0, 1]) go to the parameters' device as they are and pad to
+    multiples of 16 there; results come back as numpy, cropped to the
+    frame."""
+
+    def __init__(self, params, cfg: Optional[xmem.XMemConfig] = None,
+                 mem_every: Optional[int] = None):
+        self.cfg = cfg or xmem.XMemConfig()
+        if mem_every is not None:
+            self.cfg = dataclasses.replace(self.cfg, mem_every=mem_every)
+        self.params = params
+        self.device = xmem.params_device(params)
+        self.state: Optional[xmem.XMemState] = None
+        self._hw: Optional[Tuple[int, int]] = None
+        self._frame_idx = 0
+
+    def clear(self):
+        self.state = None
+        self._frame_idx = 0
+
+    def _prep(self, frame) -> torch.Tensor:
+        t = (frame if isinstance(frame, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(frame)))
+        t = t.to(self.device)
+        return edge_pad16(t if t.dtype == torch.uint8 else t.float())
+
+    def add_reference(self, frame, masks, num_objects: Optional[int] = None
+                      ) -> None:
+        """frame (H, W, 3); masks (O, H, W) binary (uint8 or float);
+        num_objects the live count when `masks` is the whole slot array
+        (without it every slot counts as live, and empty slots' decoder
+        noise competes in xmem.aggregate)."""
+        self._hw = tuple(frame.shape[:2])
+        if not isinstance(masks, torch.Tensor):
+            masks = torch.from_numpy(np.asarray(masks))
+        o = min(masks.shape[0], self.cfg.max_objects)
+        f = self._prep(frame)
+        H, W = f.shape[:2]
+        mdtype = torch.uint8 if masks.dtype == torch.uint8 else torch.float32
+        m = torch.zeros((self.cfg.max_objects, H, W), dtype=mdtype,
+                        device=self.device)
+        m[:o, :masks.shape[1], :masks.shape[2]] = masks[:o].to(
+            device=self.device, dtype=mdtype)
+        if self.state is None or tuple(self.state.hidden.shape[2:]) != (
+                H // 16, W // 16):
+            self.state = xmem.init_state(self.cfg, H // 16, W // 16,
+                                         self.device)
+        o_live = o if num_objects is None else min(num_objects,
+                                                   self.cfg.max_objects)
+        self.state = xmem.add_reference_step(self.params, self.state, f, m,
+                                             o_live, self.cfg)
+        self._frame_idx += 1
+
+    def step(self, frame, update_memory: Optional[bool] = None,
+             binary: bool = False) -> np.ndarray:
+        """Propagate to a new frame -> (max_objects, H, W) soft masks
+        (binary: uint8 {0, 1}, thresholded on the device). Memory writes
+        follow the mem_every cadence unless forced."""
+        assert self.state is not None, "add_reference first"
+        if update_memory is None:
+            update_memory = (self._frame_idx % self.cfg.mem_every) == 0
+        deep = (update_memory
+                and (self._frame_idx % self.cfg.deep_update_every) == 0)
+        prob, self.state = xmem.propagate_step(
+            self.params, self.state, self._prep(frame), self.cfg,
+            update_memory=bool(update_memory), deep_update=bool(deep),
+            binary=bool(binary))
+        self._frame_idx += 1
+        H, W = self._hw
+        return prob[:, :H, :W].cpu().numpy()
+
+    def step_chunk(self, frames, pad_to: Optional[int] = None,
+                   binary: bool = False) -> np.ndarray:
+        """A run of frames in one xmem.propagate_chunk ->
+        (len(frames), max_objects, H, W): the same cadence as as many
+        step() calls. `pad_to` pads a short chunk by repeating its last
+        frame (padded steps write nothing)."""
+        assert self.state is not None, "add_reference first"
+        t = len(frames)
+        H, W = self._hw
+        if t == 0:
+            return np.zeros((0, self.cfg.max_objects, H, W), np.float32)
+        tt = max(pad_to or t, t)
+        idx = [self._frame_idx + j for j in range(t)]
+        upd = [i % self.cfg.mem_every == 0 for i in idx] + [False] * (tt - t)
+        deep = [u and i % self.cfg.deep_update_every == 0
+                for u, i in zip(upd, idx)] + [False] * (tt - t)
+        valid = [True] * t + [False] * (tt - t)
+        stack = [self._prep(f) for f in frames]
+        stack += [stack[-1]] * (tt - t)
+        probs, self.state = xmem.propagate_chunk(
+            self.params, self.state, torch.stack(stack), upd, deep, self.cfg,
+            valid=valid, binary=bool(binary))
+        self._frame_idx += t
+        return probs[:t, :, :H, :W].cpu().numpy()
 
     @property
     def num_objects(self) -> int:

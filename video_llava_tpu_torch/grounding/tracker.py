@@ -4,9 +4,11 @@ Counterpart of video_llava_tpu/grounding/tracker.py (reference
 Tracker_with_GroundingDINO, grounding_new_api.py:242-598): text-prompted
 detection every N frames, NMS, SAM box masks, an id mask in descending
 area order, association of detections to tracked objects by mask IoU,
-and propagation in between, through the per-frame host loop or the
-whole-clip program (grounding/fused_clip.py) that build_grounding_stack's
-STM propagator takes.
+and propagation in between, through the host loop (per frame, or with a
+learned propagator a chunk a detection gap) or the whole-clip program
+(grounding/fused_clip.py) that build_grounding_stack's propagators (the
+STM, or XMem with a checkpoint) take, with the CLIP crop filter before
+SAM there and after it in the host loop.
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ import numpy as np
 import torch
 
 from video_llava_tpu_torch.grounding.memory_tracker import (
+    LearnedMemoryTracker,
     MemoryTracker,
     TrackerConfig,
+    edge_pad16,
 )
 from video_llava_tpu_torch.ops.box_ops import box_iou, masks_to_boxes, nms
 
@@ -154,7 +158,10 @@ class GroundedTracker:
             keep = self.crop_filter(image, boxes, class_ids, prompts)
             boxes, conf, class_ids, masks = (boxes[keep], conf[keep],
                                              class_ids[keep], masks[keep])
-        order = np.argsort(-masks.reshape(len(masks), -1).sum(axis=1))
+        # descending area, ties in detection order (a stable sort, as the
+        # whole-clip path's _area_order: numpy's default sort may order
+        # equal areas either way); the filter may have dropped every box
+        order = np.argsort(-masks.sum(axis=(1, 2)), kind="stable")
         infos = [ObjectInfo(id=i + 1, category_id=int(class_ids[j]),
                             score=float(conf[j]))
                  for i, j in enumerate(order)]
@@ -260,14 +267,21 @@ class GroundedTracker:
 
     # -- public APIs -------------------------------------------------------------
 
+    def _fusable_propagator(self) -> bool:
+        """The learned XMem propagator, or the default-feature STM."""
+        return isinstance(self.tracker, LearnedMemoryTracker) or (
+            isinstance(self.tracker, MemoryTracker) and self.tracker._fused)
+
     def fused_eligible(self) -> bool:
         """True when run_on_list_of_images takes the whole-clip program:
-        online or semionline, the default-feature STM propagator, and no
-        crop filter (the CLIP filter is not ported)."""
+        online or semionline, a fusable propagator (both configurations
+        build_grounding_stack makes), and a crop filter that is absent or
+        scores box batches on the device (supports_batch_device)."""
         return (self.prefer_fused
                 and self.temporal_setting in ("online", "semionline")
-                and isinstance(self.tracker, MemoryTracker)
-                and self.tracker._fused and self.crop_filter is None)
+                and self._fusable_propagator()
+                and (self.crop_filter is None or getattr(
+                    self.crop_filter, "supports_batch_device", False)))
 
     def run_on_list_of_images(self, frames, classes: Sequence[str]):
         if self.fused_eligible():
@@ -283,11 +297,41 @@ class GroundedTracker:
                       else range(len(frames)))
         self.precompute_detections(frames, list(det_frames), list(classes))
         results: List[FrameResult] = []
-        for ti, frame in enumerate(frames):
-            self._prefetch_embeddings(frames)
-            out = self.process_frame(ti, frame)
-            if out:
-                results.extend(out)
+        chunk_step = (getattr(self.tracker, "step_chunk", None)
+                      if self.temporal_setting == "online" else None)
+        if chunk_step is not None:
+            # a chunk-capable propagator takes each detection gap in one
+            # call (its key encoder batched over the gap)
+            n, E = len(frames), self.detection_every
+            ti = 0
+            while ti < n:
+                if ti % E == 0:
+                    self._prefetch_embeddings(frames)
+                    results.extend(self.process_frame(ti, frames[ti]))
+                    ti += 1
+                    continue
+                gap = list(range(ti, min(n, (ti // E + 1) * E)))
+                if self.tracker.state is None:
+                    zeros = np.zeros((self.tracker_cfg.max_objects,)
+                                     + frames[gap[0]].shape[:2],
+                                     self._mask_dtype())
+                    results.extend(FrameResult(tj, zeros,
+                                               list(self._objects))
+                                   for tj in gap)
+                else:
+                    kw = {"binary": True} if self.binary_masks else {}
+                    masks = chunk_step([frames[tj] for tj in gap],
+                                       pad_to=E - 1, **kw)
+                    results.extend(FrameResult(tj, masks[j],
+                                               list(self._objects))
+                                   for j, tj in enumerate(gap))
+                ti = gap[-1] + 1
+        else:
+            for ti, frame in enumerate(frames):
+                self._prefetch_embeddings(frames)
+                out = self.process_frame(ti, frame)
+                if out:
+                    results.extend(out)
         for tj, fj, _, _ in self._buffer:  # semionline remainder
             if self.tracker.state is not None:
                 results.append(FrameResult(tj, self._step(fj),
@@ -298,21 +342,31 @@ class GroundedTracker:
 
     def run_on_list_of_images_fused(self, frames, classes: Sequence[str],
                                     max_dets: int = 8, binary: bool = True):
-        """The whole clip through fused_clip.run_clip_fused_stm: frames
-        go to the device once (or arrive there, as a (T, H, W, 3) uint8
-        tensor that tagging shares); detection, SAM and propagation read
-        slices of that one upload, and the bit-packed masks come back in
-        one copy. max_dets bounds the detections a frame keeps after the
-        box threshold (top-scoring first)."""
+        """The whole clip through fused_clip.run_clip_fused (XMem) or
+        run_clip_fused_stm: frames go to the device once (or arrive
+        there, as a (T, H, W, 3) uint8 tensor that tagging shares; XMem
+        pads them to multiples of 16 there); detection, the crop filter,
+        SAM and propagation read slices of that one upload, and the
+        bit-packed masks come back in one copy. The crop filter scores
+        every detection frame's boxes before SAM (its decisions depend
+        on the boxes only; the host loop filters after SAM). max_dets
+        bounds the detections a frame keeps after the box threshold
+        (top-scoring first)."""
         from video_llava_tpu_torch.grounding import fused_clip
         from video_llava_tpu_torch.grounding import memory_tracker as mt
+        from video_llava_tpu_torch.models import xmem as xmem_mod
 
-        if self.crop_filter is not None:
-            raise NotImplementedError("the CLIP crop filter is not ported")
+        if self.crop_filter is not None and not getattr(
+                self.crop_filter, "supports_batch_device", False):
+            raise NotImplementedError("the crop filter lacks "
+                                      "filter_frames_device: use "
+                                      "run_host_loop")
         prop = self.tracker
-        if not (isinstance(prop, MemoryTracker) and prop._fused):
+        if not self._fusable_propagator():
             raise NotImplementedError(
-                "the fused path needs the default-feature MemoryTracker")
+                "the fused path needs a LearnedMemoryTracker or the "
+                "default-feature MemoryTracker")
+        is_stm = isinstance(prop, MemoryTracker)
         semi = self.temporal_setting == "semionline"
         self.classes = list(classes)
         self.clear()
@@ -331,12 +385,15 @@ class GroundedTracker:
             clip = torch.cat([clip, clip[-1:].expand(
                 (t_pad - t0,) + clip.shape[1:])])
         h, w = clip.shape[1:3]
+        if not is_stm:  # XMem's stride 16
+            clip = edge_pad16(clip)
+        ph, pw = clip.shape[1] - h, clip.shape[2] - w
         frame_valid = torch.arange(t_pad) < t0
 
         det_idx = (list(range(t0)) if semi
                    else [s * E for s in range(n_seg) if s * E < t0])
         n_det = len(det_idx)
-        dev_det = clip[torch.as_tensor(det_idx, device=dev)]
+        dev_det = clip[torch.as_tensor(det_idx, device=dev), :h, :w]
         detect_batch = getattr(self.detector, "detect_batch", None)
         raw = []
         if detect_batch is not None and self.detect_batch_size > 1:
@@ -375,19 +432,23 @@ class GroundedTracker:
             n = len(kept)
             boxes[s, :n], score[s, :n], cat[s, :n] = b[kept], c[kept], ids[kept]
             det_valid[s, :n] = True
-        n_nms = det_valid.sum(axis=1)
+        n_nms = det_valid.sum(axis=1)  # a prefix of the slots
+        if self.crop_filter is not None and det_valid.any():
+            det_valid &= np.asarray(self.crop_filter.filter_frames_device(
+                dev_det, boxes, det_valid, cat, list(classes)), bool)
 
         seg = self.segmenter
         if hasattr(seg, "decode_masks_batch_device"):
-            det_masks = seg.decode_masks_batch_device(dev_det, boxes,
-                                                      out_hw=(h, w))
+            det_masks = seg.decode_masks_batch_device(
+                dev_det, boxes, out_hw=(h + ph, w + pw))
         else:  # stub segmenters (tests): host masks, one upload
             det_host = dev_det.cpu().numpy()
-            m = np.zeros((n_det, k_det, h, w), np.uint8)
+            m = np.zeros((n_det, k_det, h + ph, w + pw), np.uint8)
             for s in range(n_det):
                 nv = int(n_nms[s])
                 if nv:
-                    m[s, :nv] = seg(det_host[s], boxes[s, :nv]) > 0.5
+                    m[s, :nv, :h, :w] = seg(det_host[s],
+                                            boxes[s, :nv]) > 0.5
             det_masks = torch.as_tensor(m, device=dev)
         det_masks = det_masks.to(dev)
 
@@ -421,20 +482,29 @@ class GroundedTracker:
                                                     np.float32)])
 
         cfg = prop.cfg
-        n_feat = (h // cfg.patch) * (w // cfg.patch)
-        state = mt.init_state(cfg, n_feat, 5, dev)
-        masks, cats, scores_out, counts, state = fused_clip.run_clip_fused_stm(
-            state, clip, det_masks, torch.as_tensor(det_valid, device=dev),
-            torch.as_tensor(cat.astype(np.int32), device=dev),
-            torch.as_tensor(score, device=dev),
-            frame_valid, fused_clip.init_table(cfg), cfg, detect_every=E,
-            iou_threshold=self.iou_match_threshold, binary=binary,
-            pack=binary, seg_is_det=seg_is_det)
+        args = (clip, det_masks, torch.as_tensor(det_valid, device=dev),
+                torch.as_tensor(cat.astype(np.int32), device=dev),
+                torch.as_tensor(score, device=dev), frame_valid,
+                fused_clip.init_table(cfg), cfg)
+        kw = dict(detect_every=E, iou_threshold=self.iou_match_threshold,
+                  binary=binary, pack=binary, seg_is_det=seg_is_det)
+        if is_stm:
+            n_feat = (h // cfg.patch) * (w // cfg.patch)
+            state = mt.init_state(cfg, n_feat, 5, dev)
+            masks, cats, scores_out, counts, state = (
+                fused_clip.run_clip_fused_stm(state, *args, **kw))
+            unpack_w = w + (-w % 8)
+        else:
+            state = xmem_mod.init_state(cfg, (h + ph) // 16, (w + pw) // 16,
+                                        dev)
+            masks, cats, scores_out, counts, state = (
+                fused_clip.run_clip_fused(prop.params, state, *args, **kw))
+            prop._frame_idx = t_pad
+            unpack_w = w + pw
         prop.state, prop._hw = state, (h, w)
         packed = masks.cpu().numpy()  # the one device-to-host copy
         cats, scores_out = cats.numpy(), scores_out.numpy()
         counts = counts.numpy()
-        unpack_w = w + (-w % 8)
 
         results: List[FrameResult] = []
         obj_cache: Dict[int, List[ObjectInfo]] = {}

@@ -1,9 +1,16 @@
-"""CLIP (ViT-L/14) vision tower.
+"""CLIP vision and text towers.
 
-Counterpart of the vision half of video_llava_tpu/models/clip.py: patch
-embedding as a patchify + matmul, pre-LN, the encoder layers, and the
-penultimate hidden state without CLS as the feature the pooling reads
-(reference video_chatgpt/inference.py:92-94).
+Counterpart of video_llava_tpu/models/clip.py. The vision tower (any
+config: ViT-L/14 for the chat path, ViT-B/32 for the grounding crop
+filter): patch embedding as a patchify + matmul, pre-LN, the encoder
+layers, and either the penultimate hidden state without CLS as the
+feature the pooling reads (reference video_chatgpt/inference.py:92-94)
+or the CLS token after post-LN (vision_pooled_embedding, the crop
+filter's). The text tower (init_text_params / text_forward) is a
+nested-dict parameter tree, as engine/weights.convert_clip_text reads it:
+token and position embeddings, causal encoder layers through
+ops.attention.multi_head_attention (kernel 7 on CUDA), final LN, the
+features at the EOT token, projected.
 
 The sequence is padded once after the embeddings (257 -> 272 at
 224 px, 577 -> 640 at 336 px), q/k/v are produced head-major
@@ -19,15 +26,22 @@ from typing import Optional
 import torch
 from torch import nn
 
-from video_llava_tpu_torch.config import CLIPVisionConfig
+from video_llava_tpu_torch.config import CLIPTextConfig, CLIPVisionConfig
 from video_llava_tpu_torch.models.layers import (
     ACTIVATIONS,
     LayerNorm,
     Linear,
+    TreeInit,
     _param,
+    dense,
+    embed,
     linear,
+    norm,
 )
-from video_llava_tpu_torch.ops.attention import flash_attention_bhsd
+from video_llava_tpu_torch.ops.attention import (
+    flash_attention_bhsd,
+    multi_head_attention,
+)
 
 
 def padded_length(s: int) -> int:
@@ -135,3 +149,69 @@ class CLIPVisionTower(nn.Module):
         """(t, H, W, 3) normalized frames -> (t, num_patches, hidden),
         contiguous as the pooling kernel reads it."""
         return self.penultimate_patches(pixels).contiguous()
+
+
+def vision_pooled_embedding(tower: CLIPVisionTower,
+                            pixels: torch.Tensor) -> torch.Tensor:
+    """The whole tower's CLS token after post-LN, (b, hidden): what the
+    crop filter projects."""
+    h = tower(pixels)[:, 0]
+    return tower.post_layernorm(h)
+
+
+# -- text tower ---------------------------------------------------------------
+
+
+def init_text_params(init: TreeInit, cfg: CLIPTextConfig) -> dict:
+    """A random text tower tree in convert_clip_text's layout: embedding
+    tables N(0, 0.02^2), kernels N(0, 1/in), biases 0, norm scales 1."""
+    d, f = cfg.hidden_size, cfg.intermediate_size
+
+    def layer():
+        return {"ln1": init.layer_norm(d), "q": init.linear(d, d),
+                "k": init.linear(d, d), "v": init.linear(d, d),
+                "o": init.linear(d, d), "ln2": init.layer_norm(d),
+                "fc1": init.linear(d, f), "fc2": init.linear(f, d)}
+
+    return {
+        "token_embedding": {"weight": init.normal((cfg.vocab_size, d),
+                                                  0.02)},
+        "position_embedding": init.normal((cfg.max_position_embeddings, d),
+                                          0.02),
+        "final_layernorm": init.layer_norm(d),
+        "text_projection": init.linear(d, cfg.projection_dim, bias=False),
+        "layers": [layer() for _ in range(cfg.num_layers)],
+    }
+
+
+def _text_layer(p, x, cfg: CLIPTextConfig):
+    b, s, d = x.shape
+    eps = cfg.layer_norm_eps
+    h = norm(p["ln1"], x, eps)
+    q, k, v = (dense(p[n], h).view(b, s, cfg.num_heads, -1)
+               for n in ("q", "k", "v"))
+    attn = multi_head_attention(q, k, v, causal=True)
+    x = x + dense(p["o"], attn.reshape(b, s, d))
+    h = norm(p["ln2"], x, eps)
+    return x + dense(p["fc2"], ACTIVATIONS[cfg.hidden_act](dense(p["fc1"],
+                                                                 h)))
+
+
+def text_forward(params, token_ids: torch.Tensor, cfg: CLIPTextConfig,
+                 eot_token_id: Optional[int] = None) -> torch.Tensor:
+    """token_ids (b, s) -> projected text embeddings (b, projection_dim),
+    pooled at the EOT token: the first `eot_token_id` when given, else the
+    highest id (OpenAI CLIP's EOT is the largest id), the first of equal
+    ones either way."""
+    ids = token_ids.to(params["position_embedding"].device).long()
+    x = embed(params["token_embedding"]["weight"], ids)
+    x = x + params["position_embedding"][:ids.shape[1]].to(x.dtype)
+    for layer in params["layers"]:
+        x = _text_layer(layer, x, cfg)
+    x = norm(params["final_layernorm"], x, cfg.layer_norm_eps)
+    if eot_token_id is not None:
+        eot = torch.argmax((ids == eot_token_id).int(), dim=-1)
+    else:
+        eot = torch.argmax(ids, dim=-1)
+    pooled = x[torch.arange(x.shape[0], device=x.device), eot]
+    return dense(params["text_projection"], pooled)

@@ -11,7 +11,8 @@ and training paths:
     are kernels (csrc/flash_attention.cu); :func:`multi_head_attention`
     is the dispatch.
   * :func:`flash_attention_bhsd` -- CLIP encoder attention over
-    head-major, once-padded operands (csrc/flash_bhsd.cu).
+    head-major, once-padded operands (csrc/flash_bhsd.cu in bf16; in f32
+    the head-major entry of csrc/flash_attention_f32.cu).
   * :func:`decode_attention_stacked` -- one query token against one
     layer of the stacked (NL, b, L, h, d) KV cache, bf16 or int8
     (csrc/decode_attention.cu: the MHA split body, its chunks merged in
@@ -35,8 +36,9 @@ Module switches, as in the JAX package (ops/attention.py:33-58):
 :func:`set_default_impl` -- 'auto' (kernels for CUDA tensors, the plain
 reference for CPU ones), 'pallas' (the kernels' plain versions on the
 CPU as well) or 'xla' (the plain reference, on CUDA tensors too: the
-decode wrappers launch nothing under it, as the JAX package's 'xla' runs
-its XLA twin on the accelerator); :func:`enable_paged_kernel` -- off
+decode wrappers, multi_head_attention and flash_attention_bhsd launch
+nothing under it, as the JAX package's 'xla' runs its XLA twin on the
+accelerator); :func:`enable_paged_kernel` -- off
 sends the paged wrapper through the dense gather and the flat dispatch
 (the escape hatch).
 """
@@ -426,10 +428,12 @@ def multi_head_attention(
     to its Pallas forward on one TPU chip (d zero-padded to
     :func:`padded_head_dim` there); operands that the kernels do not
     take (another dtype, mixed dtypes) raise there. A mask,
-    an offset, d % 8 != 0 and CPU tensors take the masked reference, as
-    the JAX package's CPU backend does."""
-    if (q.device.type != "cpu" and kv_valid_len is None
-            and q_offset is None and q.shape[-1] % 8 == 0):
+    an offset, d % 8 != 0, CPU tensors and set_default_impl('xla') take
+    the masked reference, as the JAX package's CPU backend and its 'xla'
+    do."""
+    if (_DEFAULT_IMPL != "xla" and q.device.type != "cpu"
+            and kv_valid_len is None and q_offset is None
+            and q.shape[-1] % 8 == 0):
         return flash_attention(q, k, v, causal, scale)
     return attention_reference(q, k, v, causal=causal,
                                kv_valid_len=kv_valid_len, q_offset=q_offset,
@@ -463,25 +467,33 @@ def flash_attention_bhsd(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Non-causal attention over head-major, pre-padded operands ->
-    (b, h, s_pad, d); keys at or past `kv_len` are masked. On CUDA:
-    bf16 in and out, any b*h, s_pad and kv_len, d a multiple of 16 up
-    to 128 (csrc/flash_bhsd.cu: a Hopper body for d 64 and 128, a WMMA
-    body for the others)."""
+    (b, h, s_pad, d) in q's dtype; keys at or past `kv_len` are masked.
+    On CUDA: any b*h, s_pad and kv_len, d a multiple of 16 up to 128;
+    bf16 operands launch csrc/flash_bhsd.cu (a Hopper body for d 64 and
+    128, a WMMA body for the others), f32 operands (the grounding crop
+    filter's ViT-B/32) kernel 7's 3xTF32 body in
+    csrc/flash_attention_f32.cu through its head-major entry (counted as
+    "flash_attention_bhsd_f32"); other or mixed dtypes raise. CPU
+    tensors, and any under set_default_impl('xla'), take the plain
+    version."""
     b, h, s, d = q.shape
     kv_len = s if kv_len is None else int(kv_len)
     scale = scale if scale is not None else 1.0 / (d**0.5)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or _DEFAULT_IMPL == "xla":
         return flash_attention_bhsd_plain(q, k, v, kv_len=kv_len,
                                           scale=scale)
+    f32 = q.dtype == torch.float32
+    dtype = torch.float32 if f32 else torch.bfloat16
     for name, t in (("q", q), ("k", k), ("v", v)):
-        cuda_lib.require(t, name, torch.bfloat16, (b, h, s, d), q.device)
+        cuda_lib.require(t, name, dtype, (b, h, s, d), q.device)
     if d % 16 or not 16 <= d <= 128:
         raise ValueError(f"head dim {d}: must be a multiple of 16 <= 128")
     if not 1 <= kv_len <= s:
         raise ValueError(f"kv_len {kv_len} outside [1, {s}]")
     out = torch.empty_like(q)
     cuda_lib.launch(
-        "flash_attention_bhsd", "vlt_flash_bhsd", q.device,
+        "flash_attention_bhsd_f32" if f32 else "flash_attention_bhsd",
+        "vlt_flash_bhsd_f32" if f32 else "vlt_flash_bhsd", q.device,
         cuda_lib.ptr(q), cuda_lib.ptr(k), cuda_lib.ptr(v), cuda_lib.ptr(out),
         b * h, s, d, kv_len, float(scale),
     )

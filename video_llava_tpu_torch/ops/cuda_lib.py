@@ -43,7 +43,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every entry point (all return int: a cudaError_t).
 _SIGNATURES = {
+    # q, k, v, out; bh, s, d, kv_len; scale
     "vlt_flash_bhsd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "vlt_flash_bhsd_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # x, out, partial, nvalid (or null); b, t, s, c, T, n, out_bf16
     "vlt_spatio_temporal_pool": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _P),

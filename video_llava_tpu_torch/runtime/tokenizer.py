@@ -11,15 +11,22 @@ its ``tokenizer.model`` (SentencePiece BPE: the pieces, scores and types
 read from the protobuf by a minimal wire-format reader; the best-scored
 pair merges first), plus ``added_tokens.json``,
 ``special_tokens_map.json`` and ``tokenizer_config.json``.
+
+:class:`CLIPTokenizer` is the CLIP text tower's byte-level BPE (the
+grounding crop filter's class prompts), read from ``vocab.json`` +
+``merges.txt`` or ``tokenizer.json``, as transformers' CLIP tokenizers
+give its ids.
 """
 
 from __future__ import annotations
 
+import functools
 import heapq
 import json
 import os
 import re
 import struct
+import unicodedata
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from video_llava_tpu_torch.constants import (
@@ -601,6 +608,196 @@ class LlamaTokenizer(Tokenizer):
             for a, b in _CLEANUP:
                 text = text.replace(a, b)
         return text
+
+
+# -- CLIP --------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def bytes_to_unicode() -> Dict[int, str]:
+    """GPT-2's byte -> printable character map of byte-level BPE: the
+    printable Latin-1 bytes map to themselves, the others to 256 + n."""
+    bs = (list(range(ord("!"), ord("~") + 1))
+          + list(range(ord("\xa1"), ord("\xac") + 1))
+          + list(range(ord("\xae"), ord("\xff") + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, map(chr, cs)))
+
+
+def _is_cjk(cp: int) -> bool:
+    return (0x4E00 <= cp <= 0x9FFF or 0x3400 <= cp <= 0x4DBF
+            or 0x20000 <= cp <= 0x2A6DF or 0x2A700 <= cp <= 0x2B73F
+            or 0x2B740 <= cp <= 0x2B81F or 0x2B820 <= cp <= 0x2CEAF
+            or 0xF900 <= cp <= 0xFAFF or 0x2F800 <= cp <= 0x2FA1F)
+
+
+def clip_clean_text(text: str) -> str:
+    """transformers' CLIP text clean-up without ftfy (its BasicTokenizer
+    with no accent stripping and no punctuation split): control
+    characters, NUL and U+FFFD dropped, whitespace to spaces, CJK
+    characters spaced apart, NFC, lower case, runs of whitespace to one
+    space, stripped."""
+    out = []
+    for ch in text:
+        cp = ord(ch)
+        if ch in " \t\n\r" or unicodedata.category(ch) == "Zs":
+            out.append(" ")
+        elif cp == 0 or cp == 0xFFFD or unicodedata.category(ch)[0] == "C":
+            continue
+        elif _is_cjk(cp):
+            out.append(f" {ch} ")
+        else:
+            out.append(ch)
+    text = unicodedata.normalize("NFC", "".join(out))
+    return " ".join(w.lower() for w in text.split())
+
+
+_CLIP_SPECIALS = ("<|startoftext|>", "<|endoftext|>")
+_CLIP_CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
+
+
+def clip_pre_tokenize(text: str) -> List[str]:
+    """CLIP's pre-tokenizer regex, <\\|startoftext\\|>|<\\|endoftext\\|>|
+    's|'t|'re|'ve|'m|'ll|'d|[\\p{L}]+|[\\p{N}]|[^\\s\\p{L}\\p{N}]+ (case
+    blind), as a scanner over Unicode categories (no regex package): at
+    each position the first alternative that matches, whitespace between
+    matches skipped."""
+    def letter(c):
+        return unicodedata.category(c)[0] == "L"
+
+    def number(c):
+        return unicodedata.category(c)[0] == "N"
+
+    pieces, i, n = [], 0, len(text)
+    while i < n:
+        c = text[i]
+        low = text[i:i + 15].lower()
+        special = next((t for t in _CLIP_SPECIALS if low.startswith(t)),
+                       None)
+        if special is not None:
+            pieces.append(text[i:i + len(special)])
+            i += len(special)
+            continue
+        low = text[i:i + 3].lower()
+        short = next((t for t in _CLIP_CONTRACTIONS if low.startswith(t)),
+                     None)
+        if short is not None:
+            pieces.append(text[i:i + len(short)])
+            i += len(short)
+        elif letter(c):
+            j = i + 1
+            while j < n and letter(text[j]):
+                j += 1
+            pieces.append(text[i:j])
+            i = j
+        elif number(c):
+            pieces.append(c)
+            i += 1
+        elif c.isspace():
+            i += 1
+        else:
+            j = i + 1
+            while j < n and not (text[j].isspace() or letter(text[j])
+                                 or number(text[j])):
+                j += 1
+            pieces.append(text[i:j])
+            i = j
+    return pieces
+
+
+class CLIPTokenizer:
+    """The CLIP text tokenizer of a checkpoint directory, as
+    transformers.AutoTokenizer gives it (the JAX package's
+    build_clip_filter), with no tokenizer library: the text cleaned
+    (clip_clean_text), split by CLIP's pre-tokenizer, each piece's UTF-8
+    bytes mapped to byte-level characters, then BPE with the "</w>"
+    end-of-word suffix on the last character (the lowest-ranked adjacent
+    pair merges first, every occurrence left to right), and
+    <|startoftext|> ... <|endoftext|> around the ids. A symbol outside
+    the vocabulary takes the unk id (<|endoftext|>). Reads vocab.json +
+    merges.txt (at most 49,152 - 258 merges after the version line, as
+    transformers reads them) or, without them, tokenizer.json's BPE
+    model and added tokens."""
+
+    bos_token = "<|startoftext|>"
+    eos_token = "<|endoftext|>"
+
+    def __init__(self, path: str):
+        vocab_file = os.path.join(path, "vocab.json")
+        merges_file = os.path.join(path, "merges.txt")
+        fast = os.path.join(path, "tokenizer.json")
+        if os.path.exists(vocab_file) and os.path.exists(merges_file):
+            self.vocab: Dict[str, int] = _read_json(vocab_file)
+            with open(merges_file, encoding="utf-8") as f:
+                lines = f.read().strip().split("\n")[1:49152 - 256 - 2 + 1]
+            merges = [tuple(m.split()) for m in lines]
+        elif os.path.exists(fast):
+            spec = _read_json(fast)
+            model = spec["model"]
+            if model.get("type") != "BPE":
+                raise ValueError(f"{fast}: model {model.get('type')!r}, "
+                                 "only BPE is supported")
+            self.vocab = dict(model["vocab"])
+            merges = [tuple(m.split(" ", 1)) if isinstance(m, str)
+                      else tuple(m) for m in model["merges"]]
+            for tok in spec.get("added_tokens", []):
+                self.vocab.setdefault(tok["content"], tok["id"])
+        else:
+            raise FileNotFoundError(f"no vocab.json + merges.txt or "
+                                    f"tokenizer.json under {path}")
+        self.ranks = {pair: i for i, pair in enumerate(merges)}
+        self.byte_encoder = bytes_to_unicode()
+        self.bos_token_id = self.vocab[self.bos_token]
+        self.eos_token_id = self.vocab[self.eos_token]
+        self.unk_token_id = self.eos_token_id
+        self._cache: Dict[str, List[str]] = {}
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.vocab)
+
+    def _bpe(self, piece: str) -> List[str]:
+        if piece in self._cache:
+            return self._cache[piece]
+        word = list(piece[:-1]) + [piece[-1] + "</w>"]
+        while len(word) > 1:
+            pairs = set(zip(word, word[1:]))
+            best = min(pairs, key=lambda p: self.ranks.get(p, float("inf")))
+            if best not in self.ranks:
+                break
+            merged, i = [], 0
+            while i < len(word):
+                if (i < len(word) - 1 and word[i] == best[0]
+                        and word[i + 1] == best[1]):
+                    merged.append(word[i] + word[i + 1])
+                    i += 2
+                else:
+                    merged.append(word[i])
+                    i += 1
+            word = merged
+        self._cache[piece] = word
+        return word
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
+        ids = []
+        for piece in clip_pre_tokenize(clip_clean_text(text)):
+            if piece in _CLIP_SPECIALS:
+                ids.append(self.vocab[piece])
+                continue
+            chars = "".join(self.byte_encoder[b]
+                            for b in piece.encode("utf-8"))
+            ids.extend(self.vocab.get(t, self.unk_token_id)
+                       for t in self._bpe(chars))
+        if add_special_tokens:
+            ids = [self.bos_token_id] + ids + [self.eos_token_id]
+        return ids
+
 
 
 def load_tokenizer(path: Optional[str] = None) -> Tokenizer:
