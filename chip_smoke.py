@@ -72,6 +72,24 @@ Phases, each of which raises on failure (exit code != 0):
      GroundingDINO, MobileSAM, the STM tracker, a Swin-L tagger) on the
      7B int4 engine, PGVideoLLaVA.answer over a seeded 100-frame 480 x 832
      clip, with stage times, launch counts, a profile and peak memory;
+     then BASELINE config 5's harness (grounding_eval_phase): seeded
+     GroundingDINO Swin-T, SAM ViT-B, MobileSAM and RAM Swin-L (4,585
+     tags) checkpoints written in the released layouts (the original
+     .pth with a vocab.txt directory, an HF directory, mobile_sam.pt,
+     ram_swin_large_14m.pth with its tag list and thresholds) and read
+     back by build_grounding_stack(sam_variant='vit_b'), build_sam and
+     build_tagger, every converted leaf equal to the seeded one; SAM's
+     ViT encoder and RAM's tag_logits on the card against the CPU; the
+     converted detector through kernel 12 against its plain version;
+     the chat CLI's --sam_variant vit_b up to its prompt; then
+     preprocess_grounding_annotations over synthetic VidOR / VidSTG and
+     HC-STVG annotations, VidSTGDataset and HCSTVGDataset over its output
+     (seeded frames in place of the decode: no libav here), and
+     evaluate_dataset over 2 VidSTG and 1 HC-STVG samples of up to 100
+     frames, the answer from the int4 engine's chat, the annotator
+     through a stub client: per-sample sIoU, m_sIoU, stage seconds,
+     kernel 12's launches, peak memory; then the RAM tagger over one
+     sample's frames;
   9. transcribe the audio on the same engine (audio_phase, `--use_asr`):
      kernel 7 against its plain version at the Whisper large-v2 encoder's
      and the TL-TR head's shapes, its f32 body at Whisper base's, a small
@@ -116,6 +134,7 @@ It needs a CUDA card and the repository beside it, and imports no JAX.
 
 from __future__ import annotations
 
+import builtins
 import concurrent.futures
 import dataclasses
 import functools
@@ -3634,6 +3653,492 @@ def grounding_phase(engine, dev, results) -> int:
     return launches[name]
 
 
+
+# -- grounding from released checkpoints, and the sIoU evaluation ------------
+
+# BASELINE config 5's harness: the stack from checkpoints written here in
+# the released layouts from seeded weights (no released file is on this
+# machine), then evaluate_dataset over VidSTG and HC-STVG samples made from
+# synthetic annotations with seeded frames.
+GEVAL_HW = (360, 640)  # the datasets' frames (the videos' 640 x 360)
+GEVAL_RAM_SWIN = dict(image_size=384, window_size=12)  # RAM's Swin-L at 384
+GEVAL_SMALL_TOL = 1e-4  # card f32 vs CPU f32: SAM ViT and RAM, of max|ref|
+GEVAL_DETECTOR_TOL = 1e-3  # kernel 12 vs plain over a whole detector
+
+
+def tree_leaves(tree, path=""):
+    """[(path, tensor)] of a nested dict / list tree."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in tree_leaves(v, f"{path}.{k}" if path else k)]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_leaves(v, f"{path}.{i}")]
+    return [(path, tree)]
+
+
+def trees_equal(label, want, got) -> int:
+    """Every leaf of `got` equal to `want`'s bit for bit (same paths and
+    shapes); -> the leaf count."""
+    a, b = dict(tree_leaves(want)), dict(tree_leaves(got))
+    if set(a) != set(b):
+        raise AssertionError(f"{label}: paths differ: "
+                             f"{sorted(set(a) ^ set(b))[:8]}")
+    for path, x in a.items():
+        y = b[path]
+        if x.shape != y.shape or not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"{label}: {path} differs")
+    return len(a)
+
+
+def grounding_ckpt_configs() -> dict:
+    """The released models' configurations (write_grounding_checkpoints
+    writes these; a smaller set runs the same code on a CPU)."""
+    from video_llava_tpu_torch.models import ram as ram_mod
+    from video_llava_tpu_torch.models import sam as sam_mod
+    from video_llava_tpu_torch.models import swin as swin_mod
+    from video_llava_tpu_torch.models import tiny_vit as tv
+
+    tiny = tv.TinyViTConfig()
+    return dict(
+        dino=gdino.GroundingDinoConfig(), sam=sam_mod.SamConfig(), tiny=tiny,
+        mobile=sam_mod.SamConfig(vision=dataclasses.replace(
+            sam_mod.SamConfig().vision, image_size=tiny.image_size)),
+        ram_swin=dataclasses.replace(swin_mod.SwinConfig.swin_l(),
+                                     **GEVAL_RAM_SWIN),
+        ram=ram_mod.RamConfig(), vocab=30522)
+
+
+def write_grounding_checkpoints(root: str, cfgs=None) -> dict:
+    """Seeded weights drawn on the CPU and written under `root` in the
+    released layouts (grounding/synthetic's writers): GroundingDINO
+    Swin-T as the original repo's .pth beside a vocab.txt directory, SAM
+    ViT-B (1024 px, 12 layers of 768, windows of 14, global layers 2, 5,
+    8, 11) as an HF directory (model.safetensors), MobileSAM as the
+    official mobile_sam.pt, RAM Swin-L at 384 px (window 12) with 4,585
+    tags, width 512 and 2 decoder layers as ram_swin_large_14m.pth, with
+    ram_tag_list.txt and its thresholds. -> the paths and the seeded
+    trees (what each converted leaf must equal)."""
+    from video_llava_tpu_torch.grounding import synthetic
+    from video_llava_tpu_torch.models import ram as ram_mod
+    from video_llava_tpu_torch.models import sam as sam_mod
+    from video_llava_tpu_torch.models import swin as swin_mod
+    from video_llava_tpu_torch.models import tiny_vit as tv
+
+    cfgs = cfgs or grounding_ckpt_configs()
+    out = {"root": root}
+    t = time.perf_counter()
+    dcfg = cfgs["dino"]
+    out["dino"] = gdino.init_params(TreeInit(20, "cpu"), dcfg)
+    out["dino_path"] = os.path.join(root, "groundingdino_swint_ogc.pth")
+    torch.save({"model": synthetic.gdino_original_state(out["dino"], dcfg)},
+               out["dino_path"])
+    out["vocab_dir"] = synthetic.write_bert_vocab(os.path.join(root, "bert"),
+                                                  cfgs["vocab"])
+
+    scfg = cfgs["sam"]
+    out["sam"] = {"vision": sam_mod.init_vision_params(TreeInit(21, "cpu"),
+                                                       scfg.vision),
+                  **sam_mod.init_decoder_params(TreeInit(22, "cpu"), scfg)}
+    out["sam_dir"] = os.path.join(root, "sam-vit-base")
+    os.makedirs(out["sam_dir"])
+    write_safetensors(os.path.join(out["sam_dir"], "model.safetensors"),
+                      list(synthetic.sam_hf_state(out["sam"], scfg).items()))
+
+    tcfg, mcfg = cfgs["tiny"], cfgs["mobile"]
+    out["mobile"] = {"vision": tv.init_params(TreeInit(23, "cpu"), tcfg),
+                     **sam_mod.init_decoder_params(TreeInit(24, "cpu"),
+                                                   mcfg)}
+    out["mobile_path"] = os.path.join(root, "mobile_sam.pt")
+    torch.save(synthetic.mobile_sam_state(out["mobile"], tcfg),
+               out["mobile_path"])
+
+    rswin, rcfg = cfgs["ram_swin"], cfgs["ram"]
+    init = TreeInit(25, "cpu")
+    out["ram_backbone"] = swin_mod.init_params(init, rswin)
+    raw = ram_mod.init_params(init, rcfg, rswin.num_features)
+    # raw label embeddings of unit scale, as the release's text embeddings
+    # are before wordvec_proj: init_params' 0.02 would fold to near-equal
+    # queries, every tag's logit alike
+    raw["label_embeddings"] = init.normal((rcfg.num_tags, rcfg.hidden_size))
+    wordvec = {"kernel": init.normal((rcfg.hidden_size, rcfg.hidden_size),
+                                     rcfg.hidden_size ** -0.5),
+               "bias": init.normal((rcfg.hidden_size,), 0.02)}
+    rng = np.random.default_rng(25)
+    sd = synthetic.ram_state(out["ram_backbone"], raw, rswin, wordvec,
+                             rng.uniform(0.5, 0.9, rcfg.num_tags))
+    # the converter folds relu(label_embed @ wordvec_proj^T + b) on the host
+    folded = np.maximum(sd["label_embed"].numpy()
+                        @ sd["wordvec_proj.weight"].numpy().T
+                        + sd["wordvec_proj.bias"].numpy(), 0.0)
+    out["ram"] = {**raw, "label_embeddings": torch.from_numpy(folded)}
+    out["ram_swin"] = rswin
+    out["ram_path"] = os.path.join(root, "ram_swin_large_14m.pth")
+    torch.save({"model": sd}, out["ram_path"])
+    out["tags"] = [f"tag{i:04d}" for i in range(rcfg.num_tags)]
+    # the file's thresholds (they override class_threshold) sit where a
+    # random head's probabilities fall (0.05-0.5), so that some tags pass
+    out["thresholds"] = rng.uniform(0.3, 0.6, rcfg.num_tags).astype(
+        np.float32)
+    out["tag_path"] = os.path.join(root, "ram_tag_list.txt")
+    out["threshold_path"] = os.path.join(root,
+                                         "ram_tag_list_threshold.txt")
+    with open(out["tag_path"], "w") as f:
+        f.write("\n".join(out["tags"]) + "\n")
+    with open(out["threshold_path"], "w") as f:
+        f.write("\n".join(repr(float(v)) for v in out["thresholds"]) + "\n")
+    sizes = {k: os.path.getsize(out[k]) for k in ("dino_path", "mobile_path",
+                                                   "ram_path")}
+    sizes["sam_dir"] = os.path.getsize(os.path.join(out["sam_dir"],
+                                                    "model.safetensors"))
+    print("grounding checkpoints written (seeded, on the CPU) in "
+          f"{time.perf_counter() - t:.2f} s: " + ", ".join(
+              f"{os.path.basename(out[k].rstrip('/'))} {v / 2 ** 20:.1f} MiB"
+              for k, v in sizes.items()), flush=True)
+    return out
+
+
+def grounding_small_checks(dev) -> None:
+    """SAM's ViT encoder (256 px, 4 layers of 192, windows of 4, two
+    global layers) and RAM's tag_logits (the tiny Swin, 64 tags of 32)
+    on the card in f32 against the same weights on the CPU, within
+    GEVAL_SMALL_TOL of max|ref|."""
+    from video_llava_tpu_torch.models import ram as ram_mod
+    from video_llava_tpu_torch.models import sam as sam_mod
+    from video_llava_tpu_torch.models import swin as swin_mod
+
+    rng = np.random.default_rng(3)
+    vcfg = sam_mod.SamVisionConfig(image_size=256, hidden_size=192,
+                                   num_layers=4, num_heads=3, mlp_dim=768,
+                                   window_size=4, global_attn_indexes=(1, 3),
+                                   output_channels=64)
+    vp = sam_mod.init_vision_params(TreeInit(30, "cpu"), vcfg)
+    px = torch.from_numpy(rng.normal(size=(2, 256, 256, 3)).astype(
+        np.float32))
+    scfg = swin_mod.SwinConfig.tiny_test()
+    rcfg = ram_mod.RamConfig(num_tags=64, hidden_size=32, num_heads=4,
+                             decoder_layers=2, intermediate_size=64)
+    init = TreeInit(31, "cpu")
+    bp = swin_mod.init_params(init, scfg)
+    rp = ram_mod.init_params(init, rcfg, scfg.num_features)
+    rpx = torch.from_numpy(rng.normal(size=(3, 64, 64, 3)).astype(np.float32))
+    with torch.inference_mode():
+        pairs = (
+            ("SAM ViT encoder (2, 256, 256) -> (2, 16, 16, 64)",
+             sam_mod.vision_encoder(tree_to(vp, dev), px.to(dev), vcfg),
+             sam_mod.vision_encoder(vp, px, vcfg)),
+            ("RAM tag_logits (3, 64, 64) -> (3, 64)",
+             ram_mod.tag_logits(tree_to(bp, dev), tree_to(rp, dev),
+                                rpx.to(dev), scfg, rcfg),
+             ram_mod.tag_logits(bp, rp, rpx, scfg, rcfg)))
+        for label, got, want in pairs:
+            rel = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+            print(f"{label}: f32 card vs CPU max|err| / max|ref| = "
+                  f"{rel:.3e} (limit {GEVAL_SMALL_TOL})", flush=True)
+            if not rel <= GEVAL_SMALL_TOL:
+                raise AssertionError(f"{label}: {rel}")
+
+
+def detector_kernel_check(detector, dev) -> None:
+    """One 800 px detector forward of the converted GroundingDINO through
+    kernel 12 (12 launches) against the same forward on the plain
+    versions (deformable.set_default_impl('xla'): no launch): logits
+    and boxes within GEVAL_DETECTOR_TOL of their scale."""
+    rng = np.random.default_rng(4)
+    frame = torch.from_numpy(rng.integers(0, 256, (1,) + GEVAL_HW + (3,),
+                                          dtype=np.uint8)).to(dev)
+    ids = np.asarray([detector.tokenize("adult . dog .")])
+    outs = []
+    for impl in ("auto", "xla"):
+        deformable.set_default_impl(impl)
+        cuda_lib.reset_launch_counts()
+        try:
+            with torch.inference_mode():
+                outs.append(gdino.forward(detector.params, detector.cfg,
+                                          detector._preprocess(frame), ids))
+            torch.cuda.synchronize()
+        finally:
+            deformable.set_default_impl("auto")
+        outs[-1] += (cuda_lib.LAUNCHES["multi_scale_deformable_attention"],)
+    (logits, boxes, n), (p_logits, p_boxes, p_n) = outs
+    if n != 12 or p_n != 0:
+        raise AssertionError(f"detector forward launched kernel 12 {n} "
+                             f"times, its plain run {p_n}")
+    fin = torch.isfinite(p_logits)
+    if not torch.equal(torch.isfinite(logits), fin):
+        raise AssertionError("detector: finite logits differ")
+    for label, a, b in (("logits", logits[fin], p_logits[fin]),
+                        ("boxes", boxes, p_boxes)):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        print(f"converted GroundingDINO at 800 px, kernel 12 vs plain: "
+              f"{label} {tuple(b.shape)} max|err| / max|ref| = {rel:.3e} "
+              f"(limit {GEVAL_DETECTOR_TOL}); launches {n} vs {p_n}",
+              flush=True)
+        if not rel <= GEVAL_DETECTOR_TOL:
+            raise AssertionError(f"detector {label}: {rel}")
+
+
+class AnnotatorStub:
+    """The referring-expression annotator's OpenAI-compatible client,
+    answered here (the reference calls a FastChat server; this machine
+    has no network): a well-formed {'OBJECT': ...} for the first and
+    third requests, text that is no dictionary for the second (the
+    expression falls back to the question)."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def chat_text(self, model, messages, **kw):
+        self.calls += 1
+        if self.calls == 2:
+            return "The person next to the dog, I think."
+        return "{'OBJECT': 'adult'}" if self.calls == 1 else \
+            "{'OBJECT': 'man'}"
+
+
+def grounding_datasets(root: str):
+    """Synthetic VidOR / VidSTG and HC-STVG annotations through
+    preprocess_grounding_annotations, then (VidSTGDataset test split,
+    HCSTVGDataset) over its output."""
+    from video_llava_tpu_torch.datasets import grounding_datasets as gds
+    from video_llava_tpu_torch.grounding import synthetic
+    from video_llava_tpu_torch.scripts import (
+        preprocess_grounding_annotations as pre,
+    )
+
+    vidor, vidstg = os.path.join(root, "vidor"), os.path.join(root, "vidstg")
+    hc_videos, hc_ann = (os.path.join(root, "hcstvg_videos"),
+                         os.path.join(root, "hcstvg_ann"))
+    synthetic.write_vidstg_annotations(vidor, vidstg, n_videos=2,
+                                       frames=600, hw=GEVAL_HW)
+    synthetic.write_hcstvg_annotations(hc_videos, hc_ann, n_videos=1,
+                                       frames=500, hw=GEVAL_HW)
+    pre.main(["vidstg", "--vidor_annotations_dir", vidor,
+              "--vidstg_annotations_dir", vidstg])
+    pre.main(["hcstvg", "--video_dir", hc_videos, "--ann_dir", hc_ann])
+    return (gds.VidSTGDataset(vidstg, os.path.join(root, "videos"),
+                              image_set="test"),
+            gds.HCSTVGDataset(os.path.join(hc_ann, "val_v2_proc.json"),
+                              hc_videos))
+
+
+def grounding_eval_phase(engine, dev, results) -> dict:
+    """BASELINE config 5 at full width on the 7B int4 engine: seeded
+    checkpoints written in the released layouts and read back through
+    build_grounding_stack (GroundingDINO's .pth with the vocab.txt
+    directory, SAM ViT-B's HF directory, sam_variant 'vit_b'), build_sam
+    (MobileSAM's mobile_sam.pt) and build_tagger (RAM), every converted
+    leaf equal to the seeded one; SAM's ViT and RAM's tag_logits on the
+    card against the CPU; the converted detector through kernel 12
+    against its plain version; the chat CLI's --sam_variant vit_b up to
+    its prompt; then evaluate_dataset over 2 VidSTG and 1 HC-STVG samples
+    (preprocess_grounding_annotations over synthetic annotation files;
+    grounding_datasets._decode_frames replaced by seeded frames, since
+    this machine has no libav, as eval_frames stands in for load_video in
+    eval_13b_phase), the answer from the engine's chat over the sample's
+    frames, the annotator through AnnotatorStub; each sample's sIoU,
+    m_sIoU, stage seconds (host clock around synchronized calls),
+    kernel 12's launches (held to 12 a detector forward), peak memory;
+    then the RAM tagger over one sample's frames. Returns kernel 12's
+    launches over the evaluation."""
+    from video_llava_tpu_torch.datasets import grounding_datasets as gds
+    from video_llava_tpu_torch.grounding import eval_grounding
+    from video_llava_tpu_torch.grounding.builders import build_tagger
+    from video_llava_tpu_torch.grounding.synthetic import seeded_frames
+    from video_llava_tpu_torch.grounding.tagging import get_unique_tags
+
+    name = "multi_scale_deformable_attention"
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="vlt_geval_")
+    real_decode = gds._decode_frames
+    try:
+        ck = write_grounding_checkpoints(root)
+        t = time.perf_counter()
+        tracker, _, _ = build_grounding_stack(
+            dino_checkpoint=ck["dino_path"], sam_checkpoint=ck["sam_dir"],
+            sam_variant="vit_b", device=dev, tokenizer_name=ck["vocab_dir"])
+        mobile = build_sam(ck["mobile_path"], variant="mobile", device=dev)
+        tagger = build_tagger(ram_checkpoint=ck["ram_path"],
+                              tag_list_path=ck["tag_path"],
+                              threshold_path=ck["threshold_path"],
+                              device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        counts = {
+            "GroundingDINO (.pth)": trees_equal(
+                "GroundingDINO", ck["dino"], tracker.detector.params),
+            "SAM ViT-B (HF)": trees_equal("SAM ViT-B", ck["sam"],
+                                          tracker.segmenter.params),
+            "MobileSAM (mobile_sam.pt)": trees_equal(
+                "MobileSAM", ck["mobile"], mobile.params),
+            "RAM Swin-L": trees_equal("RAM backbone", ck["ram_backbone"],
+                                      tagger.backbone_params),
+            "RAM decoder": trees_equal("RAM decoder", ck["ram"],
+                                       tagger.head_params)}
+        if tagger.cfg.window_size != 12 or tagger.tag_list != ck["tags"]:
+            raise AssertionError("RAM tagger: window or tags not read")
+        if not np.array_equal(tagger.threshold, ck["thresholds"]):
+            raise AssertionError("RAM tagger: thresholds not read")
+        if tracker.detector.tokenize("a dog .")[-2:] != [1012, 102]:
+            raise AssertionError("the BERT tokenizer's ids")
+        print(f"released-layout round trips, read onto the card in "
+              f"{load_s:.2f} s: every converted leaf equal to the seeded "
+              "one (" + ", ".join(f"{k} {v} leaves" for k, v in
+                                  counts.items())
+              + f"); RAM: window {tagger.cfg.window_size}, "
+              f"{len(tagger.tag_list)} tags, thresholds from the file",
+              flush=True)
+        del mobile, ck
+        gc.collect()
+        grounding_small_checks(dev)
+        detector_kernel_check(tracker.detector, dev)
+
+        # the chat CLI's --sam_variant vit_b builds the stack and reaches
+        # its prompt (no input here: the REPL quits at the first read)
+        t = time.perf_counter()
+        real_input = builtins.input
+
+        def no_input(*a):
+            raise EOFError
+
+        builtins.input = no_input
+        try:
+            chat_mod.main(["--model_size", "7b", "--quant", "int4",
+                           "--with_grounding", "--sam_variant", "vit_b"])
+        finally:
+            builtins.input = real_input
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"chat CLI --with_grounding --sam_variant vit_b: built and "
+              f"reached its prompt in {time.perf_counter() - t:.2f} s",
+              flush=True)
+
+        vidstg, hcstvg = grounding_datasets(root)
+        gds._decode_frames = lambda path, ids: seeded_frames(path, ids,
+                                                             GEVAL_HW)
+        print(f"grounding datasets: VidSTG test {len(vidstg)} query-videos, "
+              f"HC-STVG val {len(hcstvg)} (frames from seeded_frames: no "
+              "libav on this machine)", flush=True)
+
+        stats: dict = {}
+        forwards = [0]
+        det, seg = tracker.detector, tracker.segmenter
+        patched = [(det, "detect_batch", "detection"),
+                   (seg, "_encode", "sam_vit_b_encode"),
+                   (seg, "decode_masks_batch_device", "sam"),
+                   (fused_clip, "run_clip_fused_stm", "propagation")]
+        saved = [(o, a, getattr(o, a)) for o, a, _ in patched]
+        for o, a, stage in patched:
+            setattr(o, a, timed(stats, stage, getattr(o, a)))
+        counted = det.detect_batch
+
+        def count_forward(*a, **kw):
+            forwards[0] += 1
+            return counted(*a, **kw)
+
+        det.detect_batch = count_forward
+        chat = VideoChatGPTInterface(
+            engine, temperature=0.0, max_output_tokens=32,
+            generator=torch.Generator(device=dev).manual_seed(0))
+
+        def infer_answer(frames, question):
+            chat.clear_history()
+            chat.upload_frames(frames)
+            chat.add_text(question, None)
+            return chat.answer()
+
+        infer_answer = timed(stats, "llm", infer_answer)
+        client = AnnotatorStub()
+        try:
+            # warm-up on one sample's first 10 frames (the same shapes)
+            warm = vidstg[0]
+            tracker.run_on_list_of_images(list(warm.frames[:10]), ["adult"])
+            infer_answer(warm.frames[:10], warm.caption)
+            torch.cuda.synchronize()
+            stats.clear()
+            forwards[0] = 0
+            torch.cuda.reset_peak_memory_stats()
+            cuda_lib.reset_launch_counts()
+            t = time.perf_counter()
+            evals = [eval_grounding.evaluate_dataset(
+                ds, tracker, infer_answer=infer_answer, client=client,
+                output_dir=os.path.join(root, "out", label), max_samples=n)
+                for label, ds, n in (("vidstg", vidstg, 2),
+                                     ("hcstvg", hcstvg, 1))]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = dict(cuda_lib.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            for o, a, fn in saved:
+                setattr(o, a, fn)
+        per = [s for e in evals for s in e["per_sample"]]
+        if len(per) != 3 or [e["num_samples"] for e in evals] != [2, 1]:
+            raise AssertionError(f"evaluate_dataset scored {len(per)} "
+                                 "samples of 3")
+        sious = [s["sIoU"] for s in per]
+        if not all(np.isfinite(sious)) or not all(0 <= v <= 1 for v in
+                                                  sious):
+            raise AssertionError(f"sIoU values {sious}")
+        exprs = [s["referring_expression"] for s in per]
+        if exprs[0] != "adult" or exprs[1] != per[1]["caption"]:
+            raise AssertionError(f"referring expressions {exprs}")
+        frames_seen = [len(vidstg[0].frame_ids), len(vidstg[1].frame_ids),
+                       len(hcstvg[0].frame_ids)]
+        want = sum(-(-(-(-n // 5)) // 4) for n in frames_seen)
+        if (launches.get(name, 0) != 12 * forwards[0]
+                or forwards[0] != want):
+            raise AssertionError(f"{name} launched {launches.get(name)} "
+                                 f"times over {forwards[0]} detector "
+                                 f"forwards ({want} expected)")
+        m_siou = float(np.mean(sious))
+        for s, n in zip(per, frames_seen):
+            print(f"grounding eval sample {s['video_id']}: {n} frames, "
+                  f"question {s['caption']!r}, answer {len(s['answer'] or '')}"
+                  f" chars, expression {s['referring_expression']!r}, sIoU "
+                  f"{s['sIoU']:.6f}", flush=True)
+        print(f"grounding eval: m_sIoU {m_siou:.6f} over {len(per)} samples "
+              f"(VidSTG {evals[0]['m_sIoU']:.6f} over 2, HC-STVG "
+              f"{evals[1]['m_sIoU']:.6f} over 1; random weights: not a "
+              f"quality figure); wall {wall:.3f} s; stages (s): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in sorted(stats.items()))
+              + f" (sam_vit_b_encode inside sam); {forwards[0]} detector "
+              f"forwards, kernel 12 launches {launches.get(name, 0)}; "
+              f"launches {launches}; peak device memory {peak:.2f} GiB "
+              f"[{card_line()}]", flush=True)
+
+        # the RAM tagger over the HC-STVG sample's frames
+        frames = hcstvg[0].frames
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        per_frame = tagger.run_on_frames_raw(frames, batch_size=10)
+        torch.cuda.synchronize()
+        tag_s = time.perf_counter() - t
+        tag_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if len(per_frame) != len(frames):
+            raise AssertionError("RAM tagger: a row a frame")
+        top = get_unique_tags(per_frame)[:10]
+        print(f"RAM tagger (Swin-L 384 px, 4,585 tags) over "
+              f"{len(frames)} frames: {tag_s:.3f} s, "
+              f"{sum(map(len, per_frame))} tags over their thresholds, top "
+              f"{top}; peak device memory {tag_peak:.2f} GiB [{card_line()}]",
+              flush=True)
+        results[name]["grounding_eval"] = dict(
+            launches=launches.get(name, 0), detector_forwards=forwards[0],
+            m_sIoU=m_siou, per_sample_sIoU=sious, wall_s=wall,
+            stages_s=dict(stats), ram_tagging_s=tag_s, peak_gib=peak)
+    finally:
+        gds._decode_frames = real_decode
+        shutil.rmtree(root, ignore_errors=True)
+    del tracker, tagger
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"grounding eval phase: {time.perf_counter() - t0:.2f} s "
+          f"[{card_line()}]", flush=True)
+    return launches
+
+
 # -- audio ------------------------------------------------------------------
 
 # Kernel 7 at the audio path's (b, s, h, d), non-causal: the Whisper
@@ -4464,6 +4969,11 @@ def main() -> int:
                 engine, dev)["decode_attention_mxu"]
             launches["multi_scale_deformable_attention"] = grounding_phase(
                 engine, dev, results)
+            evaluated = grounding_eval_phase(engine, dev, results)
+            missing = [k for k in GROUNDING_PATH if not evaluated.get(k)]
+            if missing:
+                raise AssertionError(f"grounding eval: kernels never "
+                                     f"launched on the path: {missing}")
             audio = audio_phase(engine, clips, dev, results)
             launches["flash_forward_f32"] = audio["flash_forward_f32"]
         del engine, llm

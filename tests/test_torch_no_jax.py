@@ -150,3 +150,32 @@ def test_port_imports_no_jax(tmp_path):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "--quant" in proc.stdout
+    # the grounding stack from checkpoints and its evaluation: SAM's ViT,
+    # RAM, the BERT WordPiece tokenizer and the VidSTG / HC-STVG
+    # annotations' preprocessing, with no tokenizer library
+    assert {"video_llava_tpu_torch.models.ram",
+            "video_llava_tpu_torch.models.sam",
+            "video_llava_tpu_torch.grounding.eval_grounding",
+            "video_llava_tpu_torch.grounding.synthetic",
+            "video_llava_tpu_torch.datasets.grounding_datasets",
+            "video_llava_tpu_torch.scripts.preprocess_grounding_annotations",
+            } <= set(modules)
+    from video_llava_tpu_torch.grounding import synthetic
+    from video_llava_tpu_torch.runtime.tokenizer import BertTokenizer
+
+    vocab_dir = synthetic.write_bert_vocab(str(tmp_path / "bert"), 2048)
+    synthetic.write_hcstvg_annotations(str(tmp_path / "hc_videos"),
+                                       str(tmp_path / "hc_ann"), n_videos=1)
+    text = "Who is next to the Dog?"
+    proc = _run(BLOCK_JAX + (
+        "from video_llava_tpu_torch.runtime.tokenizer import BertTokenizer\n"
+        "from video_llava_tpu_torch.scripts import "
+        "preprocess_grounding_annotations as pre\n"
+        f"pre.main(['hcstvg', '--video_dir', {str(tmp_path / 'hc_videos')!r},"
+        f" '--ann_dir', {str(tmp_path / 'hc_ann')!r}])\n"
+        f"print(*BertTokenizer({vocab_dir!r}).encode({text!r}))"))
+    assert proc.returncode == 0, proc.stderr
+    want = BertTokenizer(vocab_dir).encode(text)
+    assert want[0] == 101 and want[-2:] == [1029, 102]
+    assert proc.stdout.split()[-len(want):] == [str(i) for i in want]
+    assert (tmp_path / "hc_ann" / "val_v2_proc.json").exists()

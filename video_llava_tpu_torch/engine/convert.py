@@ -21,7 +21,10 @@ as lists and their conv kernels in torch's layout: whisper_from_jax and
 wav2vec2_from_jax make those two changes, then tree_from_jax. So do
 xmem_from_jax (the XMem network and its ResNet trunks: HWIO conv kernels
 to OIHW weights) and clip_text_from_jax (the crop filter's text tower);
-clip_vision_from_jax fills a CLIPVisionTower module.
+clip_vision_from_jax fills a CLIPVisionTower module. sam_from_jax (SAM
+with its ViT image encoder) and ram_from_jax (RAM's tag decoder) carry
+trees whose layout is the port's as it is, checked against the port's
+own random tree of their configuration.
 """
 
 from __future__ import annotations
@@ -266,3 +269,37 @@ def xmem_from_jax(tree_np, like, device=None,
     (models/xmem.py, models/resnet.py layout): conv kernels HWIO -> OIHW
     weights, the CBAM linears and BN statistics as they are."""
     return tree_from_jax(_convs_to_torch(tree_np), like, device, dtype)
+
+
+# -- SAM's ViT encoder and RAM's tag decoder ----------------------------------
+
+
+def sam_from_jax(tree_np, cfg, device=None,
+                 dtype: Optional[torch.dtype] = None):
+    """The JAX package's SAM tree (convert_hf_sam's: the ViT encoder
+    under 'vision', the prompt encoder and mask decoder beside it) ->
+    the port's (models/sam.py layout) on `device`."""
+    from video_llava_tpu_torch.models import sam as sam_mod
+    from video_llava_tpu_torch.models.layers import TreeInit
+
+    meta = TreeInit(0, "meta")
+    like = {"vision": sam_mod.init_vision_params(meta, cfg.vision),
+            **sam_mod.init_decoder_params(meta, cfg)}
+    # the mask decoder keeps as many two-way layers as the checkpoint had
+    like["mask_decoder"]["layers"] = like["mask_decoder"]["layers"][:1] * len(
+        tree_np["mask_decoder"]["layers"])
+    return tree_from_jax(tree_np, like, device, dtype)
+
+
+def ram_from_jax(tree_np, cfg, backbone_features: int, device=None,
+                 dtype: Optional[torch.dtype] = None):
+    """The JAX package's RAM decoder tree (init_params /
+    convert_ram_checkpoint's, with or without query self-attention) ->
+    the port's (models/ram.py layout) on `device`."""
+    from video_llava_tpu_torch.models import ram as ram_mod
+    from video_llava_tpu_torch.models.layers import TreeInit
+
+    like = ram_mod.init_params(
+        TreeInit(0, "meta"), cfg, backbone_features,
+        self_attention="self" in tree_np["layers"][0])
+    return tree_from_jax(tree_np, like, device, dtype)

@@ -1,12 +1,14 @@
-"""Assembly of the grounding stack: detector, MobileSAM, the CLIP crop
-filter, the STM or XMem tracker, tagger and entity matching.
+"""Assembly of the grounding stack: detector, SAM (MobileSAM or ViT-B),
+the CLIP crop filter, the STM or XMem tracker, the tagger (a linear head
+or RAM's decoder) and entity matching.
 
-Counterpart of video_llava_tpu/grounding/builders.py. The detector, SAM
-and the tagger have random weights (their checkpoint loading is not
-ported yet): every model draws its parameters on `device` from a seeded
-torch.Generator, in the JAX package's layout. The crop filter reads an HF
-CLIP directory (build_clip_filter) or draws a random ViT-B/32
-(random_clip_filter); XMem reads an official .pth.
+Counterpart of video_llava_tpu/grounding/builders.py. Each model reads
+its released checkpoint (GroundingDINO's .pth or HF directory, SAM's HF
+directory or MobileSAM's mobile_sam.pt, an HF Swin or the RAM release,
+an HF CLIP directory, XMem's .pth) or, without one, draws random weights
+on `device` from a seeded torch.Generator, in the JAX package's layout.
+Every builder puts its model on the card unless the caller asks for the
+CPU.
 """
 
 from __future__ import annotations
@@ -59,14 +61,16 @@ class SamSegmenter:
 
     supports_frame_cache = True
 
-    def __init__(self, params, cfg: SamConfig, encode_fn,
+    def __init__(self, params, cfg: SamConfig, encode_fn=None,
                  encode_batch_size: int = 4):
-        """encode_fn(params, pixels) -> (b, g, g, d) image embeddings
-        (MobileSAM's TinyViT encoder)."""
+        """encode_fn(params, pixels) -> (b, g, g, d) image embeddings:
+        SAM's ViT encoder (params['vision']) by default, MobileSAM's
+        TinyViT encoder where build_sam passes it."""
         self.params = params
         self.cfg = cfg
         self.encode_batch_size = encode_batch_size
-        self._encode = encode_fn
+        self._encode = encode_fn or (
+            lambda p, px: sam_mod.vision_encoder(p["vision"], px, cfg.vision))
         self.device = params["shared_pe"].device
         self._emb_cache: dict = {}
 
@@ -171,40 +175,109 @@ class SamSegmenter:
         return out
 
 
+def _load_state_dict(path: str):
+    """A checkpoint file (.pth / .pt / .bin, with its training nesting
+    unwrapped) or an HF directory's whole state dict."""
+    from video_llava_tpu_torch.engine.weights import (
+        load_checkpoint_dir,
+        load_torch_checkpoint_file,
+    )
+
+    return (load_torch_checkpoint_file(path) if os.path.isfile(path)
+            else load_checkpoint_dir(path))
+
+
 def build_sam(checkpoint_dir: Optional[str] = None,
               cfg: Optional[SamConfig] = None, variant: str = "mobile",
-              tiny_cfg: Optional[tv.TinyViTConfig] = None, device=None,
+              tiny_cfg: Optional[tv.TinyViTConfig] = None, device="cuda",
               seed: int = 0) -> SamSegmenter:
-    """MobileSAM (TinyViT-5M encoder + the SAM prompt encoder and mask
-    decoder) with random weights on `device`."""
-    if variant != "mobile":
-        raise NotImplementedError(f"SAM variant {variant!r}: only 'mobile' "
-                                  "is ported")
+    """The segmenter on `device`, as the JAX package's build_sam:
+    variant 'mobile' (the reference's live default): TinyViT-5M + SAM's
+    prompt encoder and mask decoder, from the official mobile_sam.pt
+    (image_encoder.*, prompt_encoder.*, mask_decoder.*) or a directory of
+    its shards; 'vit_b' (or 'vit'): SAM's ViT encoder from an HF SamModel
+    directory or file (facebook/sam-vit-base layout; cfg defaults to
+    ViT-B at 1024 px). Without a checkpoint, random weights drawn on
+    `device` from `seed`."""
+    if variant == "mobile":
+        tiny_cfg = tiny_cfg or tv.TinyViTConfig()
+        cfg = cfg or SamConfig(vision=dataclasses.replace(
+            SamConfig().vision, image_size=tiny_cfg.image_size))
+        if checkpoint_dir:
+            sd = _load_state_dict(checkpoint_dir)
+            params = {"vision": tv.convert_tiny_vit(sd, tiny_cfg,
+                                                    device=device),
+                      **sam_mod.convert_official_sam_decoder(sd, cfg, device)}
+        else:
+            warnings.warn("MobileSAM weights not provided; using random init")
+            init = TreeInit(seed, device)
+            params = {"vision": tv.init_params(init, tiny_cfg),
+                      **sam_mod.init_decoder_params(init, cfg)}
+        return SamSegmenter(
+            params, cfg, lambda p, px: tv.encoder(p["vision"], px, tiny_cfg))
+    if variant not in ("vit_b", "vit"):
+        raise ValueError(f"SAM variant {variant!r}: 'mobile' or 'vit_b'")
+    cfg = cfg or SamConfig()
     if checkpoint_dir:
-        raise NotImplementedError("SAM checkpoint loading is not ported yet")
-    warnings.warn("MobileSAM weights not provided; using random init")
-    tiny_cfg = tiny_cfg or tv.TinyViTConfig()
-    cfg = cfg or SamConfig(vision=dataclasses.replace(
-        SamConfig().vision, image_size=tiny_cfg.image_size))
-    init = TreeInit(seed, device)
-    params = {"vision": tv.init_params(init, tiny_cfg),
-              **sam_mod.init_decoder_params(init, cfg)}
-    return SamSegmenter(
-        params, cfg, lambda p, px: tv.encoder(p["vision"], px, tiny_cfg))
+        params = sam_mod.convert_hf_sam(_load_state_dict(checkpoint_dir), cfg,
+                                        device)
+    else:
+        warnings.warn("SAM weights not provided; using random init")
+        init = TreeInit(seed, device)
+        params = {"vision": sam_mod.init_vision_params(init, cfg.vision),
+                  **sam_mod.init_decoder_params(init, cfg)}
+    return SamSegmenter(params, cfg)
 
 
 def build_tagger(swin_checkpoint: Optional[str] = None,
                  tag_list: Sequence[str] = DEFAULT_TAG_LIST,
                  cfg: Optional[SwinConfig] = None,
-                 ram_checkpoint: Optional[str] = None, device=None,
+                 ram_checkpoint: Optional[str] = None,
+                 tag_list_path: Optional[str] = None,
+                 threshold_path: Optional[str] = None, device="cuda",
                  seed: int = 0) -> TaggingModule:
-    """Swin-L backbone with a linear tag head, random weights."""
-    if swin_checkpoint or ram_checkpoint:
-        raise NotImplementedError("tagger checkpoint loading (Swin, RAM) is "
-                                  "not ported yet")
+    """The tagger on `device`, as the JAX package's build_tagger.
+    ram_checkpoint: a released RAM state dict (ram_swin_large_14m.pth
+    layout, a file or a directory): the timm Swin-L backbone, the q2l
+    decoder and the per-tag thresholds (models/ram.py), with the tags of
+    tag_list_path (ram_tag_list.txt) and, when given, the thresholds of
+    threshold_path; the tag count must be the checkpoint's. The Swin
+    window is read from the checkpoint's relative-position tables (the
+    release's Swin-L at 384 px uses 12, SwinConfig.swin_l() 7). Else a
+    Swin backbone from an HF SwinModel directory (swin_checkpoint) or
+    random, with a random linear tag head over tag_list, drawn on
+    `device` from `seed`."""
     cfg = cfg or SwinConfig.swin_l()
+    if ram_checkpoint:
+        from video_llava_tpu_torch.models import ram as ram_mod
+
+        sd = {k.removeprefix("module."): v
+              for k, v in _load_state_dict(ram_checkpoint).items()}
+        window = swin_mod.timm_window_size(sd, "visual_encoder.")
+        if window is not None and window != cfg.window_size:
+            cfg = dataclasses.replace(cfg, window_size=window)
+        ram_cfg = ram_mod.infer_ram_config(sd)
+        backbone, ram_params, thresholds = ram_mod.convert_ram_checkpoint(
+            sd, cfg, ram_cfg, device)
+        tags = (ram_mod.load_tag_list(tag_list_path) if tag_list_path
+                else list(tag_list))
+        if len(tags) != ram_cfg.num_tags:
+            raise ValueError(
+                f"tag list has {len(tags)} entries but the checkpoint "
+                f"predicts {ram_cfg.num_tags} tags: pass the release's "
+                "ram_tag_list.txt as tag_list_path")
+        if threshold_path:
+            thresholds = ram_mod.load_tag_thresholds(threshold_path,
+                                                     len(tags))
+        return TaggingModule.with_ram_decoder(backbone, ram_params, cfg,
+                                              ram_cfg, tags,
+                                              threshold=thresholds)
     init = TreeInit(seed, device)
-    backbone = swin_mod.init_params(init, cfg)
+    if swin_checkpoint:
+        backbone = swin_mod.convert_hf_swin(_load_state_dict(swin_checkpoint),
+                                            cfg, device)
+    else:
+        backbone = swin_mod.init_params(init, cfg)
     head = init_tag_head(init, cfg.num_features, len(tag_list))
     return TaggingModule(backbone, head, cfg, tag_list)
 
@@ -356,22 +429,24 @@ def build_grounding_stack(
     sam_variant: str = "mobile",
     device="cuda",
     seed: int = 0,
+    tokenizer_name: str = "bert-base-uncased",
 ):
     """The PGVideoLLaVA grounding stack (reference chat.py:243-252):
-    GroundingDINO Swin-T at 800 px, MobileSAM, the CLIP crop filter when
-    clip_checkpoint names an HF CLIP directory, the XMem propagator when
-    xmem_checkpoint names its .pth (else the handcrafted STM, with a
-    warning when the file is missing), a Swin-L tagger, entity matching;
-    all on `device` (the card unless the caller asks for the CPU), the
-    detector, SAM and tagger with random weights
-    from `seed`."""
+    GroundingDINO Swin-T at 800 px (dino_checkpoint: an original-repo
+    .pth, read with the BERT vocabulary directory tokenizer_name, or an
+    HF directory), SAM (sam_variant 'mobile': MobileSAM, sam_checkpoint
+    its mobile_sam.pt; 'vit_b': SAM ViT-B, an HF SamModel directory), the
+    CLIP crop filter when clip_checkpoint names an HF CLIP directory, the
+    XMem propagator when xmem_checkpoint names its .pth (else the
+    handcrafted STM, with a warning when the file is missing), a Swin-L
+    tagger (swin_checkpoint: an HF Swin directory), entity matching; all
+    on `device` (the card unless the caller asks for the CPU), a model
+    without its checkpoint with random weights from `seed`."""
     from video_llava_tpu_torch.models import grounding_dino as gdino_mod
 
-    if sam_variant != "mobile":
-        raise NotImplementedError(f"SAM variant {sam_variant!r}: only "
-                                  "'mobile' is ported")
-    detector = gdino_mod.build_detector(dino_checkpoint, device=device,
-                                        seed=seed)
+    detector = gdino_mod.build_detector(dino_checkpoint,
+                                        tokenizer_name=tokenizer_name,
+                                        device=device, seed=seed)
     segmenter = build_sam(sam_checkpoint, variant=sam_variant, device=device,
                           seed=seed + 1)
     crop_filter = build_clip_filter(clip_checkpoint, device=device)

@@ -1,9 +1,11 @@
-"""Frame tagging on the Swin backbone with a linear tag head.
+"""Frame tagging on the Swin backbone: a linear tag head, or RAM's
+label-query decoder (models/ram.py).
 
 Counterpart of video_llava_tpu/grounding/tagging.py (reference
-TaggingModule, grounding_evaluation/util/image_tagging.py:8-50) without
-the RAM decoder: every frame is tagged at a threshold (0.95) in batched
-forwards, and get_unique_tags returns the frequency-sorted tags.
+TaggingModule, grounding_evaluation/util/image_tagging.py:8-50): every
+frame is tagged at a threshold (0.95, or the RAM release's per-tag
+thresholds) in batched forwards, and get_unique_tags returns the
+frequency-sorted tags.
 """
 
 from __future__ import annotations
@@ -46,25 +48,44 @@ class TaggingModule:
     """Batched frame tagger with a tag vocabulary."""
 
     def __init__(self, backbone_params, head_params, cfg: SwinConfig,
-                 tag_list: Sequence[str], threshold=0.95):
+                 tag_list: Sequence[str], threshold=0.95, logits_fn=None):
+        """threshold: a scalar, or (num_tags,) per-tag thresholds (the RAM
+        release's class_threshold). logits_fn(backbone, head, pixels) ->
+        (b, num_tags); the linear head's tag_logits by default."""
         self.backbone_params = backbone_params
         self.head_params = head_params
         self.cfg = cfg
         self.tag_list = list(tag_list)
         self.threshold = threshold
+        self._logits = logits_fn or (
+            lambda bp, hp, px: tag_logits(bp, hp, px, cfg))
         self.device = backbone_params["patch_embed"]["kernel"].device
+
+    @classmethod
+    def with_ram_decoder(cls, backbone_params, ram_params, swin_cfg: SwinConfig,
+                         ram_cfg, tag_list: Sequence[str], threshold=0.95):
+        """A tagger with RAM's label-query decoder (models/ram.py) in place
+        of the linear head."""
+        from video_llava_tpu_torch.models import ram as ram_mod
+
+        return cls(backbone_params, ram_params, swin_cfg, tag_list, threshold,
+                   logits_fn=lambda bp, hp, px: ram_mod.tag_logits(
+                       bp, hp, px, swin_cfg, ram_cfg))
 
     @torch.inference_mode()
     def run_on_frames(self, frames) -> List[List[str]]:
         """frames (t, H, W, 3) float, normalized -> per-frame tags."""
         x = torch.as_tensor(np.asarray(frames), device=self.device)
-        probs = torch.sigmoid(tag_logits(self.backbone_params,
-                                         self.head_params, x, self.cfg))
+        probs = torch.sigmoid(self._logits(self.backbone_params,
+                                           self.head_params, x))
         return self._threshold_rows(probs.cpu().numpy())
 
     def _threshold_rows(self, probs: np.ndarray) -> List[List[str]]:
-        return [[self.tag_list[i] for i in np.nonzero(row > self.threshold)[0]]
-                for row in probs]
+        """Each row's tags over their thresholds (a scalar, or one a
+        tag)."""
+        over = probs > np.asarray(self.threshold)
+        return [[self.tag_list[i] for i in np.nonzero(row)[0]]
+                for row in over]
 
     @torch.inference_mode()
     def run_on_frames_raw(self, frames, image_size: int = 384,
@@ -89,8 +110,8 @@ class TaggingModule:
                     (batch_size - n,) + chunk.shape[1:])])
             x = resize_bicubic(chunk.float() / 255.0, image_size, image_size)
             x = ((x.clamp(0.0, 1.0) - mean) / std).to(dtype)
-            probs = torch.sigmoid(tag_logits(self.backbone_params,
-                                             self.head_params, x, self.cfg))
+            probs = torch.sigmoid(self._logits(self.backbone_params,
+                                               self.head_params, x))
             rows.append(probs[:n].cpu().numpy())
         return self._threshold_rows(np.concatenate(rows, axis=0))
 

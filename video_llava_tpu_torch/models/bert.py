@@ -2,7 +2,8 @@
 
 Counterpart of video_llava_tpu/models/bert.py (post-LN transformer, HF
 BertModel layout). Parameters are the JAX package's nested dict of
-tensors (engine/convert.py carries one across).
+tensors (engine/convert.py carries one across); convert_hf_bert reads
+an HF BertModel state dict into it.
 """
 
 from __future__ import annotations
@@ -14,7 +15,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from video_llava_tpu_torch.models.layers import TreeInit, dense, norm
+from video_llava_tpu_torch.models.layers import (
+    StateDictView,
+    TreeInit,
+    dense,
+    norm,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,3 +99,32 @@ def forward(params, input_ids: torch.Tensor,
         h = F.gelu(dense(lp["fc1"], x))
         x = norm(lp["out_ln"], x + dense(lp["fc2"], h), cfg.layer_norm_eps)
     return x
+
+
+def convert_hf_bert(sd, cfg: BertConfig, device=None,
+                    dtype: torch.dtype = torch.float32,
+                    prefix: str = ""):
+    """An HF BertModel state dict (tensors or numpy arrays; keys under
+    `prefix`) -> the parameter tree on `device` in `dtype` (JAX
+    convert_hf_bert's tree)."""
+    g = StateDictView(sd, device, dtype, prefix)
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"encoder.layer.{i}."
+        layers.append({
+            "q": g.linear(p + "attention.self.query."),
+            "k": g.linear(p + "attention.self.key."),
+            "v": g.linear(p + "attention.self.value."),
+            "attn_out": g.linear(p + "attention.output.dense."),
+            "attn_ln": g.norm(p + "attention.output.LayerNorm."),
+            "fc1": g.linear(p + "intermediate.dense."),
+            "fc2": g.linear(p + "output.dense."),
+            "out_ln": g.norm(p + "output.LayerNorm."),
+        })
+    return {
+        "word_embeddings": {"weight": g("embeddings.word_embeddings.weight")},
+        "position_embeddings": g("embeddings.position_embeddings.weight"),
+        "token_type_embeddings": g("embeddings.token_type_embeddings.weight"),
+        "embed_ln": g.norm("embeddings.LayerNorm."),
+        "layers": layers,
+    }

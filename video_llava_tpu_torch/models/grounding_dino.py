@@ -9,12 +9,16 @@ six decoder layers (self-attention, text cross-attention, deformable
 cross-attention) with iterative box refinement, and the contrastive class
 head. Every deformable attention goes through ops/deformable.py (kernel
 12 on CUDA tensors: 6 encoder + 6 decoder launches a forward).
+convert_hf_grounding_dino and convert_original_grounding_dino read the
+HF and the original-repo (groundingdino_swint_ogc.pth) state dicts.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -24,7 +28,12 @@ import torch.nn.functional as F
 from video_llava_tpu_torch.models import bert as bert_mod
 from video_llava_tpu_torch.models import swin as swin_mod
 from video_llava_tpu_torch.models.bert import BertConfig
-from video_llava_tpu_torch.models.layers import TreeInit, dense, norm
+from video_llava_tpu_torch.models.layers import (
+    StateDictView,
+    TreeInit,
+    dense,
+    norm,
+)
 from video_llava_tpu_torch.models.swin import SwinConfig
 from video_llava_tpu_torch.ops.deformable import (
     multi_scale_deformable_attention,
@@ -613,6 +622,208 @@ class GroundingDinoDetector:
         return spans[:num_prompts] if spans else [(0, len(ids))]
 
 
+# -- checkpoint conversion ----------------------------------------------------
+
+
+def _deform(g: StateDictView, prefix: str) -> dict:
+    return {name: g.linear(f"{prefix}{name}.")
+            for name in ("sampling_offsets", "attention_weights",
+                         "value_proj", "output_proj")}
+
+
+def _head_sd(g: StateDictView, prefix: str, n: int = 3) -> dict:
+    return {f"layer{i}": g.linear(f"{prefix}layers.{i}.") for i in range(n)}
+
+
+def _input_proj(g: StateDictView, prefix: str, cfg: GroundingDinoConfig):
+    """input_proj.{i}: a conv (1x1 -> (in, out), 3x3 -> HWIO) and its
+    GroupNorm, per feature level."""
+    out = []
+    for i in range(cfg.num_feature_levels):
+        cp = f"{prefix}{i}."
+        w = g(cp + "0.weight")
+        kernel = (w[:, :, 0, 0].t() if w.shape[-1] == 1
+                  else w.permute(2, 3, 1, 0)).contiguous()
+        out.append({"conv": {"kernel": kernel, "bias": g(cp + "0.bias")},
+                    "gn": g.norm(cp + "1.")})
+    return out
+
+
+def convert_hf_grounding_dino(sd, cfg: GroundingDinoConfig, device=None,
+                              dtype: torch.dtype = torch.float32):
+    """An HF GroundingDinoForObjectDetection state dict (tensors or numpy
+    arrays) -> the parameter tree on `device` (JAX
+    convert_hf_grounding_dino's)."""
+    g = StateDictView(sd, device, dtype)
+
+    def mha(prefix):
+        names = (("q", "query."), ("k", "key."), ("v", "value."),
+                 ("o", "out_proj.")) if prefix + "query.weight" in g else (
+            ("q", "q_proj."), ("k", "k_proj."), ("v", "v_proj."),
+            ("o", "out_proj."))
+        return {ours: g.linear(prefix + theirs) for ours, theirs in names}
+
+    m = "model."
+    enc_layers = []
+    for i in range(cfg.encoder_layers):
+        p = f"{m}encoder.layers.{i}."
+        f = p + "fusion_layer."
+        te = p + "text_enhancer_layer."
+        dl = p + "deformable_layer."
+        enc_layers.append({
+            "fusion": {
+                "ln_vision": g.norm(f + "layer_norm_vision."),
+                "ln_text": g.norm(f + "layer_norm_text."),
+                "vision_param": g(f + "vision_param"),
+                "text_param": g(f + "text_param"),
+                **{name: g.linear(f"{f}attn.{name}.")
+                   for name in ("vision_proj", "text_proj",
+                                "values_vision_proj", "values_text_proj",
+                                "out_vision_proj", "out_text_proj")},
+            },
+            "text_enhancer": {"attn": mha(te + "self_attn."),
+                              "fc1": g.linear(te + "fc1."),
+                              "fc2": g.linear(te + "fc2."),
+                              "ln1": g.norm(te + "layer_norm_before."),
+                              "ln2": g.norm(te + "layer_norm_after.")},
+            "deformable": {**_deform(g, dl + "self_attn."),
+                           "ln1": g.norm(dl + "self_attn_layer_norm."),
+                           "fc1": g.linear(dl + "fc1."),
+                           "fc2": g.linear(dl + "fc2."),
+                           "ln2": g.norm(dl + "final_layer_norm.")},
+        })
+    dec_layers = []
+    for i in range(cfg.decoder_layers):
+        p = f"{m}decoder.layers.{i}."
+        dec_layers.append({
+            "self_attn": mha(p + "self_attn."),
+            "self_attn_ln": g.norm(p + "self_attn_layer_norm."),
+            "text_cross_attn": mha(p + "encoder_attn_text."),
+            "text_cross_attn_ln": g.norm(p + "encoder_attn_text_layer_norm."),
+            "deform_cross_attn": _deform(g, p + "encoder_attn."),
+            "deform_cross_attn_ln": g.norm(p + "encoder_attn_layer_norm."),
+            "fc1": g.linear(p + "fc1."),
+            "fc2": g.linear(p + "fc2."),
+            "final_ln": g.norm(p + "final_layer_norm."),
+        })
+    swin_prefix = f"{m}backbone.conv_encoder.model."
+    return {
+        "swin": swin_mod.convert_hf_swin(sd, cfg.swin, device, dtype,
+                                         prefix=swin_prefix),
+        "backbone_norms": [
+            g.norm(f"{swin_prefix}hidden_states_norms.stage{si + 1}.")
+            for si in cfg.backbone_stage_indices],
+        "input_proj": _input_proj(g, f"{m}input_proj_vision.", cfg),
+        "text_backbone": bert_mod.convert_hf_bert(
+            sd, cfg.text, device, dtype, prefix=f"{m}text_backbone."),
+        "text_projection": g.linear(m + "text_projection."),
+        "level_embed": g(m + "level_embed"),
+        "encoder_layers": enc_layers,
+        "decoder_layers": dec_layers,
+        "enc_output": g.linear(m + "enc_output."),
+        "enc_output_norm": g.norm(m + "enc_output_norm."),
+        "encoder_bbox_head": _head_sd(g, m + "encoder_output_bbox_embed."),
+        "query_embeds": g(m + "query_position_embeddings.weight"),
+        "ref_point_head": _head_sd(g, m + "decoder.reference_points_head.",
+                                    n=2),
+        "decoder_norm": g.norm(m + "decoder.layer_norm."),
+        "bbox_heads": [_head_sd(g, f"bbox_embed.{i}.")
+                       for i in range(cfg.decoder_layers)],
+    }
+
+
+def convert_original_grounding_dino(sd, cfg: GroundingDinoConfig,
+                                    device=None,
+                                    dtype: torch.dtype = torch.float32):
+    """An original-repo checkpoint (groundingdino_swint_ogc.pth layout)
+    -> the parameter tree (JAX convert_original_grounding_dino's):
+    backbone.0 a timm Swin with per-stage norm{i}, bert.* an HF BertModel,
+    feat_map the text projection, the encoder's fusion_layers /
+    text_layers / layers lists, nn.MultiheadAttention's fused in_proj
+    split into q / k / v thirds, tgt_embed the content queries. A box
+    head left out of the save (weight-shared heads) reuses head 0."""
+    g = StateDictView(sd, device, dtype)
+
+    def mha_fused(prefix):
+        w, b = g(prefix + "in_proj_weight"), g(prefix + "in_proj_bias")
+        d = w.shape[1]
+        return {"q": {"kernel": w[:d].t().contiguous(), "bias": b[:d]},
+                "k": {"kernel": w[d:2 * d].t().contiguous(),
+                      "bias": b[d:2 * d]},
+                "v": {"kernel": w[2 * d:].t().contiguous(), "bias": b[2 * d:]},
+                "o": g.linear(prefix + "out_proj.")}
+
+    enc_layers = []
+    for i in range(cfg.encoder_layers):
+        fus = f"transformer.encoder.fusion_layers.{i}."
+        txt = f"transformer.encoder.text_layers.{i}."
+        dfm = f"transformer.encoder.layers.{i}."
+        enc_layers.append({
+            "fusion": {
+                "ln_vision": g.norm(fus + "layer_norm_v."),
+                "ln_text": g.norm(fus + "layer_norm_l."),
+                "vision_param": g(fus + "gamma_v"),
+                "text_param": g(fus + "gamma_l"),
+                "vision_proj": g.linear(fus + "attn.v_proj."),
+                "text_proj": g.linear(fus + "attn.l_proj."),
+                "values_vision_proj": g.linear(fus + "attn.values_v_proj."),
+                "values_text_proj": g.linear(fus + "attn.values_l_proj."),
+                "out_vision_proj": g.linear(fus + "attn.out_v_proj."),
+                "out_text_proj": g.linear(fus + "attn.out_l_proj."),
+            },
+            "text_enhancer": {"attn": mha_fused(txt + "self_attn."),
+                              "fc1": g.linear(txt + "linear1."),
+                              "fc2": g.linear(txt + "linear2."),
+                              "ln1": g.norm(txt + "norm1."),
+                              "ln2": g.norm(txt + "norm2.")},
+            "deformable": {**_deform(g, dfm + "self_attn."),
+                           "ln1": g.norm(dfm + "norm1."),
+                           "fc1": g.linear(dfm + "linear1."),
+                           "fc2": g.linear(dfm + "linear2."),
+                           "ln2": g.norm(dfm + "norm2.")},
+        })
+    dec_layers = []
+    for i in range(cfg.decoder_layers):
+        p = f"transformer.decoder.layers.{i}."
+        dec_layers.append({
+            "self_attn": mha_fused(p + "self_attn."),
+            "self_attn_ln": g.norm(p + "norm2."),
+            "text_cross_attn": mha_fused(p + "ca_text."),
+            "text_cross_attn_ln": g.norm(p + "catext_norm."),
+            "deform_cross_attn": _deform(g, p + "cross_attn."),
+            "deform_cross_attn_ln": g.norm(p + "norm1."),
+            "fc1": g.linear(p + "linear1."),
+            "fc2": g.linear(p + "linear2."),
+            "final_ln": g.norm(p + "norm3."),
+        })
+    bbox_heads = []
+    for i in range(cfg.decoder_layers):
+        bbox_heads.append(_head_sd(g, f"bbox_embed.{i}.")
+                          if f"bbox_embed.{i}.layers.0.weight" in g
+                          else bbox_heads[0])
+    return {
+        "swin": swin_mod.convert_timm_swin(sd, cfg.swin, device, dtype,
+                                           prefix="backbone.0."),
+        "backbone_norms": [g.norm(f"backbone.0.norm{si}.")
+                           for si in cfg.backbone_stage_indices],
+        "input_proj": _input_proj(g, "input_proj.", cfg),
+        "text_backbone": bert_mod.convert_hf_bert(sd, cfg.text, device,
+                                                  dtype, prefix="bert."),
+        "text_projection": g.linear("feat_map."),
+        "level_embed": g("transformer.level_embed"),
+        "encoder_layers": enc_layers,
+        "decoder_layers": dec_layers,
+        "enc_output": g.linear("transformer.enc_output."),
+        "enc_output_norm": g.norm("transformer.enc_output_norm."),
+        "encoder_bbox_head": _head_sd(g, "transformer.enc_out_bbox_embed."),
+        "query_embeds": g("transformer.tgt_embed.weight"),
+        "ref_point_head": _head_sd(g, "transformer.decoder.ref_point_head.",
+                                    n=2),
+        "decoder_norm": g.norm("transformer.decoder.norm."),
+        "bbox_heads": bbox_heads,
+    }
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -630,16 +841,49 @@ def char_tokenize(s: str) -> List[int]:
     return [101] + [max(1, min(ord(c), 900)) for c in s][:30] + [102]
 
 
+def _bert_tokenize(path: str):
+    from video_llava_tpu_torch.runtime.tokenizer import BertTokenizer
+
+    if not os.path.isdir(path):
+        raise FileNotFoundError(
+            f"BERT tokenizer {path!r} is not a local directory (vocab.txt or "
+            "tokenizer.json): the port reads no hub name; pass the "
+            "bert-base-uncased files' directory as tokenizer_name")
+    return BertTokenizer(path).encode
+
+
 def build_detector(checkpoint_dir: Optional[str] = None,
                    cfg: Optional[GroundingDinoConfig] = None,
-                   box_threshold: float = 0.35, device=None,
-                   seed: int = 0) -> GroundingDinoDetector:
-    """A detector with random weights drawn on `device` from `seed` (a
-    checkpoint is not supported yet)."""
-    if checkpoint_dir:
-        raise NotImplementedError("GroundingDINO checkpoint loading is not "
-                                  "ported yet")
+                   box_threshold: float = 0.35,
+                   tokenizer_name: str = "bert-base-uncased",
+                   device="cuda", seed: int = 0) -> GroundingDinoDetector:
+    """A detector on `device` (the card unless the caller asks for the
+    CPU), as the JAX package's build_detector: from an original-repo
+    .pth file (groundingdino_swint_ogc.pth) with the BERT tokenizer in
+    the directory `tokenizer_name` (vocab.txt or tokenizer.json; the
+    original repo pairs its checkpoints with bert-base-uncased, whose
+    hub name the port does not resolve), from an HF
+    GroundingDinoForObjectDetection directory with its own tokenizer, or
+    with random weights drawn on `device` from `seed` and the character
+    tokenizer."""
+    from video_llava_tpu_torch.engine.weights import (
+        load_checkpoint_dir,
+        load_torch_checkpoint_file,
+    )
+
     cfg = cfg or GroundingDinoConfig()
-    params = init_params(TreeInit(seed, device), cfg)
-    return GroundingDinoDetector(params, cfg, char_tokenize,
+    if checkpoint_dir and os.path.isfile(checkpoint_dir):
+        sd = load_torch_checkpoint_file(checkpoint_dir)
+        sd = {k.removeprefix("module."): v for k, v in sd.items()}
+        params = convert_original_grounding_dino(sd, cfg, device)
+        tokenize = _bert_tokenize(tokenizer_name)
+    elif checkpoint_dir:
+        params = convert_hf_grounding_dino(load_checkpoint_dir(checkpoint_dir),
+                                           cfg, device)
+        tokenize = _bert_tokenize(checkpoint_dir)
+    else:
+        warnings.warn("GroundingDINO weights not provided; random init")
+        params = init_params(TreeInit(seed, device), cfg)
+        tokenize = char_tokenize
+    return GroundingDinoDetector(params, cfg, tokenize,
                                  box_threshold=box_threshold)

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -184,6 +185,43 @@ class TreeInit:
 
     def layer_norm(self, dim: int):
         return {"scale": self.full((dim,), 1.0), "bias": self.zeros((dim,))}
+
+
+class StateDictView:
+    """A checkpoint's state dict (torch tensors or numpy arrays) read by
+    key under `prefix`, each entry a tensor on `device` in `dtype`: what
+    the grounding models' converters read (the JAX package's
+    convert_* functions take numpy arrays, the port's loaders give
+    tensors)."""
+
+    def __init__(self, sd, device=None, dtype=torch.float32,
+                 prefix: str = ""):
+        self.sd, self.device, self.dtype, self.prefix = (sd, device, dtype,
+                                                         prefix)
+
+    def __contains__(self, key: str) -> bool:
+        return self.prefix + key in self.sd
+
+    def __call__(self, key: str) -> torch.Tensor:
+        v = self.sd[self.prefix + key]
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.array(v))
+        return t.to(device=self.device, dtype=self.dtype)
+
+    def t(self, key: str) -> torch.Tensor:
+        """A 2-D weight (out, in) as a kernel (in, out)."""
+        return self(key).t().contiguous()
+
+    def linear(self, prefix: str) -> dict:
+        """torch Linear `prefix`weight / bias -> {'kernel' (in, out),
+        'bias' when saved}."""
+        p = {"kernel": self.t(prefix + "weight")}
+        if prefix + "bias" in self:
+            p["bias"] = self(prefix + "bias")
+        return p
+
+    def norm(self, prefix: str) -> dict:
+        return {"scale": self(prefix + "weight"), "bias": self(prefix + "bias")}
 
 
 class LayerNorm(nn.Module):

@@ -1,10 +1,14 @@
-"""SAM prompt encoder and mask decoder (shared by SAM and MobileSAM).
+"""SAM: the ViT image encoder, the prompt encoder and the mask decoder
+(the last two shared by SAM and MobileSAM).
 
-Counterpart of video_llava_tpu/models/sam.py:192-390: the random-Fourier
-positional encoding, box prompts, the two-way transformer, the 4x
-upscaling and the hypernetwork mask heads. The ViT-B image encoder behind
---sam_variant vit_b is not ported; MobileSAM's TinyViT encoder is
-models/tiny_vit.py. Parameters are the JAX package's nested dict.
+Counterpart of video_llava_tpu/models/sam.py: the ViT encoder behind
+--sam_variant vit_b (windowed and global attention with SAM's decomposed
+relative positions, the conv neck), the random-Fourier positional
+encoding, box prompts, the two-way transformer, the 4x upscaling and the
+hypernetwork mask heads; MobileSAM's TinyViT encoder is models/tiny_vit.py.
+Parameters are the JAX package's nested dict; convert_hf_sam reads an HF
+SamModel state dict, convert_official_sam_decoder the prompt encoder and
+mask decoder of an official segment-anything / MobileSAM checkpoint.
 """
 
 from __future__ import annotations
@@ -17,7 +21,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_llava_tpu_torch.models.layers import TreeInit, dense, norm
+from video_llava_tpu_torch.models.layers import (
+    StateDictView,
+    TreeInit,
+    dense,
+    norm,
+)
+from video_llava_tpu_torch.models.tiny_vit import conv_nhwc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +65,130 @@ class SamConfig:
                 num_heads=2, mlp_dim=64, window_size=2,
                 global_attn_indexes=(1,), output_channels=16),
             prompt_hidden=16, decoder_heads=2, decoder_mlp_dim=32)
+
+
+def init_vision_params(init: TreeInit, cfg: SamVisionConfig):
+    """Random ViT image-encoder parameters in the converter's layout:
+    normal 0.02 kernels, position embedding and relative-position tables
+    (the JAX package draws them through transformers.SamModel, which the
+    port does not import), zero biases, unit norms. A global layer's
+    tables span the whole grid, a windowed layer's its window."""
+    d, hd = cfg.hidden_size, cfg.hidden_size // cfg.num_heads
+    lin = lambda i, o: init.linear(i, o, std=0.02)  # noqa: E731
+    layers = []
+    for i in range(cfg.num_layers):
+        size = cfg.grid if i in cfg.global_attn_indexes else cfg.window_size
+        layers.append({
+            "ln1": init.layer_norm(d), "qkv": lin(d, 3 * d),
+            "proj": lin(d, d),
+            "rel_pos_h": init.normal((2 * size - 1, hd), 0.02),
+            "rel_pos_w": init.normal((2 * size - 1, hd), 0.02),
+            "ln2": init.layer_norm(d), "fc1": lin(d, cfg.mlp_dim),
+            "fc2": lin(cfg.mlp_dim, d)})
+    oc = cfg.output_channels
+    return {
+        "patch_embed": lin(cfg.patch_size ** 2 * 3, d),
+        "pos_embed": init.normal((1, cfg.grid, cfg.grid, d), 0.02),
+        "layers": layers,
+        "neck": {"conv1": init.normal((d, oc), 0.02),
+                 "ln1": init.layer_norm(oc),
+                 "conv2": init.normal((3, 3, oc, oc), 0.02),
+                 "ln2": init.layer_norm(oc)},
+    }
+
+
+# -- vision encoder -------------------------------------------------------------
+
+
+def _get_rel_pos(q_size: int, k_size: int,
+                 rel_pos: torch.Tensor) -> torch.Tensor:
+    """(2 max(q, k) - 1, d) table -> (q, k, d) relative positions
+    (SAM's get_rel_pos; a table of another length is resampled linearly
+    first, as SAM resamples it)."""
+    max_dist = 2 * max(q_size, k_size) - 1
+    if rel_pos.shape[0] != max_dist:
+        rel_pos = F.interpolate(rel_pos.t()[None].float(), size=max_dist,
+                                mode="linear")[0].t().to(rel_pos.dtype)
+    dev = rel_pos.device
+    q = torch.arange(q_size, device=dev,
+                     dtype=torch.float32)[:, None] * max(k_size / q_size, 1.0)
+    k = torch.arange(k_size, device=dev,
+                     dtype=torch.float32)[None, :] * max(q_size / k_size, 1.0)
+    idx = (q - k + (k_size - 1) * max(q_size / k_size, 1.0)).long()
+    return rel_pos[idx]
+
+
+def _vision_attention(p, x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """x (B, H, W, C) -> the same, attention over all H * W positions with
+    the decomposed relative positions (q . R_h + q . R_w) added to the
+    logits, in f32."""
+    b, hh, ww, c = x.shape
+    hd = c // num_heads
+    qkv = dense(p["qkv"], x.reshape(b, hh * ww, c)).reshape(
+        b, hh * ww, 3, num_heads, hd)
+    q, k, v = qkv[:, :, 0].float(), qkv[:, :, 1].float(), qkv[:, :, 2]
+    scale = hd ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    rh = _get_rel_pos(hh, hh, p["rel_pos_h"]).float()
+    rw = _get_rel_pos(ww, ww, p["rel_pos_w"]).float()
+    qg = q.reshape(b, hh, ww, num_heads, hd)
+    bias_h = torch.einsum("byxhd,ykd->bhyxk", qg, rh) * scale
+    bias_w = torch.einsum("byxhd,xkd->bhyxk", qg, rw) * scale
+    logits = logits.reshape(b, num_heads, hh, ww, hh, ww)
+    logits += bias_h[..., :, None]
+    logits += bias_w[..., None, :]
+    probs = torch.softmax(logits.reshape(b, num_heads, hh * ww, hh * ww),
+                          dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v).to(x.dtype)
+    return dense(p["proj"], out.reshape(b, hh * ww, c)).reshape(b, hh, ww, c)
+
+
+def _window_partition_pad(x: torch.Tensor, w: int):
+    b, hh, ww, c = x.shape
+    ph, pw = -hh % w, -ww % w
+    if ph or pw:
+        x = F.pad(x, (0, 0, 0, pw, 0, ph))
+    hp, wp = hh + ph, ww + pw
+    wins = x.reshape(b, hp // w, w, wp // w, w, c).permute(0, 1, 3, 2, 4, 5)
+    return wins.reshape(-1, w, w, c), (hp, wp)
+
+
+def _window_unpartition(wins: torch.Tensor, w: int, pad_hw, hw):
+    (hp, wp), (hh, ww) = pad_hw, hw
+    b = wins.shape[0] // ((hp // w) * (wp // w))
+    x = wins.reshape(b, hp // w, wp // w, w, w, -1).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, hp, wp, -1)[:, :hh, :ww]
+
+
+def vision_encoder(params, pixels: torch.Tensor,
+                   cfg: SamVisionConfig) -> torch.Tensor:
+    """(b, H, W, 3) normalized pixels -> image embeddings (b, grid, grid,
+    out_c), in the parameters' dtype: patch embedding, ViT blocks
+    (windowed attention, global at cfg.global_attn_indexes), then the
+    neck (1x1 conv, LayerNorm over channels, 3x3 conv, LayerNorm)."""
+    ps = cfg.patch_size
+    b, H, W, _ = pixels.shape
+    pe = params["patch_embed"]
+    x = pixels.reshape(b, H // ps, ps, W // ps, ps, 3).permute(
+        0, 1, 3, 2, 4, 5).reshape(b, H // ps, W // ps, -1)
+    x = dense(pe, x.to(pe["kernel"].dtype))
+    x = x + params["pos_embed"][0].to(x.dtype)
+    eps = cfg.layer_norm_eps
+    for i, lp in enumerate(params["layers"]):
+        h = norm(lp["ln1"], x, eps)
+        if i in cfg.global_attn_indexes:
+            h = _vision_attention(lp, h, cfg.num_heads)
+        else:
+            wins, pad_hw = _window_partition_pad(h, cfg.window_size)
+            h = _window_unpartition(
+                _vision_attention(lp, wins, cfg.num_heads), cfg.window_size,
+                pad_hw, (x.shape[1], x.shape[2]))
+        x = x + h
+        h = norm(lp["ln2"], x, eps)
+        x = x + dense(lp["fc2"], F.gelu(dense(lp["fc1"], h)))
+    neck = params["neck"]
+    x = norm(neck["ln1"], torch.matmul(x, neck["conv1"].to(x.dtype)), eps)
+    return norm(neck["ln2"], conv_nhwc(x, neck["conv2"]), eps)
 
 
 def init_decoder_params(init: TreeInit, cfg: SamConfig):
@@ -239,3 +373,140 @@ def predict_boxes(params, pixels, boxes, cfg: SamConfig, encode,
     (the JAX package's predict_boxes with its encoder passed in)."""
     return predict_from_embeddings(params, encode(params, pixels), boxes,
                                    cfg, multimask)
+
+
+# -- checkpoint conversion ------------------------------------------------------
+
+
+def _attn(g: StateDictView, prefix: str) -> dict:
+    return {ours: g.linear(f"{prefix}{theirs}_proj.")
+            for ours, theirs in (("q", "q"), ("k", "k"), ("v", "v"),
+                                 ("o", "out"))}
+
+
+def _two_way_layers(g: StateDictView, norm_name: str) -> list:
+    """The mask decoder's two-way layers, as many as the checkpoint
+    has; norm_name 'norm{}' (official) or 'layer_norm{}.' (HF)."""
+    layers, i = [], 0
+    while f"mask_decoder.transformer.layers.{i}.self_attn.q_proj.weight" in g:
+        p = f"mask_decoder.transformer.layers.{i}."
+        n = lambda j: g.norm(p + norm_name.format(j))  # noqa: E731
+        layers.append({
+            "self_attn": _attn(g, p + "self_attn."), "ln1": n(1),
+            "cross_attn_t2i": _attn(g, p + "cross_attn_token_to_image."),
+            "ln2": n(2), "fc1": g.linear(p + "mlp.lin1."),
+            "fc2": g.linear(p + "mlp.lin2."), "ln3": n(3), "ln4": n(4),
+            "cross_attn_i2t": _attn(g, p + "cross_attn_image_to_token."),
+        })
+        i += 1
+    return layers
+
+
+def convert_official_sam_decoder(sd, cfg: SamConfig, device=None,
+                                 dtype: torch.dtype = torch.float32) -> dict:
+    """An official segment-anything / MobileSAM checkpoint's
+    prompt_encoder.* and mask_decoder.* keys (mobile_sam.pt,
+    sam_vit_*.pth) -> the non-vision parameters (JAX
+    convert_official_sam_decoder's): pe_layer's Gaussian matrix,
+    point_embeddings.{i}, norm{1..4}, output_upscaling.{0,1,3}, MLPs as
+    layers.{0,1,2}. Pair it with tiny_vit.convert_tiny_vit for
+    MobileSAM."""
+    g = StateDictView(sd, device, dtype)
+
+    def mlp3(prefix):
+        return {f"lin{i}": g.linear(f"{prefix}layers.{i}.") for i in range(3)}
+
+    md = "mask_decoder."
+    return {
+        "shared_pe": g("prompt_encoder.pe_layer."
+                       "positional_encoding_gaussian_matrix"),
+        "point_embed": torch.stack([
+            g(f"prompt_encoder.point_embeddings.{i}.weight")[0]
+            for i in range(4)]),
+        "no_mask_embed": g("prompt_encoder.no_mask_embed.weight"),
+        "mask_decoder": {
+            "iou_token": g(md + "iou_token.weight"),
+            "mask_tokens": g(md + "mask_tokens.weight"),
+            "layers": _two_way_layers(g, "norm{}."),
+            "final_attn": _attn(g, md + "transformer."
+                                "final_attn_token_to_image."),
+            "ln_final": g.norm(md + "transformer.norm_final_attn."),
+            # ConvTranspose2d weights (in, out, kH, kW): _conv_t's layout
+            "up1": {"kernel": g(md + "output_upscaling.0.weight"),
+                    "bias": g(md + "output_upscaling.0.bias")},
+            "up_ln": g.norm(md + "output_upscaling.1."),
+            "up2": {"kernel": g(md + "output_upscaling.3.weight"),
+                    "bias": g(md + "output_upscaling.3.bias")},
+            "hyper_mlps": [mlp3(f"{md}output_hypernetworks_mlps.{i}.")
+                           for i in range(cfg.num_mask_tokens)],
+            "iou_head": mlp3(md + "iou_prediction_head."),
+        },
+    }
+
+
+def convert_hf_sam(sd, cfg: SamConfig, device=None,
+                   dtype: torch.dtype = torch.float32) -> dict:
+    """An HF SamModel state dict (facebook/sam-vit-*) -> the whole
+    parameter tree, the ViT encoder under 'vision' (JAX
+    convert_hf_sam's)."""
+    g = StateDictView(sd, device, dtype)
+    v = cfg.vision
+    ve = "vision_encoder."
+    layers = []
+    for i in range(v.num_layers):
+        p = f"{ve}layers.{i}."
+        layers.append({
+            "ln1": g.norm(p + "layer_norm1."),
+            "qkv": g.linear(p + "attn.qkv."),
+            "proj": g.linear(p + "attn.proj."),
+            "rel_pos_h": g(p + "attn.rel_pos_h"),
+            "rel_pos_w": g(p + "attn.rel_pos_w"),
+            "ln2": g.norm(p + "layer_norm2."),
+            "fc1": g.linear(p + "mlp.lin1."),
+            "fc2": g.linear(p + "mlp.lin2."),
+        })
+
+    def mlp3(prefix):
+        return {"lin0": g.linear(prefix + "proj_in."),
+                "lin1": g.linear(prefix + "layers.0."),
+                "lin2": g.linear(prefix + "proj_out.")}
+
+    md = "mask_decoder."
+    return {
+        "vision": {
+            "patch_embed": {
+                "kernel": g(ve + "patch_embed.projection.weight").permute(
+                    2, 3, 1, 0).reshape(-1, v.hidden_size).contiguous(),
+                "bias": g(ve + "patch_embed.projection.bias")},
+            "pos_embed": g(ve + "pos_embed"),
+            "layers": layers,
+            "neck": {
+                "conv1": g(ve + "neck.conv1.weight")[:, :, 0, 0].t()
+                .contiguous(),
+                "ln1": g.norm(ve + "neck.layer_norm1."),
+                "conv2": g(ve + "neck.conv2.weight").permute(2, 3, 1, 0)
+                .contiguous(),
+                "ln2": g.norm(ve + "neck.layer_norm2."),
+            },
+        },
+        "shared_pe": g("prompt_encoder.shared_embedding.positional_embedding"),
+        "point_embed": torch.stack([
+            g(f"prompt_encoder.point_embed.{i}.weight")[0] for i in range(4)]),
+        "no_mask_embed": g("prompt_encoder.no_mask_embed.weight"),
+        "mask_decoder": {
+            "iou_token": g(md + "iou_token.weight"),
+            "mask_tokens": g(md + "mask_tokens.weight"),
+            "layers": _two_way_layers(g, "layer_norm{}."),
+            "final_attn": _attn(g, md + "transformer."
+                                "final_attn_token_to_image."),
+            "ln_final": g.norm(md + "transformer.layer_norm_final_attn."),
+            "up1": {"kernel": g(md + "upscale_conv1.weight"),
+                    "bias": g(md + "upscale_conv1.bias")},
+            "up2": {"kernel": g(md + "upscale_conv2.weight"),
+                    "bias": g(md + "upscale_conv2.bias")},
+            "up_ln": g.norm(md + "upscale_layer_norm."),
+            "hyper_mlps": [mlp3(f"{md}output_hypernetworks_mlps.{i}.")
+                           for i in range(cfg.num_mask_tokens)],
+            "iou_head": mlp3(md + "iou_prediction_head."),
+        },
+    }

@@ -5,7 +5,9 @@ Counterpart of video_llava_tpu/models/swin.py: shifted-window attention
 with the relative-position bias, HF's window shrink and right/bottom
 padding for maps the window does not divide (at 800 px the stage maps are
 200, 100, 50 and 25 wide against a window of 7), and the patch merge that
-zero-pads odd maps. Parameters are the JAX package's nested dict.
+zero-pads odd maps. Parameters are the JAX package's nested dict;
+convert_hf_swin and convert_timm_swin read the HF SwinModel and the timm
+(GroundingDINO's backbone.0, RAM's visual_encoder) state dicts into it.
 """
 
 from __future__ import annotations
@@ -18,7 +20,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_llava_tpu_torch.models.layers import TreeInit, dense, norm
+from video_llava_tpu_torch.models.layers import (
+    StateDictView,
+    TreeInit,
+    dense,
+    norm,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,3 +241,114 @@ def forward_pooled(params, pixels: torch.Tensor,
     x = norm(params["final_norm"], feats.reshape(b, hh * ww, c),
              cfg.layer_norm_eps)
     return x.mean(dim=1)
+
+
+# -- checkpoint conversion ------------------------------------------------------
+
+
+def _patch_kernel(g: StateDictView, key: str, embed_dim: int) -> torch.Tensor:
+    """The patch conv's (C, 3, P, P) weight -> the (P * P * 3, C) kernel
+    of forward_features' patch rows."""
+    return g(key).permute(2, 3, 1, 0).reshape(-1, embed_dim).contiguous()
+
+
+def _final_norm(g: StateDictView, key: str, cfg: SwinConfig) -> dict:
+    """The final LayerNorm, or the identity where the checkpoint has none
+    (GroundingDINO's backbones)."""
+    if key + "weight" in g:
+        return g.norm(key)
+    return {"scale": torch.ones(cfg.num_features, device=g.device,
+                                dtype=g.dtype),
+            "bias": torch.zeros(cfg.num_features, device=g.device,
+                                dtype=g.dtype)}
+
+
+def convert_hf_swin(sd, cfg: SwinConfig, device=None,
+                    dtype: torch.dtype = torch.float32, prefix: str = ""):
+    """An HF SwinModel (or SwinBackbone) state dict -> the parameter tree
+    (JAX convert_hf_swin's): query / key / value fused into one qkv
+    kernel."""
+    g = StateDictView(sd, device, dtype, prefix)
+    params = {
+        "patch_embed": {
+            "kernel": _patch_kernel(
+                g, "embeddings.patch_embeddings.projection.weight",
+                cfg.embed_dim),
+            "bias": g("embeddings.patch_embeddings.projection.bias")},
+        "patch_norm": g.norm("embeddings.norm."),
+        "stages": [],
+        "final_norm": _final_norm(g, "layernorm.", cfg),
+    }
+    for s in range(cfg.num_stages):
+        blocks = []
+        for i in range(cfg.depths[s]):
+            p = f"encoder.layers.{s}.blocks.{i}."
+            a = p + "attention.self."
+            blocks.append({
+                "ln1": g.norm(p + "layernorm_before."),
+                "qkv": {"kernel": torch.cat([g.t(a + f"{n}.weight")
+                                             for n in ("query", "key",
+                                                       "value")], dim=1),
+                        "bias": torch.cat([g(a + f"{n}.bias")
+                                           for n in ("query", "key",
+                                                     "value")])},
+                "proj": g.linear(p + "attention.output.dense."),
+                "rel_bias": g(a + "relative_position_bias_table"),
+                "ln2": g.norm(p + "layernorm_after."),
+                "fc1": g.linear(p + "intermediate.dense."),
+                "fc2": g.linear(p + "output.dense."),
+            })
+        stage = {"blocks": blocks}
+        dkey = f"encoder.layers.{s}.downsample."
+        if dkey + "reduction.weight" in g:
+            stage["downsample"] = {"norm": g.norm(dkey + "norm."),
+                                   "reduction": g.linear(dkey + "reduction.")}
+        params["stages"].append(stage)
+    return params
+
+
+def convert_timm_swin(sd, cfg: SwinConfig, device=None,
+                      dtype: torch.dtype = torch.float32, prefix: str = ""):
+    """A timm-layout Swin state dict (GroundingDINO's backbone.0, RAM's
+    visual_encoder: patch_embed.proj, layers.{s}.blocks.{i}.attn.qkv,
+    downsample.reduction, ...; qkv already fused) -> the parameter tree
+    (JAX convert_timm_swin's)."""
+    g = StateDictView(sd, device, dtype, prefix)
+    params = {
+        "patch_embed": {"kernel": _patch_kernel(g, "patch_embed.proj.weight",
+                                                cfg.embed_dim),
+                        "bias": g("patch_embed.proj.bias")},
+        "patch_norm": g.norm("patch_embed.norm."),
+        "stages": [],
+        "final_norm": _final_norm(g, "norm.", cfg),
+    }
+    for s in range(cfg.num_stages):
+        blocks = []
+        for i in range(cfg.depths[s]):
+            p = f"layers.{s}.blocks.{i}."
+            blocks.append({
+                "ln1": g.norm(p + "norm1."),
+                "qkv": g.linear(p + "attn.qkv."),
+                "proj": g.linear(p + "attn.proj."),
+                "rel_bias": g(p + "attn.relative_position_bias_table"),
+                "ln2": g.norm(p + "norm2."),
+                "fc1": g.linear(p + "mlp.fc1."),
+                "fc2": g.linear(p + "mlp.fc2."),
+            })
+        stage = {"blocks": blocks}
+        dkey = f"layers.{s}.downsample."
+        if dkey + "reduction.weight" in g:
+            stage["downsample"] = {"norm": g.norm(dkey + "norm."),
+                                   "reduction": g.linear(dkey + "reduction.")}
+        params["stages"].append(stage)
+    return params
+
+
+def timm_window_size(sd, prefix: str = "") -> Optional[int]:
+    """The window a timm Swin checkpoint was trained with, from its first
+    relative-position table ((2w - 1)^2 rows), or None without one."""
+    key = prefix + "layers.0.blocks.0.attn.relative_position_bias_table"
+    if key not in sd:
+        return None
+    side = int(round(np.sqrt(np.shape(sd[key])[0])))
+    return (side + 1) // 2

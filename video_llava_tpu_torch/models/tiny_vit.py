@@ -5,6 +5,8 @@ stage, three window-attention stages with dense (heads, N, N) attention
 biases, the final patch merge at stride 1 (a 1024 px input gives SAM's
 64 x 64 grid) and the SAM neck. Convolutions are BatchNorm-folded, with
 kernels in the JAX package's HWIO layout; activations are NHWC.
+convert_tiny_vit reads the official mobile_sam.pt image_encoder.* keys,
+folding each BatchNorm into its convolution.
 """
 
 from __future__ import annotations
@@ -16,7 +18,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_llava_tpu_torch.models.layers import TreeInit, dense, norm
+from video_llava_tpu_torch.models.layers import (
+    StateDictView,
+    TreeInit,
+    dense,
+    norm,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,4 +202,87 @@ def init_params(init: TreeInit, cfg: TinyViTConfig):
             "mlp": {"norm": init.layer_norm(d), "fc1": init.linear(d, mlp),
                     "fc2": init.linear(mlp, d)},
         } for _ in range(cfg.depths[i])])
+    return params
+
+
+# -- checkpoint conversion ------------------------------------------------------
+
+
+def _fold_bn(sd, prefix: str, eps: float = 1e-5):
+    """Conv2d_BN `prefix`c / `prefix`bn -> the folded (OIHW weight,
+    bias), in numpy f32 on the host as the JAX package folds (the same
+    bits)."""
+    def a(key):
+        v = sd[prefix + key]
+        return (v.detach().cpu().float().numpy()
+                if isinstance(v, torch.Tensor) else np.asarray(v, np.float32))
+
+    scale = a("bn.weight") / np.sqrt(a("bn.running_var") + eps)
+    return (a("c.weight") * scale[:, None, None, None],
+            a("bn.bias") - a("bn.running_mean") * scale)
+
+
+def _folded_conv(sd, prefix: str, device=None,
+                 dtype: torch.dtype = torch.float32) -> dict:
+    """-> {'kernel', 'bias'} on `device`: (ci, co) for a 1x1, HWIO
+    otherwise ((kh, kw, 1, co) for a depthwise conv)."""
+    w, b = _fold_bn(sd, prefix)
+    w = w[:, :, 0, 0].T if w.shape[2] == w.shape[3] == 1 else w.transpose(
+        2, 3, 1, 0)
+    return {"kernel": torch.from_numpy(np.ascontiguousarray(w)).to(
+                device=device, dtype=dtype),
+            "bias": torch.from_numpy(b).to(device=device, dtype=dtype)}
+
+
+def convert_tiny_vit(sd, cfg: TinyViTConfig, prefix: str = "image_encoder.",
+                     device=None, dtype: torch.dtype = torch.float32):
+    """The official MobileSAM checkpoint's image encoder (mobile_sam.pt
+    image_encoder.* keys: patch_embed.seq.{0,2}, layers.0's MBConv
+    blocks, layers.{1,2,3}'s TinyViT blocks, the patch merges, the neck
+    neck.{0..3}) -> the parameter tree on `device` (JAX
+    convert_tiny_vit's): BatchNorms folded in f32 on the host, each block's
+    attention biases gathered to a dense (heads, N, N) table by its
+    attention_bias_idxs (or the official construction's index where the
+    buffer was not saved)."""
+    g = StateDictView(sd, device, dtype, prefix)
+
+    def conv(p):
+        return _folded_conv(sd, prefix + p, device, dtype)
+
+    dims = cfg.embed_dims
+    params = {
+        "patch_embed": {"conv1": conv("patch_embed.seq.0."),
+                        "conv2": conv("patch_embed.seq.2.")},
+        "stage0": [{f"conv{k}": conv(f"layers.0.blocks.{j}.conv{k}.")
+                    for k in (1, 2, 3)} for j in range(cfg.depths[0])],
+        "merges": [{f"conv{k}": conv(f"layers.{i}.downsample.conv{k}.")
+                    for k in (1, 2, 3)} for i in range(len(dims) - 1)],
+        "stages": [],
+        "neck": {"conv1": g("neck.0.weight")[:, :, 0, 0].t().contiguous(),
+                 "ln1": g.norm("neck.1."),
+                 "conv2": g("neck.2.weight").permute(2, 3, 1, 0).contiguous(),
+                 "ln2": g.norm("neck.3.")},
+    }
+    for i in range(1, len(dims)):
+        blocks = []
+        for j in range(cfg.depths[i]):
+            p = f"layers.{i}.blocks.{j}."
+            if p + "attn.attention_bias_idxs" in g:
+                idx = StateDictView(sd, device, torch.int64, prefix)(
+                    p + "attn.attention_bias_idxs")
+            else:
+                idx = torch.as_tensor(
+                    attention_bias_index(cfg.window_sizes[i])[0],
+                    device=device)
+            blocks.append({
+                "attn": {"norm": g.norm(p + "attn.norm."),
+                         "qkv": g.linear(p + "attn.qkv."),
+                         "proj": g.linear(p + "attn.proj."),
+                         "bias": g(p + "attn.attention_biases")[:, idx]},
+                "local_conv": conv(p + "local_conv."),
+                "mlp": {"norm": g.norm(p + "mlp.norm."),
+                        "fc1": g.linear(p + "mlp.fc1."),
+                        "fc2": g.linear(p + "mlp.fc2.")},
+            })
+        params["stages"].append(blocks)
     return params

@@ -12,7 +12,7 @@ Counterpart of video_llava_tpu/runtime/chat.py:
     scene split -> tracker per scene -> annotated output video.
 
 Run: python -m video_llava_tpu_torch.runtime.chat --model_size 7b
-[--quant int4] [--with_grounding [--sam_variant mobile]] [--use_asr]
+[--quant int4] [--with_grounding [--sam_variant {mobile,vit_b}]] [--use_asr]
 """
 
 from __future__ import annotations
@@ -301,8 +301,8 @@ def main(argv=None):
                    "random weights)")
     p.add_argument("--sam_variant", default="mobile",
                    choices=("mobile", "vit_b"),
-                   help="segmenter encoder: MobileSAM's TinyViT (vit_b is "
-                   "not ported yet)")
+                   help="segmenter encoder: MobileSAM's TinyViT or SAM's "
+                   "ViT-B (random weights)")
     p.add_argument("--conv_mode", default="pg-video-llava")
     p.add_argument("--temperature", type=float, default=0.2)
     p.add_argument("--max_output_tokens", type=int, default=1024)

@@ -16,6 +16,11 @@ pair merges first), plus ``added_tokens.json``,
 grounding crop filter's class prompts), read from ``vocab.json`` +
 ``merges.txt`` or ``tokenizer.json``, as transformers' CLIP tokenizers
 give its ids.
+
+:class:`BertTokenizer` is GroundingDINO's BERT WordPiece tokenizer (uncased
+or cased), read from ``vocab.txt`` (+ ``tokenizer_config.json``) or a
+``tokenizer.json`` with a WordPiece model, as transformers'
+BertTokenizerFast gives its ids.
 """
 
 from __future__ import annotations
@@ -798,6 +803,182 @@ class CLIPTokenizer:
             ids = [self.bos_token_id] + ids + [self.eos_token_id]
         return ids
 
+
+
+# -- BERT WordPiece -----------------------------------------------------------
+
+BERT_SPECIALS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+
+
+def bert_clean_text(text: str, chinese_chars: bool = True) -> str:
+    """BertNormalizer's clean-up: NUL, U+FFFD and other control
+    characters (category C*, not tab, newline or return) dropped,
+    whitespace to spaces, and (chinese_chars) every CJK character spaced
+    apart."""
+    out = []
+    for ch in text:
+        cp = ord(ch)
+        if cp == 0 or cp == 0xFFFD or (unicodedata.category(ch)[0] == "C"
+                                        and ch not in "\t\n\r"):
+            continue
+        if ch.isspace():
+            out.append(" ")
+        elif chinese_chars and _is_cjk(cp):
+            out.append(f" {ch} ")
+        else:
+            out.append(ch)
+    return "".join(out)
+
+
+def _is_bert_punct(ch: str) -> bool:
+    cp = ord(ch)
+    return (33 <= cp <= 47 or 58 <= cp <= 64 or 91 <= cp <= 96
+            or 123 <= cp <= 126 or unicodedata.category(ch)[0] == "P")
+
+
+def bert_pre_tokenize(text: str) -> List[str]:
+    """BertPreTokenizer: split on whitespace (dropped) and around every
+    punctuation character (each its own piece)."""
+    pieces, word = [], []
+    for ch in text:
+        if ch.isspace():
+            if word:
+                pieces.append("".join(word))
+                word = []
+        elif _is_bert_punct(ch):
+            if word:
+                pieces.append("".join(word))
+                word = []
+            pieces.append(ch)
+        else:
+            word.append(ch)
+    if word:
+        pieces.append("".join(word))
+    return pieces
+
+
+class BertTokenizer:
+    """BERT's WordPiece tokenizer, as transformers.BertTokenizerFast gives
+    its ids, with no tokenizer library: special tokens in the text kept
+    whole; the rest cleaned (bert_clean_text); when uncased, accents
+    stripped (NFD, marks of category Mn dropped) and lower-cased; split
+    on whitespace and punctuation; each word greedily into the longest
+    vocabulary pieces from its start, "##" before every piece after the
+    first, the whole word [UNK] when a piece is missing or the word is
+    longer than 100 characters; [CLS] ... [SEP] around the ids.
+
+    Reads a directory's ``tokenizer.json`` (a WordPiece model and its
+    BertNormalizer's settings) or ``vocab.txt`` (one token a line, the
+    line number its id) with ``tokenizer_config.json``'s do_lower_case,
+    strip_accents and tokenize_chinese_chars (transformers' defaults:
+    True, None = as do_lower_case, True)."""
+
+    def __init__(self, path: str):
+        fast = os.path.join(path, "tokenizer.json")
+        vocab_file = os.path.join(path, "vocab.txt")
+        config = _read_json(os.path.join(path, "tokenizer_config.json")) or {}
+        lower = config.get("do_lower_case", True)
+        strip = config.get("strip_accents")
+        chinese = config.get("tokenize_chinese_chars", True)
+        self.max_chars = 100
+        self.prefix = "##"
+        self.unk_token = "[UNK]"
+        if os.path.exists(fast):
+            spec = _read_json(fast)
+            model = spec["model"]
+            if model.get("type") != "WordPiece":
+                raise ValueError(f"{fast}: model {model.get('type')!r}, "
+                                 "only WordPiece is supported")
+            self.vocab: Dict[str, int] = dict(model["vocab"])
+            self.unk_token = model.get("unk_token", self.unk_token)
+            self.prefix = model.get("continuing_subword_prefix", self.prefix)
+            self.max_chars = model.get("max_input_chars_per_word",
+                                       self.max_chars)
+            norm = spec.get("normalizer") or {}
+            if norm.get("type") == "BertNormalizer":
+                lower = norm.get("lowercase", lower)
+                strip = norm.get("strip_accents", strip)
+                chinese = norm.get("handle_chinese_chars", chinese)
+            for tok in spec.get("added_tokens", []):
+                self.vocab.setdefault(tok["content"], tok["id"])
+        elif os.path.exists(vocab_file):
+            with open(vocab_file, encoding="utf-8") as f:
+                tokens = [line.rstrip("\n") for line in f]
+            # a token listed twice takes its last line, as transformers'
+            # load_vocab does
+            self.vocab = {tok: i for i, tok in enumerate(tokens)}
+        else:
+            raise FileNotFoundError(f"no tokenizer.json or vocab.txt under "
+                                    f"{path}")
+        self.lowercase = bool(lower)
+        self.strip_accents = self.lowercase if strip is None else bool(strip)
+        self.chinese_chars = bool(chinese)
+        self.specials = [t for t in BERT_SPECIALS if t in self.vocab]
+        self.cls_token_id = self.vocab["[CLS]"]
+        self.sep_token_id = self.vocab["[SEP]"]
+        self.unk_token_id = self.vocab[self.unk_token]
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.vocab)
+
+    def normalize(self, text: str) -> str:
+        text = bert_clean_text(text, self.chinese_chars)
+        if self.strip_accents:
+            text = "".join(c for c in unicodedata.normalize("NFD", text)
+                           if unicodedata.category(c) != "Mn")
+        return text.lower() if self.lowercase else text
+
+    def _wordpiece(self, word: str) -> List[int]:
+        if len(word) > self.max_chars:
+            return [self.unk_token_id]
+        ids, start = [], 0
+        while start < len(word):
+            end = len(word)
+            while end > start:
+                piece = word[start:end]
+                if start:
+                    piece = self.prefix + piece
+                if piece in self.vocab:
+                    ids.append(self.vocab[piece])
+                    break
+                end -= 1
+            if end == start:
+                return [self.unk_token_id]
+            start = end
+        return ids
+
+    def _split_specials(self, text: str) -> List[Tuple[str, bool]]:
+        """text -> [(part, is_special)], the special tokens cut out whole
+        (leftmost, longest first)."""
+        parts, i, last = [], 0, 0
+        while i < len(text):
+            hit = next((t for t in self.specials if text.startswith(t, i)),
+                       None)
+            if hit is None:
+                i += 1
+                continue
+            if i > last:
+                parts.append((text[last:i], False))
+            parts.append((hit, True))
+            i = last = i + len(hit)
+        if last < len(text):
+            parts.append((text[last:], False))
+        return parts
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
+        ids = []
+        for part, special in self._split_specials(text):
+            if special:
+                ids.append(self.vocab[part])
+                continue
+            for word in bert_pre_tokenize(self.normalize(part)):
+                ids.extend(self._wordpiece(word))
+        if add_special_tokens:
+            ids = [self.cls_token_id] + ids + [self.sep_token_id]
+        return ids
+
+    __call__ = encode
 
 
 def load_tokenizer(path: Optional[str] = None) -> Tokenizer:
