@@ -49,7 +49,10 @@ Phases, each of which raises on failure (exit code != 0):
      and at --quant int4 (every leaf equal to quantizing the bf16
      reload on the card, the load's added device peak within a random
      int4 build's plus one bf16 layer), then the int4 chat's first two
-     requests from it;
+     requests from it, then validate_quant_quality --preflight --record
+     --vision over that checkpoint (bf16, int8, int4 on ~2,048 seeded
+     tokens), whose record resolve_quant('auto') and
+     resolve_clip_dtype('auto') must read back;
   6. free it, build the same model with int4 W4A8 LLM weights (fused
      wqkv/gate_up, int8 lm_head and embedding: --quant int4) and answer
      the 100-frame request and a second turn, launch counts again taken
@@ -103,6 +106,14 @@ Phases, each of which raises on failure (exit code != 0):
      launches, peak memory and a profile of the transcribe; then free
      the engine, build Vicuna-7B with 8 KV heads (int4) and answer the
      100-frame request (gqa_chat_phase: kernel 11), profiled, and free it;
+     before it, the windowed batcher (batching_phase): a 7B int4 engine
+     with the W8A8 CLIP tower (clip_dtype="int8", its leaves equal to
+     quantize_a8_ of the seed's bf16 tower; the 100-frame encode timed
+     beside the bf16 tower's, their features' per-token cosine, and
+     torch._int_mm at the tower's product shapes beside cuBLAS bf16)
+     served with --batching: 8 concurrent text requests, a video request
+     and a stream, then a greedy request at max_batch 1 against
+     ChatModel.chat, token for token;
      then BASELINE config 3 (eval_13b_phase): `python -m
      video_llava_tpu_torch.eval.run_inference --dataset activitynet
      --runner batched --batch_size 8 --quant int4 --model_size 13b` over
@@ -114,7 +125,10 @@ Phases, each of which raises on failure (exit code != 0):
      learned build (learned_grounding_phase: GroundingDINO, MobileSAM, the
      ViT-B/32 crop filter in f32, XMem) over 100 seeded 480 x 832 frames,
      the fused path and the chunked host loop agreeing, with stage times,
-     launches, 12 frames against the plain versions and a profile;
+     launches, 12 frames against the plain versions and a profile; then
+     scripts/save_features (save_features_phase): the f32 ViT-L/14
+     extractor over seeded 100- and 37-frame "videos" and one that fails,
+     one pickle each, the rerun resuming, kernel 1's f32 body launched;
   10. train (training_phase): kernels 7 and 8 against their
      plain versions at the training layer's shape and four others, then
      (flash_limit_checks) at b*h = 65,600 through each body of kernel 7
@@ -136,12 +150,14 @@ from __future__ import annotations
 
 import builtins
 import concurrent.futures
+import copy
 import dataclasses
 import functools
 import gc
 import hashlib
 import json
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -183,6 +199,10 @@ from video_llava_tpu_torch.constants import (
 )
 from video_llava_tpu_torch.engine import weights as weights_mod
 from video_llava_tpu_torch.engine.continuous import SlotRequest
+from video_llava_tpu_torch.engine.quant_select import (
+    resolve_clip_dtype,
+    resolve_quant,
+)
 from video_llava_tpu_torch.grounding import fused_clip, results as gresults
 from video_llava_tpu_torch.grounding.builders import (
     build_grounding_stack,
@@ -200,7 +220,12 @@ from video_llava_tpu_torch.models import grounding_dino as gdino
 from video_llava_tpu_torch.models import wav2vec2 as w2v
 from video_llava_tpu_torch.models import whisper as whisper_mod
 from video_llava_tpu_torch.models import xmem as xmem_mod
-from video_llava_tpu_torch.models.layers import TreeInit
+from video_llava_tpu_torch.models.clip import (
+    CLIPVisionTower,
+    padded_length,
+    quantize_a8_,
+)
+from video_llava_tpu_torch.models.layers import Int8A8Kernel, TreeInit
 from video_llava_tpu_torch.ops import (
     attention,
     cuda_lib,
@@ -224,7 +249,13 @@ from video_llava_tpu_torch.runtime.model_init import (
     random_init_,
     random_init_quantized_llm_,
 )
+from video_llava_tpu_torch.ops.image import preprocess_frames
 from video_llava_tpu_torch.runtime.tokenizer import load_tokenizer
+from video_llava_tpu_torch.scripts import (
+    save_features,
+    validate_quant_quality,
+)
+from video_llava_tpu_torch.serving import server as server_mod
 from video_llava_tpu_torch.serving.server import (
     ChatModel,
     ContinuousChatModel,
@@ -1740,6 +1771,11 @@ def serving_phase(engine, clips, dev) -> dict:
     return launches
 
 
+# new tokens a request of the paged-off phase: 31 decode steps hold
+# kernels 9 and 10 to a launch a layer a step, in a run kept near 1,000 s
+PAGED_OFF_TOKENS = 32
+
+
 def paged_off_phase(engine, dev) -> dict:
     """Serving with the paged kernel switched off (enable_paged_kernel(
     False), the JAX package's escape hatch): the continuous engine over
@@ -1763,7 +1799,7 @@ def paged_off_phase(engine, dev) -> dict:
             cuda_lib.reset_launch_counts()
             t = time.perf_counter()
             handles = [cm.engine.submit(SlotRequest(
-                ids, max_new_tokens=MAX_NEW_TOKENS, temperature=0.0,
+                ids, max_new_tokens=PAGED_OFF_TOKENS, temperature=0.0,
                 eos_token_id=engine.tokenizer.eos_token_id))
                 for ids in prompts]
             for h in handles:
@@ -2127,7 +2163,7 @@ def checkpoint_phase(engine, clips, requests, dev, card) -> dict:
                          (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
                          f"{host:.2f} GiB ({rss0:.2f} before the load)")
 
-        quant = chat_mod.resolve_quant("auto", paths["llm"])
+        quant = resolve_quant("auto", paths["llm"])
         if quant != "int4":
             raise AssertionError(f"{label}: --quant auto resolved to {quant}")
         bf16, (secs, added, host) = load(None)
@@ -2186,6 +2222,9 @@ def checkpoint_phase(engine, clips, requests, dev, card) -> dict:
             raise AssertionError(f"{label} int4 chat: kernels never "
                                  f"launched: {missing}")
         del q
+        gc.collect()
+        torch.cuda.empty_cache()
+        quant_preflight(root, paths["llm"], dev, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         gc.collect()
@@ -4871,6 +4910,357 @@ def learned_grounding_phase(dev, results) -> dict:
     return launches
 
 
+BATCHING_PATH = ("flash_attention_bhsd", "spatio_temporal_pool",
+                 "decode_attention_stacked", "w4a8_matvec", "w4a8_block")
+# the W8A8 tower's four products at 100 frames (100 x 272 padded rows):
+# name -> (K, N); q, k and v share o's shape
+CLIP_GEMMS = {"q/k/v": (1024, 1024), "o": (1024, 1024),
+              "fc1": (1024, 4096), "fc2": (4096, 1024)}
+
+
+def percentile(values, q: float) -> float:
+    vals = sorted(values)
+    return vals[min(len(vals) - 1, round(q * (len(vals) - 1)))]
+
+
+def clip_w8a8_checks(engine, clips, dev, card) -> None:
+    """The W8A8 tower of initialize_model(clip_dtype="int8") against the
+    bf16 tower of the same seed (random_init_ draws the vision tower
+    first, so a tower drawn alone from seed 0 holds the engine's bf16
+    weights; quantize_a8_ of it must equal the engine's leaves): the
+    100-frame encode's device time each, the per-token cosine of their
+    penultimate features (mean and p5, as validate_quant_quality's
+    vision gate computes it), and torch._int_mm's device time at the
+    tower's four product shapes beside cuBLAS bf16's and the int8
+    bound."""
+    vision = engine.model.vision
+    kinds = {type(getattr(layer, n).kernel) for layer in vision.layers
+             for n in ("q", "k", "v", "o", "fc1", "fc2")}
+    if kinds != {Int8A8Kernel}:
+        raise AssertionError(f"clip_dtype=int8: kernels {kinds}")
+    tower = CLIPVisionTower(engine.cfg.vision, device=dev,
+                            dtype=torch.bfloat16)
+    random_init_(tower, torch.Generator(device=dev).manual_seed(0))
+    tower.requires_grad_(False)
+    mine = quantize_a8_(copy.deepcopy(tower))
+    for (name, a), b in zip(mine.named_parameters(), vision.parameters()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"W8A8 tower: {name} is not quantize_a8_ "
+                                 "of the seed's bf16 tower")
+    del mine
+    frames = torch.from_numpy(clips["long"]).to(dev)
+    pixels = preprocess_frames(frames, engine.cfg.vision.image_size)
+    ms = {}
+    for label, t in (("W8A8", vision), ("bf16", tower)):
+        ms[label] = median_ms(lambda t=t: t.encode_frames(pixels), calls=1,
+                              reps=5, capture=False)
+    ref = tower.penultimate_patches(pixels).float().flatten(0, 1)
+    got = vision.penultimate_patches(pixels).float().flatten(0, 1)
+    cos = F.cosine_similarity(ref, got, dim=-1, eps=1e-8).cpu().numpy()
+    if not np.isfinite(cos).all():
+        raise AssertionError("W8A8 tower: non-finite features")
+    print(f"clip W8A8 (100 frames, 224 px): encode {ms['W8A8']:.2f} ms, "
+          f"bf16 tower {ms['bf16']:.2f} ms (device ms, CUDA events, median "
+          f"of 5); per-token cosine to bf16 mean {cos.mean():.5f}, p5 "
+          f"{np.percentile(cos, 5):.5f} over {cos.size} tokens (seeded "
+          f"weights: no quality figure) [{card}]", flush=True)
+    del tower, ref, got
+    rows = pixels.shape[0] * padded_length(engine.cfg.vision.num_positions)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for name, (k, n) in CLIP_GEMMS.items():
+        xq = torch.randint(-127, 128, (rows, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                           dtype=torch.int8).t()  # column-major, as stored
+        x16 = torch.randn((rows, k), generator=g, device=dev,
+                          dtype=torch.bfloat16)
+        w16 = torch.randn((k, n), generator=g, device=dev,
+                          dtype=torch.bfloat16)
+        int8_ms = median_ms(lambda: torch._int_mm(xq, wq))
+        bf16_ms = median_ms(lambda: torch.mm(x16, w16))
+        ops = 2 * rows * k * n
+        b8, by8 = bound(rows * k + k * n + 4 * rows * n, ops, INT8_PEAK)
+        b16, _ = bound(2 * (rows * k + k * n + rows * n), ops, BF16_PEAK)
+        print(f"clip W8A8 GEMM {name} ({rows}, {k}) x ({k}, {n}): "
+              f"torch._int_mm {int8_ms:.4f} ms (int8 bound {b8:.4f} ms by "
+              f"{by8}), cuBLAS bf16 {bf16_ms:.4f} ms (bound {b16:.4f}) "
+              f"[{card}]", flush=True)
+        del xq, wq, x16, w16
+
+
+def batching_phase(clips, dev, results, card) -> dict:
+    """The windowed batcher on a 7B int4 engine with the W8A8 CLIP tower
+    (initialize_model(llm_quant="int4", llm_fuse=True, clip_dtype="int8"),
+    serving/__main__.py --batching --quant int4 on such weights), served
+    as serve(batching=True, max_batch=8, window_ms=30) would be on
+    127.0.0.1, no speculation (decode through kernels A and 3): 8 text
+    requests sent at once (SERVING_PROMPT tokens, 64 greedy tokens),
+    then a video request (its video_url decodes to the seeded 100-frame
+    clip: no libav here) and a streamed request, each alone on the
+    worker; client latencies, the batches the worker formed, aggregate
+    tok/s, and launches over that traffic. Then a greedy request served
+    at max_batch 1 must equal ChatModel.chat of the same request. First
+    clip_w8a8_checks. Returns the launch counts."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    engine = initialize_model(model_size="7b", device=dev, seed=0,
+                              llm_quant="int4", llm_fuse=True,
+                              clip_dtype="int8")
+    torch.cuda.synchronize()
+    print(f"batching: initialize_model(7b, llm_quant=int4, clip_dtype=int8) "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    clip_w8a8_checks(engine, clips, dev, card)
+    chat = ChatModel(model=engine.model, cfg=engine.cfg,
+                     tokenizer=engine.tokenizer, speculative=False)
+    messages = serving_messages(chat)
+    tokens, rows = [], []  # tokens generated a call; each row's ids
+    gen_fn, kw_fn = server_mod.generate, server_mod.generate_with_keywords
+
+    def kept(res):
+        tokens.append(int(res.lengths.sum()))
+        rows.extend(r[:n].tolist() for r, n in zip(res.tokens.cpu(),
+                                                    res.lengths.tolist()))
+
+    def counted_generate(*a, **kw):
+        res = gen_fn(*a, **kw)
+        kept(res)
+        return res
+
+    def counted_keywords(*a, **kw):
+        text, res = kw_fn(*a, **kw)
+        kept(res)
+        return text, res
+
+    def seeded_video(url, image_size):
+        if url != "seeded://long":
+            raise ValueError(f"no decoder for {url} here (no libav)")
+        return clips["long"]
+
+    load_fn = server_mod._load_video_frames
+    server_mod.generate = counted_generate
+    server_mod.generate_with_keywords = counted_keywords
+    server_mod._load_video_frames = seeded_video
+    video_msgs = [{"role": "user", "content": [
+        {"type": "text", "text": QUESTION},
+        {"type": "video_url", "video_url": {"url": "seeded://long"}}]}]
+    bodies = [{"model": "vicuna", "messages": m, "temperature": 0.0,
+               "max_tokens": MAX_NEW_TOKENS} for m in messages]
+    bodies += [{"model": "vicuna", "messages": video_msgs,
+                "temperature": 0.0, "max_tokens": MAX_NEW_TOKENS},
+               {**bodies[0], "stream": True}]
+    try:
+        # warm-up: one text request and the video encode, unserved
+        chat.chat(messages[0], temperature=0.0, max_tokens=4)
+        with torch.inference_mode():
+            engine.model.encode_video(preprocess_frames(
+                torch.from_numpy(clips["short"]).to(dev),
+                engine.cfg.vision.image_size))
+        server = serve(chat, host="127.0.0.1", port=0, block=False,
+                       model_name="vicuna", batching=True, max_batch=8,
+                       window_ms=30.0)
+        batcher = server.chat_model
+        base = f"http://127.0.0.1:{server.server_address[1]}/v1"
+        torch.cuda.synchronize()
+        tokens.clear()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with concurrent.futures.ThreadPoolExecutor(10) as pool:
+                futs = [pool.submit(http_chat, base, b) for b in bodies[:8]]
+                time.sleep(0.05)  # the 8 texts first, in one window
+                futs += [pool.submit(http_chat, base, b)
+                         for b in bodies[8:]]
+                answers = [f.result() for f in futs]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(cuda_lib.LAUNCHES)
+            sizes = list(batcher.batch_sizes)
+        finally:
+            server.shutdown()
+            server.server_close()
+        if batcher._worker.is_alive():
+            raise AssertionError("batching: shutdown() left the worker")
+        # a greedy request alone at max_batch 1 against ChatModel.chat:
+        # the same token ids (the byte tokenizer decodes most of a random
+        # model's ids to nothing, so the texts alone would say little)
+        one = serve(chat, host="127.0.0.1", port=0, block=False,
+                    model_name="vicuna", batching=True, max_batch=1)
+        try:
+            rows.clear()
+            served, _ = http_chat(
+                f"http://127.0.0.1:{one.server_address[1]}/v1",
+                {**bodies[2], "max_tokens": 32})
+            served_ids = rows[-1]
+        finally:
+            one.shutdown()
+            one.server_close()
+        alone = chat.chat(messages[2], temperature=0.0, max_tokens=32)
+        alone_ids = rows[-1]
+    finally:
+        server_mod.generate, server_mod.generate_with_keywords = (gen_fn,
+                                                                  kw_fn)
+        server_mod._load_video_frames = load_fn
+    lat = [s for _, s in answers]
+    print(f"batching: 8 text + 1 video + 1 streamed request in {wall:.2f} "
+          f"s, {sum(tokens)} tokens generated ({sum(tokens) / wall:.1f} "
+          f"tok/s aggregate); latency p50 {statistics.median(lat):.2f} s, "
+          f"p95 {percentile(lat, 0.95):.2f} s (each: "
+          f"{', '.join(f'{s:.2f}' for s in lat)}; the last two the video "
+          f"and the stream); batches formed {sizes}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]",
+          flush=True)
+    print(f"batching launches: {launches}")
+    same = served == alone and served_ids == alone_ids
+    print(f"batching: greedy request at max_batch 1, {len(served_ids)} "
+          f"token ids {served_ids[:8]}... text {served!r}; ChatModel.chat "
+          f"{len(alone_ids)} ids, text {alone!r}: equal {same}", flush=True)
+    if not same:
+        raise AssertionError("batching: a greedy answer at max_batch 1 "
+                             "differs from ChatModel.chat's")
+    if max(sizes) < 2:
+        raise AssertionError(f"batching: no batch past one request {sizes}")
+    missing = [k for k in BATCHING_PATH if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"batching: kernels never launched: {missing}")
+    for name in BATCHING_PATH:
+        results[name]["batching_launches"] = launches[name]
+    del engine, chat
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"batching phase: {time.perf_counter() - t_phase:.2f} s [{card}]",
+          flush=True)
+    return launches
+
+
+def save_features_phase(dev, results, card) -> dict:
+    """scripts/save_features at full width: build_extractor() (ViT-L/14
+    at 224 px in f32, seed 0; TF32 off, as main sets it) and
+    process_videos over three seeded "videos" into a temp directory: 100
+    frames, 37 frames (zero-padded to 100 and masked) and one whose read
+    raises (no libav here: the reader gives seeded frames in place of
+    load_video), which is printed and skipped; then the same call again
+    writes nothing (resume by existence). Each pickle a finite (356,
+    1024) f32 array; the 100-frame one against the extract step with
+    attention's plain versions (set_default_impl('xla')). Kernel 1's
+    f32 body's launches over the run. Returns the launch counts."""
+    t_phase = time.perf_counter()
+    _, tower, extract = save_features.build_extractor(device=dev)
+    rng = np.random.default_rng(5)
+    frames = {"v100.mp4": rng.integers(0, 256, (100, 224, 224, 3), np.uint8),
+              "v37.mp4": rng.integers(0, 256, (37, 224, 224, 3), np.uint8)}
+    names = ["v100.mp4", "v37.mp4", "broken.mp4"]
+    secs = []
+
+    def read(name):
+        if name not in frames:
+            raise OSError(f"cannot decode {name}")
+        return frames[name]
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = extract(*a)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        return out
+
+    extract(tower, frames["v37.mp4"][:2], 2)  # warm-up
+    root = tempfile.mkdtemp(prefix="feats_")
+    try:
+        cuda_lib.reset_launch_counts()
+        done = save_features.process_videos(names, read, root, tower, timed)
+        launches = dict(cuda_lib.LAUNCHES)
+        again = save_features.process_videos(names, read, root, tower, timed)
+        files = sorted(os.listdir(root))
+        if (done, again, files) != (2, 0, ["v100.pkl", "v37.pkl"]):
+            raise AssertionError(f"save_features: {done} then {again} new "
+                                 f"files, {files}")
+        feats = {}
+        for name in files:
+            with open(os.path.join(root, name), "rb") as f:
+                feats[name] = pickle.load(f)
+            a = feats[name]
+            if (a.shape, a.dtype) != ((356, 1024), np.float32) or (
+                    not np.isfinite(a).all()):
+                raise AssertionError(f"save_features {name}: {a.shape} "
+                                     f"{a.dtype}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    attention.set_default_impl("xla")
+    try:
+        plain = save_features.video_features(tower, extract,
+                                             frames["v100.mp4"])
+    finally:
+        attention.set_default_impl("auto")
+    rel = (np.abs(feats["v100.pkl"] - plain).max()
+           / np.abs(plain).max())
+    print(f"save_features: 2 videos written ({', '.join(files)}), "
+          f"broken.mp4 skipped, the rerun wrote {again}; extract "
+          f"{', '.join(f'{s:.3f}' for s in secs)} s a video (100 and 37 "
+          f"frames); 100-frame features vs attention's plain versions "
+          f"max|err|/max|ref| {rel:.2e} (tol 1e-3); launches {launches} "
+          f"[{card}]", flush=True)
+    if rel > 1e-3:
+        raise AssertionError(f"save_features: kernel vs plain {rel:.2e}")
+    if not launches.get("flash_attention_bhsd_f32"):
+        raise AssertionError("save_features: kernel 1's f32 body never "
+                             "launched")
+    results["flash_attention_bhsd_f32"]["save_features_launches"] = launches[
+        "flash_attention_bhsd_f32"]
+    del tower
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"save_features phase: {time.perf_counter() - t_phase:.2f} s "
+          f"[{card}]", flush=True)
+    return launches
+
+
+def preflight_text(tok, n_tokens: int = 2048, seed: int = 0) -> str:
+    """Seeded words (SERVING_WORDS and numbers) until the checkpoint's
+    tokenizer makes at least n_tokens of them."""
+    rng = np.random.default_rng(seed)
+    words = []
+    while True:
+        words += [str(w) for w in rng.choice(SERVING_WORDS, 200)]
+        words += [str(n) for n in rng.integers(0, 1000, 20)]
+        text = " ".join(words) + "."
+        if len(tok.encode(text)) >= n_tokens:
+            return text
+
+
+def quant_preflight(root: str, llm_dir: str, dev, card: str) -> None:
+    """validate_quant_quality --preflight --record --vision at full
+    width on the phase's seeded 7B checkpoint (bf16, int8 and int4 over
+    ~2,048 tokens of seeded text in 1,024-token windows; the vision gate
+    on a random ViT-L/14, 16 seeded frames), then the port's
+    resolve_quant('auto') and resolve_clip_dtype('auto') must give the
+    record's decisions. Seeded weights: the numbers are no quality
+    figures."""
+    t = time.perf_counter()
+    text = os.path.join(root, "preflight.txt")
+    with open(text, "w") as f:
+        f.write(preflight_text(load_tokenizer(llm_dir)))
+    validate_quant_quality.main([
+        "--weights", llm_dir, "--tokenizer", llm_dir, "--text", text,
+        "--formats", "bf16,int8,int4", "--vision", "--preflight", "--record",
+        "--device", str(dev)])
+    with open(os.path.join(llm_dir, "quant_preflight.json")) as f:
+        rec = json.load(f)
+    llm_fmt, vis_fmt = rec["preflight_llm_format"], rec[
+        "preflight_vision_format"]
+    got = (resolve_quant("auto", llm_dir), resolve_clip_dtype("auto",
+                                                             llm_dir))
+    want = (None if llm_fmt == "bf16" else llm_fmt, vis_fmt)
+    print(f"checkpoint preflight: record {llm_fmt} / vision {vis_fmt} "
+          f"(seeded weights: no quality figure) in "
+          f"{time.perf_counter() - t:.2f} s; resolve_quant('auto') "
+          f"{got[0]}, resolve_clip_dtype('auto') {got[1]} [{card}]",
+          flush=True)
+    if got != want:
+        raise AssertionError(f"preflight: resolved {got}, record {want}")
+
+
 def weight_bytes(module, leaves) -> int:
     return sum(p.numel() * p.element_size()
                for n, p in module.named_parameters()
@@ -4979,11 +5369,13 @@ def main() -> int:
         del engine, llm
         gc.collect()
         torch.cuda.empty_cache()
+    batching_phase(clips, dev, results, card)
     launches["decode_attention_pallas"] = gqa_chat_phase(
         clips, requests[:1], dev)["decode_attention_pallas"]
     eval_13b_phase(dev, results)
     learned = learned_grounding_phase(dev, results)
     launches["flash_attention_bhsd_f32"] = learned["flash_attention_bhsd_f32"]
+    save_features_phase(dev, results, card)
     trained = training_phase(dev, results)
     launches.update({k: trained[k] for k in TRAIN_PATH + TRAIN_PATH_F32[1:]})
 

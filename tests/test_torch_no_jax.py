@@ -179,3 +179,38 @@ def test_port_imports_no_jax(tmp_path):
     assert want[0] == 101 and want[-2:] == [1029, 102]
     assert proc.stdout.split()[-len(want):] == [str(i) for i in want]
     assert (tmp_path / "hc_ann" / "val_v2_proc.json").exists()
+    # W8A8 CLIP and its quality preflight, the windowed batcher's flags,
+    # and the training-data tools: each CLI's --help, and the
+    # instruction converter and the transforms run, with JAX blocked
+    assert {"video_llava_tpu_torch.ops.video_transforms",
+            "video_llava_tpu_torch.scripts.save_features",
+            "video_llava_tpu_torch.scripts.convert_instruction_data",
+            "video_llava_tpu_torch.scripts.validate_quant_quality",
+            } <= set(modules)
+    for mod, flags in (
+            ("scripts.validate_quant_quality", ("--preflight", "--vision",
+                                                "--device")),
+            ("scripts.save_features", ("--clip_feat_path", "--device")),
+            ("scripts.convert_instruction_data", ("--clip_feature_path",)),
+            ("serving", ("--batching", "--max_batch", "--window_ms"))):
+        name = "video_llava_tpu_torch." + mod
+        proc = _run(BLOCK_JAX + f"import runpy; sys.argv = ['x', '--help']; "
+                    f"runpy.run_module({name!r}, run_name='__main__')")
+        assert proc.returncode == 0, (name, proc.stderr)
+        assert all(f in proc.stdout for f in flags), (name, proc.stdout)
+    src = tmp_path / "instruct.json"
+    src.write_text('[{"video_id": "v1", "q": "Why?", "a": "Because."}]')
+    proc = _run(BLOCK_JAX + (
+        "from video_llava_tpu_torch.scripts import convert_instruction_data"
+        " as c\n"
+        f"c.main(['--input_json_file', {str(src)!r}, '--output_json_file', "
+        f"{str(tmp_path / 'out.json')!r}])\n"
+        "import numpy as np\n"
+        "from video_llava_tpu_torch.ops.video_transforms import "
+        "make_video_transforms\n"
+        "clip, _ = make_video_transforms('train', seed=0)("
+        "np.zeros((2, 48, 64, 3), np.uint8))\n"
+        "print(clip.dtype, clip.shape[0])"))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-2:] == ["float32", "2"]
+    assert '"video": "v1.pkl"' in (tmp_path / "out.json").read_text()

@@ -11,7 +11,8 @@ bfloat16 leaves (numpy's ml_dtypes bfloat16) are carried bit for bit.
 A quantized LLM tree (quantize_params / quantize_params_int4, then
 optionally fuse_layer_kernels) carries across as it is: the model is
 built in the layout the tree's leaves name, and the {qvalues_packed,
-scales} / {qvalues, scales} leaves keep their bytes and dtypes.
+scales} / {qvalues, scales} leaves keep their bytes and dtypes; so does
+a W8A8 CLIP tree's {qvalues_a8, scales} (quantize_params(a8=True)).
 
 The grounding models keep the JAX package's nested-dict trees as they
 are (tensors for arrays): tree_from_jax carries one across, checked
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from video_llava_tpu_torch.config import VideoLLaVAConfig
+from video_llava_tpu_torch.models.clip import a8_kernels_
 from video_llava_tpu_torch.models.llama import FUSED
 from video_llava_tpu_torch.models.video_llava import VideoLLaVA
 
@@ -70,7 +72,15 @@ def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-_QUANT_LEAVES = ("qvalues_packed", "qvalues", "scales")
+_QUANT_LEAVES = ("qvalues_packed", "qvalues", "qvalues_a8", "scales")
+_A8 = ".kernel.qvalues_a8"
+
+
+def _a8_paths(flat: Dict[str, np.ndarray], prefix: str = "") -> list:
+    """Module paths (under `prefix`, which is cut) of the W8A8 kernels
+    ({qvalues_a8, scales}: quantize_params(a8=True)) of a flat tree."""
+    return [k[len(prefix):-len(_A8)] for k in flat
+            if k.startswith(prefix) and k.endswith(_A8)]
 
 
 def llm_layout(flat: Dict[str, np.ndarray]):
@@ -133,6 +143,7 @@ def params_from_jax(tree_np, cfg: VideoLLaVAConfig, device=None,
     model = VideoLLaVA(cfg, device="meta", dtype=model_dtype,
                        llm_quant=quant, group_size=group_size,
                        llm_fuse=fuse, llm_skip_keys=skip)
+    a8_kernels_(model.vision, _a8_paths(flat, "vision."))
     expected = dict(model.named_parameters())
     missing = sorted(set(expected) - set(flat))
     unexpected = sorted(set(flat) - set(expected))
@@ -218,11 +229,14 @@ def wav2vec2_from_jax(tree_np, like, device=None,
 def clip_vision_from_jax(tree_np, cfg, device=None,
                          dtype: Optional[torch.dtype] = None):
     """The JAX package's CLIP vision tree (init_vision_params: stacked
-    layers) -> a CLIPVisionTower of `cfg` holding its values."""
+    layers; W8A8 kernels of quantize_params(a8=True) too) -> a
+    CLIPVisionTower of `cfg` holding its values (quantized leaves keep
+    their dtype)."""
     from video_llava_tpu_torch.models.clip import CLIPVisionTower
 
     flat = flatten_tree(tree_np)
-    tower = CLIPVisionTower(cfg, device="meta")
+    tower = a8_kernels_(CLIPVisionTower(cfg, device="meta"),
+                        _a8_paths(flat))
     expected = dict(tower.named_parameters())
     if set(flat) != set(expected):
         raise KeyError(f"tree does not match the tower: missing "
@@ -234,7 +248,8 @@ def clip_vision_from_jax(tree_np, cfg, device=None,
         if tuple(t.shape) != tuple(param.shape):
             raise ValueError(f"{name}: tree shape {tuple(t.shape)} != "
                              f"tower shape {tuple(param.shape)}")
-        state[name] = t.to(device=device, dtype=dtype or t.dtype)
+        keep = dtype is None or name.rsplit(".", 1)[-1] in _QUANT_LEAVES
+        state[name] = t.to(device=device, dtype=t.dtype if keep else dtype)
     tower.load_state_dict(state, assign=True)
     return tower.requires_grad_(False)
 

@@ -17,6 +17,13 @@ The sequence is padded once after the embeddings (257 -> 272 at
 (b, h, s_pad, d) and attention runs through
 ops.attention.flash_attention_bhsd with the pad keys masked; the pad
 rows are sliced off after the last layer.
+
+W8A8 (:func:`quantize_a8_`, the JAX package's quantize_params(vision,
+a8=True)): the encoder layers' kernels become Int8A8Kernel leaves. The
+head projections then run as the JAX package's _proj_heads /
+_unproj_heads do (models/clip.py:94-143 there): int32 sums rescaled by
+the row and channel scales in f32, the bias added in f32, one cast;
+fc1 and fc2 go through layers.linear, which casts once before the bias.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from torch import nn
 from video_llava_tpu_torch.config import CLIPTextConfig, CLIPVisionConfig
 from video_llava_tpu_torch.models.layers import (
     ACTIVATIONS,
+    Int8A8Kernel,
     LayerNorm,
     Linear,
     TreeInit,
@@ -41,6 +49,11 @@ from video_llava_tpu_torch.models.layers import (
 from video_llava_tpu_torch.ops.attention import (
     flash_attention_bhsd,
     multi_head_attention,
+)
+from video_llava_tpu_torch.ops.quant import (
+    int8_product,
+    leaf_format,
+    quantize_tensor,
 )
 
 
@@ -80,10 +93,24 @@ class EncoderLayer(nn.Module):
         self.fc1 = Linear(d, f, **kw)
         self.fc2 = Linear(f, d, **kw)
 
+    @staticmethod
+    def _project(proj: Linear, x):
+        """proj(x) -> x's dtype. A W8A8 kernel: the int32 sums times the
+        row and channel scales, + the bias, all in f32, then one cast
+        (JAX _proj_heads / _unproj_heads)."""
+        kern = proj.kernel
+        if not isinstance(kern, Int8A8Kernel):
+            return proj(x)
+        y, sx = int8_product(x, kern.qvalues_a8)
+        y = y * sx * kern.scales.float()[0]
+        if proj.bias is not None:
+            y = y + proj.bias.float()
+        return y.to(x.dtype)
+
     def _heads(self, proj: Linear, x):
         """(b, s, K) -> head-major (b, h, s, hd), contiguous."""
         b, s, _ = x.shape
-        y = proj(x).view(b, s, self.num_heads, -1)
+        y = self._project(proj, x).view(b, s, self.num_heads, -1)
         return y.transpose(1, 2).contiguous()
 
     def forward(self, x, seq_valid: int):
@@ -94,7 +121,7 @@ class EncoderLayer(nn.Module):
             self._heads(self.q, h), self._heads(self.k, h),
             self._heads(self.v, h), kv_len=seq_valid,
         )
-        x = x + self.o(attn.transpose(1, 2).reshape(b, s, d))
+        x = x + self._project(self.o, attn.transpose(1, 2).reshape(b, s, d))
         h = self.ln2(x)
         return x + self.fc2(self.act(self.fc1(h)))
 
@@ -145,10 +172,58 @@ class CLIPVisionTower(nn.Module):
         """hidden_states[-2][:, 1:]: penultimate layer, CLS dropped."""
         return self.forward(pixels, num_layers=len(self.layers) - 1)[:, 1:]
 
-    def encode_frames(self, pixels: torch.Tensor) -> torch.Tensor:
+    def encode_frames(self, pixels: torch.Tensor,
+                      frame_batch: int = 0) -> torch.Tensor:
         """(t, H, W, 3) normalized frames -> (t, num_patches, hidden),
-        contiguous as the pooling kernel reads it."""
+        contiguous as the pooling kernel reads it. frame_batch > 0
+        encodes the frames frame_batch at a time, to bound activation
+        memory, where it divides t and is less than t (JAX
+        models/clip.py:364-380)."""
+        t = pixels.shape[0]
+        if frame_batch and t % frame_batch == 0 and t > frame_batch:
+            return torch.cat([self.penultimate_patches(c)
+                              for c in pixels.split(frame_batch)])
         return self.penultimate_patches(pixels).contiguous()
+
+
+def a8_kernels_(tower: CLIPVisionTower, paths) -> CLIPVisionTower:
+    """Give each Linear of `tower` at a path in `paths` (e.g.
+    'layers.0.q') an empty Int8A8Kernel of its shape, on its device."""
+    for path in paths:
+        mod = tower.get_submodule(path)
+        d_in, d_out = mod.kernel.shape
+        dev = mod.kernel.device
+        del mod.kernel
+        mod.kernel = Int8A8Kernel(d_in, d_out, device=dev)
+    return tower
+
+
+@torch.no_grad()
+def quantize_a8_(tower: CLIPVisionTower, min_size: int = 1 << 16,
+                 skip_keys=("class_embedding", "position_embedding")
+                 ) -> CLIPVisionTower:
+    """W8A8 in place: what the JAX package's quantize_params(vision,
+    min_size, skip_keys, a8=True) does to its tree. An encoder layer's
+    kernel counts as the JAX tree holds it, stacked (num_layers, in,
+    out), against min_size; the patch embedding is no 'kernel' leaf and
+    stays. Each kept kernel is quantized per output channel on its
+    device (quantize_tensor over the contraction axis)."""
+    n = len(tower.layers)
+    for name, mod in list(tower.named_modules()):
+        if not (isinstance(mod, Linear)
+                and isinstance(mod.kernel, torch.Tensor)):
+            continue
+        keys = tuple(k for k in name.split(".") if not k.isdigit())
+        shape = ((n,) if keys[0] == "layers" else ()) + tuple(
+            mod.kernel.shape)
+        if leaf_format(keys + ("kernel",), shape, "int8", None, min_size,
+                       skip_keys) != "int8":
+            continue
+        q, s = quantize_tensor(mod.kernel, axis=-2)
+        leaf = a8_kernels_(tower, [name]).get_submodule(name).kernel
+        leaf.qvalues_a8.copy_(q)
+        leaf.scales.copy_(s)
+    return tower
 
 
 def vision_pooled_embedding(tower: CLIPVisionTower,

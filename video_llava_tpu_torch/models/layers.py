@@ -8,7 +8,8 @@ parameter trees (``kernel``/``bias``, ``scale``, ``weight``), which is
 what lets engine/convert.py copy a tree across by name. A quantized
 kernel or embedding table is a small module holding the JAX package's
 leaves by the same names ({qvalues_packed, scales} int4, {qvalues,
-scales} int8), so its state-dict paths are the JAX tree's paths.
+scales} int8, {qvalues_a8, scales} W8A8), so its state-dict paths are
+the JAX tree's paths.
 """
 
 from __future__ import annotations
@@ -20,7 +21,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from video_llava_tpu_torch.ops.quant import dot_f32, quantized_matmul
+from video_llava_tpu_torch.ops.quant import (
+    dot_f32,
+    quantized_matmul,
+    quantized_matmul_a8,
+)
 from video_llava_tpu_torch.ops.quant4 import int4_matmul
 
 
@@ -55,6 +60,21 @@ class Int8Kernel(nn.Module):
         self.scales = _param(scale_shape, device, torch.float32)
 
 
+class Int8A8Kernel(nn.Module):
+    """W8A8 kernel (ops/quant.py a8 format): qvalues_a8 (in, out) int8,
+    scales (1, out) f32 over the contraction axis; the activations are
+    quantized per row at each product (quantized_matmul_a8). qvalues_a8
+    is laid out column-major, as cuBLASLt's int8 GEMM takes its second
+    operand."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, device=None):
+        super().__init__()
+        self.qvalues_a8 = nn.Parameter(
+            torch.empty((out_dim, in_dim), device=device,
+                        dtype=torch.int8).t(), requires_grad=False)
+        self.scales = _param((1, out_dim), device, torch.float32)
+
+
 # -- linear -----------------------------------------------------------------
 
 
@@ -69,8 +89,9 @@ def linear(x: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None,
     takes the f32 product (ops/quant.dot_f32, no f32 copy of the kernel
     on CUDA), as a dot with preferred_element_type does. int4 kernel:
     the W4A8 matmuls of ops/quant4.py (f32 out, + f32 bias, one cast).
-    int8 kernel: ops/quant.quantized_matmul, in x's dtype (layers.py:
-    31-65 in the JAX package)."""
+    int8 kernel: ops/quant.quantized_matmul, in x's dtype; W8A8 kernel:
+    ops/quant.quantized_matmul_a8, in x's dtype; either then + the bias
+    in f32 and cast again (layers.py:31-65 in the JAX package)."""
     out_dtype = out_dtype or x.dtype
     if isinstance(kernel, Int4Kernel):
         if bias is None:  # the kernel casts on its store
@@ -79,6 +100,8 @@ def linear(x: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None,
         y = int4_matmul(x, kernel.qvalues_packed, kernel.scales)
     elif isinstance(kernel, Int8Kernel):
         y = quantized_matmul(x, kernel.qvalues, kernel.scales).float()
+    elif isinstance(kernel, Int8A8Kernel):
+        y = quantized_matmul_a8(x, kernel.qvalues_a8, kernel.scales).float()
     elif out_dtype == x.dtype:
         return F.linear(x, kernel.to(x.dtype).t(),
                         None if bias is None else bias.to(x.dtype))
@@ -91,12 +114,14 @@ def linear(x: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None,
 
 def make_kernel(in_dim: int, out_dim: int, fmt: Optional[str] = None,
                 n_groups: int = 1, *, device=None, dtype=torch.float32):
-    """An empty kernel leaf in format fmt: None (dense), 'int4' or
-    'int8' (ops/quant.leaf_format)."""
+    """An empty kernel leaf in format fmt: None (dense), 'int4', 'int8'
+    (ops/quant.leaf_format) or 'int8_a8' (W8A8)."""
     if fmt == "int4":
         return Int4Kernel(in_dim, out_dim, n_groups, device=device)
     if fmt == "int8":
         return Int8Kernel(in_dim, out_dim, (1, out_dim), device=device)
+    if fmt == "int8_a8":
+        return Int8A8Kernel(in_dim, out_dim, device=device)
     if fmt is not None:
         raise ValueError(f"kernel format {fmt!r}")
     return _param((in_dim, out_dim), device, dtype)

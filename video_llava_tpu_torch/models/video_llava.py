@@ -77,10 +77,12 @@ class VideoLLaVA(nn.Module):
                          fuse=llm_fuse, skip_keys=llm_skip_keys, **kw)
 
     def encode_video(self, pixels: torch.Tensor,
-                     num_valid_frames: Optional[int] = None) -> torch.Tensor:
+                     num_valid_frames: Optional[int] = None,
+                     frame_batch: int = 0) -> torch.Tensor:
         """(t, H, W, 3) normalized frames -> pooled features
-        (video_token_len, mm_hidden) in the tower's dtype."""
-        feats = self.vision.encode_frames(pixels)
+        (video_token_len, mm_hidden) in the tower's dtype; frame_batch
+        as in CLIPVisionTower.encode_frames."""
+        feats = self.vision.encode_frames(pixels, frame_batch)
         return spatio_temporal_pool_fused(
             feats, num_valid_frames=num_valid_frames,
             max_temporal_tokens=self.cfg.max_temporal_tokens,

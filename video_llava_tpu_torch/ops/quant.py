@@ -1,13 +1,17 @@
-"""Weights-only int8 quantization.
+"""int8 quantization: weights-only, and W8A8 for the CLIP tower.
 
 Counterpart of video_llava_tpu/ops/quant.py (plain torch; the JAX file
 has no Pallas kernel). Symmetric absmax / 127 scales over the
 contraction axis, values rounded half to even as ``jnp.round`` does.
 2D ``kernel`` leaves and embedding tables become ``{'qvalues': int8,
 'scales': f32}``; ``models.layers.linear`` and ``embed`` dispatch on
-that layout. The W8A8 (``qvalues_a8``) form for the CLIP tower is not
-ported yet. :func:`dot_f32` carries a gradient, so a frozen int8 LLM
-passes gradients to its inputs in training.
+that layout. With ``a8=True`` kernels become ``{'qvalues_a8',
+'scales'}``: the activations are quantized per row too and the product
+runs on int8 operands with int32 sums (:func:`quantized_matmul_a8`,
+``torch._int_mm``: cuBLASLt's int8 GEMM on the card, an exact integer
+product on the CPU; the JAX package's is a plain XLA dot, not Pallas).
+:func:`dot_f32` carries a gradient, so a frozen int8 LLM passes
+gradients to its inputs in training.
 """
 
 from __future__ import annotations
@@ -37,6 +41,45 @@ def quantize_tensor(w: torch.Tensor, axis: int = 0):
 def dequantize(q: torch.Tensor, scales: torch.Tensor,
                dtype=torch.bfloat16) -> torch.Tensor:
     return (q.float() * scales).to(dtype)
+
+
+def quantize_rows_int8(x: torch.Tensor):
+    """Per-row symmetric int8 activations: (..., K) -> (int8 values,
+    f32 (..., 1) scales), absmax / 127 rounded half to even (the JAX
+    package's TO_NEAREST_EVEN; ``torch.round`` rounds so)."""
+    x32 = x.float()
+    sx = ieee_div(x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8),
+                  127.0)
+    return torch.round(x32 / sx).clamp(-127, 127).to(torch.int8), sx
+
+
+def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(m, k) int8 @ (k, n) int8 -> (m, n) int32, exact, through
+    ``torch._int_mm``. On the card that is cuBLASLt's int8 GEMM, which
+    takes m > 16, k and n multiples of 8 (every W8A8 product of a CLIP
+    tower) and b column-major: the W8A8 tower stores its weights so
+    (models/layers.Int8A8Kernel); another b is copied so."""
+    if a.is_cuda and b.stride(0) != 1:
+        b = b.t().contiguous().t()
+    return torch._int_mm(a, b)
+
+
+def int8_product(x: torch.Tensor, qvalues: torch.Tensor) -> tuple:
+    """x (..., in) quantized by rows, times qvalues (in, out) int8 ->
+    (int32 sums as f32 (..., out), row scales f32 (..., 1))."""
+    xq, sx = quantize_rows_int8(x)
+    lead = x.shape[:-1]
+    y = int8_mm(xq.reshape(-1, x.shape[-1]), qvalues)
+    return y.float().reshape(*lead, qvalues.shape[-1]), sx
+
+
+def quantized_matmul_a8(x: torch.Tensor, qvalues: torch.Tensor,
+                        scales: torch.Tensor) -> torch.Tensor:
+    """W8A8: x (..., in) quantized per row, times qvalues (in, out) int8
+    per output channel, summed in int32, rescaled by sx * scales in f32
+    -> x's dtype (JAX ops/quant.py:63-76)."""
+    y, sx = int8_product(x, qvalues)
+    return (y * sx * scales.float()[0]).to(x.dtype)
 
 
 class _DotF32(torch.autograd.Function):
@@ -130,10 +173,14 @@ def leaf_format(keys: Sequence[str], shape, quant: str,
 
 def quantize_params(params, min_size: int = 1 << 16,
                     skip_keys: Sequence[str] = ("class_embedding",
-                                                "position_embedding")):
+                                                "position_embedding"),
+                    a8: bool = False):
     """int8-quantize every 2D+ kernel (scales over the contraction axis
     -2, so stacked (L, in, out) kernels work) and embedding table
-    (per-row scales) of at least `min_size` elements."""
+    (per-row scales) of at least `min_size` elements. a8: kernels are
+    stored as {'qvalues_a8', 'scales'}, the W8A8 form linear() runs
+    through quantized_matmul_a8; embedding tables keep the gather
+    layout either way (JAX ops/quant.py:83-123)."""
 
     def visit(keys, leaf):
         fmt = leaf_format(keys, leaf.shape, "int8", None, min_size,
@@ -141,6 +188,8 @@ def quantize_params(params, min_size: int = 1 << 16,
         if fmt is None:
             return leaf
         q, s = quantize_tensor(leaf, axis=-2 if fmt == "int8" else 1)
+        if a8 and fmt == "int8":
+            return {"qvalues_a8": q, "scales": s}
         return {"qvalues": q, "scales": s}
 
     return map_tree(visit, params)

@@ -9,6 +9,8 @@ package's init scales, and overwritten where a checkpoint is given --
 the LLM from `model_name`, the CLIP tower from `clip_path`, then the
 non-strict projector overlay from `projection_path` (engine/weights.py).
 Paths that are not there fall back to random init, as in the JAX package.
+``clip_dtype`` ('int8', or 'auto' by the checkpoint's preflight record)
+makes the CLIP tower W8A8 on the device after any ``clip_path`` load.
 With ``llm_quant`` the LLM's weights arrive one layer at a time in bf16,
 drawn or read, and are quantized on the device with the port's
 quantize_params(_int4), so no whole bf16 LLM is ever held (the JAX
@@ -33,7 +35,9 @@ from video_llava_tpu_torch.config import (
     VideoLLaVAConfig,
 )
 from video_llava_tpu_torch.engine import weights
+from video_llava_tpu_torch.engine.quant_select import resolve_clip_dtype
 from video_llava_tpu_torch.engine.convert import flatten_tree
+from video_llava_tpu_torch.models.clip import quantize_a8_
 from video_llava_tpu_torch.models.layers import Int8Kernel
 from video_llava_tpu_torch.models.llama import (
     Llama,
@@ -65,7 +69,7 @@ def random_init_(model: torch.nn.Module, generator: torch.Generator) -> None:
     :func:`random_init_quantized_llm_`."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("qvalues_packed", "qvalues", "scales"):
+        if leaf in ("qvalues_packed", "qvalues", "qvalues_a8", "scales"):
             continue
         if leaf == "bias":
             p.zero_()
@@ -131,6 +135,7 @@ def initialize_model(
     image_size: int = 224,
     llm_quant: Optional[str] = None,
     llm_fuse: bool = False,
+    clip_dtype: Optional[str] = None,
 ) -> InferenceEngine:
     """Build an InferenceEngine on `device`.
     model_name: an HF Vicuna/LLaMA checkpoint directory (tokenizer and
@@ -139,7 +144,12 @@ def initialize_model(
     falls back to random init (and the byte tokenizer), as in the JAX
     package. llm_quant: None, "int8" or "int4" weights-only LLM
     quantization (the JAX package's layouts, made one layer at a time on
-    the device); llm_fuse: the fused wqkv/gate_up layout."""
+    the device); llm_fuse: the fused wqkv/gate_up layout. clip_dtype:
+    None/'bf16' | 'auto' | 'int8', the W8A8 CLIP tower, resolved against
+    clip_path's preflight record (engine/quant_select.resolve_clip_dtype)
+    and quantized on the device with the JAX package's min_size of
+    1 << 16 elements a stacked kernel (every kernel of ViT-L/14; a tiny
+    configuration's may fall under it and stay in `dtype`)."""
     if llm_quant not in (None, "int8", "int4"):
         raise ValueError(f"llm_quant: None, int8 or int4; got {llm_quant}")
     llm_dir = model_name if model_name and os.path.isdir(model_name) else None
@@ -165,6 +175,12 @@ def initialize_model(
     if clip_path and os.path.isdir(clip_path):
         weights.convert_clip_vision(weights.checkpoint_shards(clip_path),
                                     model.vision)
+    if clip_dtype and clip_dtype != "bf16":
+        resolved = resolve_clip_dtype(
+            clip_dtype,
+            clip_path if clip_path and os.path.isdir(clip_path) else None)
+        if resolved == "int8":
+            quantize_a8_(model.vision)
     if projection_path and os.path.exists(projection_path):
         report = weights.apply_projector_overlay(
             model, weights.load_torch_bin(projection_path))

@@ -7,10 +7,11 @@ defaults:
         --continuous --paged
 
 Random weights unless --model_name names a checkpoint directory, on the
-card. --quant int8
-also takes an int8 KV cache. --batching (the windowed batcher) with its
---max_batch and --window_ms, and --mesh_model > 1 (multi-GPU), are not
-ported and raise.
+card. --quant int8 also takes an int8 KV cache. --batching runs the
+windowed batcher with its --max_batch and --window_ms (which reach
+serve() here; the JAX CLI parses them and drops them, so its batcher
+always runs at 8 and 30 ms). --mesh_model > 1 (multi-GPU) is not ported
+and raises.
 """
 
 from __future__ import annotations
@@ -21,11 +22,7 @@ import torch
 
 from video_llava_tpu_torch.engine.quant_select import resolve_quant
 from video_llava_tpu_torch.runtime.model_init import initialize_model
-from video_llava_tpu_torch.serving.server import (
-    BATCHING_NOT_PORTED,
-    ChatModel,
-    serve,
-)
+from video_llava_tpu_torch.serving.server import ChatModel, serve
 
 
 def main(argv=None):
@@ -60,18 +57,12 @@ def main(argv=None):
     ap.add_argument("--prefix_cache", action="store_true",
                     help="automatic prefix caching (implies --paged)")
     ap.add_argument("--batching", action="store_true",
-                    help="windowed request batching (not ported yet)")
-    # the batcher's knobs (JAX defaults 8 and 30.0) raise with it
-    ap.add_argument("--max_batch", type=int, default=None,
-                    help="--batching's batch size (not ported yet)")
-    ap.add_argument("--window_ms", type=float, default=None,
-                    help="--batching's window (not ported yet)")
+                    help="windowed request batching")
+    ap.add_argument("--max_batch", type=int, default=8)
+    ap.add_argument("--window_ms", type=float, default=30.0)
     ap.add_argument("--no_speculative", action="store_true")
     args = ap.parse_args(argv)
     # refuse what is not ported before the (slow) model build
-    if (args.batching or args.max_batch is not None
-            or args.window_ms is not None):
-        raise NotImplementedError(BATCHING_NOT_PORTED)
     if args.mesh_model and args.mesh_model > 1:
         raise NotImplementedError(
             "--mesh_model > 1 (multi-GPU serving) is not ported yet: "
@@ -90,7 +81,9 @@ def main(argv=None):
         cache_dtype=torch.int8 if quant == "int8" else torch.bfloat16,
         speculative=not args.no_speculative)
     serve(model, host=args.host, port=args.port,
-          model_name=args.served_name, continuous=args.continuous,
+          model_name=args.served_name, batching=args.batching,
+          max_batch=args.max_batch, window_ms=args.window_ms,
+          continuous=args.continuous,
           num_slots=args.num_slots, max_cache_len=args.max_cache_len,
           paged=args.paged, num_blocks=args.num_blocks,
           prefix_cache=args.prefix_cache)

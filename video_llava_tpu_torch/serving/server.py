@@ -7,11 +7,11 @@ message whose content is an OpenAI vision-style part list with a
 `video_url` part (a `data:video/...;base64,` body or a local path) runs
 decode, CLIP encode, pooling and projection and answers about the clip.
 
-Three modes: the default serialized one (one request at a time behind a
-lock, speculative decoding for non-streamed requests), and continuous
-batching over the slot cache or the paged pool (ContinuousChatModel,
-engine/continuous.py). The windowed batcher of the JAX package
-(BatchingChatModel) is not ported: ``serve(batching=True)`` raises.
+Four modes: the default serialized one (one request at a time behind a
+lock, speculative decoding for non-streamed requests), the windowed
+batcher (BatchingChatModel: text requests that arrive within a window
+decode as one right-padded batch), and continuous batching over the
+slot cache or the paged pool (ContinuousChatModel, engine/continuous.py).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import dataclasses
 import json
 import math
 import os
+import queue
 import tempfile
 import threading
 import time
@@ -33,16 +34,18 @@ import numpy as np
 import torch
 
 from video_llava_tpu_torch.config import GenerationConfig, VideoLLaVAConfig
-from video_llava_tpu_torch.engine.generate import generate_with_keywords
-from video_llava_tpu_torch.engine.speculative import generate_pld_text
+from video_llava_tpu_torch.engine.generate import (
+    generate,
+    generate_with_keywords,
+)
+from video_llava_tpu_torch.engine.speculative import (
+    generate_pld,
+    generate_pld_text,
+)
 from video_llava_tpu_torch.ops.image import preprocess_frames
 from video_llava_tpu_torch.runtime.conversation import conv_templates
 from video_llava_tpu_torch.runtime.inference import build_video_question
 from video_llava_tpu_torch.runtime.tokenizer import Tokenizer
-
-BATCHING_NOT_PORTED = ("the windowed batcher (--batching, BatchingChatModel) "
-                       "is not ported yet: ROADMAP Queue 1 item 6")
-
 
 def _split_content(content) -> Tuple[str, List[str]]:
     """OpenAI message content -> (text, video urls). Takes the plain
@@ -300,9 +303,170 @@ class ContinuousChatModel:
         return text
 
 
+class BatchingChatModel:
+    """Windowed request batching (JAX serving/server.py:566-746): text
+    requests that arrive within `window_ms` of the first, up to
+    `max_batch`, run as ONE right-padded prefill and decode through
+    engine.generate.generate (speculative.generate_pld when the model
+    speculates), on one worker thread. Stops are token ids (eos), the
+    '</s>' of the vicuna templates. A batch samples at its first
+    request's temperature, seeded by its first non-None seed (else 0);
+    each row keeps min(its length, its max_tokens) tokens. Video
+    requests, and streams (the handler's), run alone on the worker
+    (run_exclusive), so one program uses the device at a time.
+
+    Text requests' max_tokens are capped at max_tokens_cap; video
+    requests pass uncapped, as in the JAX package (a fault of it, kept
+    here for parity)."""
+
+    _EXCLUSIVE = object()
+    _STOP = object()
+
+    def __init__(self, model: ChatModel, max_batch: int = 8,
+                 window_ms: float = 30.0, max_tokens_cap: int = 512):
+        self.model = model
+        self.max_batch = max_batch
+        self.window_s = window_ms / 1000.0
+        self.max_tokens_cap = max_tokens_cap
+        self.batch_sizes: List[int] = []  # the batches the worker formed
+        self._queue: "queue.Queue" = queue.Queue()
+        self._pending = None
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    def close(self):
+        """Stop the worker (idempotent). A batch in flight finishes;
+        requests queued after the stop are not served."""
+        self._queue.put((self._STOP,))
+        self._worker.join(timeout=10)
+
+    def chat(self, messages: List[dict], temperature: float = 0.2,
+             max_tokens: int = 512, seed: Optional[int] = None) -> str:
+        if any(_split_content(m.get("content", ""))[1] for m in messages):
+            # the feature splice does not ride the batched token path
+            return self.run_exclusive(lambda: self.model.chat(
+                messages, temperature=temperature, max_tokens=max_tokens,
+                seed=seed))
+        done = threading.Event()
+        slot: dict = {}
+        self._queue.put((messages, temperature,
+                         min(max_tokens, self.max_tokens_cap), seed, slot,
+                         done))
+        done.wait()
+        if "error" in slot:
+            raise RuntimeError(slot["error"])
+        return slot["text"]
+
+    def run_exclusive(self, fn):
+        """Run fn() on the worker thread, between batches."""
+        done = threading.Event()
+        slot: dict = {}
+        self._queue.put((self._EXCLUSIVE, fn, slot, done))
+        done.wait()
+        if "error" in slot:
+            raise RuntimeError(slot["error"])
+        return slot.get("result")
+
+    # -- worker ---------------------------------------------------------------
+
+    def _collect(self) -> list:
+        first = (self._pending if self._pending is not None
+                 else self._queue.get())
+        self._pending = None
+        batch = [first]
+        if first[0] is self._EXCLUSIVE or first[0] is self._STOP:
+            return batch
+        deadline = time.time() + self.window_s
+        while len(batch) < self.max_batch:
+            remaining = deadline - time.time()
+            if remaining <= 0:
+                break
+            try:
+                item = self._queue.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if item[0] is self._EXCLUSIVE or item[0] is self._STOP:
+                # runs alone, next round (a stop lets this batch finish)
+                self._pending = item
+                break
+            batch.append(item)
+        return batch
+
+    def _prompt(self, messages: List[dict]) -> str:
+        m = self.model
+        conv = conv_templates[m.conv_mode].copy()
+        system = [_split_content(x["content"])[0]
+                  for x in messages if x["role"] == "system"]
+        if system:
+            conv.system = system[0]
+        for x in messages:
+            # part-list text content flattens here (video never does)
+            text = _split_content(x["content"])[0]
+            if x["role"] == "user":
+                conv.append_message(conv.roles[0], text)
+            elif x["role"] == "assistant":
+                conv.append_message(conv.roles[1], text)
+        conv.append_message(conv.roles[1], None)
+        return conv.get_prompt()
+
+    @torch.inference_mode()
+    def _generate(self, batch: list) -> List[str]:
+        m = self.model
+        tok = m.tokenizer
+        ids_list = [tok.encode(self._prompt(x[0])) for x in batch]
+        lens = [len(i) for i in ids_list]
+        bucket = -(-max(lens) // m.seq_pad_multiple) * m.seq_pad_multiple
+        input_ids = torch.full((len(batch), bucket), tok.pad_token_id,
+                               dtype=torch.int64)
+        for r, ids in enumerate(ids_list):
+            input_ids[r, :len(ids)] = torch.tensor(ids)
+        temperature = batch[0][1]
+        gen = GenerationConfig(max_new_tokens=max(x[2] for x in batch),
+                               temperature=temperature,
+                               do_sample=temperature > 0,
+                               eos_token_id=tok.eos_token_id,
+                               pad_token_id=tok.pad_token_id)
+        seed = next((x[3] for x in batch if x[3] is not None), 0)
+        generator = torch.Generator(device=m.device).manual_seed(int(seed))
+        gen_fn = generate_pld if m.speculative else generate
+        res = gen_fn(m.model, gen, input_ids.to(m.device),
+                     torch.tensor(lens, dtype=torch.int32, device=m.device),
+                     None, generator, cache_dtype=m.cache_dtype)
+        toks, out_lens = res.tokens.cpu(), res.lengths.cpu()
+        return [tok.decode(toks[r, :min(int(out_lens[r]), x[2])].tolist(),
+                           skip_special_tokens=True).strip()
+                for r, x in enumerate(batch)]
+
+    def _run(self):
+        while True:
+            batch = self._collect()
+            if batch[0][0] is self._STOP:
+                return
+            if batch[0][0] is self._EXCLUSIVE:
+                _, fn, slot, done = batch[0]
+                try:
+                    slot["result"] = fn()
+                except Exception as e:  # noqa: BLE001 (to the caller)
+                    slot["error"] = str(e)
+                done.set()
+                continue
+            self.batch_sizes.append(len(batch))
+            try:
+                texts = self._generate(batch)
+                for text, (*_, slot, done) in zip(texts, batch):
+                    slot["text"] = text
+                    done.set()
+            except Exception as e:  # noqa: BLE001 (to every caller)
+                for *_, slot, done in batch:
+                    slot["error"] = str(e)
+                    done.set()
+
+
 def make_handler(model, model_name: str):
     lock = threading.Lock()
-    serialized = not isinstance(model, ContinuousChatModel)
+    # the batcher and the continuous engine order requests themselves
+    serialized = not isinstance(model, (BatchingChatModel,
+                                        ContinuousChatModel))
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *args):  # quiet
@@ -325,7 +489,7 @@ def make_handler(model, model_name: str):
                 self._json(200, {"status": "ok"})
             elif path.endswith("/metrics"):
                 stats = {}
-                if not serialized:
+                if isinstance(model, ContinuousChatModel):
                     eng = model.engine
                     stats = {**eng.stats, "slots_total": eng.num_slots,
                              "slots_busy": sum(s is not None
@@ -393,12 +557,20 @@ def make_handler(model, model_name: str):
 
             send_chunk({"role": "assistant"})
             try:
-                model.chat(
+                batching = isinstance(model, BatchingChatModel)
+                base = model.model if batching else model
+                run = lambda: base.chat(  # noqa: E731
                     req["messages"],
                     temperature=float(req.get("temperature", 0.2)),
                     max_tokens=int(req.get("max_tokens", 512)),
                     seed=req.get("seed"),
                     on_delta=lambda piece: send_chunk({"content": piece}))
+                if batching:
+                    # a stream bypasses the batched decode, but runs on
+                    # the worker, between batches
+                    model.run_exclusive(run)
+                else:
+                    run()
                 send_chunk({}, finish="stop")
             except Exception as e:  # noqa: BLE001
                 # headers and chunks are already on the wire: end the
@@ -417,24 +589,26 @@ def make_handler(model, model_name: str):
 
 def serve(model: ChatModel, host: str = "0.0.0.0", port: int = 8000,
           model_name: str = "vicuna-13b-v1.5", block: bool = True,
-          batching: bool = False, continuous: bool = False,
+          batching: bool = False, max_batch: int = 8,
+          window_ms: float = 30.0, continuous: bool = False,
           num_slots: int = 4, max_cache_len: int = 2048, paged: bool = False,
           num_blocks: Optional[int] = None,
           prefix_cache: bool = False) -> ThreadingHTTPServer:
     """Start the HTTP server (serve_forever on this thread with block,
     else on a daemon thread). The chat model it serves (a
-    ContinuousChatModel in continuous mode) is `server.chat_model`;
-    shutdown() also stops the continuous engine's thread."""
-    if batching:
-        raise NotImplementedError(BATCHING_NOT_PORTED)
+    ContinuousChatModel in continuous mode, else a BatchingChatModel
+    with batching) is `server.chat_model`; shutdown() also stops the
+    continuous engine's or the batcher's thread."""
     if continuous:
         model = ContinuousChatModel(
             model, num_slots=num_slots, max_cache_len=max_cache_len,
             paged=paged or prefix_cache, num_blocks=num_blocks,
             prefix_cache=prefix_cache)
+    elif batching:
+        model = BatchingChatModel(model, max_batch, window_ms)
     server = ThreadingHTTPServer((host, port), make_handler(model, model_name))
     server.chat_model = model
-    if continuous:
+    if continuous or batching:
         stop_server = server.shutdown
 
         def _shutdown():
