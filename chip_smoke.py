@@ -43,21 +43,28 @@ Phases, each of which raises on failure (exit code != 0):
      profile_request); then checkpoint loading (checkpoint_phase): that
      seed engine written as HF-layout checkpoints (BF16 safetensors
      shards in Vicuna's names with a synthetic 32,000-piece
-     tokenizer.json, CLIP's pytorch_model.bin, mm_projector.bin) and
+     tokenizer.json, CLIP's pytorch_model.bin, mm_projector.bin;
+     scripts/weight_tools' make-delta, apply-delta and consolidate on
+     mm_projector.bin and on .safetensors files of the embedding's rows,
+     every file read back bit-equal: weight_tools_check) and
      read back by initialize_model(model_name, projection_path,
      clip_path), in bf16 (every parameter equal to the seed engine's)
      and at --quant int4 (every leaf equal to quantizing the bf16
      reload on the card, the load's added device peak within a random
-     int4 build's plus one bf16 layer), then the int4 chat's first two
-     requests from it, then validate_quant_quality --preflight --record
+     int4 build's plus one bf16 layer), then the int4 chat's first
+     request from it, then validate_quant_quality --preflight --record
      --vision over that checkpoint (bf16, int8, int4 on ~2,048 seeded
      tokens), whose record resolve_quant('auto') and
      resolve_clip_dtype('auto') must read back;
   6. free it, build the same model with int4 W4A8 LLM weights (fused
      wqkv/gate_up, int8 lm_head and embedding: --quant int4) and answer
      the 100-frame request and a second turn, launch counts again taken
-     over exactly that run, and profile the 100-frame request; then the
-     same with the A8 switches off (w4a16_chat_phase: the W4A16 kernels);
+     over exactly that run, and profile the 100-frame request; then
+     scripts/profile_decode.run on that engine (profile_decode_phase: the
+     warm step over bursts of 16, then 64 profiled steps whose top ops
+     name kernels A and 3); then the
+     same with the A8 switches off (w4a16_chat_phase: the W4A16 kernels,
+     not profiled);
   7. serve those weights as `python -m video_llava_tpu_torch.serving
      --model_size 7b --quant int4 --continuous --paged --prefix_cache`
      would, on 127.0.0.1: 8 concurrent HTTP requests and a video
@@ -74,7 +81,13 @@ Phases, each of which raises on failure (exit code != 0):
      full-width stack of `--with_grounding` (build_grounding_stack: Swin-T
      GroundingDINO, MobileSAM, the STM tracker, a Swin-L tagger) on the
      7B int4 engine, PGVideoLLaVA.answer over a seeded 100-frame 480 x 832
-     clip, with stage times, launch counts, a profile and peak memory;
+     clip, with stage times, launch counts, a profile (reusing the
+     counted answer's scene cuts) and peak memory; then
+     scripts/qualitative_demo.run_demo on that engine and stack over a
+     seeded 24-frame 480 x 832 clip (demo_phase: stage times, classes,
+     masks a frame, kernels 1, 2, 3, A, B and 12 launched, 24 annotated
+     frames) and scripts/profile_gdino.run on its detector at batch 4
+     (gdino_profile: stage prefixes; stage None equal to the forward);
      then BASELINE config 5's harness (grounding_eval_phase): seeded
      GroundingDINO Swin-T, SAM ViT-B, MobileSAM and RAM Swin-L (4,585
      tags) checkpoints written in the released layouts (the original
@@ -105,7 +118,7 @@ Phases, each of which raises on failure (exit code != 0):
      answer with the transcript spliced in: stage times, every kernel's
      launches, peak memory and a profile of the transcribe; then free
      the engine, build Vicuna-7B with 8 KV heads (int4) and answer the
-     100-frame request (gqa_chat_phase: kernel 11), profiled, and free it;
+     100-frame request (gqa_chat_phase: kernel 11), and free it;
      before it, the windowed batcher (batching_phase): a 7B int4 engine
      with the W8A8 CLIP tower (clip_dtype="int8", its leaves equal to
      quantize_a8_ of the seed's bf16 tower; the 100-frame encode timed
@@ -124,8 +137,14 @@ Phases, each of which raises on failure (exit code != 0):
      run_qa_continuous without speculation; then bench_grounding.py's
      learned build (learned_grounding_phase: GroundingDINO, MobileSAM, the
      ViT-B/32 crop filter in f32, XMem) over 100 seeded 480 x 832 frames,
-     the fused path and the chunked host loop agreeing, with stage times,
+     the fused path and the chunked host loop agreeing over the first 20
+     frames, with stage times,
      launches, 12 frames against the plain versions and a profile; then
+     scripts/profile_xmem at 4 frames of 480 x 832 with a trace
+     (profile_xmem_phase); then scripts/tracking_quality.main
+     (tracking_quality_phase: 150 brief XMem training steps, the J&F
+     table of the STM and XMem, each fused and not, the two within 1e-3,
+     the loss falling); then
      scripts/save_features (save_features_phase): the f32 ViT-L/14
      extractor over seeded 100- and 37-frame "videos" and one that fails,
      one pickle each, the rerun resuming, kernel 1's f32 body launched;
@@ -156,6 +175,7 @@ import functools
 import gc
 import hashlib
 import json
+import math
 import os
 import pickle
 import shutil
@@ -252,8 +272,14 @@ from video_llava_tpu_torch.runtime.model_init import (
 from video_llava_tpu_torch.ops.image import preprocess_frames
 from video_llava_tpu_torch.runtime.tokenizer import load_tokenizer
 from video_llava_tpu_torch.scripts import (
+    profile_decode,
+    profile_gdino,
+    profile_xmem,
+    qualitative_demo,
     save_features,
+    tracking_quality,
     validate_quant_quality,
+    weight_tools,
 )
 from video_llava_tpu_torch.serving import server as server_mod
 from video_llava_tpu_torch.serving.server import (
@@ -273,6 +299,8 @@ from video_llava_tpu_torch.train.train_step import (
     make_train_step,
     trainable_mask,
 )
+from video_llava_tpu_torch.utils.timing import median_ms, rotating_ms
+from video_llava_tpu_torch.utils.trace_tools import busy_and_names, trace_busy
 
 MAX_NEW_TOKENS = 64
 QUESTION = "What is happening in this video?"
@@ -385,57 +413,6 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-
-
-def median_ms(fn, calls: int = 10, reps: int = 7,
-              capture: bool = True) -> float:
-    """Device time of one call: `calls` calls captured in a CUDA graph,
-    the graph replayed `reps` times, each replay timed with CUDA events;
-    the median over replays, per call. A replay launches back to back,
-    so the host's Python overhead around each call (tens of µs, more
-    than a decode-sized kernel takes) is not counted. capture=False (an
-    autograd backward, which is not captured): the `calls` calls
-    launched back to back, each rep timed the same way, so the host
-    counts only where it falls behind a call's device time."""
-    fn()
-    torch.cuda.synchronize()
-    if not capture:
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(calls):
-                fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / calls)
-        return statistics.median(times)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    del graph
-    return statistics.median(times)
-
-
-def rotating_ms(fns) -> float:
-    """Device time of one call that reads its operands from HBM, not L2:
-    `fns` are the same call on different copies (layers) of the operands,
-    together past the 50 MB L2, captured one after another in one graph;
-    the replay's median time (median_ms) over len(fns)."""
-    return median_ms(lambda: [f() for f in fns], calls=1) / len(fns)
 
 
 def bound(nbytes: float, ops: float = 0.0, peak: float = BF16_PEAK):
@@ -1502,19 +1479,6 @@ def port_kernel(name: str) -> bool:
                             "void flash_f32::"))
 
 
-def busy_and_names(spans):
-    """(name, start ns, end ns) of device activities -> (busy ms: the
-    length of the union of their intervals, {name: (total us, calls)})."""
-    busy_ns, end = 0.0, float("-inf")
-    by_name: dict = {}
-    for name, start, stop in sorted(spans, key=lambda s: s[1]):
-        busy_ns += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-        total, calls = by_name.get(name, (0.0, 0))
-        by_name[name] = (total + (stop - start) / 1e3, calls + 1)
-    return busy_ns / 1e6, by_name
-
-
 def profile_request(engine, clips, dev, label) -> None:
     """Where the device time of one first-turn request goes (100 frames,
     T=0, MAX_NEW_TOKENS new tokens: encode, prefill, decode). The
@@ -1841,7 +1805,8 @@ def w4a16_chat_phase(engine, clips, requests, dev) -> dict:
     VLT_INT4_A8=0 VLT_INT4_A8_BLOCK=0 would set them; restored after):
     `requests`, launch counts over exactly them (every layer linear a
     decode step through the W4A16 matvec, a prefill through the W4A16
-    block matmul, kernels A and B never), then the profile pass."""
+    block matmul, kernels A and B never). Not profiled: the pass repeated
+    the int4 chat's profile with one kernel swapped."""
     label = "W4A16 int4 chat (A8 switches off)"
     saved = quant4.A8_DECODE, quant4.A8_BLOCK
     quant4.A8_DECODE = quant4.A8_BLOCK = False
@@ -1854,7 +1819,6 @@ def w4a16_chat_phase(engine, clips, requests, dev) -> dict:
         got = {k: counts.get(k, 0) for k in want}
         if got != want:
             raise AssertionError(f"{label}: launches {got}, want {want}")
-        profile_request(engine, clips, dev, label)
     finally:
         quant4.A8_DECODE, quant4.A8_BLOCK = saved
     return counts
@@ -1864,8 +1828,6 @@ def w4a16_chat_phase(engine, clips, requests, dev) -> dict:
 
 CKPT_VOCAB = 32000  # Vicuna's tokenizer pieces; the model has 32,006 rows
 CKPT_SHARD_BYTES = 2 * 2 ** 30
-_ST_NAMES = {torch.bfloat16: "BF16", torch.float16: "F16",
-             torch.float32: "F32"}
 
 
 def synthetic_llama_tokenizer(n: int = CKPT_VOCAB, seed: int = 0) -> dict:
@@ -1910,27 +1872,6 @@ def synthetic_llama_tokenizer(n: int = CKPT_VOCAB, seed: int = 0) -> dict:
                   "vocab": {p: i for i, p in enumerate(pieces)},
                   "merges": merges},
     }
-
-
-def write_safetensors(path: str, tensors) -> None:
-    """A .safetensors file written by hand: the 8-byte little-endian
-    header length, the JSON header (padded to 8 bytes), then each
-    tensor's bytes in order. `tensors`: [(name, tensor)], copied to the
-    host one at a time."""
-    header, off = {}, 0
-    for name, t in tensors:
-        n = t.numel() * t.element_size()
-        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [off, off + n]}
-        off += n
-    head = json.dumps(header).encode()
-    head += b" " * (-len(head) % 8)
-    with open(path, "wb") as f:
-        f.write(len(head).to_bytes(8, "little"))
-        f.write(head)
-        for _, t in tensors:
-            f.write(t.detach().contiguous().view(torch.uint8).cpu().numpy()
-                    .tobytes())
 
 
 def hf_llama_tensors(llm, rows: int = CKPT_VOCAB):
@@ -1992,7 +1933,7 @@ def export_checkpoint(model, root: str) -> dict:
     weight_map, total = {}, 0
     for i, part in enumerate(shards):
         fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
-        write_safetensors(os.path.join(llm_dir, fname), part)
+        weights_mod.save_safetensors(os.path.join(llm_dir, fname), part)
         for name, t in part:
             weight_map[name] = fname
             total += t.numel() * t.element_size()
@@ -2129,7 +2070,7 @@ def checkpoint_phase(engine, clips, requests, dev, card) -> dict:
     card (compare_int4), and the device memory the load adds at its
     peak at most that of a random int4 initialize_model in this run plus
     one layer of bf16 weights (no whole bf16 LLM is built); then the
-    int4 chat's first two requests on it, through the checkpoint's
+    int4 chat's first request on it, through the checkpoint's
     tokenizer (video ids 32000-32002), with kernels 1, 2, 3, A and B
     launched. The directory is removed at the end. Returns the chat's
     launch counts."""
@@ -2146,6 +2087,7 @@ def checkpoint_phase(engine, clips, requests, dev, card) -> dict:
               f"({paths['shards']} safetensors shards, CLIP .bin, "
               f"mm_projector.bin) in {time.perf_counter() - t:.2f} s",
               flush=True)
+        weight_tools_check(engine.model, root, paths["projector"], card)
 
         def load(quant):
             gc.collect()
@@ -2215,7 +2157,9 @@ def checkpoint_phase(engine, clips, requests, dev, card) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         q.speculative = False
-        counts = chat_requests(q, clips, requests[:2], dev,
+        # the first request only: the second turn repeated the int4
+        # chat's, and the first launches every kernel of the path
+        counts = chat_requests(q, clips, requests[:1], dev,
                                "checkpoint int4 chat (speculative=False)")
         missing = [k for k in INT4_PATH if not counts.get(k)]
         if missing:
@@ -2234,11 +2178,74 @@ def checkpoint_phase(engine, clips, requests, dev, card) -> dict:
     return counts
 
 
+WT_ROWS = 1000  # the delta's base rows; the target adds Vicuna's 6
+
+
+def weight_tools_check(model, root: str, projector: str, card: str) -> None:
+    """scripts/weight_tools' make-delta and apply-delta (its CLI) on the
+    exported mm_projector.bin (keys the base lacks pass through) and on
+    .safetensors files of the seed engine's embedding rows, the target
+    WT_ROWS + 6 rows over a base of WT_ROWS (the resized branch: the
+    corner subtracted in bf16), then consolidate to .safetensors: every
+    file written and read through the port's own safetensors code
+    (engine/weights) bit-equal to the in-memory results, and the applied
+    files bit-equal to their targets."""
+    t = time.perf_counter()
+    d = os.path.join(root, "weight_tools")
+    os.makedirs(d)
+    emb = model.llm.embed_tokens.weight.detach()[:WT_ROWS + 6].cpu()
+    key = "model.embed_tokens.weight"
+    files = {n: os.path.join(d, n) for n in (
+        "base.safetensors", "target.safetensors", "delta.safetensors",
+        "back.safetensors", "proj_delta.bin", "proj_back.bin",
+        "proj.safetensors")}
+    base, target = {key: emb[:WT_ROWS].clone()}, {key: emb}
+    weights_mod.save_safetensors(files["base.safetensors"], base)
+    weights_mod.save_safetensors(files["target.safetensors"], target)
+    for name, sd in (("base.safetensors", base),
+                     ("target.safetensors", target)):
+        got = weights_mod.load_safetensors(files[name])
+        if not torch.equal(got[key], sd[key]):
+            raise AssertionError(f"weight_tools: {name} read back differs")
+    cli = weight_tools.main
+    cli(["make-delta", "--base", files["base.safetensors"], "--target",
+         files["target.safetensors"], "--delta", files["delta.safetensors"]])
+    cli(["apply-delta", "--base", files["base.safetensors"], "--delta",
+         files["delta.safetensors"], "--target", files["back.safetensors"]])
+    cli(["make-delta", "--base", files["base.safetensors"], "--target",
+         projector, "--delta", files["proj_delta.bin"]])
+    cli(["apply-delta", "--base", files["base.safetensors"], "--delta",
+         files["proj_delta.bin"], "--target", files["proj_back.bin"]])
+    cli(["consolidate", "--src", files["proj_back.bin"], "--dst",
+         files["proj.safetensors"]])
+    delta = weight_tools.make_delta(base, target)
+    checks = (("delta.safetensors", delta), ("back.safetensors", target),
+              ("proj_delta.bin", weights_mod.load_torch_bin(projector)),
+              ("proj_back.bin", weights_mod.load_torch_bin(projector)),
+              ("proj.safetensors", weights_mod.load_torch_bin(projector)))
+    for name, want in checks:
+        got = weight_tools._load(files[name])
+        if list(got) != list(want) or not all(
+                got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+                for k in want):
+            raise AssertionError(f"weight_tools: {name} differs")
+    if delta[key][:WT_ROWS].any() or not torch.equal(delta[key][WT_ROWS:],
+                                                     emb[WT_ROWS:]):
+        raise AssertionError("weight_tools: the resized corner")
+    print(f"weight_tools: make-delta / apply-delta on mm_projector.bin and "
+          f"the embedding's {WT_ROWS} + 6 rows ({emb.dtype}, .safetensors "
+          f"through engine/weights), consolidate to .safetensors: every "
+          f"file read back bit-equal, the applied files equal their "
+          f"targets; {time.perf_counter() - t:.2f} s [{card}]", flush=True)
+    shutil.rmtree(d)
+
+
 def gqa_chat_phase(clips, requests, dev) -> dict:
     """Vicuna-7B with 8 KV heads for its 32 query heads (int4, fused, as
     --quant int4 builds it): `requests` through the chat interface, the
     decode attention through kernel 11 (32 launches a decode step, kernel
-    3 never), then the profile pass; the engine is freed after."""
+    3 never); the engine is freed after. Not profiled: the pass repeated
+    the int4 chat's profile with kernel 11 for kernel 3."""
     label = "GQA 32/8 int4 chat (speculative=False)"
     t0 = time.perf_counter()
     tok = load_tokenizer(None)
@@ -2270,7 +2277,6 @@ def gqa_chat_phase(clips, requests, dev) -> dict:
             or counts.get("decode_attention_stacked")):
         raise AssertionError(f"{label}: kernel 11 must run {need} times and "
                              f"kernel 3 never: {counts}")
-    profile_request(engine, clips, dev, label)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -3136,18 +3142,6 @@ def digest(module) -> str:
     return h.hexdigest()
 
 
-def trace_busy(path: str):
-    """(busy ms, {name: (total us, calls)}) of the device activities
-    (kernels, copies, memsets) in a torch.profiler chrome trace."""
-    with open(path) as f:
-        trace = json.load(f)
-    events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    return busy_and_names(
-        (e["name"], e["ts"] * 1e3, (e["ts"] + e["dur"]) * 1e3)
-        for e in events if e.get("ph") == "X"
-        and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-
-
 def train_7b(dev) -> dict:
     """The training entry point at full width: python -m
     video_llava_tpu_torch.train.train --model_size 7b (Vicuna-7B + the
@@ -3552,8 +3546,11 @@ def grounding_phase(engine, dev, results) -> int:
     through StubMatchClient). A 10-frame answer warms up (the detector,
     SAM and tagger batches are padded, so it runs the same shapes); the
     100-frame answer counts launches and times the stages (host wall
-    around synchronized calls); a third runs under torch.profiler.
-    Returns kernel 12's launches of the counted answer."""
+    around synchronized calls); a third runs under torch.profiler, with
+    the counted answer's scene cuts in place of the host's scene
+    detection. Then the qualitative demo (demo_phase) and the detector's
+    stage profile (gdino_profile) on the same stack. Returns kernel 12's
+    launches of the counted answer."""
     name = "multi_scale_deformable_attention"
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -3606,6 +3603,15 @@ def grounding_phase(engine, dev, results) -> int:
     chat_mod.encode_video = lambda path, frames, fps: videos.append(frames)
     detector.detect_batch = count_forward
     tracker.run_on_list_of_images = record
+    cuts = []
+    detect_scenes = scene_mod.detect_scenes
+
+    def record_cuts(*a, **kw):
+        out = detect_scenes(*a, **kw)
+        cuts.append(out)
+        return out
+
+    scene_mod.detect_scenes = record_cuts
     clip = grounding_clip(100, 480, 832)
     try:
         chat = PGVideoLLaVA(engine, tracker, tagger, matcher,
@@ -3662,9 +3668,14 @@ def grounding_phase(engine, dev, results) -> int:
             raise AssertionError(f"{name} launched {launches.get(name)} "
                                  f"times over {forwards[0]} forwards")
         t = time.perf_counter()
+        # the profiled pass reuses the counted run's scene cuts: the host's
+        # scene detection (numpy, ~10 s over these 100 frames, no device
+        # activity) runs in the counted answer only
+        scene_mod.detect_scenes = lambda *a, **kw: list(cuts[-1])
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             answer(clip)
             torch.cuda.synchronize()
+        scene_mod.detect_scenes = record_cuts
         spans = [(e.name(), e.start_ns(), e.end_ns())
                  for e in prof.profiler.kineto_results.events()
                  if e.device_type() == DeviceType.CUDA]
@@ -3680,6 +3691,9 @@ def grounding_phase(engine, dev, results) -> int:
             if i < 12 or port_kernel(name_):
                 print(f"grounded profile: {total / 1e3:9.2f} ms {calls:6d} "
                       f"calls  {name_[:90]}")
+        runs.clear()
+        demo_phase(engine, tracker, tagger, matcher, stats, runs, dev)
+        gdino_profile(detector)
     finally:
         chat_mod.encode_video = real_encode
         for o, a, fn in saved:
@@ -3691,6 +3705,84 @@ def grounding_phase(engine, dev, results) -> int:
     print(f"grounding phase: {time.perf_counter() - t0:.2f} s", flush=True)
     return launches[name]
 
+
+
+DEMO_FRAMES = 24
+DEMO_PATH = ("flash_attention_bhsd", "spatio_temporal_pool",
+             "decode_attention_stacked", "w4a8_matvec", "w4a8_block",
+             "multi_scale_deformable_attention")
+
+
+def demo_phase(engine, tracker, tagger, matcher, stats, runs, dev) -> dict:
+    """scripts/qualitative_demo.run_demo on the grounding phase's engine
+    and stack (its stage timers and run recorder still in place) over a
+    seeded DEMO_FRAMES-frame 480 x 832 clip and its 224 px resize (what
+    media/loader's load_video and load_video_native_size give the demo;
+    no libav here), greedy, MAX_NEW_TOKENS new tokens: the stage seconds,
+    the classes, the masks a frame and the launches of kernels 1, 2, 3,
+    A, B and 12, each of which must launch; the annotated frames must be
+    (DEMO_FRAMES, 480, 832, 3) uint8."""
+    native = grounding_clip(DEMO_FRAMES, 480, 832, seed=1)
+    frames = F.interpolate(
+        torch.from_numpy(native).permute(0, 3, 1, 2).float(), size=(224, 224),
+        mode="bilinear", antialias=True, align_corners=False)
+    frames = frames.round().clamp(0, 255).to(torch.uint8).permute(
+        0, 2, 3, 1).contiguous().numpy()
+    gen = engine.gen
+    engine.gen = dataclasses.replace(gen, do_sample=False,
+                                     max_new_tokens=MAX_NEW_TOKENS)
+    engine.infer = timed(stats, "llm", engine.infer)
+    try:
+        stats.clear()
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t = time.perf_counter()
+        answer, classes, annotated = qualitative_demo.run_demo(
+            engine, tracker, tagger, matcher, frames, native, QUESTION)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(cuda_lib.LAUNCHES)
+    finally:
+        engine.gen = gen
+        del engine.infer  # the class's method again
+    out = np.stack(annotated) if annotated else np.zeros((0,), np.uint8)
+    if out.shape != (DEMO_FRAMES, 480, 832, 3) or out.dtype != np.uint8:
+        raise AssertionError(f"demo: annotated frames {out.shape} "
+                             f"{out.dtype}")
+    masks = [int(np.asarray(fr.masks).reshape(len(fr.masks), -1).any(1)
+                 .sum()) for r in runs for fr in r]
+    missing = [k for k in DEMO_PATH if not launches.get(k)]
+    print(f"qualitative demo over {DEMO_FRAMES} frames of 480 x 832: wall "
+          f"{wall:.3f} s; stages (s): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(stats.items()))
+          + f"; answer {len(answer)} chars, classes {classes}, {len(runs)} "
+          f"scene(s), masks a frame {masks}; annotated {out.shape} "
+          f"{out.dtype}; launches {launches}", flush=True)
+    if missing:
+        raise AssertionError(f"demo: kernels never launched: {missing}")
+    return launches
+
+
+def gdino_profile(detector) -> dict:
+    """scripts/profile_gdino.run on the grounding stack's detector
+    (GroundingDINO Swin-T at 800 px, random weights, f32) at batch 4: the
+    stage prefixes' cumulative and delta ms; the whole forward's output
+    (stage None) must equal the detector's forward on the same inputs
+    bit for bit."""
+    t = time.perf_counter()
+    out, full = profile_gdino.run(
+        detector, batch=4, iters=3,
+        print_fn=lambda s: print(f"profile_gdino: {s}", flush=True))
+    args = profile_gdino.device_args(detector, 4)
+    with torch.inference_mode():
+        ref = gdino.forward(detector.params, detector.cfg, args[0],
+                            args[1].cpu().numpy())
+    if not all(torch.equal(a, b) for a, b in zip(full, ref)):
+        raise AssertionError("profile_gdino: stage None differs from the "
+                             "detector's forward")
+    print(f"profile_gdino: stage None equal to the forward bit for bit; "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    return out
 
 
 # -- grounding from released checkpoints, and the sIoU evaluation ------------
@@ -3781,7 +3873,8 @@ def write_grounding_checkpoints(root: str, cfgs=None) -> dict:
                   **sam_mod.init_decoder_params(TreeInit(22, "cpu"), scfg)}
     out["sam_dir"] = os.path.join(root, "sam-vit-base")
     os.makedirs(out["sam_dir"])
-    write_safetensors(os.path.join(out["sam_dir"], "model.safetensors"),
+    weights_mod.save_safetensors(
+        os.path.join(out["sam_dir"], "model.safetensors"),
                       list(synthetic.sam_hf_state(out["sam"], scfg).items()))
 
     tcfg, mcfg = cfgs["tiny"], cfgs["mobile"]
@@ -4630,6 +4723,7 @@ def audio_phase(engine, clips, dev, results) -> dict:
 # masks, classes "person" and "dog".
 LEARNED_FRAMES, LEARNED_HW = 100, (480, 832)
 LEARNED_CLASSES = ["person", "dog"]
+LEARNED_HOST_FRAMES = 20  # the host loop's run, against the fused one's
 LEARNED_BOXES, LEARNED_OBJECTS = 8, 4
 LEARNED_MASK_SHARE = 5e-3  # masks may differ on under 0.5% of a frame
 LEARNED_SCORE_TOL = 1e-4  # detection scores, kernels against plain
@@ -4755,10 +4849,11 @@ def learned_grounding_phase(dev, results) -> dict:
     paths on 10
     frames; then, each with the launch counts set to 0 just before and
     read just after, GroundedTracker.run_on_list_of_images (the fused
-    path) and run_host_loop (the chunked host loop) over the 100 frames,
-    with wall, stage seconds (host clock around synchronized calls;
-    host glue the rest), detector forwards and kernel 1 / 7 / 12
-    launches; the two must agree (same_tracks), the filter must drop a
+    path) over the 100 frames and run_host_loop (the chunked host loop)
+    over the first LEARNED_HOST_FRAMES, with wall, stage seconds (host
+    clock around synchronized calls; host glue the rest), detector
+    forwards and kernel 1 / 7 / 12 launches; the two must agree on those
+    frames (same_tracks), the filter must drop a
     detection, the masks must not be all empty, and the path's kernels
     must all launch. Then 12 frames with the kernels against the same
     path on their plain versions (set_default_impl('xla') for attention
@@ -4840,7 +4935,9 @@ def learned_grounding_phase(dev, results) -> dict:
         fused, launches, fused_wall = run("fused", frames)
         fused_dropped = dropped[0]
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        host, host_launches, _ = run("host", frames)
+        # the host loop over the first LEARNED_HOST_FRAMES frames (its
+        # chunks and detection batches are the fused run's there)
+        host, host_launches, _ = run("host", frames[:LEARNED_HOST_FRAMES])
         missing = [k for k in LEARNED_PATH if not launches.get(k)]
         if missing or any(not host_launches.get(k) for k in LEARNED_PATH):
             raise AssertionError(f"learned grounding: kernels never "
@@ -4852,7 +4949,8 @@ def learned_grounding_phase(dev, results) -> dict:
         if {fr.masks.shape for fr in fused} != {
                 (LEARNED_OBJECTS,) + LEARNED_HW}:
             raise AssertionError("learned grounding: mask shapes")
-        worst = same_tracks(fused, host, "fused vs host loop")
+        worst = same_tracks(fused[:LEARNED_HOST_FRAMES], host,
+                            "fused vs host loop")
         masked = sum(int(fr.masks.any()) for fr in fused)
         print(f"learned fused vs host loop: objects equal, masks differ on "
               f"at most {worst:.5f} of a frame's pixels (limit "
@@ -4908,6 +5006,111 @@ def learned_grounding_phase(dev, results) -> dict:
     print(f"learned grounding phase: {time.perf_counter() - t0:.2f} s",
           flush=True)
     return launches
+
+
+TRACKING_ARGS = ["--train_steps", "150", "--clips", "3", "--frames", "8"]
+TRACKING_FUSED_TOL = 1e-3  # fused dispatch vs propagator, J and F
+
+
+def tracking_quality_phase(dev, card) -> dict:
+    """scripts/tracking_quality.main on the card (TRACKING_ARGS: 150
+    steps of the brief XMem training, then the handcrafted STM and the
+    trained XMem over 3 clips a kind of 8 frames, each as the propagator
+    and through the fused dispatch): the J&F table, the training's and
+    evaluation's seconds, peak device memory and the TF32 flags it ran
+    under. Every J and F finite and in [0, 1]; the mean loss of the last
+    25 steps under that of the first 25; each tracker's fused J, F and
+    J&F within TRACKING_FUSED_TOL of its propagator's, kind by kind.
+    XMem runs no port kernel: convolutions and top-k only. Returns the
+    summary."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    summary = tracking_quality.main(TRACKING_ARGS + ["--device", str(dev)])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    detail = summary["detail"]
+    for tracker, table in detail.items():
+        for kind, r in table.items():
+            for k in ("J", "F", "JF"):
+                if not (math.isfinite(r[k]) and 0.0 <= r[k] <= 1.0):
+                    raise AssertionError(f"tracking quality: {tracker} "
+                                         f"{kind} {k} = {r[k]}")
+    worst = 0.0
+    for tracker in ("handcrafted", "xmem(brief)"):
+        for kind, r in detail[tracker].items():
+            for k in ("J", "F", "JF"):
+                worst = max(worst, abs(detail[tracker + "(fused)"][kind][k]
+                                       - r[k]))
+    if worst > TRACKING_FUSED_TOL:
+        raise AssertionError(f"tracking quality: fused dispatch differs "
+                             f"from the propagator by {worst}")
+    first, last = summary["train_loss_first"], summary["train_loss_last"]
+    if not last < first:
+        raise AssertionError(f"tracking quality: the training loss did not "
+                             f"fall ({first} -> {last})")
+    steps = summary["train_steps"]
+    print(f"tracking quality: J&F {summary['value']} (xmem(brief)), fused "
+          f"{summary['fused_jf_mean']}, handcrafted "
+          f"{detail['handcrafted']['mean']['JF']:.4f}; fused vs propagator "
+          f"at most {worst:.2e} apart (limit {TRACKING_FUSED_TOL}); "
+          f"training {steps} steps in {summary['train_seconds']:.2f} s "
+          f"({steps / summary['train_seconds']:.1f} steps/s), mean loss of "
+          f"the first 25 {first:.4f}, of the last 25 {last:.4f}; "
+          f"evaluation {summary['eval_seconds']:.2f} s; peak device memory "
+          f"{peak:.2f} GiB; TF32 {summary['tf32']}; phase "
+          f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+XMEM_PROFILE_ARGS = ["--frames", "4"]
+
+
+def profile_xmem_phase(dev, card) -> dict:
+    """scripts/profile_xmem at 4 frames of 480 x 832 (XMem with 4
+    objects, random weights, f32): the key encode of the chunk and the
+    whole propagate_chunk, then a torch.profiler trace of three chunks
+    read back through utils/trace_tools (its top 25 device ops)."""
+    t0 = time.perf_counter()
+    trace_dir = tempfile.mkdtemp(prefix="xmem_trace_")
+    try:
+        out = profile_xmem.main(XMEM_PROFILE_ARGS + [
+            "--trace_dir", trace_dir, "--device", str(dev)],
+            print_fn=lambda s: print(f"profile_xmem: {s}", flush=True))
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    if out["trace_source"] != "device":
+        raise AssertionError("profile_xmem: the trace holds no device "
+                             "activity")
+    print(f"profile_xmem phase: {time.perf_counter() - t0:.2f} s [{card}]",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+DECODE_PROFILE_STEPS = 64
+
+
+def profile_decode_phase(engine, card) -> dict:
+    """scripts/profile_decode.run on the 7B int4 engine (bench.py's
+    construction: W4A8, fused, a bf16 cache, the 100-frame clip and the
+    512-token prompt): the warm step over bursts of 16, then
+    DECODE_PROFILE_STEPS profiled steps, whose top ops must name kernels
+    A (w4a8_matvec_kernel) and 3 (decode_mha_kernel)."""
+    t0 = time.perf_counter()
+    out = profile_decode.run(
+        engine, steps=DECODE_PROFILE_STEPS, kv="bf16",
+        labels={"model": "7b", "llm_dtype": "int4"},
+        print_fn=lambda s: print(f"profile_decode: {s}", flush=True))
+    top = out["top_ops"]
+    for kernel in ("w4a8_matvec_kernel", "decode_mha_kernel"):
+        if not any(kernel in name for name in top):
+            raise AssertionError(f"profile_decode: {kernel} is not among "
+                                 f"the top ops")
+    print(f"profile_decode phase: {time.perf_counter() - t0:.2f} s [{card}]",
+          flush=True)
+    return out
 
 
 BATCHING_PATH = ("flash_attention_bhsd", "spatio_temporal_pool",
@@ -5343,6 +5546,8 @@ def main() -> int:
                 raise AssertionError("kernel B launched fewer than 4 x 32 "
                                      "times a prefill")
         profile_request(engine, clips, dev, label)
+        if quant:
+            profile_decode_phase(engine, card)
         if quant is None:  # the seed engine's weights as checkpoints
             checkpoint_phase(engine, clips, requests, dev, card)
         # the bf16 kernels' launches are the bf16 path's, A's and B's
@@ -5375,6 +5580,8 @@ def main() -> int:
     eval_13b_phase(dev, results)
     learned = learned_grounding_phase(dev, results)
     launches["flash_attention_bhsd_f32"] = learned["flash_attention_bhsd_f32"]
+    profile_xmem_phase(dev, card)
+    tracking_quality_phase(dev, card)
     save_features_phase(dev, results, card)
     trained = training_phase(dev, results)
     launches.update({k: trained[k] for k in TRAIN_PATH + TRAIN_PATH_F32[1:]})

@@ -45,6 +45,6 @@ def test_configs_and_constants_match_jax():
                      "head_dim"):
             assert getattr(tv.vision, prop) == getattr(jv.vision, prop)
     names = [n for n in vars(tconst) if n.isupper()]
-    assert len(names) == 8
+    assert len(names) == 9
     for n in names:
         assert getattr(tconst, n) == getattr(jconst, n), n

@@ -1,6 +1,7 @@
-"""The port and chip_smoke.py run where JAX, `transformers`, `requests`,
-`tokenizers`, `safetensors`, `sentencepiece` and `google.protobuf` are
-not installed (the card's machine has none of them)."""
+"""The port and chip_smoke.py run where JAX, `optax`, `transformers`,
+`requests`, `tokenizers`, `safetensors`, `sentencepiece` and
+`google.protobuf` are not installed (the card's machine has none of
+them)."""
 
 import os
 import pkgutil
@@ -10,10 +11,11 @@ import sys
 import video_llava_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# Makes `import jax` (transformers, requests, tokenizers, safetensors,
-# sentencepiece, google.protobuf) raise ImportError, as on a machine
-# without them.
+# Makes `import jax` (optax, transformers, requests, tokenizers,
+# safetensors, sentencepiece, google.protobuf) raise ImportError, as on a
+# machine without them.
 BLOCK_JAX = ("import sys; sys.modules['jax'] = None; "
+             "sys.modules['optax'] = None; "
              "sys.modules['transformers'] = None; "
              "sys.modules['requests'] = None; "
              "sys.modules['tokenizers'] = None; "
@@ -44,8 +46,8 @@ def test_port_imports_no_jax(tmp_path):
             "importlib.import_module(m)\n"
             "assert sys.modules['jax'] is None\n"
             "assert not [m for m in sys.modules if m.startswith(("
-            "'jax.', 'tokenizers.', 'safetensors.', 'sentencepiece.', "
-            "'google.protobuf.'))]\n")
+            "'jax.', 'optax.', 'tokenizers.', 'safetensors.', "
+            "'sentencepiece.', 'google.protobuf.'))]\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
 
@@ -214,3 +216,56 @@ def test_port_imports_no_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split()[-2:] == ["float32", "2"]
     assert '"video": "v1.pkl"' in (tmp_path / "out.json").read_text()
+    # the tools: utils (timing, trace_tools, logging), the tracking-quality
+    # suite, the qualitative demo, weight_tools, QA generation and the
+    # profilers; each script's --help, and weight_tools' safetensors round
+    # trip through the port's own reader and writer
+    tools = ("utils.timing", "utils.trace_tools", "utils.logging",
+             "scripts.tracking_quality", "scripts.qualitative_demo",
+             "scripts.weight_tools", "scripts.generate_benchmark_qa",
+             "scripts.profile_decode", "scripts.profile_xmem",
+             "scripts.profile_gdino")
+    assert {"video_llava_tpu_torch." + m for m in tools} <= set(modules)
+    for mod, flags in (
+            ("scripts.tracking_quality", ("--train_steps", "--xmem_checkpoint",
+                                          "--lt_frames", "--device")),
+            ("scripts.qualitative_demo", ("--video_path", "--sam_variant",
+                                          "--device")),
+            ("scripts.weight_tools", ("make-delta", "apply-delta",
+                                      "consolidate")),
+            ("scripts.generate_benchmark_qa", ("--task", "--num_tasks",
+                                               "--api_base")),
+            ("scripts.profile_decode", ("--steps", "--trace_dir",
+                                        "--device")),
+            ("scripts.profile_xmem", ("--frames", "--trace_dir",
+                                      "--device")),
+            ("scripts.profile_gdino", ("--batch", "--impl", "--device"))):
+        name = "video_llava_tpu_torch." + mod
+        proc = _run(BLOCK_JAX + f"import runpy; sys.argv = ['x', '--help']; "
+                    f"runpy.run_module({name!r}, run_name='__main__')")
+        assert proc.returncode == 0, (name, proc.stderr)
+        assert all(f in proc.stdout for f in flags), (name, proc.stdout)
+    base, target = tmp_path / "b.safetensors", tmp_path / "t.safetensors"
+    proc = _run(BLOCK_JAX + (
+        "import torch\n"
+        "from video_llava_tpu_torch.engine import weights\n"
+        "from video_llava_tpu_torch.scripts import weight_tools as wt\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "b = torch.randn(5, 3, generator=g).to(torch.bfloat16)\n"
+        "t = torch.randn(7, 3, generator=g).to(torch.bfloat16)\n"
+        f"weights.save_safetensors({str(base)!r}, "
+        "{'model.embed_tokens.weight': b})\n"
+        f"weights.save_safetensors({str(target)!r}, "
+        "{'model.embed_tokens.weight': t})\n"
+        f"d, o = {str(tmp_path / 'd.safetensors')!r}, "
+        f"{str(tmp_path / 'o.safetensors')!r}\n"
+        f"wt.main(['make-delta', '--base', {str(base)!r}, '--target', "
+        f"{str(target)!r}, '--delta', d])\n"
+        f"wt.main(['apply-delta', '--base', {str(base)!r}, '--delta', d, "
+        "'--target', o])\n"
+        "got = weights.load_safetensors(o)['model.embed_tokens.weight']\n"
+        "assert got.dtype == torch.bfloat16 and torch.equal(got[5:], t[5:])\n"
+        "print('roundtrip', (got.float() - t.float()).abs().max().item() "
+        "< 0.05)"))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-2:] == ["roundtrip", "True"]

@@ -15,3 +15,6 @@ IGNORE_INDEX = -100
 # Videos of any length are mean-pooled to at most this many temporal
 # tokens, zero-padded up to it.
 MAX_TEMPORAL_TOKENS = 100
+
+# Where build_logger writes its rotating log files.
+LOGDIR = "."

@@ -80,6 +80,34 @@ def load_safetensors(path: str) -> StateDict:
     return out
 
 
+_ST_NAMES = {torch_dtype: name
+             for name, (_, torch_dtype) in _ST_DTYPES.items()}
+
+
+def save_safetensors(path: str, tensors) -> None:
+    """A .safetensors file written by hand (no safetensors package): the
+    8-byte little-endian header length, the JSON header (padded to 8
+    bytes), then each tensor's bytes in order. `tensors`: a {name:
+    tensor} mapping or [(name, tensor)], copied to the host one at a
+    time; every dtype load_safetensors reads."""
+    if isinstance(tensors, dict):
+        tensors = list(tensors.items())
+    header, off = {}, 0
+    for name, t in tensors:
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for _, t in tensors:
+            f.write(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                    .tobytes())
+
+
 def load_torch_bin(path: str) -> StateDict:
     """A torch .bin state dict, memory-mapped, on the CPU, in its own
     dtypes."""

@@ -445,7 +445,11 @@ def forward(params, cfg: GroundingDinoConfig, pixels: torch.Tensor,
 
 def _forward_device(params, cfg: GroundingDinoConfig, pixels, input_ids,
                     text_pad_mask, text_self_mask, position_ids,
-                    text_token_mask):
+                    text_token_mask, stage: Optional[str] = None):
+    # `stage` truncates the forward after a pipeline stage and returns
+    # that stage's output, as the JAX package's does — a profiling knob
+    # (scripts/profile_gdino.py): successive-prefix timings decompose the
+    # forward; stage=None is the shipped forward.
     b = pixels.shape[0]
     d = cfg.d_model
     eps = cfg.layer_norm_eps
@@ -456,6 +460,8 @@ def _forward_device(params, cfg: GroundingDinoConfig, pixels, input_ids,
                             cfg.text, attention_bias=bert_bias,
                             position_ids=position_ids)
     text = dense(params["text_projection"], text)
+    if stage == "text":
+        return text, text
 
     stages = swin_mod.forward_features(params["swin"], pixels, cfg.swin)
     feature_maps = [norm(params["backbone_norms"][i], stages[si], eps)
@@ -486,6 +492,8 @@ def _forward_device(params, cfg: GroundingDinoConfig, pixels, input_ids,
         pos_embeds.append(pos + params["level_embed"][lvl][None])
     vision = torch.cat(sources, dim=1)
     pos_flatten = torch.cat(pos_embeds, dim=0)[None].expand(b, -1, -1)
+    if stage == "backbone":
+        return vision, pos_flatten
 
     refs = []
     for hh, ww in spatial_shapes:
@@ -501,6 +509,8 @@ def _forward_device(params, cfg: GroundingDinoConfig, pixels, input_ids,
         vision, text = _encoder_layer(
             lp, cfg, vision, text, pos_flatten, reference_points,
             spatial_shapes, text_pad_mask, text_self_mask, position_ids)
+    if stage == "encoder":
+        return vision, text
 
     # two-stage proposals
     proposals = []
@@ -531,6 +541,8 @@ def _forward_device(params, cfg: GroundingDinoConfig, pixels, input_ids,
     _, topk_idx = stable_topk(enc_logits.amax(dim=-1), topk)
     reference = torch.sigmoid(torch.gather(
         enc_coords, 1, topk_idx[:, :, None].expand(b, topk, 4)))
+    if stage == "two_stage":
+        return reference, reference
 
     hidden = params["query_embeds"][None].expand(b, topk, d).to(vision.dtype)
     for li, lp in enumerate(params["decoder_layers"]):
