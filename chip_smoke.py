@@ -20,7 +20,9 @@ Phases, each of which raises on failure (exit code != 0):
      large, the W4A16 block matmul at 2, 8, 36, 256, 768 and 1100 rows,
      Vicuna-13B's shapes of the batched eval phase (A at 8 rows, B at
      8 x 768 prefill rows and an 8 x 9 verify window, kernel 3 at 40
-     layers x 8 rows x 40 heads), and planted faults in the plain
+     layers x 8 rows x 40 heads), a tensor-parallel rank's shapes
+     (tp_kernel_checks: kernel 1 at 8 heads, 3 at 16, A and B at 2,048
+     and 5,504 columns), and planted faults in the plain
      versions of kernels 1, 2, 9, 10, 11, A, B and both W4A16 kernels
      that must fail; kernel 1's f32 body at the crop filter's ViT-B/32
      shape and CLIP-L's), timing the
@@ -119,7 +121,18 @@ Phases, each of which raises on failure (exit code != 0):
      launches, peak memory and a profile of the transcribe; then free
      the engine, build Vicuna-7B with 8 KV heads (int4) and answer the
      100-frame request (gqa_chat_phase: kernel 11), and free it;
-     before it, the windowed batcher (batching_phase): a 7B int4 engine
+     before it, tensor parallel first (tp_phase: the 7B int4 engine,
+     unfused, its vocab padded to 256, under --mesh_model 2
+     --dist_backend gloo with both ranks on this card, rank 1 spawned;
+     the 100-frame request at 224 px, 64 greedy tokens, and 4 requests
+     through the paged continuous engine, held against the
+     single-process engine of the same seed: teacher-forced logits
+     within TP_LIMITS (the request end to end, each paged request
+     through the paged pool; a planted wrong-heads fault outside them),
+     tokens equal up to a near tie; each rank's
+     launches of 1, 2, 3, A, B and 10 and its peak memory; no multi-GPU
+     speed is measured), then the windowed batcher (batching_phase): a
+     7B int4 engine
      with the W8A8 CLIP tower (clip_dtype="int8", its leaves equal to
      quantize_a8_ of the seed's bf16 tower; the 100-frame encode timed
      beside the bf16 tower's, their features' per-token cosine, and
@@ -218,7 +231,10 @@ from video_llava_tpu_torch.constants import (
     DEFAULT_VIDEO_TOKEN,
 )
 from video_llava_tpu_torch.engine import weights as weights_mod
-from video_llava_tpu_torch.engine.continuous import SlotRequest
+from video_llava_tpu_torch.engine.continuous import (
+    ContinuousEngine,
+    SlotRequest,
+)
 from video_llava_tpu_torch.engine.quant_select import (
     resolve_clip_dtype,
     resolve_quant,
@@ -253,6 +269,7 @@ from video_llava_tpu_torch.ops import (
     pooling,
     quant4,
 )
+from video_llava_tpu_torch.parallel import driver
 from video_llava_tpu_torch.runtime import chat as chat_mod
 from video_llava_tpu_torch.runtime.chat import (
     PGVideoLLaVA,
@@ -607,6 +624,7 @@ def kernel_checks(dev) -> dict:
     long_decode_checks(dev, g, rnd, results)
     w4a16_checks(dev, g, results)
     checks_13b(dev, g, rnd, results)
+    tp_kernel_checks(dev, g, rnd, results)
     return results
 
 
@@ -2383,14 +2401,7 @@ def eval_13b_phase(dev, results) -> dict:
         return call
 
     real_init, real_load = ri.initialize_model, ri.load_video
-    real_generate, real_result = ri.generate, cont_mod.RequestHandle.result
-    timed_generate = timed_call(real_generate, "generate_s")
-
-    def generate(*a, **kw):  # the batched runner's generate call
-        out = timed_generate(*a, **kw)
-        stats["tokens"] += int(out.lengths.sum())
-        kept["gen"] = (a, kw, out.tokens.cpu(), out.lengths.cpu())
-        return out
+    real_result = cont_mod.RequestHandle.result
 
     def result(handle, timeout=None):  # a continuous request's tokens
         toks = real_result(handle, timeout)
@@ -2420,6 +2431,14 @@ def eval_13b_phase(dev, results) -> dict:
             return out
 
         engine.batched_encode = encode
+        timed_generate = timed_call(engine.generate_tokens, "generate_s")
+
+        def generate(*a2, **kw2):  # the batched runner's generate call
+            out = timed_generate(*a2, **kw2)
+            stats["tokens"] += int(out.lengths.sum())
+            return out
+
+        engine.generate_tokens = generate
         prefill_fn, decode_fn = model.prefill, llm.decode_step
         timed_prefill = timed_call(prefill_fn, "prefill_s")
 
@@ -2441,7 +2460,7 @@ def eval_13b_phase(dev, results) -> dict:
         return engine
 
     tmp = tempfile.mkdtemp(prefix="eval13b_")
-    ri.initialize_model, ri.generate = init, generate
+    ri.initialize_model = init
     cont_mod.RequestHandle.result = result
     ri.load_video = lambda path, num_frm=100, shape=None: eval_frames(
         os.path.basename(path)[2:].rsplit(".", 1)[0], num_frm)
@@ -2589,7 +2608,6 @@ def eval_13b_phase(dev, results) -> dict:
                                  f"{parted}")
     finally:
         ri.initialize_model, ri.load_video = real_init, real_load
-        ri.generate = real_generate
         cont_mod.RequestHandle.result = real_result
         shutil.rmtree(tmp, ignore_errors=True)
         kept.clear()
@@ -5470,6 +5488,455 @@ def weight_bytes(module, leaves) -> int:
                if n.rsplit(".", 1)[-1] in leaves)
 
 
+# -- tensor parallel (tp_phase) ---------------------------------------------
+
+TP_RANKS = 2
+TP_VOCAB_MULTIPLE = 256
+TP_CONTINUOUS = 4  # requests through the paged continuous engine
+# teacher-forced logits, TP against the single-process engine on the same
+# token stream: (max, mean) |err| as fractions of max |logit|, checked on
+# the 100-frame request end to end (TP features into the TP LLM) and on
+# each paged request through the paged pool. Sound runs read 4.1-5.2% /
+# 0.58-0.64%, the planted wrong-heads fault 138-146% / 22-25% (tp_phase
+# prints both; PERF.md section 6)
+TP_LIMITS = (0.10, 0.02)
+TP_FAULT_TOKENS = 8
+# the video features, TP against the reference: fractions of max |feature|
+TP_FEATURE_LIMITS = (0.02, 0.001)
+TP_PATH = ("flash_attention_bhsd", "spatio_temporal_pool",
+           "decode_attention_stacked", "w4a8_matvec", "w4a8_block")
+
+
+def tp_kernel_checks(dev, g, rnd, results) -> None:
+    """The kernels at a rank's shapes under make_mesh(1, 2) for Vicuna-7B
+    int4 and CLIP-L (tp_phase): kernel 1 at 8 of CLIP's 16 heads, kernel
+    3 at 16 of the 32 heads of the chat cache, A and B at wq/wk/wv's
+    2,048 and gate/up's 5,504 columns a rank (wo and down run whole, the
+    shapes above). After every main-path shape: record() keeps the
+    first."""
+    s, s_pad = 257, 272
+    q, k, v = (rnd(100, 8, s_pad, 64) for _ in range(3))
+    k[:, :, s:], v[:, :, s:] = 30.0, 100.0
+    mask = (torch.arange(s_pad, device=dev) < s)[None, None, None]
+    check(results, "flash_attention_bhsd", (100, 8, s_pad, 64, s, "TP rank"),
+          lambda: attention.flash_attention_bhsd(q, k, v, kv_len=s),
+          lambda: attention.flash_attention_bhsd_plain(q, k, v, kv_len=s),
+          nbytes=(2 * s_pad + 2 * s) * 100 * 8 * 64 * 2,
+          ops=4 * 100 * 8 * s_pad * s * 64,
+          library=lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         attn_mask=mask))
+    del q, k, v
+    n_prompt, L = chat_cache_len(VideoLLaVAConfig())
+    n = n_prompt + MAX_NEW_TOKENS // 2
+    lens = torch.tensor([n], dtype=torch.int32, device=dev)
+    q = rnd(1, 1, 16, 128)
+    kc, vc = rnd(32, 1, L, 16, 128), rnd(32, 1, L, 16, 128)
+    check(results, "decode_attention_stacked",
+          (32, 1, L, 16, 128, "bf16", "TP rank"),
+          lambda: attention.decode_attention_stacked(q, kc, vc, 17, lens),
+          lambda: attention.decode_attention_stacked_plain(q, kc, vc, 17,
+                                                           lens),
+          nbytes=2 * n * 16 * 128 * 2, ops=4 * n * 16 * 128)
+    del q, kc, vc
+    d = LlamaConfig.vicuna_7b().hidden_size
+    for f in (2048, 5504):
+        w = torch.randn(d, f, generator=g, device=dev)
+        p, sc = quant4.quantize_tensor_int4(w * d ** -0.5, 128)
+        for name, nb in (("w4a8_matvec", 1), ("w4a8_block", 768)):
+            x = torch.randn(nb, d, generator=g, device=dev).to(torch.bfloat16)
+            kernel = getattr(quant4, name)
+            plain = (quant4.int4_matmul_w4a8_xla if name == "w4a8_matvec"
+                     else quant4.int4_matmul_w4a8_block_xla)
+            check(results, name, (nb, d, f, "bf16 out", "TP rank"),
+                  lambda: kernel(x, p, sc, torch.bfloat16),
+                  lambda: plain(x, p, sc).to(torch.bfloat16),
+                  nbytes=p.numel() + 2 * sc.numel() + 4 * x.numel(),
+                  ops=2 * nb * d * f, peak=INT8_PEAK)
+
+
+class TPProbe:
+    """Built on every rank of tp_phase (driver.new). Its replicated
+    methods reset each rank's launch counts and peak memory, write them
+    to `out_dir` (one JSON file a rank and tag), and run a
+    teacher-forced pass."""
+
+    def __init__(self, out_dir: str):
+        self.out_dir = out_dir
+
+    @driver.replicated
+    def reset(self) -> None:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+
+    @driver.replicated
+    def report(self, tag: str) -> None:
+        peak = 0.0
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        rank = torch.distributed.get_rank()
+        with open(os.path.join(self.out_dir, f"{tag}.{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "launches": dict(cuda_lib.LAUNCHES),
+                       "peak_gib": peak}, f)
+
+    @driver.replicated
+    def teacher(self, engine, input_ids, seq_lens, feats, tokens):
+        return teacher_forced(engine.model, input_ids, seq_lens, feats,
+                              tokens)
+
+    @driver.replicated
+    def teacher_paged(self, ceng, prompts, feats, forced, fault=False):
+        return teacher_forced_paged(ceng.model, ceng.cache, prompts, feats,
+                                    forced, fault)
+
+    def read(self, tag: str) -> list:
+        out = []
+        for rank in range(TP_RANKS):
+            with open(os.path.join(self.out_dir, f"{tag}.{rank}.json")) as f:
+                out.append(json.load(f))
+        return out
+
+
+@torch.inference_mode()
+def teacher_forced(model, input_ids, seq_lens, feats, tokens):
+    """Prefill, then decode `tokens` (1-D) one at a time -> the logits
+    after the prompt and after each token but the last, (len, vocab) f32
+    on the host."""
+    cap = input_ids.shape[1] + len(tokens) + 1
+    pre = model.prefill(input_ids, seq_lens, feats, cap)
+    out, cache = [pre.logits_last], pre.cache
+    for t in tokens[:-1]:
+        logits, cache = model.llm.decode_step(t.view(1), cache)
+        out.append(logits)
+    return torch.cat(out).float().cpu()
+
+
+@torch.inference_mode()
+def teacher_forced_paged(model, pool, prompts, feats, forced,
+                         fault: bool = False):
+    """teacher_forced through a continuous engine's paged pool (idle: its
+    blocks are overwritten), a row a request: `prompts` [(ids (1, s_pad),
+    seq_lens (1,))], `feats` each row's video features or None, `forced`
+    each row's tokens (1-D). Each row's prompt is prefilled alone over
+    blocks of its own, as the engine's _prefill_slot prefills it; then
+    decode_step runs every row at once on the pool (kernel 10 at the
+    engine's batch), a row past its tokens repeating its last. fault=True
+    rolls the pool's heads by one after the prefills, so each decode step
+    reads the prompts' keys and values at the neighbour head: a wrong
+    layout, which TP_LIMITS must reject. -> a (len, vocab) f32 tensor on
+    the host a row."""
+    dev = prompts[0][0].device
+    bs, steps = pool.block_size, max(len(t) for t in forced)
+    table = torch.zeros_like(pool.table[:len(prompts)])
+    length = torch.zeros((len(prompts),), dtype=torch.int32, device=dev)
+    out, first = [], 1  # block 0 is the pad block
+    for i, ((ids, lens), f) in enumerate(zip(prompts, feats)):
+        s, n = ids.shape[1], int(lens[0])
+        blocks = -(-(s + steps) // bs)
+        if first + blocks > pool.k.shape[1] or blocks > table.shape[1]:
+            raise ValueError("teacher_forced_paged: the rows outgrow the "
+                             "pool")
+        table[i, :blocks] = torch.arange(first, first + blocks,
+                                         dtype=table.dtype, device=dev)
+        first += blocks
+        row = dataclasses.replace(
+            pool, table=table[i:i + 1],
+            length=torch.zeros((1,), dtype=torch.int32, device=dev))
+        embeds = model.build_inputs_embeds(ids, f)
+        positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
+        hidden, row = model.llm.forward_hidden(embeds, positions, row,
+                                               new_length=lens)
+        length[i] = row.length[0]
+        out.append([model.llm.logits(hidden[:, n - 1])])
+    cache = dataclasses.replace(pool, table=table, length=length)
+    if fault:
+        roll = lambda a: None if a is None else a.roll(1, dims=3)  # noqa: E731
+        cache = dataclasses.replace(cache, k=roll(cache.k), v=roll(cache.v),
+                                    k_scale=roll(cache.k_scale),
+                                    v_scale=roll(cache.v_scale))
+    for j in range(steps - 1):
+        tok = torch.stack([t[min(j, len(t) - 1)] for t in forced])
+        logits, cache = model.llm.decode_step(tok, cache)
+        for i, t in enumerate(forced):
+            if j < len(t) - 1:
+                out[i].append(logits[i:i + 1])
+    return [torch.cat(o).float().cpu() for o in out]
+
+
+def tp_engine(device, model_size: str = "7b"):
+    """The tp_phase engine on every rank (and, unsharded, its reference):
+    Vicuna-7B int4, unfused (the layout a mesh shards), the vocab padded
+    to 256 (bench.py pads to m * 128), seed 0, no speculation."""
+    engine = initialize_model(
+        model_size=model_size, device=device, seed=0, llm_quant="int4",
+        llm_fuse=False, vocab_multiple=TP_VOCAB_MULTIPLE,
+        mesh_model=TP_RANKS if driver.active() else None)
+    engine.speculative = False
+    return engine
+
+
+def tp_follower(argv) -> None:
+    """A follower rank of tp_phase (spawned by driver.start with argv
+    [model size, device])."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    session = driver.start(TP_RANKS, "gloo", None, argv[1])
+    try:
+        tp_engine(session.device, argv[0])
+        driver.follow()
+    finally:
+        driver.stop()
+
+
+def tp_prompts(engine):
+    """The 100-frame video request's padded prompt and the continuous
+    engine's requests: the video one (its features) and text ones."""
+    conv = conv_templates["pg-video-llava"].copy()
+    video = (DEFAULT_VID_START_TOKEN
+             + DEFAULT_VIDEO_PATCH_TOKEN * engine.cfg.video_token_len
+             + DEFAULT_VID_END_TOKEN)
+    conv.append_message(conv.roles[0], QUESTION + "\n" + video)
+    conv.append_message(conv.roles[1], None)
+    ids, lens, _ = engine.padded_prompt(conv.get_prompt())
+    texts = []
+    for i, q in enumerate(("Name a colour.", "Count to five.",
+                           "What is a video?")[:TP_CONTINUOUS - 1]):
+        c = conv_templates["vicuna_v1_1"].copy()
+        c.append_message(c.roles[0], q)
+        c.append_message(c.roles[1], None)
+        texts.append(engine.tokenizer.encode(c.get_prompt()))
+    return ids, lens, texts
+
+
+def tp_padded(tokens, dev):
+    """A paged request's prompt as the engine pads it (prompt_pad 128):
+    ((1, s_pad) int64, (1,) int32 length) on `dev`."""
+    n = len(tokens)
+    ids = torch.zeros((1, n + (-n % 128)), dtype=torch.int64, device=dev)
+    ids[0, :n] = torch.tensor(tokens)
+    return ids, torch.tensor([n], dtype=torch.int32, device=dev)
+
+
+def tp_requests(engine, feats, ids, lens, texts, new_engine, probe=None):
+    """The phase's work on one engine: the 100-frame request (greedy, up
+    to 64 tokens), then the continuous requests through the paged
+    engine. Returns (video tokens, the continuous requests' tokens, the
+    continuous engine, idle)."""
+    tok = engine.tokenizer
+    gen = GenerationConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False,
+                           temperature=0.0, eos_token_id=tok.eos_token_id,
+                           pad_token_id=tok.pad_token_id)
+    res = engine.generate_tokens(ids, lens, feats[None], gen, 0, False)
+    video = res.tokens[0, :int(res.lengths[0])].clone()
+    if probe is not None:
+        probe.report("request")
+        probe.reset()
+    ceng = new_engine(ContinuousEngine, engine.model, engine.cfg,
+                      num_slots=TP_CONTINUOUS, max_cache_len=1024,
+                      prompt_pad=128, paged=True, speculative=False)
+    reqs = [SlotRequest(ids[0, :int(lens[0])].tolist(),
+                        max_new_tokens=32, eos_token_id=tok.eos_token_id,
+                        video_features=feats)]
+    reqs += [SlotRequest(t, max_new_tokens=32,
+                         eos_token_id=tok.eos_token_id) for t in texts]
+    handles = [ceng.submit(r) for r in reqs]
+    for _ in range(500):
+        if all(h.done for h in handles):
+            break
+        ceng.step_once()
+    if not all(h.done for h in handles):
+        raise AssertionError("tp_phase: continuous requests unfinished")
+    if probe is not None:
+        probe.report("paged")
+    return video, [list(h.tokens) for h in handles], ceng
+
+
+def tp_agree(label, got, want, tp_logits, ref_logits) -> str:
+    """Tokens equal, or parting first at a step k where both tokens lie
+    within eps of the maximum of step k's teacher-forced logits, TP's and
+    the reference's alike; eps is twice that step's measured max |TP -
+    reference| (an error that size can swap two tokens no further apart;
+    the logits themselves are held to TP_LIMITS apart from this)."""
+    k = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             None)
+    if k is None and len(got) == len(want):
+        return f"{label}: {len(got)} tokens equal"
+    if k is None or k >= len(tp_logits):
+        raise AssertionError(f"{label}: tokens part at {k}: lengths "
+                             f"{len(got)} vs {len(want)}")
+    tp, ref = tp_logits[k], ref_logits[k]
+    eps = 2 * (tp - ref).abs().max().item()
+    gaps = [(row.max() - row[tok]).item() for row in (tp, ref)
+            for tok in (got[k], want[k])]
+    if max(gaps) > eps:
+        raise AssertionError(
+            f"{label}: tokens part at {k} ({got[k]} vs {want[k]}) where a "
+            f"token is {max(gaps):.4f} below a step's maximum > eps "
+            f"{eps:.4f}")
+    return (f"{label}: tokens equal up to {k} of {len(want)}, then part "
+            f"at a near tie (both tokens within {max(gaps):.4f} of the "
+            f"maximum, TP's and the reference's, <= eps {eps:.4f})")
+
+
+def tp_logits_check(label, got, want) -> tuple:
+    """Print got against want (teacher-forced logits) as fractions of
+    max |want| -> (within TP_LIMITS, max fraction, mean fraction)."""
+    err = (got - want).abs()
+    scale = want.abs().max().item()
+    mx, mean = err.max().item() / scale, err.mean().item() / scale
+    ok = bool(torch.isfinite(got).all()) and (mx <= TP_LIMITS[0]
+                                              and mean <= TP_LIMITS[1])
+    print(f"tp_phase: {label}: teacher-forced logits over {len(want)} "
+          f"steps: max|err| {err.max().item():.4f} ({mx:.2%} of max|logit| "
+          f"{scale:.3f}), mean {err.mean().item():.5f} ({mean:.3%}); limits "
+          f"{TP_LIMITS}{'' if ok else ': out of tolerance'}", flush=True)
+    return ok, mx, mean
+
+
+def tp_phase(dev, card, model_size: str = "7b") -> dict:
+    """Tensor parallel on one card (the multi-process path, not a speed
+    measurement): the 7B int4 engine (tp_engine) under --mesh_model 2
+    --dist_backend gloo, rank 0 this process and rank 1 spawned, both on
+    cuda:0, each rank drawing the seeded model whole and keeping its
+    shard. The 100-frame request (bench.py's 224 px frames, 64 greedy
+    tokens) and 4 requests through the paged continuous engine, each
+    held against the single-process engine of the same seed built first
+    in this run. Teacher-forced logits along the reference's tokens
+    within TP_LIMITS: the request end to end (TP's own features into the
+    TP LLM, prefill and decode_step on the slot cache) and the paged
+    requests through their engine's pool at its batch
+    (teacher_forced_paged: kernel 10),
+    against the reference's through the same paths; the features within
+    TP_FEATURE_LIMITS; tokens equal, or parting at a near tie (tp_agree).
+    A planted fault (the TP pool read at the wrong heads) must fall
+    outside TP_LIMITS. Each rank's launches of kernels 1, 2, 3, A and B
+    (the request) and 10 (the continuous engine) and its peak memory are
+    printed; every one must have launched on every rank. The ranks'
+    arrival-counter buffers (kernels 3 and 9) are each process's own
+    allocation."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, size=(100, 224, 224, 3), dtype=np.uint8)
+
+    ref = tp_engine(dev, model_size)
+    ids, lens, texts = tp_prompts(ref)
+    prompts = [tp_padded(ids[0, :int(lens[0])].tolist(), dev)]
+    prompts += [tp_padded(t, dev) for t in texts]
+    with torch.inference_mode():
+        ref_feats = ref.encode_video_frames(frames)
+    ref_video, ref_cont, ref_ceng = tp_requests(
+        ref, ref_feats, ids, lens, texts, lambda cls, *a, **kw: cls(*a, **kw))
+    vocab = ref.cfg.llm.vocab_size  # the columns past it are -inf
+    forced = [torch.tensor(b, dtype=torch.int32, device=dev)
+              for b in ref_cont]
+    ref_logits = teacher_forced(ref.model, ids, lens, ref_feats[None],
+                                ref_video)[:, :vocab]
+    no_feats = [None] * (len(prompts) - 1)
+    ref_paged = [lg[:, :vocab] for lg in teacher_forced_paged(
+        ref.model, ref_ceng.cache, prompts, [ref_feats[None]] + no_feats,
+        forced)]
+    del ref, ref_ceng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out_dir = tempfile.mkdtemp(prefix="tp_phase_")
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()  # the build's peak, next
+    t0 = time.perf_counter()
+    session = driver.start(TP_RANKS, "gloo", None, dev.type,
+                           entry=("chip_smoke", "tp_follower"),
+                           argv=[model_size, dev.type])
+    try:
+        engine = tp_engine(session.device, model_size)
+        probe = driver.new(TPProbe, out_dir)
+        probe.report("build")  # each rank's peak: the whole model drawn
+        print(f"tp_phase: 2 ranks up and sharded in "
+              f"{time.perf_counter() - t0:.2f} s (rank 0 heads "
+              f"{engine.model.llm.cfg.num_heads} of "
+              f"{engine.model.llm.full_cfg.num_heads}, CLIP heads "
+              f"{engine.model.vision.layers[0].num_heads} of "
+              f"{engine.cfg.vision.num_heads})",
+              flush=True)
+        probe.reset()
+        t = time.perf_counter()
+        feats = engine.encode_video_frames(frames)
+        video, cont, ceng = tp_requests(engine, feats, ids, lens, texts,
+                                        driver.new, probe)
+        run_s = time.perf_counter() - t
+        # end to end: the TP features into the TP LLM
+        logits = probe.teacher(engine, ids, lens, feats[None],
+                               ref_video)[:, :vocab]
+        paged = [lg[:, :vocab] for lg in probe.teacher_paged(
+            ceng, prompts, [feats[None]] + no_feats, forced)]
+        # the planted fault, on the first 8 tokens of the last (a text)
+        # request
+        faulted = probe.teacher_paged(
+            ceng, prompts[-1:], [None], [forced[-1][:TP_FAULT_TOKENS]],
+            True)[0][:, :vocab]
+        ranks = {tag: probe.read(tag)
+                 for tag in ("build", "request", "paged")}
+    finally:
+        driver.stop()
+    failed = []
+    feat_err = (feats.float() - ref_feats.float()).abs()
+    feat_scale = ref_feats.float().abs().max().item()
+    fmx, fmean = (feat_err.max().item() / feat_scale,
+                  feat_err.mean().item() / feat_scale)
+    print(f"tp_phase: video features (CLIP and pooling under TP) max|err| "
+          f"{feat_err.max().item():.4f} ({fmx:.3%} of max|feature| "
+          f"{feat_scale:.3f}), mean {feat_err.mean().item():.5f} "
+          f"({fmean:.4%}); limits {TP_FEATURE_LIMITS}", flush=True)
+    if not (fmx <= TP_FEATURE_LIMITS[0] and fmean <= TP_FEATURE_LIMITS[1]):
+        failed.append("video features out of tolerance")
+    readings = {}
+    checks = ([("100-frame request, end to end", logits, ref_logits,
+                video.tolist(), ref_video.tolist())]
+              + [(f"paged request {i}", paged[i], ref_paged[i], cont[i],
+                  ref_cont[i]) for i in range(len(forced))])
+    for label, got, want, toks, ref_toks in checks:
+        ok, mx, mean = tp_logits_check(label, got, want)
+        readings[label] = [mx, mean]
+        if not ok:
+            failed.append(f"{label}: teacher-forced logits out of tolerance")
+        try:
+            print("tp_phase: " + tp_agree(label, toks, ref_toks, got, want),
+                  flush=True)
+        except AssertionError as e:
+            print(f"tp_phase: {e}", flush=True)
+            failed.append(str(e))
+    ok, mx, mean = tp_logits_check(
+        "planted fault (the pool read at the wrong heads), which must "
+        "fall outside the limits", faulted,
+        ref_paged[-1][:TP_FAULT_TOKENS])
+    readings["planted fault"] = [mx, mean]
+    if ok:
+        failed.append("the planted wrong-heads fault passed TP_LIMITS")
+    for r in ranks["build"]:
+        print(f"tp_phase rank {r['rank']} build peak {r['peak_gib']:.2f} GiB "
+              "(the whole seeded model drawn, then sharded)", flush=True)
+    for tag, path in (("request", TP_PATH),
+                      ("paged", ("decode_attention_paged",))):
+        for r in ranks[tag]:
+            print(f"tp_phase rank {r['rank']} {tag} launches "
+                  f"{r['launches']}, peak {r['peak_gib']:.2f} GiB",
+                  flush=True)
+            missing = [k for k in path if not r["launches"].get(k)]
+            if missing:
+                failed.append(f"rank {r['rank']} {tag}: kernels never "
+                              f"launched: {missing}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if failed:
+        raise AssertionError(f"tp_phase: {failed}")
+    wall = time.perf_counter() - t_phase
+    print(f"tp_phase: 100-frame request and {TP_CONTINUOUS} paged requests "
+          f"on 2 ranks in {run_s:.2f} s; phase wall {wall:.2f} s; {card}")
+    print("tp_phase: no multi-GPU speed is measured: 2 ranks share one card",
+          flush=True)
+    return {"wall_s": wall, "launches": ranks, "logits": readings}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -5574,6 +6041,7 @@ def main() -> int:
         del engine, llm
         gc.collect()
         torch.cuda.empty_cache()
+    tp_phase(dev, card)
     batching_phase(clips, dev, results, card)
     launches["decode_attention_pallas"] = gqa_chat_phase(
         clips, requests[:1], dev)["decode_attention_pallas"]

@@ -30,7 +30,9 @@ def test_eval_main_matches_jax(eval_pair, tmp_path, monkeypatch):
     initialize_model (stood in for by the shared tiny engines) with the
     JAX CLI's layout flags and the port's --device; the checkpoint flags
     reach initialize_model as the JAX CLI passes them, and --mesh_model 2
-    raises before any model is built."""
+    with the default nccl backend raises, naming --dist_backend, before
+    any model is built or any rank is started (a card a rank; this host
+    has none)."""
     # one torch thread: the tiny models' CPU ops gain nothing from more,
     # and beside the tier's other workers a pool of 8 spins on shared
     # cores (about 2x this test's time under load)
@@ -119,6 +121,6 @@ def _eval_main_matches_jax(eval_pair, tmp_path, monkeypatch):
             main(args(tmp_path / out) + flags)
     assert calls[-1][0] == jax_calls[-1][0] == ("ckpt", "p.bin", "clip")
     n = len(calls)
-    with pytest.raises(NotImplementedError):  # still not ported
+    with pytest.raises(ValueError, match="--dist_backend"):
         run_inference.main(args(tmp_path / "port") + ["--mesh_model", "2"])
     assert len(calls) == n

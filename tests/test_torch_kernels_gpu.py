@@ -58,12 +58,13 @@ def _assert_close(got, want, atol):
     (2, 4, 32, 23, 64), (3, 2, 100, 100, 128), (1, 2, 640, 577, 64),
     (2, 3, 48, 17, 16), (2, 16, 272, 257, 64), (1, 16, 272, 65, 64),
     (1, 2, 272, 1, 64), (1, 4, 640, 577, 64), (1, 65537, 16, 16, 64),
-    (1, 65537, 16, 9, 16), (1, 2, 512, 500, 128),
+    (1, 65537, 16, 9, 16), (1, 2, 512, 500, 128), (100, 8, 272, 257, 64),
 ])
 def test_flash_bhsd_kernel_matches_plain(dev, b, h, s, kv_len, d):
     """Kernel 1: the Hopper body at d 64 and 128 (CLIP's 224 px tiling,
     its 336 px one, 500 keys at d 128, one valid key, more than 65,535
-    heads), the WMMA body at d 16. The pad rows of k and v are large, so a
+    heads, a tensor-parallel rank's 8 of CLIP-L's 16 heads over 100
+    frames), the WMMA body at d 16. The pad rows of k and v are large, so a
     leaked pad key shows."""
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (_rand(g, b, h, s, d) for _ in range(3))
@@ -161,6 +162,8 @@ def test_pool_kernel_is_deterministic(dev):
     (3, 2, 37, 4, 64, False), (3, 2, 37, 4, 64, True),
     (2, 1, 833, 32, 128, False), (2, 1, 833, 32, 128, True),
     (3, 2, 37, 8, 32, False), (3, 2, 37, 8, 32, True),
+    # a tensor-parallel rank's 16 of Vicuna-7B's 32 heads
+    (2, 1, 833, 16, 128, False), (2, 1, 833, 16, 128, True),
 ])
 def test_decode_kernel_matches_plain(dev, nl, b, L, h, d, int8):
     g = torch.Generator(device=dev).manual_seed(2)
@@ -946,6 +949,8 @@ def _assert_rel(got, want, tol=1e-4):
     (1, 4096, 12288, 128), (1, 11008, 4096, 128), (4, 4096, 4096, 128),
     (4, 4096, 22016, 128), (3, 768, 256, 128), (8, 512, 384, 32),
     (2, 1024, 640, None), (5, 256, 128, None),
+    # a tensor-parallel rank's wq/wk/wv and gate/up of Vicuna-7B (m = 2)
+    (1, 4096, 2048, 128), (1, 4096, 5504, 128),
 ])
 def test_w4a8_matvec_kernel_matches_plain(dev, nb, d, f, group_size):
     g = torch.Generator(device=dev).manual_seed(4)
@@ -966,6 +971,7 @@ def test_w4a8_matvec_kernel_matches_plain(dev, nb, d, f, group_size):
     (768, 4096, 22016, 128), (768, 11008, 4096, 128), (1100, 4096, 4096, 128),
     (36, 4096, 22016, 128), (256, 4096, 22016, 128),
     (9, 512, 256, 32), (70, 768, 144, 128), (33, 1024, 256, None),
+    (768, 4096, 2048, 128), (768, 4096, 5504, 128),
 ])
 def test_w4a8_block_kernel_matches_plain(dev, nb, d, f, group_size):
     g = torch.Generator(device=dev).manual_seed(5)

@@ -269,3 +269,26 @@ def test_port_imports_no_jax(tmp_path):
         "< 0.05)"))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split()[-2:] == ["roundtrip", "True"]
+    # tensor parallel: the parallel/ modules and the follower loop import
+    # with JAX blocked, and the chat, serving and eval CLIs take the mesh
+    # flags
+    assert {"video_llava_tpu_torch.parallel",
+            "video_llava_tpu_torch.parallel.mesh",
+            "video_llava_tpu_torch.parallel.sharding",
+            "video_llava_tpu_torch.parallel.multihost",
+            "video_llava_tpu_torch.parallel.driver"} <= set(modules)
+    proc = _run(BLOCK_JAX + (
+        "from video_llava_tpu_torch.parallel import driver, make_mesh, "
+        "multihost, shard_params, videollava_param_specs\n"
+        "assert make_mesh().shape == {'data': 1, 'model': 1}\n"
+        "print(driver.start(None, device='cpu').world_size)"))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["1"]
+    for mod in ("runtime.chat", "serving", "eval.run_inference"):
+        name = "video_llava_tpu_torch." + mod
+        proc = _run(BLOCK_JAX + f"import runpy; sys.argv = ['x', '--help']; "
+                    f"runpy.run_module({name!r}, run_name='__main__')")
+        assert proc.returncode == 0, (name, proc.stderr)
+        assert all(f in proc.stdout for f in (
+            "--mesh_model", "--dist_backend", "--dist_init", "--device",
+            "--dtype")), (name, proc.stdout)

@@ -2,14 +2,19 @@
 leaf of nested lists, tuples, dicts and NamedTuples and waits on the
 card only for a CUDA tensor (torch.cuda.synchronize is recorded here,
 not called); measure (a per-iteration median) and measure_amortized (a
-mean) of a 20 ms sleep within 20% of it in both packages."""
+mean) of a sleep within 20% of it in both packages, on a fake clock
+(tests/torch_fake_clock.py) put under `time` in both timing modules: a
+reading costs one tick and the sleep advances the clock, so both
+packages' median, mean and sync round trip (the rtt each measurement
+subtracts) equal the sleep and the tick exactly, whatever the host's
+load."""
 
-import time
 from typing import NamedTuple
 
 import jax.numpy as jnp
 import torch
 
+from torch_fake_clock import FakeClock
 from video_llava_tpu.utils import timing as jtiming
 from video_llava_tpu_torch.utils import timing
 
@@ -32,14 +37,17 @@ def test_sync_and_measure_match_jax(monkeypatch):
         timing.sync(nested)
     assert calls == []
 
-    sleep = 0.02
+    clock = FakeClock()
+    monkeypatch.setattr(timing, "time", clock)
+    monkeypatch.setattr(jtiming, "time", clock)
+    sleep = 2.0 ** -6  # 15.625 ms: exact in binary, as the tick is
 
     def torch_fn(i):
-        time.sleep(sleep)
+        clock.sleep(sleep)
         return {"out": [torch.full((2,), float(i))]}
 
     def jax_fn(i):
-        time.sleep(sleep)
+        clock.sleep(sleep)
         return {"out": [jnp.full((2,), float(i))]}
 
     for measure in ("measure", "measure_amortized"):
@@ -47,4 +55,7 @@ def test_sync_and_measure_match_jax(monkeypatch):
         want = getattr(jtiming, measure)(jax_fn, iters=5)
         for t in (got, want):
             assert abs(t - sleep) <= 0.2 * sleep, (measure, t)
-    assert 0.0 <= timing.fetch_rtt() < 0.01
+            assert t == sleep, (measure, t)
+    for rtt in (timing.fetch_rtt(), jtiming.fetch_rtt()):
+        assert 0.0 <= rtt < 0.01
+        assert rtt == clock.TICK

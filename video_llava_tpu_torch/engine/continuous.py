@@ -1,8 +1,8 @@
 """Slot-based continuous batching for serving.
 
-Counterpart of video_llava_tpu/engine/continuous.py (without a device
-mesh). The engine decodes a fixed batch of B cache rows ("slots") and
-admits and retires requests between chunks of decode steps:
+Counterpart of video_llava_tpu/engine/continuous.py. The engine decodes
+a fixed batch of B cache rows ("slots") and admits and retires requests
+between chunks of decode steps:
 
   * one persistent cache of B rows lives on the device, either the slot
     cache (B x max_cache_len) or a paged pool of blocks shared through
@@ -29,6 +29,17 @@ cache in place (JAX donates the buffers instead). Text prompts prefill
 in fixed windows of ``prefill_chunk`` tokens, interleaved with decode
 chunks; video prompts prefill whole, since the feature splice needs the
 whole <vid_patch> span in one forward.
+
+Under a tensor-parallel mesh (the model's, from
+parallel/sharding.shard_params; ``mesh`` names it too) the engine is
+built on every rank (parallel/driver.new) and its state changes only
+through replicated calls: submit, each scheduler step and the
+scheduler's failure backstop. Everything a step decides from is then
+the same on every rank. A cancellation (the server's substring stop, a
+streaming callback that fails) is latched: asked on rank 0 at any time,
+it takes effect at the start of the next step, whose replicated call
+carries the cancelled requests. The caches hold the local KV heads;
+block tables and lengths are whole on every rank.
 """
 
 from __future__ import annotations
@@ -45,12 +56,15 @@ import numpy as np
 import torch
 
 from video_llava_tpu_torch.config import GenerationConfig, VideoLLaVAConfig
+from video_llava_tpu_torch.engine.generate import tp_mesh
 from video_llava_tpu_torch.engine.speculative import (
     accept_tokens,
     find_draft,
     write_rows,
 )
 from video_llava_tpu_torch.models.llama import KVCache, PagedKVCache
+from video_llava_tpu_torch.parallel import driver
+from video_llava_tpu_torch.parallel.sharding import shard_kv_cache
 
 _GREEDY = GenerationConfig(do_sample=False, temperature=0.0)
 
@@ -99,12 +113,14 @@ def _top_p_masked(logits: torch.Tensor, temps: Sequence[float],
 def _sample_rows(logits: torch.Tensor,
                  generators: Sequence[Optional[torch.Generator]],
                  temps: Sequence[float],
-                 top_ps: Sequence[float]) -> torch.Tensor:
+                 top_ps: Sequence[float], mesh=None) -> torch.Tensor:
     """Per-row sampling of (B, V) f32 logits -> (B,) int32: rows with
     temperature <= 0 take the argmax; the others draw from their
     temperature-scaled, top-p-masked distribution with their own
     generator. temps and top_ps live on the host, so an all-greedy batch
-    pays the argmax only and nothing waits for the device."""
+    pays the argmax only and nothing waits for the device. Under a
+    tensor-parallel mesh every rank's generator is seeded alike, and the
+    first rank's draws are broadcast all the same."""
     out = logits.argmax(dim=-1).to(torch.int32)
     rows = [i for i, t in enumerate(temps) if t > 0.0]
     if rows:
@@ -112,6 +128,8 @@ def _sample_rows(logits: torch.Tensor,
         for i in rows:
             out[i] = torch.multinomial(probs[i], 1,
                                        generator=generators[i])[0]
+        if mesh is not None:
+            mesh.broadcast_first(out)
     return out
 
 
@@ -131,7 +149,8 @@ def _prefill_slot(model, cache, slot: int, input_ids: torch.Tensor,
         new_length=torch.tensor([seq_len], dtype=torch.int32, device=dev))
     logits = model.llm.logits(hidden[:, seq_len - 1])
     _insert_row(cache, rowc, slot)
-    return _sample_rows(logits, [generator], [temp], [top_p])
+    return _sample_rows(logits, [generator], [temp], [top_p],
+                        tp_mesh(model))
 
 
 def _prefill_chunk(model, cache, slot: int, ids_chunk: torch.Tensor,
@@ -155,7 +174,8 @@ def _prefill_chunk(model, cache, slot: int, ids_chunk: torch.Tensor,
     if base + p < seq_len:
         return None
     logits = model.llm.logits(hidden[:, seq_len - 1 - base])
-    return _sample_rows(logits, [generator], [temp], [top_p])
+    return _sample_rows(logits, [generator], [temp], [top_p],
+                        tp_mesh(model))
 
 
 def _decode_chunk(model, cache, tokens: torch.Tensor, active: torch.Tensor,
@@ -167,10 +187,11 @@ def _decode_chunk(model, cache, tokens: torch.Tensor, active: torch.Tensor,
     their outputs are ignored by the host."""
     out = []
     tok = tokens
+    mesh = tp_mesh(model)
     for _ in range(chunk):
         old = cache.length
         logits, cache = model.llm.decode_step(tok, cache)
-        nxt = _sample_rows(logits, generators, temps, top_ps)
+        nxt = _sample_rows(logits, generators, temps, top_ps, mesh)
         cache.length = torch.where(active, cache.length, old)
         tok = torch.where(active, nxt, tok)
         out.append(nxt)
@@ -273,11 +294,15 @@ class SlotRequest:
 
 
 class RequestHandle:
-    def __init__(self):
+    def __init__(self, seq: int = 0, latched: bool = False):
         self.tokens: List[int] = []
         self.error: Optional[str] = None
         self._done = threading.Event()
         self._cancelled = False
+        self.seq = seq
+        # a replicated engine's cancellations wait for the next step
+        self._latched = latched
+        self._cancel_asked = False
 
     def result(self, timeout: Optional[float] = None) -> List[int]:
         if not self._done.wait(timeout):
@@ -293,8 +318,12 @@ class RequestHandle:
     def cancel(self) -> None:
         """Stop generating for this request at the next chunk boundary
         (serving's substring-stop check). Tokens already delivered stay
-        in `tokens`."""
-        self._cancelled = True
+        in `tokens`. On a replicated engine the cancellation is latched
+        at the start of the next step (module docstring)."""
+        if self._latched:
+            self._cancel_asked = True
+        else:
+            self._cancelled = True
 
 
 class _Slot:
@@ -418,8 +447,8 @@ class ContinuousEngine:
     tables. Admission allocates the blocks a request can touch and
     retirement frees them, so a smaller pool serves the same traffic;
     when the pool is short, admission waits. prefix_cache=True (paged
-    only) shares the blocks of repeated prompt prefixes. `mesh`
-    (multi-GPU serving) is not ported and raises."""
+    only) shares the blocks of repeated prompt prefixes. `mesh` (or the
+    model's own): tensor-parallel serving, see the module docstring."""
 
     def __init__(
         self,
@@ -442,12 +471,11 @@ class ContinuousEngine:
         num_blocks: Optional[int] = None,
         prefix_cache: bool = False,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (multi-GPU serving) is not ported yet: "
-                "ROADMAP Queue 1 item 9")
         self.model = model
         self.cfg = cfg
+        self.mesh = tp_mesh(model, mesh)
+        # the LLM's own configuration: under a mesh, the local KV heads
+        llm_cfg = model.llm.cfg
         self.device = model.llm.final_norm.scale.device
         self.num_slots = num_slots
         self.max_cache_len = max_cache_len
@@ -488,7 +516,7 @@ class ContinuousEngine:
                 # the slot cache's capacity, plus the pad block
                 num_blocks = num_slots * self.max_blocks + 1
             self.cache = PagedKVCache.create(
-                cfg.llm, num_slots, num_blocks, block_size, self.max_blocks,
+                llm_cfg, num_slots, num_blocks, block_size, self.max_blocks,
                 cache_dtype, self.device)
             self.alloc = _BlockAllocator(num_blocks)
             # per-slot block ownership: `shared` blocks are registry-
@@ -499,8 +527,11 @@ class ContinuousEngine:
         else:
             if prefix_cache:
                 raise ValueError("prefix_cache requires paged=True")
-            self.cache = KVCache.create(cfg.llm, num_slots, max_cache_len,
+            self.cache = KVCache.create(llm_cfg, num_slots, max_cache_len,
                                         cache_dtype, self.device)
+        if self.mesh is not None:
+            # heads local on 'model'; tables and lengths whole
+            self.cache = shard_kv_cache(self.cache, model.llm)
         if speculative:
             # a prefill writes whole windows into the context row: size
             # past the worst overshoot
@@ -526,8 +557,9 @@ class ContinuousEngine:
 
     # -- submission ----------------------------------------------------
 
+    @driver.replicated
     def submit(self, req: SlotRequest) -> RequestHandle:
-        handle = RequestHandle()
+        handle = RequestHandle(self._seq + 1, self.mesh is not None)
         if self._dead:
             handle.error = "engine stopped after repeated step failures"
             handle._done.set()
@@ -538,6 +570,17 @@ class ContinuousEngine:
                            (-req.priority, self._seq, req, handle))
             self.work.notify()
         return handle
+
+    def _handles(self):
+        return ([st.handle for st in self.slots if st is not None]
+                + [e[3] for e in self.pending])
+
+    def _take_cancellations(self) -> List[int]:
+        """The requests whose cancellation was asked since the last
+        step (latched handles only)."""
+        with self.lock:
+            return [h.seq for h in self._handles()
+                    if h._cancel_asked and not h._cancelled]
 
     # -- scheduling ----------------------------------------------------
 
@@ -790,10 +833,14 @@ class ContinuousEngine:
                     req.on_token(emit)
                 except Exception:  # noqa: BLE001
                     # a broken streaming callback (a client that hung up)
-                    # cancels its own request, never the scheduler
+                    # cancels its own request, never the scheduler; a
+                    # replicated engine latches it for the next step
                     logging.getLogger(__name__).exception(
                         "on_token callback failed; cancelling its request")
-                    alive = False
+                    if st.handle._latched:
+                        st.handle.cancel()
+                    else:
+                        alive = False
         if (st.prompt_len + len(st.handle.tokens) + 1 + self.reserve
                 > self.max_cache_len):
             alive = False  # another chunk could run past the row's end
@@ -801,11 +848,23 @@ class ContinuousEngine:
             st.handle._done.set()
         return alive
 
-    @torch.inference_mode()
     def step_once(self) -> bool:
         """One scheduler iteration: admit pending requests, run one
         prefill window and one decode chunk, deliver tokens. Returns True
         if any work was done."""
+        if self.mesh is None:
+            return self._step(())
+        return self._step(self._take_cancellations())
+
+    @driver.replicated
+    @torch.inference_mode()
+    def _step(self, cancelled) -> bool:
+        if cancelled:
+            wanted = set(cancelled)
+            with self.lock:
+                for h in self._handles():
+                    if h.seq in wanted:
+                        h._cancelled = True
         self._admit()
         prefilled = self._advance_prefill()
         live = [i for i, s in enumerate(self.slots)
@@ -876,6 +935,7 @@ class ContinuousEngine:
             self._thread.join()
             self._thread = None
 
+    @driver.replicated
     def _fail_all(self, msg: str) -> None:
         """Fail every in-flight and pending request (the scheduler's
         backstop: a hung handle is worse than an errored one)."""

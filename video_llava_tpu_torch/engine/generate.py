@@ -1,9 +1,14 @@
 """Autoregressive generation: prefill + decode loop.
 
-Counterpart of video_llava_tpu/engine/generate.py without a device mesh.
-The decode loop is a Python loop of ``decode_step`` calls, or with
-``speculative`` the prompt-lookup loop of engine/speculative.py;
-sampling draws from an explicit ``torch.Generator``. Loop rules kept
+Counterpart of video_llava_tpu/engine/generate.py. The decode loop is a
+Python loop of ``decode_step`` calls, or with ``speculative`` the
+prompt-lookup loop of engine/speculative.py; sampling draws from an
+explicit ``torch.Generator``. Under a tensor-parallel mesh (the model's
+`mesh`, or the `mesh` argument) every rank runs the same loop on the
+same gathered logits: greedy tokens agree by construction, and a
+sampled token is drawn on the mesh's first rank and broadcast, so the
+ranks' generators need not agree. Speculation is ignored under a mesh,
+as in the JAX package (generate.py:168, :238 there). Loop rules kept
 from the JAX package: stop ids end a row, a finished row emits the pad
 id and keeps its cache length, and keyword stops are checked on the
 host between chunks of ``keyword_check_every`` tokens, which is also
@@ -37,14 +42,24 @@ def process_logits(logits: torch.Tensor,
 
 
 def sample_token(logits: torch.Tensor, gen: GenerationConfig,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+                 generator: Optional[torch.Generator],
+                 mesh=None) -> torch.Tensor:
     """logits (b, vocab) f32 -> (b,) int32: argmax when greedy, else a
-    draw from the processed distribution with `generator`."""
+    draw from the processed distribution with `generator` (under a
+    mesh, the first rank's draw on every rank)."""
     if not gen.do_sample or gen.temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(process_logits(logits, gen), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+    tok = torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32)
+    return tok if mesh is None else mesh.broadcast_first(tok)
+
+
+def tp_mesh(model, mesh=None):
+    """The tensor-parallel mesh a generation runs under: `mesh`, else
+    the model's; None for one rank."""
+    mesh = mesh if mesh is not None else getattr(model, "mesh", None)
+    return mesh if mesh is not None and mesh.size > 1 else None
 
 
 class GenerateResult(NamedTuple):
@@ -62,7 +77,8 @@ def _decode_loop(model, gen: GenerationConfig, first_logits: torch.Tensor,
     b = first_logits.shape[0]
     stop_ids = torch.tensor((gen.eos_token_id,) + tuple(gen.stop_token_ids),
                             dtype=torch.int32, device=device)
-    tok = sample_token(first_logits, gen, generator)
+    mesh = tp_mesh(model)
+    tok = sample_token(first_logits, gen, generator, mesh)
     done = torch.isin(tok, stop_ids)
     buf = torch.full((b, max_new_tokens), gen.pad_token_id,
                      dtype=torch.int32, device=device)
@@ -72,7 +88,7 @@ def _decode_loop(model, gen: GenerationConfig, first_logits: torch.Tensor,
     while step < max_new_tokens and not bool(done.all()):
         old_length = cache.length
         logits, cache = model.llm.decode_step(tok, cache)
-        nxt = sample_token(logits, gen, generator)
+        nxt = sample_token(logits, gen, generator, mesh)
         nxt = torch.where(done, torch.full_like(nxt, gen.pad_token_id), nxt)
         buf[:, step] = nxt
         lens += (~done).to(torch.int32)
@@ -89,12 +105,15 @@ def generate(model, gen: GenerationConfig, input_ids: torch.Tensor,
              generator: Optional[torch.Generator] = None,
              max_cache_len: Optional[int] = None,
              cache_dtype=torch.bfloat16, speculative: bool = False,
-             spec_ngram: int = 3, spec_k: int = 8) -> GenerateResult:
+             spec_ngram: int = 3, spec_k: int = 8,
+             mesh=None) -> GenerateResult:
     """Prefill a right-padded batch and decode up to max_new_tokens.
 
     speculative: decode through prompt-lookup speculation
     (engine/speculative.py; rows draft and advance on their own), with
-    spec_k + 1 more cache rows for the verify forward's overshoot."""
+    spec_k + 1 more cache rows for the verify forward's overshoot.
+    Ignored under a tensor-parallel mesh (`mesh`, else the model's)."""
+    speculative = speculative and tp_mesh(model, mesh) is None
     s = input_ids.shape[1]
     slack = spec_k + 1 if speculative else 0
     if max_cache_len is None:
@@ -136,6 +155,7 @@ def generate_with_keywords(
     speculative: bool = False,
     spec_ngram: int = 3,
     spec_k: int = 8,
+    mesh=None,
 ) -> Tuple[str, GenerateResult]:
     """Generation with the reference's keyword stopping
     (model/utils.py:6-26): decode in chunks of keyword_check_every
@@ -152,9 +172,12 @@ def generate_with_keywords(
     return value, so the stream concatenates to the returned text
     (default str.strip); if it rewrites text already streamed, the raw
     remainder is flushed instead.
+    mesh: speculation is ignored under a tensor-parallel mesh (this, else
+    the model's).
     """
     if input_ids.shape[0] != 1:
         raise ValueError("keyword stopping is per-conversation (batch 1)")
+    speculative = speculative and tp_mesh(model, mesh) is None
     s = input_ids.shape[1]
     if max_cache_len is None:
         max_cache_len = s + gen.max_new_tokens + (

@@ -19,7 +19,12 @@ over the slot engine (engine/continuous.py).
 Run: python -m video_llava_tpu_torch.eval.run_inference --dataset
 activitynet ... (random weights unless --model_name, --clip_path and
 --projection_path give checkpoints; on `cuda` unless --device says
-otherwise).
+otherwise). --mesh_model m runs any runner tensor parallel over m ranks
+(parallel/): rank 0 loads the videos, keeps the queue and writes the
+answers; the others follow its engine calls (parallel/driver.py),
+spawned by rank 0 unless torchrun started them (--dist_backend,
+--dist_init as in the serving CLI). A mesh turns the fused layout off,
+as in the JAX runner.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -37,14 +43,17 @@ from video_llava_tpu_torch.engine.continuous import (
     ContinuousEngine,
     SlotRequest,
 )
-from video_llava_tpu_torch.engine.generate import generate
 from video_llava_tpu_torch.media.loader import load_video
+from video_llava_tpu_torch.parallel import driver
 from video_llava_tpu_torch.runtime.conversation import conv_templates
 from video_llava_tpu_torch.runtime.inference import (
     InferenceEngine,
     build_video_question,
 )
-from video_llava_tpu_torch.runtime.model_init import initialize_model
+from video_llava_tpu_torch.runtime.model_init import (
+    dtype_kwargs,
+    initialize_model,
+)
 
 VIDEO_FORMATS = [".mp4", ".avi", ".mov", ".mkv", ".webm", ".gif"]
 
@@ -184,13 +193,10 @@ def run_qa_batched(
                 eos_token_id=tok.eos_token_id,
                 pad_token_id=tok.pad_token_id,
             )
-            res = generate(
-                engine.model, gen, torch.from_numpy(input_ids).to(dev),
+            res = engine.generate_tokens(
+                torch.from_numpy(input_ids).to(dev),
                 torch.tensor(lens, dtype=torch.int32, device=dev), feats,
-                torch.Generator(device=dev).manual_seed(start),
-                cache_dtype=engine.cache_dtype,
-                speculative=engine.speculative,
-            )
+                gen, seed=start)
             toks = res.tokens.cpu().numpy()
             lengths = res.lengths.cpu().numpy()
         for r, sample in enumerate(loaded):
@@ -225,7 +231,8 @@ def run_qa_continuous(
     an encode or a submit raises."""
     cfg, tok = engine.cfg, engine.tokenizer
     size = cfg.vision.image_size
-    ceng = ContinuousEngine(
+    ceng = driver.new(
+        ContinuousEngine,
         engine.model,
         cfg,
         num_slots=num_slots,
@@ -359,7 +366,14 @@ def main(argv=None) -> List[Dict]:
     p.add_argument("--conv_mode", default="pg-video-llava")
     p.add_argument("--use_asr", action="store_true")
     p.add_argument("--mesh_model", type=int, default=None,
-                   help="model-parallel devices (above 1: not ported yet)")
+                   help="tensor-parallel degree (ranks; default 1)")
+    p.add_argument("--dist_backend", default="nccl",
+                   choices=["nccl", "gloo"],
+                   help="collectives under --mesh_model: nccl (a card a "
+                   "rank) or gloo (ranks may share a card; the CPU)")
+    p.add_argument("--dist_init", default=None,
+                   help="rendezvous of the ranks: tcp://localhost:PORT or "
+                   "file://PATH (default: a free localhost port)")
     p.add_argument("--runner", default="sequential",
                    choices=["sequential", "batched", "continuous"],
                    help="batched: B videos per generate call; "
@@ -373,27 +387,45 @@ def main(argv=None) -> List[Dict]:
                    "gated against real checkpoints like serving")
     p.add_argument("--device", default="cuda",
                    help="torch device of the model (default cuda)")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"],
+                   help="parameter and KV-cache dtype (float32: CPU "
+                   "checks)")
     args = p.parse_args(argv)
-    # refuse what is not ported before the (slow) model build
-    if args.mesh_model and args.mesh_model > 1:
-        raise NotImplementedError(
-            "--mesh_model > 1 (multi-GPU inference) is not ported yet: "
-            "ROADMAP Queue 1 item 9")
 
     from video_llava_tpu_torch.engine.quant_select import resolve_quant
 
     quant = resolve_quant(args.quant, args.model_name)
-    engine = initialize_model(
-        args.model_name,
-        args.projection_path,
-        args.clip_path,
-        model_size=args.model_size,
-        device=args.device,
-        llm_quant=quant,
-        # the fused layout, as the JAX package sets it on one device
-        llm_fuse=bool(quant),
-    )
+    session = driver.start(
+        args.mesh_model, args.dist_backend, args.dist_init, args.device,
+        entry=("video_llava_tpu_torch.eval.run_inference", "main"),
+        argv=sys.argv[1:] if argv is None else list(argv))
+    try:
+        engine = initialize_model(
+            args.model_name,
+            args.projection_path,
+            args.clip_path,
+            model_size=args.model_size,
+            device=session.device,
+            llm_quant=quant,
+            # the fused layout, as the JAX package sets it on one device
+            llm_fuse=bool(quant) and session.world_size == 1,
+            mesh_model=args.mesh_model,
+            **dtype_kwargs(args.dtype),
+        )
+        if args.dtype == "float32":
+            engine.cache_dtype = torch.float32
+        if session.follower:
+            driver.follow()
+            return []
+        return _run(args, engine)
+    finally:
+        driver.stop()
 
+
+def _run(args, engine: InferenceEngine) -> List[Dict]:
+    """main's work on rank 0: the dataset through the chosen runner,
+    the answers file."""
     transcriber = None
     if args.use_asr:
         from video_llava_tpu_torch.audio.builders import (

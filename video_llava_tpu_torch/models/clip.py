@@ -108,20 +108,25 @@ class EncoderLayer(nn.Module):
         return y.to(x.dtype)
 
     def _heads(self, proj: Linear, x):
-        """(b, s, K) -> head-major (b, h, s, hd), contiguous."""
+        """(b, s, K) -> head-major (b, h, s, hd), contiguous. Under a
+        tensor-parallel mesh q, k and v are column-sharded and h is this
+        rank's heads (num_heads, set by parallel/sharding.shard_params):
+        kernel 1 runs on them, as the JAX package runs its kernel per
+        shard (ops/attention.sharded_flash_attention); o and fc2 are
+        row-sharded and sum over 'model' (layers.Linear)."""
         b, s, _ = x.shape
         y = self._project(proj, x).view(b, s, self.num_heads, -1)
         return y.transpose(1, 2).contiguous()
 
     def forward(self, x, seq_valid: int):
         """x (b, s_pad, d); keys at or past seq_valid are masked."""
-        b, s, d = x.shape
+        b, s, _ = x.shape
         h = self.ln1(x)
         attn = flash_attention_bhsd(
             self._heads(self.q, h), self._heads(self.k, h),
             self._heads(self.v, h), kv_len=seq_valid,
         )
-        x = x + self._project(self.o, attn.transpose(1, 2).reshape(b, s, d))
+        x = x + self._project(self.o, attn.transpose(1, 2).reshape(b, s, -1))
         h = self.ln2(x)
         return x + self.fc2(self.act(self.fc1(h)))
 

@@ -127,7 +127,28 @@ def make_kernel(in_dim: int, out_dim: int, fmt: Optional[str] = None,
     return _param((in_dim, out_dim), device, dtype)
 
 
+def kernel_rows(kernel) -> int:
+    """The contraction size of a kernel leaf in any format."""
+    if isinstance(kernel, Int4Kernel):
+        return 2 * kernel.qvalues_packed.shape[0]
+    if isinstance(kernel, Int8Kernel):
+        return kernel.qvalues.shape[0]
+    if isinstance(kernel, Int8A8Kernel):
+        return kernel.qvalues_a8.shape[0]
+    return kernel.shape[0]
+
+
 class Linear(nn.Module):
+    """A linear layer. Under a tensor-parallel mesh
+    (parallel/sharding.shard_params sets `mesh` and `tp`) it places its
+    collectives: a row-sharded kernel (tp "in") sums its partial product
+    over 'model' in f32 before the bias; a whole kernel fed a local input
+    (the int4 wo/down) gathers the input first; a column-sharded kernel
+    (tp "out") returns this rank's columns."""
+
+    mesh = None
+    tp = None
+
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True, *,
                  fmt: Optional[str] = None, n_groups: int = 1,
                  device=None, dtype=torch.float32):
@@ -137,6 +158,17 @@ class Linear(nn.Module):
         self.bias = _param((out_dim,), device, dtype) if bias else None
 
     def forward(self, x):
+        mesh = self.mesh
+        if mesh is None or mesh.size == 1:
+            return linear(x, self.kernel, self.bias)
+        if self.tp == "in":
+            y = mesh.all_sum(linear(x, self.kernel,
+                                    out_dtype=torch.float32))
+            if self.bias is not None:
+                y = y + self.bias.float()
+            return y.to(x.dtype)
+        if x.shape[-1] != kernel_rows(self.kernel):
+            x = mesh.gather_last(x)
         return linear(x, self.kernel, self.bias)
 
 
@@ -301,6 +333,14 @@ def embed(weight, ids: torch.Tensor) -> torch.Tensor:
 
 
 class Embedding(nn.Module):
+    """An embedding table. Vocab-sharded under a mesh (tp "rows"): each
+    rank looks up the ids of its own row range, zeros the others, and the
+    ranks' rows are summed over 'model' (exact: one rank holds each
+    id)."""
+
+    mesh = None
+    tp = None
+
     def __init__(self, vocab: int, dim: int, *, fmt: Optional[str] = None,
                  device=None, dtype=torch.float32):
         super().__init__()
@@ -311,8 +351,19 @@ class Embedding(nn.Module):
         else:
             raise ValueError(f"embedding format {fmt!r}")
 
+    @property
+    def rows(self) -> int:
+        return kernel_rows(self.weight)
+
     def forward(self, ids):
-        return embed(self.weight, ids)
+        if self.tp != "rows":
+            return embed(self.weight, ids)
+        rows = self.rows
+        local = ids.long() - self.mesh.rank * rows
+        valid = (local >= 0) & (local < rows)
+        out = embed(self.weight, local.clamp(0, rows - 1))
+        out = torch.where(valid[..., None], out, out.new_zeros(()))
+        return self.mesh.all_sum(out)
 
 
 # -- rotary position embedding (LLaMA) ---------------------------------------

@@ -25,7 +25,16 @@ share a format (fuse_layer_kernels, JAX models/llama.py:435-465). Each
 layer holds its own (Dh, F) int4 weight; the W4A8 kernels take a layer
 of a stacked weight as a view just the same.
 
-Not ported (no caller on these paths): vocab padding.
+Tensor parallel (parallel/sharding.shard_params over a ('data',
+'model') mesh): each layer holds its local heads, KV heads and FFN
+width (its `cfg` is the local one, so caches are created at the local
+head count); wo and down sum their partial products over 'model', or,
+where the int4 rule replicates them, gather their input and run whole
+(layers.Linear); embed_tokens looks up its own vocab rows and sums
+(layers.Embedding); a vocab-sharded lm_head gathers its logits. A
+fused layout does not shard. :func:`pad_vocab` pads the vocab to a
+multiple the mesh divides; :meth:`Llama.logits` masks the padded
+columns to -inf (JAX models/llama.py:468-518, :707-711).
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from video_llava_tpu_torch.config import LlamaConfig
 from video_llava_tpu_torch.models.layers import (
     Embedding,
+    Int8Kernel,
     Linear,
     RMSNorm,
     apply_rope,
@@ -226,6 +236,44 @@ def fuse_layer_kernels(params):
     return {**params, "layers": layers}
 
 
+@torch.no_grad()
+def pad_vocab(llm, multiple: int):
+    """Pad the vocab dim of embed_tokens (rows) and lm_head (output
+    columns) of a Llama module with zeros to a multiple, in place (JAX
+    models/llama.py:468-518): tensor-parallel vocab sharding needs a
+    vocab (32006 with the video tokens) the 'model' axis divides.
+    :meth:`Llama.logits` masks the padded columns to -inf, so generation
+    never samples a padded id. Raw and int8 leaves; an int8 table's
+    padded rows and an int8 head's padded columns take scale 1. Returns
+    `llm`."""
+    emb = llm.embed_tokens.weight
+    rows = llm.embed_tokens.rows
+    pad = -(-rows // multiple) * multiple - rows
+    if pad == 0:
+        return llm
+
+    def padded(x, axis, value=0.0):
+        widths = [0, 0] * x.ndim
+        widths[2 * (x.ndim - 1 - axis % x.ndim) + 1] = pad
+        return nn.Parameter(F.pad(x, widths, value=value),
+                            requires_grad=False)
+
+    if isinstance(emb, Int8Kernel):
+        emb.qvalues = padded(emb.qvalues, 0)
+        emb.scales = padded(emb.scales, 0, 1.0)
+    else:
+        llm.embed_tokens.weight = padded(emb, 0)
+    lm = llm.lm_head.kernel
+    if isinstance(lm, Int8Kernel):
+        lm.qvalues = padded(lm.qvalues, -1)
+        lm.scales = padded(lm.scales, -1, 1.0)
+    elif isinstance(lm, torch.Tensor):
+        llm.lm_head.kernel = padded(lm, -1)
+    else:
+        raise ValueError("pad_vocab: unsupported quantized lm_head layout")
+    return llm
+
+
 def layer_layout(cfg: LlamaConfig, quant: Optional[str] = None,
                  group_size: Optional[int] = 128, fuse: bool = False):
     """{linear name: (in, out, format, n_groups)} of one decoder layer:
@@ -351,7 +399,11 @@ class Llama(nn.Module):
     """quant: None (dense kernels in `dtype`), "int8" or "int4"
     (ops/quant.leaf_format); fuse: the wqkv/gate_up layout. The layout
     is decided here, once: `quant`, `group_size` and `fuse` stay on the
-    module, and `layout` is every layer's :func:`layer_layout`."""
+    module, and `layout` is every layer's :func:`layer_layout`. Under a
+    mesh `mesh` is set and `cfg` is the local configuration (the full
+    one is `full_cfg`)."""
+
+    mesh = None
 
     def __init__(self, cfg: LlamaConfig, *, device=None,
                  dtype=torch.bfloat16, quant: Optional[str] = None,
@@ -417,8 +469,18 @@ class Llama(nn.Module):
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """lm_head -> (..., vocab) f32 logits: a dense head in f32, an
         int4 head through the W4A8 matmuls, an int8 head in hidden's
-        dtype then f32 (JAX models/llama.py:694-706)."""
-        return linear(hidden, self.lm_head.kernel, out_dtype=torch.float32)
+        dtype then f32 (JAX models/llama.py:694-706). A vocab-sharded
+        head gathers its columns over 'model'; columns at or past
+        cfg.vocab_size (pad_vocab's) are -inf."""
+        head = self.lm_head
+        logits = linear(hidden, head.kernel, out_dtype=torch.float32)
+        if head.tp == "out":
+            logits = head.mesh.gather_last(logits)
+        if logits.shape[-1] > self.cfg.vocab_size:
+            col = torch.arange(logits.shape[-1], device=logits.device)
+            logits = logits.masked_fill(col >= self.cfg.vocab_size,
+                                        float("-inf"))
+        return logits
 
     def forward(
         self,

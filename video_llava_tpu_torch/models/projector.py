@@ -3,6 +3,9 @@
 Counterpart of video_llava_tpu/models/projector.py: 'linear' (the
 224 px default), 'mlp{N}x_gelu' or 'identity'. jax.nn.gelu defaults to
 the tanh approximation, so the MLP uses gelu(approximate="tanh").
+Under a mesh the JAX package's projector rules never match (they are
+read against paths inside the projector's own subtree), so it runs whole
+on every rank.
 """
 
 from __future__ import annotations

@@ -62,7 +62,12 @@ class VideoLLaVA(nn.Module):
     """llm_quant (None, "int8", "int4"), group_size, llm_fuse and
     llm_skip_keys (leaves kept dense beside the default ones) set the
     LLM's layout (models/llama.py); CLIP and the projector stay in
-    `dtype`."""
+    `dtype`. `mesh` is the tensor-parallel mesh once
+    parallel/sharding.shard_params has kept this rank's shard (JAX
+    models/video_llava.py:185-200 takes it as an argument): prefill
+    builds its cache at the local head count."""
+
+    mesh = None
 
     def __init__(self, cfg: VideoLLaVAConfig, *, device=None,
                  dtype=torch.bfloat16, llm_quant: Optional[str] = None,
@@ -129,7 +134,8 @@ class VideoLLaVA(nn.Module):
         b, s = input_ids.shape
         device = input_ids.device
         seq_lens = seq_lens.to(device=device, dtype=torch.int32)
-        cache = KVCache.create(self.cfg.llm, b, max_cache_len, cache_dtype,
+        # the LLM's own configuration: under a mesh, the local heads
+        cache = KVCache.create(self.llm.cfg, b, max_cache_len, cache_dtype,
                                device)
         embeds = self.build_inputs_embeds(input_ids, video_features)
         positions = torch.arange(s, dtype=torch.int32,

@@ -67,6 +67,18 @@ def set_default_impl(impl: str) -> None:
     _DEFAULT_IMPL = impl
 
 
+def set_attention_mesh(mesh) -> None:
+    """Check the tensor-parallel ('data', 'model') mesh an entry point
+    built (parallel/mesh.py), where the JAX package's set_attention_mesh
+    registers it to run its Pallas attention per shard. Here each rank
+    is a process holding its own heads, so the kernels run per shard
+    already and nothing is kept. A 'data' axis (batch-sharded attention
+    in training) is the next slice (ROADMAP Queue 1 item 9b)."""
+    if mesh is not None and mesh.shape.get("data", 1) > 1:
+        raise NotImplementedError("attention over a 'data' axis: ROADMAP "
+                                  "Queue 1 item 9b")
+
+
 def enable_paged_kernel(on: bool = True) -> None:
     global _PAGED_KERNEL
     _PAGED_KERNEL = bool(on)

@@ -94,6 +94,18 @@ def pool_combine_plain(partial: torch.Tensor, spatial_sum: torch.Tensor,
     return torch.cat([temporal / s, pad, spatial], dim=0).to(out_dtype)
 
 
+def set_pooling_mesh(mesh) -> None:
+    """Check the ('data', 'model') mesh an entry point built, where the
+    JAX package's set_pooling_mesh registers it; nothing is kept.
+    Pooling shards frames on 'data' only (JAX ops/pooling.py:216-275);
+    under a (1, m) mesh every rank pools the whole video through kernel
+    2. The frame-sharded pooling of a data axis is the next slice
+    (ROADMAP Queue 1 item 9b)."""
+    if mesh is not None and mesh.shape.get("data", 1) > 1:
+        raise NotImplementedError("frame-sharded pooling over a 'data' "
+                                  "axis: ROADMAP Queue 1 item 9b")
+
+
 def spatio_temporal_pool_fused(
     features: torch.Tensor,
     num_valid_frames=None,

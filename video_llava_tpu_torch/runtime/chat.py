@@ -13,6 +13,14 @@ Counterpart of video_llava_tpu/runtime/chat.py:
 
 Run: python -m video_llava_tpu_torch.runtime.chat --model_size 7b
 [--quant int4] [--with_grounding [--sam_variant {mobile,vit_b}]] [--use_asr]
+[--mesh_model M [--dist_backend {nccl,gloo}] [--dist_init URL]]
+
+--mesh_model runs the chat tensor parallel over M ranks (parallel/; the
+JAX chat CLI has no mesh flag, its engine takes one through
+initialize_model): rank 0 reads the REPL and prints the answers; the
+chat session is built on every rank and its upload, add_text, answer and
+clear_history calls are replicated (parallel/driver.py). Grounding and
+ASR take no mesh (grounding runs on one device in the JAX package too).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import datetime
 import os
 import random
 import string
+import sys
 from typing import Optional
 
 import numpy as np
@@ -39,12 +48,16 @@ from video_llava_tpu_torch.constants import (
 from video_llava_tpu_torch.engine.generate import generate_with_keywords
 from video_llava_tpu_torch.engine.quant_select import resolve_quant
 from video_llava_tpu_torch.media.loader import encode_video, load_video
+from video_llava_tpu_torch.parallel import driver
 from video_llava_tpu_torch.runtime.conversation import (
     conv_templates,
     default_conversation,
 )
 from video_llava_tpu_torch.runtime.inference import InferenceEngine
-from video_llava_tpu_torch.runtime.model_init import initialize_model
+from video_llava_tpu_torch.runtime.model_init import (
+    dtype_kwargs,
+    initialize_model,
+)
 
 
 class VideoChatGPTInterface:
@@ -75,6 +88,7 @@ class VideoChatGPTInterface:
             if cfg.use_vid_start_end else patches)
         self.clear_history()
 
+    @driver.replicated
     def clear_history(self):
         self.state = default_conversation.copy()
         self.video_features = None
@@ -94,6 +108,7 @@ class VideoChatGPTInterface:
             self.transcript_text, _ = self.transcriber.transcribe_video(
                 video_path)
 
+    @driver.replicated
     def upload_frames(self, frames, audio=None):
         """Encode already decoded (t, h, w, 3) uint8 frames as the
         session's video; `audio`, the clip's 16 kHz float32 waveform, is
@@ -107,6 +122,7 @@ class VideoChatGPTInterface:
             self.transcript_text, _ = self.transcriber.transcribe_waveform(
                 np.asarray(audio, np.float32))
 
+    @driver.replicated
     def add_text(self, text: str, video_path: Optional[str]):
         if len(text) <= 0 and video_path is None:
             self.state.skip_next = True
@@ -123,6 +139,7 @@ class VideoChatGPTInterface:
         self.state.append_message(self.state.roles[1], None)
         self.state.skip_next = False
 
+    @driver.replicated
     @torch.inference_mode()
     def answer(self) -> Optional[str]:
         if getattr(self.state, "skip_next", False):
@@ -310,19 +327,56 @@ def main(argv=None):
                    help="weights-only LLM quantization (int4: the W4A8 "
                    "kernels); resolved against the checkpoint's "
                    "quant_preflight.json as in the JAX package")
+    p.add_argument("--mesh_model", type=int, default=None,
+                   help="tensor-parallel degree (ranks; default 1)")
+    p.add_argument("--dist_backend", default="nccl",
+                   choices=("nccl", "gloo"),
+                   help="collectives under --mesh_model: nccl (a card a "
+                   "rank) or gloo (ranks may share a card; the CPU)")
+    p.add_argument("--dist_init", default=None,
+                   help="rendezvous of the ranks: tcp://localhost:PORT or "
+                   "file://PATH (default: a free localhost port)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the model (default cuda)")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"],
+                   help="parameter and KV-cache dtype (float32: CPU "
+                   "checks)")
     args = p.parse_args(argv)
+    if (args.mesh_model or 1) > 1 and (args.with_grounding or args.use_asr):
+        raise ValueError("--with_grounding and --use_asr take no "
+                         "--mesh_model (they run on one device)")
     quant = resolve_quant(args.quant, args.model_name)
-    engine = initialize_model(args.model_name, args.projection_path,
-                              args.clip_path, model_size=args.model_size,
-                              device="cuda", llm_quant=quant,
-                              llm_fuse=bool(quant))
+    session = driver.start(
+        args.mesh_model, args.dist_backend, args.dist_init, args.device,
+        entry=("video_llava_tpu_torch.runtime.chat", "main"),
+        argv=sys.argv[1:] if argv is None else list(argv))
+    try:
+        engine = initialize_model(
+            args.model_name, args.projection_path, args.clip_path,
+            model_size=args.model_size, device=session.device,
+            llm_quant=quant,
+            llm_fuse=bool(quant) and session.world_size == 1,
+            mesh_model=args.mesh_model, **dtype_kwargs(args.dtype))
+        if args.dtype == "float32":
+            engine.cache_dtype = torch.float32
+        if session.follower:
+            driver.follow()
+            return
+        _chat(args, engine)
+    finally:
+        driver.stop()
+
+
+def _chat(args, engine: InferenceEngine) -> None:
+    """main's REPL on rank 0."""
     transcriber = None
     if args.use_asr:
         from video_llava_tpu_torch.audio.builders import (
             build_default_transcriber,
         )
 
-        transcriber = build_default_transcriber(device="cuda")
+        transcriber = build_default_transcriber(device=args.device)
     kw = dict(use_asr=args.use_asr, conv_mode=args.conv_mode,
               temperature=args.temperature,
               max_output_tokens=args.max_output_tokens,
@@ -333,10 +387,10 @@ def main(argv=None):
         )
 
         tracker, tagging, matching = build_grounding_stack(
-            sam_variant=args.sam_variant, device="cuda")
+            sam_variant=args.sam_variant, device=args.device)
         PGVideoLLaVA(engine, tracker, tagging, matching, **kw).interact()
     else:
-        VideoChatGPTInterface(engine, **kw).interact()
+        driver.new(VideoChatGPTInterface, engine, **kw).interact()
 
 
 if __name__ == "__main__":

@@ -4,7 +4,10 @@ Counterpart of video_llava_tpu/runtime/inference.py: prompt assembly
 with <vid_start><vid_patch>*N<vid_end>, conversation templating, frame
 preprocessing + CLIP + pooling, and generation with keyword stopping
 (reference video_chatgpt/inference.py:47-125), through prompt-lookup
-speculation by default.
+speculation by default. Under a tensor-parallel mesh the engine is built
+on every rank and its computing methods are replicated
+(parallel/driver.py); speculation is then ignored, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -22,10 +25,16 @@ from video_llava_tpu_torch.constants import (
     DEFAULT_VID_START_TOKEN,
     DEFAULT_VIDEO_PATCH_TOKEN,
 )
-from video_llava_tpu_torch.engine.generate import generate_with_keywords
+from video_llava_tpu_torch.engine.generate import (
+    GenerateResult,
+    generate,
+    generate_with_keywords,
+    tp_mesh,
+)
 from video_llava_tpu_torch.engine.speculative import generate_pld_text
 from video_llava_tpu_torch.models.video_llava import VideoLLaVA
 from video_llava_tpu_torch.ops.image import preprocess_frames
+from video_llava_tpu_torch.parallel.driver import replicated
 from video_llava_tpu_torch.runtime.conversation import conv_templates
 from video_llava_tpu_torch.runtime.tokenizer import Tokenizer
 
@@ -67,6 +76,11 @@ class InferenceEngine:
     def device(self) -> torch.device:
         return self.model.llm.final_norm.scale.device
 
+    @property
+    def mesh(self):
+        """The tensor-parallel mesh (None on one rank)."""
+        return tp_mesh(self.model)
+
     def padded_prompt(self, prompt: str):
         """Tokenize and right-pad to seq_pad_multiple -> (input_ids (1,
         s_pad) on the device, seq_lens (1,) int32, real length)."""
@@ -80,6 +94,7 @@ class InferenceEngine:
                 torch.tensor([s_real], dtype=torch.int32,
                              device=self.device), s_real)
 
+    @replicated
     @torch.inference_mode()
     def encode_video_frames(self, frames: np.ndarray,
                             num_valid_frames: Optional[int] = None):
@@ -88,6 +103,7 @@ class InferenceEngine:
         pixels = preprocess_frames(x, self.cfg.vision.image_size)
         return self.model.encode_video(pixels, num_valid_frames)
 
+    @replicated
     @torch.inference_mode()
     def batched_encode(self, frames: np.ndarray, num_valid_frames):
         """(b, t, h, w, 3) uint8 frames, padded to one t, and b valid
@@ -104,6 +120,26 @@ class InferenceEngine:
         return self.model.encode_videos(
             pixels.reshape(b, t, *pixels.shape[1:]), counts)
 
+    @replicated
+    @torch.inference_mode()
+    def generate_tokens(self, input_ids: torch.Tensor,
+                        seq_lens: torch.Tensor,
+                        video_features: Optional[torch.Tensor],
+                        gen: GenerationConfig, seed: int,
+                        speculative: Optional[bool] = None
+                        ) -> GenerateResult:
+        """engine.generate.generate of a right-padded batch, sampling
+        from a generator seeded with `seed` (speculative: the engine's
+        own setting by default; ignored under a mesh)."""
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        return generate(
+            self.model, gen, input_ids.to(self.device),
+            seq_lens.to(self.device), video_features, generator,
+            cache_dtype=self.cache_dtype,
+            speculative=(self.speculative if speculative is None
+                         else speculative))
+
+    @replicated
     @torch.inference_mode()
     def infer(self, video_frames: Optional[np.ndarray], question: str,
               conv_mode: str = "pg-video-llava",
@@ -126,7 +162,7 @@ class InferenceEngine:
         gen = dataclasses.replace(self.gen, eos_token_id=tok.eos_token_id,
                                   pad_token_id=tok.pad_token_id)
         keywords = (stop_str,) if stop_str and stop_str != "</s>" else ()
-        if self.speculative and not keywords:
+        if self.speculative and not keywords and self.mesh is None:
             return generate_pld_text(
                 self.model, gen, input_ids, s_real, feats, generator, tok,
                 stop_str, cache_dtype=self.cache_dtype)

@@ -15,8 +15,15 @@ With ``llm_quant`` the LLM's weights arrive one layer at a time in bf16,
 drawn or read, and are quantized on the device with the port's
 quantize_params(_int4), so no whole bf16 LLM is ever held (the JAX
 package builds one on the device before it loads a checkpoint, and its
-overlay raises on a quantized embedding: the port does neither). Meshes
-are not ported.
+overlay raises on a quantized embedding: the port does neither).
+
+``mesh_model`` > 1 (tensor parallel, JAX model_init.py:182-190): the
+caller has started the ranks (parallel/driver.start); every rank draws
+(or reads) the whole seeded model on its device, optionally pads the
+vocab (``vocab_multiple``, models/llama.pad_vocab), keeps its shard
+(parallel/sharding.shard_params), registers the meshes and the engine.
+The peak on a rank is the whole model plus the largest parameter's
+shard, before the rest of the whole model is freed.
 """
 
 from __future__ import annotations
@@ -43,10 +50,12 @@ from video_llava_tpu_torch.models.llama import (
     Llama,
     fuse_layer_kernels,
     layer_layout,
+    pad_vocab,
 )
 from video_llava_tpu_torch.models.video_llava import VideoLLaVA
 from video_llava_tpu_torch.ops.quant import quantize_params
 from video_llava_tpu_torch.ops.quant4 import quantize_params_int4
+from video_llava_tpu_torch.parallel import driver
 from video_llava_tpu_torch.runtime.inference import InferenceEngine
 from video_llava_tpu_torch.runtime.tokenizer import load_tokenizer
 
@@ -124,6 +133,14 @@ def random_init_quantized_llm_(llm: Llama, generator: torch.Generator,
         load(f"layers.{li}.", tree)
 
 
+def dtype_kwargs(flag: str) -> dict:
+    """initialize_model's keyword for an entry point's --dtype flag:
+    float32, or nothing for its bfloat16 default."""
+    if flag not in ("bfloat16", "float32"):
+        raise ValueError(f"--dtype: bfloat16 or float32, got {flag!r}")
+    return {"dtype": torch.float32} if flag == "float32" else {}
+
+
 def initialize_model(
     model_name: Optional[str] = None,
     projection_path: Optional[str] = None,
@@ -136,6 +153,8 @@ def initialize_model(
     llm_quant: Optional[str] = None,
     llm_fuse: bool = False,
     clip_dtype: Optional[str] = None,
+    mesh_model: Optional[int] = None,
+    vocab_multiple: Optional[int] = None,
 ) -> InferenceEngine:
     """Build an InferenceEngine on `device`.
     model_name: an HF Vicuna/LLaMA checkpoint directory (tokenizer and
@@ -149,9 +168,16 @@ def initialize_model(
     clip_path's preflight record (engine/quant_select.resolve_clip_dtype)
     and quantized on the device with the JAX package's min_size of
     1 << 16 elements a stacked kernel (every kernel of ViT-L/14; a tiny
-    configuration's may fall under it and stay in `dtype`)."""
+    configuration's may fall under it and stay in `dtype`).
+    mesh_model: the tensor-parallel degree over the ranks started by
+    parallel/driver.start (module docstring); llm_fuse must be off then.
+    vocab_multiple: pad the vocab to a multiple of it (pad_vocab; its
+    logit columns are masked)."""
     if llm_quant not in (None, "int8", "int4"):
         raise ValueError(f"llm_quant: None, int8 or int4; got {llm_quant}")
+    if llm_fuse and mesh_model and mesh_model > 1:
+        raise ValueError("llm_fuse is single-device only (TP shards "
+                         "unfused names)")
     llm_dir = model_name if model_name and os.path.isdir(model_name) else None
     tokenizer = load_tokenizer(llm_dir)
     cfg = dataclasses.replace(
@@ -187,8 +213,23 @@ def initialize_model(
         if report["unexpected"]:
             print(f"Unexpected Keys: {report['unexpected']}.\n"
                   "The Video-ChatGPT weights are not loaded correctly.")
-    return InferenceEngine(
+    if vocab_multiple:
+        pad_vocab(model.llm, vocab_multiple)
+    if mesh_model and mesh_model > 1:
+        from video_llava_tpu_torch.ops.attention import set_attention_mesh
+        from video_llava_tpu_torch.ops.pooling import set_pooling_mesh
+        from video_llava_tpu_torch.parallel import make_mesh, shard_params
+
+        mesh = make_mesh(1, mesh_model)
+        shard_params(model, mesh)
+        set_attention_mesh(mesh)
+        set_pooling_mesh(mesh)
+    engine = InferenceEngine(
         model=model, cfg=cfg, tokenizer=tokenizer,
         gen=GenerationConfig(eos_token_id=tokenizer.eos_token_id,
                              pad_token_id=tokenizer.pad_token_id),
     )
+    # what replicated calls name by reference (parallel/driver.py)
+    for obj in (engine, model, tokenizer):
+        driver.register(obj)
+    return engine

@@ -12,6 +12,14 @@ lock, speculative decoding for non-streamed requests), the windowed
 batcher (BatchingChatModel: text requests that arrive within a window
 decode as one right-padded batch), and continuous batching over the
 slot cache or the paged pool (ContinuousChatModel, engine/continuous.py).
+
+Tensor parallel (``--mesh_model``): the HTTP server, the batching window
+and the stop strings run on rank 0; the ChatModel and the continuous
+engine are built on every rank (parallel/driver.new) and their
+computing methods (encode_frames, respond, generate_batch; the engine's
+submit and steps) are replicated, so the other ranks run each forward
+with rank 0. Video is decoded on rank 0 and its frames travel with the
+call.
 """
 
 from __future__ import annotations
@@ -35,14 +43,17 @@ import torch
 
 from video_llava_tpu_torch.config import GenerationConfig, VideoLLaVAConfig
 from video_llava_tpu_torch.engine.generate import (
+    GenerateResult,
     generate,
     generate_with_keywords,
+    tp_mesh,
 )
 from video_llava_tpu_torch.engine.speculative import (
     generate_pld,
     generate_pld_text,
 )
 from video_llava_tpu_torch.ops.image import preprocess_frames
+from video_llava_tpu_torch.parallel import driver
 from video_llava_tpu_torch.runtime.conversation import conv_templates
 from video_llava_tpu_torch.runtime.inference import build_video_question
 from video_llava_tpu_torch.runtime.tokenizer import Tokenizer
@@ -113,17 +124,17 @@ class ChatModel:
     # token-id stops (engine/speculative.py), on by default as in the
     # JAX package.
     speculative: bool = True
+    # the tensor-parallel mesh (the model's own when None); speculation
+    # is ignored under one, as in the JAX package
     mesh: object = None
-
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (multi-GPU serving) is not ported yet: "
-                "ROADMAP Queue 1 item 9")
 
     @property
     def device(self) -> torch.device:
         return self.model.llm.final_norm.scale.device
+
+    @property
+    def tp(self):
+        return tp_mesh(self.model, self.mesh)
 
     def build_prompt(self, messages: List[dict]):
         """messages -> (prompt token ids, stop string, video urls). The
@@ -158,21 +169,38 @@ class ChatModel:
         return (self.tokenizer.encode(conv.get_prompt()), conv.stop_string(),
                 media)
 
-    @torch.inference_mode()
     def encode_video_url(self, url: str) -> torch.Tensor:
-        """video_url -> (1, video_token_len, c) features to splice: frames
-        through preprocessing, CLIP and pooling on the device."""
-        frames = _load_video_frames(url, self.cfg.vision.image_size)
+        """video_url -> (1, video_token_len, c) features to splice."""
+        return self.encode_frames(
+            _load_video_frames(url, self.cfg.vision.image_size))
+
+    @driver.replicated
+    @torch.inference_mode()
+    def encode_frames(self, frames: np.ndarray) -> torch.Tensor:
+        """(t, h, w, 3) uint8 frames -> (1, video_token_len, c): through
+        preprocessing, CLIP and pooling on the device."""
         x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
         pixels = preprocess_frames(x, self.cfg.vision.image_size)
         return self.model.encode_video(pixels, frames.shape[0])[None]
 
-    @torch.inference_mode()
     def chat(self, messages: List[dict], temperature: float = 0.2,
              max_tokens: int = 512, seed: Optional[int] = None,
              on_delta=None) -> str:
         ids, stop_str, media = self.build_prompt(messages)
-        feats = self.encode_video_url(media[0]) if media else None
+        frames = (_load_video_frames(media[0], self.cfg.vision.image_size)
+                  if media else None)
+        return self.respond(ids, stop_str, frames, temperature, max_tokens,
+                            seed, on_delta)
+
+    @driver.replicated
+    @torch.inference_mode()
+    def respond(self, ids: List[int], stop_str: Optional[str],
+                frames: Optional[np.ndarray], temperature: float = 0.2,
+                max_tokens: int = 512, seed: Optional[int] = None,
+                on_delta=None) -> str:
+        """The answer to a built prompt (token ids, its stop string and
+        the decoded frames of its video, if any)."""
+        feats = self.encode_frames(frames) if frames is not None else None
         tok = self.tokenizer
         s_real = len(ids)
         s_pad = s_real + (-s_real % self.seq_pad_multiple)
@@ -188,7 +216,8 @@ class ChatModel:
         generator = torch.Generator(device=self.device).manual_seed(
             seed if seed is not None else 0)
         keywords = (stop_str,) if stop_str and stop_str != "</s>" else ()
-        if self.speculative and not keywords and on_delta is None:
+        if (self.speculative and not keywords and on_delta is None
+                and self.tp is None):
             return generate_pld_text(self.model, gen, input_ids, s_real,
                                      feats, generator, tok, stop_str,
                                      cache_dtype=self.cache_dtype)
@@ -209,6 +238,20 @@ class ChatModel:
             on_delta=on_delta, postprocess=_post,
             speculative=self.speculative)
         return text
+
+    @driver.replicated
+    @torch.inference_mode()
+    def generate_batch(self, input_ids: torch.Tensor, lens: torch.Tensor,
+                       gen: GenerationConfig, seed: int) -> GenerateResult:
+        """A right-padded text batch through engine.generate.generate
+        (speculative.generate_pld when the model speculates, off a
+        mesh), sampling from a generator seeded with `seed`."""
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        gen_fn = (generate_pld if self.speculative and self.tp is None
+                  else generate)
+        return gen_fn(self.model, gen, input_ids.to(self.device),
+                      lens.to(self.device), None, generator,
+                      cache_dtype=self.cache_dtype)
 
 
 class ContinuousChatModel:
@@ -237,8 +280,8 @@ class ContinuousChatModel:
         if num_blocks is not None:
             num_blocks *= requested_bs // block_size
         self._mm_lock = threading.Lock()
-        self.engine = ContinuousEngine(
-            model.model, model.cfg, num_slots=num_slots,
+        self.engine = driver.new(
+            ContinuousEngine, model.model, model.cfg, num_slots=num_slots,
             max_cache_len=max_cache_len, cache_dtype=model.cache_dtype,
             chunk=chunk, prompt_pad=model.seq_pad_multiple,
             speculative=model.speculative, paged=paged,
@@ -427,11 +470,9 @@ class BatchingChatModel:
                                eos_token_id=tok.eos_token_id,
                                pad_token_id=tok.pad_token_id)
         seed = next((x[3] for x in batch if x[3] is not None), 0)
-        generator = torch.Generator(device=m.device).manual_seed(int(seed))
-        gen_fn = generate_pld if m.speculative else generate
-        res = gen_fn(m.model, gen, input_ids.to(m.device),
-                     torch.tensor(lens, dtype=torch.int32, device=m.device),
-                     None, generator, cache_dtype=m.cache_dtype)
+        res = m.generate_batch(input_ids,
+                               torch.tensor(lens, dtype=torch.int32),
+                               gen, int(seed))
         toks, out_lens = res.tokens.cpu(), res.lengths.cpu()
         return [tok.decode(toks[r, :min(int(out_lens[r]), x[2])].tolist(),
                            skip_special_tokens=True).strip()
@@ -617,8 +658,17 @@ def serve(model: ChatModel, host: str = "0.0.0.0", port: int = 8000,
 
         server.shutdown = _shutdown
     if block:
-        print(f"serving {model_name} on {host}:{port}", flush=True)
-        server.serve_forever()
+        # the bound port (port 0 asks the system for a free one)
+        print(f"serving {model_name} on {host}:{server.server_address[1]}",
+              flush=True)
+        try:
+            server.serve_forever()
+        finally:
+            # an interrupted server stops its engine or batcher thread
+            # too (before a tensor-parallel run sends its ranks home)
+            if continuous or batching:
+                model.close()
+            server.server_close()
     else:
         threading.Thread(target=server.serve_forever, daemon=True).start()
     return server

@@ -274,7 +274,10 @@ def sharded_data_iterator(dataset, collator, global_batch_size: int,
     rows. More than one process raises."""
     if (torch.distributed.is_available() and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError("multi-GPU training is not ported")
+        raise NotImplementedError(
+            "a multi-process data iterator (the 'data' axis of sharded "
+            "training) is the next slice of the port, ROADMAP Queue 1 "
+            "item 9b")
     for batch in data_iterator(dataset, collator, global_batch_size, rng,
                                drop_last, shuffle):
         yield {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)

@@ -126,8 +126,10 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     for flag in ("mesh_data", "mesh_model"):
         if (getattr(args, flag) or 1) > 1:
-            raise NotImplementedError(f"--{flag} > 1: multi-GPU training "
-                                      "is not ported")
+            raise NotImplementedError(
+                f"--{flag} > 1: sharded training (the 'data' axis: DP / "
+                "FSDP) is the next slice of the port, ROADMAP Queue 1 "
+                "item 9b; parallel/ runs tensor-parallel inference")
     device = torch.device(args.device)
     tokenizer = load_tokenizer(args.tokenizer_path)
     cfg = dataclasses.replace(
