@@ -22,7 +22,10 @@ Phases, each of which raises on failure (exit code != 0):
      8 x 768 prefill rows and an 8 x 9 verify window, kernel 3 at 40
      layers x 8 rows x 40 heads), a tensor-parallel rank's shapes
      (tp_kernel_checks: kernel 1 at 8 heads, 3 at 16, A and B at 2,048
-     and 5,504 columns), and planted faults in the plain
+     and 5,504 columns), kernel 2 with a divisor other than its valid
+     count (pool_divisor_checks: a 'data' rank's 50 frames of the
+     sharded pooling, none of them valid in one case), and planted
+     faults in the plain
      versions of kernels 1, 2, 9, 10, 11, A, B and both W4A16 kernels
      that must fail; kernel 1's f32 body at the crop filter's ViT-B/32
      shape and CLIP-L's), timing the
@@ -124,8 +127,8 @@ Phases, each of which raises on failure (exit code != 0):
      before it, tensor parallel first (tp_phase: the 7B int4 engine,
      unfused, its vocab padded to 256, under --mesh_model 2
      --dist_backend gloo with both ranks on this card, rank 1 spawned;
-     the 100-frame request at 224 px, 64 greedy tokens, and 4 requests
-     through the paged continuous engine, held against the
+     the 100-frame request at 224 px, 32 greedy tokens, and 2 requests
+     of 16 through the paged continuous engine, held against the
      single-process engine of the same seed: teacher-forced logits
      within TP_LIMITS (the request end to end, each paged request
      through the paged pool; a planted wrong-heads fault outside them),
@@ -171,8 +174,19 @@ Phases, each of which raises on failure (exit code != 0):
      and timed (flash_f32_bwd_checks), a small model's train steps on the
      card against the CPU (bf16, an int8 LLM, and f32: kernel 8's f32
      body's launches), then `python -m video_llava_tpu_torch.train.train
-     --model_size 7b` for 4 optimizer steps on seeded features, with its
-     checkpoint, export and a profile of step 3;
+     --model_size 7b` for 4 optimizer steps of 4 rows of 1,024 on seeded
+     features, with its checkpoint, export and a profile of step 3, and
+     its resume; then sharded training (train_mesh_phase): the same run
+     under `--mesh_data 2 --mesh_model 2 --dist_backend gloo`, 4 ranks
+     on this card (this process rank 0), held against it within
+     MESH_LIMITS (per-step loss and grad norm, the exported projector and
+     embed_tokens), a planted fault (no gradient sum over 'data') that
+     must fall outside them, kernel 2's frame-sharded form on each rank
+     against one process at 100, 73, 50 and 30 valid frames, each rank's
+     launches of 7, 8 and 2 and its peak, the step and save seconds;
+     then FSDP (`--tune_mode full`) on that mesh at 7B width cut to 2
+     layers against one process, its checkpoint resumed in one process
+     and at 2 x 1;
   11. print stage times, the kernels' JSON line, the card line and, last,
      {"ok": true, "device": {...}}.
 It needs a CUDA card and the repository beside it, and imports no JAX.
@@ -182,6 +196,7 @@ from __future__ import annotations
 
 import builtins
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -269,7 +284,7 @@ from video_llava_tpu_torch.ops import (
     pooling,
     quant4,
 )
-from video_llava_tpu_torch.parallel import driver
+from video_llava_tpu_torch.parallel import driver, multihost
 from video_llava_tpu_torch.runtime import chat as chat_mod
 from video_llava_tpu_torch.runtime.chat import (
     PGVideoLLaVA,
@@ -305,6 +320,7 @@ from video_llava_tpu_torch.serving.server import (
     serve,
 )
 from video_llava_tpu_torch.train import train
+from video_llava_tpu_torch.train import train_step as train_step_mod
 from video_llava_tpu_torch.train.data import (
     MultimodalCfg,
     preprocess,
@@ -625,7 +641,35 @@ def kernel_checks(dev) -> dict:
     w4a16_checks(dev, g, results)
     checks_13b(dev, g, rnd, results)
     tp_kernel_checks(dev, g, rnd, results)
+    pool_divisor_checks(dev, rnd, results)
     return results
+
+
+# One 'data' rank's share of the frame-sharded pooling of 100 frames over
+# 2 ranks: (valid frames of its 50, the global count dividing its spatial
+# sums), at the global counts 100, 73 and 30 (the second rank's 0 of 50).
+POOL_SHARDS = ((50, 100), (23, 73), (0, 30))
+
+
+def pool_divisor_checks(dev, rnd, results) -> None:
+    """Kernel 2 with a divisor other than its valid count, as each rank of
+    spatio_temporal_pool_sharded launches it (f32 out, 50 local frames of
+    ViT-L's 256 x 1024), against its plain version (pool_shard_plain);
+    the library call is the two f32 reductions over the valid frames.
+    After every main-path shape: record() keeps the first."""
+    x = rnd(50, 256, 1024)
+    for n, denom in POOL_SHARDS:
+        check(results, "spatio_temporal_pool",
+              (50, 256, 1024, f"n {n}", f"divisor {denom}", "f32 out"),
+              lambda: pooling.spatio_temporal_pool_fused(
+                  x, n, 50, torch.float32, n_denom=denom),
+              lambda: pooling.pool_shard_plain(x, n, denom, 50,
+                                               torch.float32),
+              nbytes=n * 256 * 1024 * 2 + (50 + 256) * 1024 * 4,
+              library=lambda: torch.cat([
+                  x[:n].float().mean(1),
+                  x[:n].float().sum(0) / max(denom, 1)]))
+    del x
 
 
 # Kernel 1's f32 body at (b, h, s_pad, d, kv_len): the crop filter's
@@ -1520,15 +1564,16 @@ def profile_request(engine, clips, dev, label) -> None:
     t = time.perf_counter()
     request()
     wall_ms = (time.perf_counter() - t) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only, read from kineto's events as recorded (the
+    # host ops and their FunctionEvents took ~60-80 s a request to build)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         request()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device = [(e.name(), e.start_ns(), e.end_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
     if not device:
         raise AssertionError(f"{label} profile: no device activity")
-    busy_ms, by_name = busy_and_names(
-        (e.name, e.time_range.start * 1e3, e.time_range.end * 1e3)
-        for e in device)
+    busy_ms, by_name = busy_and_names(device)
     print(f"{label} profile, 100-frame request: wall {wall_ms:.1f} ms "
           f"(unprofiled), device busy {busy_ms:.1f} ms over "
           f"{len(device)} device activities, idle share "
@@ -3104,8 +3149,11 @@ def small_train_check(dev, llm_weights: str = "bf16",
     return launches
 
 
-TRAIN_SAMPLES, TRAIN_LAYER = 32, 7  # samples; the frozen layer checksummed
-TRAIN_ROWS = (600, 1000)  # tokens of alternate samples: the 640, 1024 buckets
+TRAIN_SAMPLES, TRAIN_LAYER = 16, 7  # samples; the frozen layer checksummed
+# tokens of each sample: every row in the 1,024 bucket, and no two rows
+# with the same count of answer tokens (so a sharded step's data ranks
+# never hold equal counts of valid targets)
+TRAIN_ROWS = tuple(1000 - 8 * i for i in range(TRAIN_SAMPLES))
 
 
 def write_train_data(root: str):
@@ -3113,9 +3161,9 @@ def write_train_data(root: str):
     "<video>\\n...", gpt "..."]} in root/data.json and a (356, 1024) f32
     .npy feature file each in root/features, from
     np.random.default_rng(0). Answers are sized with the byte tokenizer
-    so that alternate rows take TRAIN_ROWS tokens: the video block and
-    the template alone take 577, so the shortest rows fall in the 640
-    bucket, not 512. Returns (data path, feature folder)."""
+    so that sample i takes TRAIN_ROWS[i] tokens (the video block and
+    the template alone take 577). Returns (data path, feature
+    folder)."""
     tok = load_tokenizer(None)
     cfg = model_config("7b")
     mm = MultimodalCfg(video_token_len=cfg.video_token_len,
@@ -3136,7 +3184,7 @@ def write_train_data(root: str):
     os.makedirs(folder)
     samples = []
     for i in range(TRAIN_SAMPLES):
-        target = TRAIN_ROWS[i % 2]
+        target = TRAIN_ROWS[i]
         answer = " ".join(rng.choice(SERVING_WORDS, 400))[:target - base]
         answer = answer[:-1] + "."
         if n_tokens(answer) != target:
@@ -3160,173 +3208,175 @@ def digest(module) -> str:
     return h.hexdigest()
 
 
-def train_7b(dev) -> dict:
+def train_7b(dev, root: str, data: str, folder: str) -> dict:
     """The training entry point at full width: python -m
     video_llava_tpu_torch.train.train --model_size 7b (Vicuna-7B + the
     linear projector, bf16, random weights from --seed, tune_mode
-    projector+embed) on write_train_data's 32 samples, batch 4 x
-    gradient accumulation 2, one epoch: 4 optimizer steps, the profile
-    on step 3, the final checkpoint-4 (the whole state, the frozen LLM
-    included) and mm_projector.bin, in a temp dir removed afterwards.
+    projector+embed) on write_train_data's 16 samples of 880-1,000 tokens,
+    batch 2 x gradient accumulation 2, one epoch: 4 optimizer steps of
+    4 rows, the profile on step 3, the final checkpoint-4 (the whole
+    state, the frozen LLM included) and mm_projector.bin, under `root`.
     Launch counts over exactly train.main; kernel 7 must run 2 x 32 x 2
     times a step (forward and the remat recompute of each layer of each
     microbatch), dq and dk/dv 32 x 2. A frozen layer must keep its bytes
     and the projector and embed_tokens must move. Then the same command
     for two epochs must resume: restore checkpoint-4 with the trainables
-    run 1 ended with and take steps 5-12. Returns run 1's counts."""
-    root = tempfile.mkdtemp(prefix="vlt_train_")
+    run 1 ended with and take steps 5-12. Returns run 1's counts, its
+    summary, argv and export (mm_projector.bin, read back): the one
+    process that train_mesh_phase's sharded run is held against."""
+    out, prof = os.path.join(root, "out"), os.path.join(root, "profile")
+    usage = shutil.disk_usage(root)
+    print(f"train data in {root}: {TRAIN_SAMPLES} samples; disk "
+          f"{usage.free / 2**30:.1f} GiB free of "
+          f"{usage.total / 2**30:.1f} GiB", flush=True)
+    built = {}
+    build = train.build_model
+
+    def build_model(args, cfg, device):  # note the weights on entry
+        model = build(args, cfg, device)
+        built.update(
+            model=model, frozen=digest(model.llm.layers[TRAIN_LAYER]),
+            projector=[p.detach().clone()
+                       for p in model.projector.parameters()],
+            embed=model.llm.embed_tokens.weight.detach().clone())
+        return model
+
+    accum, steps = 2, TRAIN_SAMPLES // 4
+    argv = ["--data_path", data, "--video_folder", folder,
+            "--output_dir", out, "--model_size", "7b",
+            "--per_device_train_batch_size", "2",
+            "--gradient_accumulation_steps", str(accum),
+            "--num_train_epochs", "1", "--save_steps", "0",
+            "--profile", prof]
+    print(f"train.main({' '.join(argv)})", flush=True)
+    train.build_model = build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
     try:
-        data, folder = write_train_data(root)
-        out, prof = os.path.join(root, "out"), os.path.join(root, "profile")
-        usage = shutil.disk_usage(root)
-        print(f"train data in {root}: {TRAIN_SAMPLES} samples; disk "
-              f"{usage.free / 2**30:.1f} GiB free of "
-              f"{usage.total / 2**30:.1f} GiB", flush=True)
-        built = {}
-        build = train.build_model
-
-        def build_model(args, cfg, device):  # note the weights on entry
-            model = build(args, cfg, device)
-            built.update(
-                model=model, frozen=digest(model.llm.layers[TRAIN_LAYER]),
-                projector=[p.detach().clone()
-                           for p in model.projector.parameters()],
-                embed=model.llm.embed_tokens.weight.detach().clone())
-            return model
-
-        accum, steps = 2, TRAIN_SAMPLES // 8
-        argv = ["--data_path", data, "--video_folder", folder,
-                "--output_dir", out, "--model_size", "7b",
-                "--per_device_train_batch_size", "4",
-                "--gradient_accumulation_steps", str(accum),
-                "--num_train_epochs", "1", "--save_steps", "0",
-                "--profile", prof]
-        print(f"train.main({' '.join(argv)})", flush=True)
-        train.build_model = build_model
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        cuda_lib.reset_launch_counts()
-        t0 = time.perf_counter()
-        try:
-            summary = train.main(argv)
-        finally:
-            train.build_model = build
-        torch.cuda.synchronize()
-        launches = dict(cuda_lib.LAUNCHES)
-        total_s = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-
-        for i, (loss, norm, step_s, tokens, bucket) in enumerate(zip(
-                summary["loss"], summary["grad_norm"], summary["step_s"],
-                summary["tokens"], summary["bucket"])):
-            note = " (profiled)" if i == train.PROFILE_STEP else ""
-            print(f"train 7b step {i}: loss {loss:.5f}, grad norm "
-                  f"{norm:.5f}, bucket {bucket}, {step_s:.3f} s, "
-                  f"{tokens / step_s:.0f} tokens/s ({tokens} tokens with "
-                  f"padding){note}", flush=True)
-        if summary["steps"] != steps or not all(
-                np.isfinite(summary["loss"] + summary["grad_norm"])):
-            raise AssertionError(f"train 7b: {summary['steps']} steps, "
-                                 f"losses {summary['loss']}")
-        model = built.pop("model")
-        layers = len(model.llm.layers)
-        frozen_ok = digest(model.llm.layers[TRAIN_LAYER]) == built["frozen"]
-        d_proj = max((p.detach().float() - p0.float()).abs().max().item()
-                     for p, p0 in zip(model.projector.parameters(),
-                                      built["projector"]))
-        d_embed = (model.llm.embed_tokens.weight.detach().float()
-                   - built["embed"].float()).abs()
-        rows_moved = int((d_embed.amax(1) > 0).sum())
-        trained = (digest(model.projector), digest(model.llm.embed_tokens))
-        ckpt = os.path.join(out, f"checkpoint-{steps}")
-        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f))
-                         for f in os.listdir(ckpt))
-        print(f"train 7b: {total_s:.2f} s in train.main (init, data, "
-              f"{steps} steps, checkpoint); peak device memory {peak:.2f} "
-              f"GiB; launches {launches}; layer {TRAIN_LAYER} sha256 "
-              f"{built['frozen'][:16]} before, "
-              f"{'the same' if frozen_ok else 'CHANGED'} after; projector "
-              f"max|change| {d_proj:.3e}; embed_tokens max|change| "
-              f"{d_embed.max().item():.3e} over {rows_moved} rows; "
-              f"checkpoint-{steps} {ckpt_bytes / 2**30:.2f} GiB and "
-              f"mm_projector.bin written in {summary['save_s']:.2f} s",
-              flush=True)
-        del model, built, d_embed
-        want = {"flash_forward": 2 * layers * accum * steps,
-                "flash_backward_dq": layers * accum * steps,
-                "flash_backward_dkv": layers * accum * steps}
-        wrong = {k: launches.get(k, 0) for k, n in want.items()
-                 if launches.get(k, 0) != n}
-        if wrong:
-            raise AssertionError(f"train 7b launches {wrong}, want {want}")
-        if not frozen_ok or not d_proj > 0 or not rows_moved:
-            raise AssertionError("train 7b: a frozen layer moved or a "
-                                 "trainable one did not")
-        for name in (f"checkpoint-{steps}", "mm_projector.bin",
-                     "train_summary.json"):
-            if not os.path.exists(os.path.join(out, name)):
-                raise AssertionError(f"train 7b wrote no {name}")
-
-        busy_ms, by_name = trace_busy(os.path.join(prof, "trace.json"))
-        if not by_name:
-            raise AssertionError("train 7b profile: no device activity")
-        step_ms = summary["step_s"][train.PROFILE_STEP] * 1e3
-        calm_ms = statistics.mean(
-            summary["step_s"][1:train.PROFILE_STEP]) * 1e3
-        print(f"train 7b profile, step {train.PROFILE_STEP}: device busy "
-              f"{busy_ms:.1f} ms over {sum(c for _, c in by_name.values())} "
-              f"device activities; idle share {1 - busy_ms / step_ms:.3f} of "
-              f"the profiled step's {step_ms:.1f} ms, "
-              f"{1 - busy_ms / calm_ms:.3f} of the unprofiled steps 1-2's "
-              f"mean {calm_ms:.1f} ms")
-        for name, (total, calls) in sorted(by_name.items(),
-                                           key=lambda kv: -kv[1][0])[:14]:
-            print(f"train 7b profile: {total / 1e3:9.2f} ms {calls:6d} "
-                  f"calls  {name[:90]}")
-        for kind in ("fwd", "dq", "dkv"):  # kernels 7 and 8, wherever ranked
-            hits = [v for n, v in by_name.items()
-                    if f"flash::hopper::{kind}_kernel" in n]
-            print(f"train 7b profile: kernel {kind} "
-                  f"{sum(t for t, _ in hits) / 1e3:.2f} ms over "
-                  f"{sum(c for _, c in hits)} calls in the step", flush=True)
-
-        restore, restored = train.restore_checkpoint, {}
-
-        def restore_checkpoint(path, state):  # note what was restored
-            state = restore(path, state)
-            restored.update(path=path, trainables=(
-                digest(state.model.projector),
-                digest(state.model.llm.embed_tokens)))
-            return state
-
-        argv = argv[:argv.index("--num_train_epochs")] + [
-            "--num_train_epochs", "2", "--save_steps", "0"]
-        train.restore_checkpoint = restore_checkpoint
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        try:
-            resumed = train.main(argv)
-        finally:
-            train.restore_checkpoint = restore
-        same = restored.get("trainables") == trained
-        print(f"train 7b resumed from {restored.get('path')} (trainables "
-              f"{'as' if same else 'NOT as'} run 1 ended them): steps "
-              f"{resumed['steps']}, losses "
-              f"{', '.join(f'{x:.4f}' for x in resumed['loss'])}, "
-              f"{time.perf_counter() - t0:.2f} s in train.main, "
-              f"checkpoint-{resumed['steps']} written in "
-              f"{resumed['save_s']:.2f} s", flush=True)
-        if (restored.get("path") != ckpt or not same
-                or resumed["steps"] != 3 * steps
-                or not all(np.isfinite(resumed["loss"]))):
-            raise AssertionError("train 7b did not resume from "
-                                 f"checkpoint-{steps}")
-        return launches
+        summary = train.main(argv)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        train.build_model = build
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    for i, (loss, norm, step_s, tokens, bucket) in enumerate(zip(
+            summary["loss"], summary["grad_norm"], summary["step_s"],
+            summary["tokens"], summary["bucket"])):
+        note = " (profiled)" if i == train.PROFILE_STEP else ""
+        print(f"train 7b step {i}: loss {loss:.5f}, grad norm "
+              f"{norm:.5f}, bucket {bucket}, {step_s:.3f} s, "
+              f"{tokens / step_s:.0f} tokens/s ({tokens} tokens with "
+              f"padding){note}", flush=True)
+    if summary["steps"] != steps or not all(
+            np.isfinite(summary["loss"] + summary["grad_norm"])):
+        raise AssertionError(f"train 7b: {summary['steps']} steps, "
+                             f"losses {summary['loss']}")
+    model = built.pop("model")
+    layers = len(model.llm.layers)
+    frozen_ok = digest(model.llm.layers[TRAIN_LAYER]) == built["frozen"]
+    d_proj = max((p.detach().float() - p0.float()).abs().max().item()
+                 for p, p0 in zip(model.projector.parameters(),
+                                  built["projector"]))
+    d_embed = (model.llm.embed_tokens.weight.detach().float()
+               - built["embed"].float()).abs()
+    rows_moved = int((d_embed.amax(1) > 0).sum())
+    trained = (digest(model.projector), digest(model.llm.embed_tokens))
+    ckpt = os.path.join(out, f"checkpoint-{steps}")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                     for f in os.listdir(ckpt))
+    print(f"train 7b: {total_s:.2f} s in train.main (init, data, "
+          f"{steps} steps, checkpoint); peak device memory {peak:.2f} "
+          f"GiB; launches {launches}; layer {TRAIN_LAYER} sha256 "
+          f"{built['frozen'][:16]} before, "
+          f"{'the same' if frozen_ok else 'CHANGED'} after; projector "
+          f"max|change| {d_proj:.3e}; embed_tokens max|change| "
+          f"{d_embed.max().item():.3e} over {rows_moved} rows; "
+          f"checkpoint-{steps} {ckpt_bytes / 2**30:.2f} GiB and "
+          f"mm_projector.bin written in {summary['save_s']:.2f} s",
+          flush=True)
+    del model, built, d_embed
+    export = torch.load(os.path.join(out, "mm_projector.bin"))
+    want = {"flash_forward": 2 * layers * accum * steps,
+            "flash_backward_dq": layers * accum * steps,
+            "flash_backward_dkv": layers * accum * steps}
+    wrong = {k: launches.get(k, 0) for k, n in want.items()
+             if launches.get(k, 0) != n}
+    if wrong:
+        raise AssertionError(f"train 7b launches {wrong}, want {want}")
+    if not frozen_ok or not d_proj > 0 or not rows_moved:
+        raise AssertionError("train 7b: a frozen layer moved or a "
+                             "trainable one did not")
+    for name in (f"checkpoint-{steps}", "mm_projector.bin",
+                 "train_summary.json"):
+        if not os.path.exists(os.path.join(out, name)):
+            raise AssertionError(f"train 7b wrote no {name}")
+
+    busy_ms, by_name = trace_busy(os.path.join(prof, "trace.json"))
+    if not by_name:
+        raise AssertionError("train 7b profile: no device activity")
+    step_ms = summary["step_s"][train.PROFILE_STEP] * 1e3
+    calm_ms = statistics.mean(
+        summary["step_s"][1:train.PROFILE_STEP]) * 1e3
+    print(f"train 7b profile, step {train.PROFILE_STEP}: device busy "
+          f"{busy_ms:.1f} ms over {sum(c for _, c in by_name.values())} "
+          f"device activities; idle share {1 - busy_ms / step_ms:.3f} of "
+          f"the profiled step's {step_ms:.1f} ms, "
+          f"{1 - busy_ms / calm_ms:.3f} of the unprofiled steps 1-2's "
+          f"mean {calm_ms:.1f} ms")
+    for name, (total, calls) in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][0])[:14]:
+        print(f"train 7b profile: {total / 1e3:9.2f} ms {calls:6d} "
+              f"calls  {name[:90]}")
+    for kind in ("fwd", "dq", "dkv"):  # kernels 7 and 8, wherever ranked
+        hits = [v for n, v in by_name.items()
+                if f"flash::hopper::{kind}_kernel" in n]
+        print(f"train 7b profile: kernel {kind} "
+              f"{sum(t for t, _ in hits) / 1e3:.2f} ms over "
+              f"{sum(c for _, c in hits)} calls in the step", flush=True)
+
+    restore, restored = train.restore_checkpoint, {}
+
+    def restore_checkpoint(path, state):  # note what was restored
+        state = restore(path, state)
+        restored.update(path=path, trainables=(
+            digest(state.model.projector),
+            digest(state.model.llm.embed_tokens)))
+        return state
+
+    ref = {"launches": launches, "summary": summary, "export": export,
+           "argv": argv[:argv.index("--output_dir")]
+           + argv[argv.index("--model_size"):argv.index("--profile")]}
+    argv = argv[:argv.index("--num_train_epochs")] + [
+        "--num_train_epochs", "2", "--save_steps", "0"]
+    train.restore_checkpoint = restore_checkpoint
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        resumed = train.main(argv)
+    finally:
+        train.restore_checkpoint = restore
+    same = restored.get("trainables") == trained
+    print(f"train 7b resumed from {restored.get('path')} (trainables "
+          f"{'as' if same else 'NOT as'} run 1 ended them): steps "
+          f"{resumed['steps']}, losses "
+          f"{', '.join(f'{x:.4f}' for x in resumed['loss'])}, "
+          f"{time.perf_counter() - t0:.2f} s in train.main, "
+          f"checkpoint-{resumed['steps']} written in "
+          f"{resumed['save_s']:.2f} s", flush=True)
+    if (restored.get("path") != ckpt or not same
+            or resumed["steps"] != 3 * steps
+            or not all(np.isfinite(resumed["loss"]))):
+        raise AssertionError("train 7b did not resume from "
+                             f"checkpoint-{steps}")
+    shutil.rmtree(out, ignore_errors=True)
+    return ref
 
 
 def training_phase(dev, results) -> dict:
@@ -3345,12 +3395,397 @@ def training_phase(dev, results) -> dict:
     # an f32 train step on the card: kernel 7's f32 body and kernel 8's
     # f32 body, whose launches the kernels line carries
     f32 = small_train_check(dev, card_dtype=torch.float32)
-    launches = train_7b(dev)
-    launches.update({k: f32[k] for k in TRAIN_PATH_F32[1:]})
+    root = tempfile.mkdtemp(prefix="vlt_train_")
+    try:
+        data, folder = write_train_data(root)
+        ref = train_7b(dev, root, data, folder)
+        launches = ref.pop("launches")
+        launches.update({k: f32[k] for k in TRAIN_PATH_F32[1:]})
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"training phase: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        train_mesh_phase(dev, root, data, folder, ref, results)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+# -- sharded training (train_mesh_phase) -----------------------------------
+
+MESH_ENV = "VLT_SMOKE_MESH"  # what the phase asks of each rank (json)
+MESH = ["--mesh_data", "2", "--mesh_model", "2", "--dist_backend", "gloo"]
+MESH_FSDP_LAYERS, MESH_FSDP_SAMPLES = 2, 8  # FSDP's depth cut; 2 steps
+# Limits of a sharded bf16 run against one process on the same data and
+# seed, set before the first reading: each step's loss within 2^-8 and
+# grad norm within 2^-5 relative; the exported projector and embed_tokens
+# on average within 5% of one step's size lr, no element further than 2
+# lr a step (Adam moves each element by about lr times its gradient's
+# sign, and a nearly cancelling bf16 gradient element may take either).
+MESH_LIMITS = {"loss": 2 ** -8, "grad_norm": 2 ** -5, "mean_lr": 0.05,
+               "max_lr_a_step": 2.0}
+MESH_LR = 2e-3  # train.py's default learning rate
+MESH_POOL_COUNTS = (100, 73, 50, 30)
+# kernel 2 sharded over 2 data ranks against one process's launch, bf16
+# out: the spatial partials add in f32 in another order, so a value may
+# round one bf16 ulp away: of max |ref|
+POOL_SHARD_TOL = 2 ** -7
+
+
+@contextlib.contextmanager
+def depth_cut(layers):
+    """train.main's model at `layers` LLM layers and as many CLIP layers
+    (None: as it is; training reads precomputed features, so the tower
+    only adds its parameters and their optimizer state)."""
+    config = train.model_config
+
+    def cut(size):
+        cfg = config(size)
+        return dataclasses.replace(
+            cfg, llm=dataclasses.replace(cfg.llm, num_layers=layers),
+            vision=dataclasses.replace(cfg.vision, num_layers=layers))
+
+    if layers:
+        train.model_config = cut
+    try:
+        yield
+    finally:
+        train.model_config = config
+
+
+def pool_shard_rank_check(mesh, dev) -> dict:
+    """Kernel 2's frame-sharded form on this rank of `mesh`: 100 frames
+    of ViT-L's 256 x 1024 features (seeded, the same on every rank) at
+    each of MESH_POOL_COUNTS valid, bf16 out as encode_video pools,
+    against one process's kernel 2 on the same features; the sharded
+    call's launches counted alone."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(100, 256, 1024, generator=g, device=dev).to(
+        torch.bfloat16)
+    out = {}
+    for n in MESH_POOL_COUNTS:
+        cuda_lib.reset_launch_counts()
+        got = pooling.spatio_temporal_pool_sharded(x, n, mesh)
+        torch.cuda.synchronize()
+        launches = cuda_lib.LAUNCHES["spatio_temporal_pool"]
+        want = pooling.spatio_temporal_pool_fused(x, n)
+        err = (got.float() - want.float()).abs().max().item()
+        d = mesh.coords["data"]
+        out[str(n)] = {"rel_err": err / want.float().abs().max().item(),
+                       "launches": launches,
+                       "n_local": min(max(n - d * 50, 0), 50)}
+    cuda_lib.reset_launch_counts()
+    return out
+
+
+def planted_first(step, report):
+    """`step`, whose first call first takes the same step with the
+    planted fault (no gradient sum over 'data': each data rank updates
+    from its own rows alone), notes its loss and grad norm in `report`,
+    puts the trainable parameters back and zeroes the launch counts."""
+    def first(state, batch):
+        if "fault" not in report:
+            params = dict(state.model.named_parameters())
+            saved = {n: params[n].detach().clone() for n in state.trainable}
+            sum_data = train_step_mod._sum_data
+            train_step_mod._sum_data = lambda g, mesh: g
+            try:
+                _, m = step(state, batch)
+                report["fault"] = {"loss": float(m["loss"]),
+                                   "grad_norm": float(m["grad_norm"])}
+            finally:
+                train_step_mod._sum_data = sum_data
+            with torch.no_grad():
+                for n, t in saved.items():
+                    params[n].copy_(t)
+            del saved
+            cuda_lib.reset_launch_counts()
+        return step(state, batch)
+    return first
+
+
+def mesh_rank(argv):
+    """train.main(argv) on this rank of a sharded run (rank 0's call, and
+    the entry of the ranks train.main spawns), as MESH_ENV asks
+    (a depth cut, kernel 2's sharded check, the planted fault); each
+    rank writes its report (launches over the real steps and the save,
+    peak memory, the checks, each microbatch's count of valid targets on
+    this rank) to the asked directory."""
+    spec = json.loads(os.environ[MESH_ENV])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = {"counts": []}
+    make, ll = train.make_train_step, train_step_mod.log_likelihood
+
+    def log_likelihood(model, batch):  # note this rank's count
+        logp, n = ll(model, batch)
+        report["counts"].append(int(n))
+        return logp, n
+
+    def make_step(tx, grad_accum=1, mesh=None):
+        step = make(tx, grad_accum, mesh)
+        report.update(rank=multihost.get_rank(), coords=dict(mesh.coords))
+        if spec.get("pool"):
+            report["pool"] = pool_shard_rank_check(
+                mesh, torch.device("cuda", torch.cuda.current_device()))
+        return planted_first(step, report) if spec.get("fault") else step
+
+    train.make_train_step = make_step
+    train_step_mod.log_likelihood = log_likelihood
+    # the ranks train.main spawns run this function too
+    start = multihost.start_ranks
+
+    def start_ranks(*args, **kwargs):
+        return start(*args,
+                     **dict(kwargs, entry=("chip_smoke", "mesh_rank")))
+
+    multihost.start_ranks = start_ranks
+    cuda_lib.reset_launch_counts()
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        with depth_cut(spec.get("layers")):
+            summary = train.main(argv)
+    finally:
+        train.make_train_step = make
+        train_step_mod.log_likelihood = ll
+        multihost.start_ranks = start
+    report.update(launches=dict(cuda_lib.LAUNCHES), peak_gib=(
+        torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0))
+    with open(os.path.join(spec["reports"], f"rank{report['rank']}.json"),
+              "w") as f:
+        json.dump(report, f)
+    return summary
+
+
+def mesh_run(argv, **spec):
+    """train.main(argv) sharded, this process rank 0 and the others
+    spawned (mesh_rank), every rank as `spec` asks -> (rank 0's summary,
+    every rank's report in rank order, wall seconds)."""
+    reports = tempfile.mkdtemp(prefix="mesh_reports_")
+    os.environ[MESH_ENV] = json.dumps(dict(spec, reports=reports))
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        summary = mesh_rank(argv)
+    finally:
+        del os.environ[MESH_ENV]
+    wall = time.perf_counter() - t0
+    got = []
+    for name in sorted(os.listdir(reports)):
+        with open(os.path.join(reports, name)) as f:
+            got.append(json.load(f))
+    shutil.rmtree(reports, ignore_errors=True)
+    got.sort(key=lambda r: r["rank"])
+    return summary, got, wall
+
+
+def mesh_compare(label, got, want, got_export, want_export, steps,
+                 failed) -> dict:
+    """Hold a sharded run's summary and export against one process's
+    within MESH_LIMITS; print the readings; note failures."""
+    readings = {}
+    for key in ("loss", "grad_norm"):
+        rel = [abs(a - b) / abs(b) for a, b in zip(got[key], want[key])]
+        readings[key] = max(rel)
+        print(f"{label}: {key} {['%.5f' % x for x in got[key]]} against "
+              f"one process's {['%.5f' % x for x in want[key]]}: max rel "
+              f"{max(rel):.3e} (limit {MESH_LIMITS[key]:.3e})", flush=True)
+        if not (len(got[key]) == len(want[key]) == steps
+                and all(np.isfinite(got[key])) and max(rel) <= MESH_LIMITS[
+                    key]):
+            failed.append(f"{label}: {key} out of its limit")
+    for k in sorted(want_export):
+        diff = (got_export[k].float() - want_export[k].float()).abs()
+        mean_lr = diff.mean().item() / MESH_LR
+        max_lr = diff.max().item() / MESH_LR
+        readings[k] = [mean_lr, max_lr]
+        print(f"{label}: {k} mean|diff| {mean_lr:.4f} lr (limit "
+              f"{MESH_LIMITS['mean_lr']}), max {max_lr:.3f} lr (limit "
+              f"{MESH_LIMITS['max_lr_a_step'] * steps})", flush=True)
+        if not (mean_lr <= MESH_LIMITS["mean_lr"]
+                and max_lr <= MESH_LIMITS["max_lr_a_step"] * steps):
+            failed.append(f"{label}: {k} out of its limit")
+    return readings
+
+
+def subset_data(data: str, n: int, root: str) -> str:
+    """The first n samples of `data` as a data file of their own."""
+    with open(data) as f:
+        samples = json.load(f)[:n]
+    path = os.path.join(root, f"data_{n}.json")
+    with open(path, "w") as f:
+        json.dump(samples, f)
+    return path
+
+
+def link_checkpoint(src: str, dst: str) -> None:
+    """dst/ holding src's checkpoint directory (hard links: no copy)."""
+    name = os.path.basename(src)
+    shutil.copytree(src, os.path.join(dst, name), copy_function=os.link)
+
+
+def train_mesh_phase(dev, root, data, folder, ref, results) -> dict:
+    """Sharded training on the card (4 gloo ranks share it; NCCL takes a
+    card a rank), through train.main as a user runs it, this process
+    rank 0 and the others spawned:
+
+      * DP x TP: `--mesh_data 2 --mesh_model 2` at full width and depth
+        (Vicuna-7B + CLIP ViT-L/14, bf16, projector+embed) on train_7b's
+        data and seed, a global batch of 4 rows of 1,024 whose counts of
+        valid targets all differ (checked on each rank; 1 a rank x
+        accumulation 2 x 2 data ranks), 4 steps, against train_7b's
+        one process (ref) within MESH_LIMITS: the per-step loss and grad
+        norm, the exported projector and embed_tokens. Before it, every
+        rank takes the first step once with a planted fault (no gradient
+        sum over 'data'), whose grad norm must fall outside the limit,
+        and checks kernel 2's frame-sharded form on its data axis
+        (pool_shard_rank_check: 100 frames at MESH_POOL_COUNTS valid).
+        Each rank's launches of kernels 7, 8 and 2, its peak, the step
+        seconds and the one save's seconds are printed.
+      * FSDP: `--tune_mode full` on the same mesh (every big matched
+        kernel's free dim on 'data') at 7B width, depth cut to
+        MESH_FSDP_LAYERS (the LLM's and CLIP's), 2 steps, against one
+        process of the same cut;
+        then its checkpoint (the one-process format) resumed in one
+        process and at 2 x 1: the next step's loss equal within the
+        loss limit."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    failed = []
+    out = os.path.join(root, "mesh")
+    argv = ref["argv"] + ["--output_dir", out]
+    argv[argv.index("--per_device_train_batch_size") + 1] = "1"
+    print(f"train_mesh_phase: train.main({' '.join(argv + MESH)})",
+          flush=True)
+    summary, ranks, wall = mesh_run(argv + MESH, pool=True, fault=True)
+    accum, steps = 2, TRAIN_SAMPLES // 4
+    layers = LlamaConfig.vicuna_7b().num_layers
+    want = {"flash_forward": 2 * layers * accum * steps,
+            "flash_backward_dq": layers * accum * steps,
+            "flash_backward_dkv": layers * accum * steps}
+    export = torch.load(os.path.join(out, "mm_projector.bin"))
+    readings = mesh_compare("DP 2 x TP 2 7B", summary, ref["summary"],
+                            export, ref["export"], steps, failed)
+    # a mean of the ranks' means equals the global mean only where the
+    # data ranks hold equal counts: every microbatch's must differ
+    by_data = {r["coords"]["data"]: r["counts"] for r in ranks
+               if r["coords"]["model"] == 0}
+    print(f"train_mesh_phase: valid targets of each microbatch (the "
+          f"planted fault's step first), data rank 0 {by_data[0]}, data "
+          f"rank 1 {by_data[1]}", flush=True)
+    if (len(by_data[0]) != len(by_data[1]) or not by_data[0]
+            or any(a == b for a, b in zip(by_data[0], by_data[1]))):
+        failed.append("the data ranks hold equal counts of targets")
+    want0 = ref["summary"]["grad_norm"][0]
+    for r in ranks:
+        f = r["fault"]
+        rel = abs(f["grad_norm"] - want0) / want0
+        print(f"train_mesh_phase rank {r['rank']} {r['coords']}: planted "
+              f"fault (no sum over 'data'): first step's grad norm "
+              f"{f['grad_norm']:.5f} against {want0:.5f}, rel {rel:.3e}, "
+              f"which must exceed {MESH_LIMITS['grad_norm']:.3e}",
+              flush=True)
+        if not rel > MESH_LIMITS["grad_norm"]:
+            failed.append(f"rank {r['rank']}: the planted fault passed")
+        kern = {k: r["launches"].get(k, 0) for k in want}
+        print(f"train_mesh_phase rank {r['rank']}: launches over the 4 "
+              f"steps and the save {kern} (want {want}); peak "
+              f"{r['peak_gib']:.2f} GiB (the whole model drawn, then "
+              f"sharded)", flush=True)
+        if kern != want:
+            failed.append(f"rank {r['rank']}: launches {kern}")
+        for n, p in r["pool"].items():
+            print(f"train_mesh_phase rank {r['rank']}: kernel 2 sharded, "
+                  f"{n} of 100 valid ({p['n_local']} of this rank's 50): "
+                  f"max|err|/max|ref| {p['rel_err']:.3e} (tol "
+                  f"{POOL_SHARD_TOL:.3e}) against one process, "
+                  f"{p['launches']} launch", flush=True)
+            if not (p["launches"] == 1 and p["rel_err"] <= POOL_SHARD_TOL):
+                failed.append(f"rank {r['rank']}: kernel 2 sharded at {n}")
+    secs = lambda xs: ", ".join(f"{x:.3f}" for x in xs)  # noqa: E731
+    print(f"train_mesh_phase DP x TP: steps {secs(summary['step_s'])} s "
+          f"(one process: {secs(ref['summary']['step_s'])}), the "
+          f"save (checkpoint-{steps} gathered to rank 0 and written, "
+          f"export) {summary['save_s']:.2f} s (one process "
+          f"{ref['summary']['save_s']:.2f}), train.main {wall:.2f} s; "
+          f"{card}", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    del export
+
+    # FSDP at 7B width, MESH_FSDP_LAYERS deep
+    data8 = subset_data(data, MESH_FSDP_SAMPLES, root)
+    fargv = ["--data_path", data8] + ref["argv"][2:] + ["--tune_mode",
+                                                        "full"]
+    one, four = os.path.join(root, "fsdp_one"), os.path.join(root,
+                                                             "fsdp_four")
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"training phase: {time.perf_counter() - t0:.2f} s", flush=True)
-    return launches
+    with depth_cut(MESH_FSDP_LAYERS):
+        t0 = time.perf_counter()
+        fref = train.main(fargv + ["--output_dir", one])
+        one_s = time.perf_counter() - t0
+    fargv[fargv.index("--per_device_train_batch_size") + 1] = "1"
+    fsum, franks, fwall = mesh_run(fargv + ["--output_dir", four] + MESH,
+                                   layers=MESH_FSDP_LAYERS)
+    fsteps = MESH_FSDP_SAMPLES // 4
+    readings["fsdp"] = mesh_compare(
+        f"FSDP 2 x 2 7B width, {MESH_FSDP_LAYERS} layers", fsum, fref,
+        torch.load(os.path.join(four, "mm_projector.bin")),
+        torch.load(os.path.join(one, "mm_projector.bin")), fsteps, failed)
+    for r in franks:
+        kern = {k: r["launches"].get(k, 0) for k in TRAIN_PATH}
+        print(f"train_mesh_phase FSDP rank {r['rank']}: launches {kern}, "
+              f"peak {r['peak_gib']:.2f} GiB", flush=True)
+        if not all(kern.values()):
+            failed.append(f"FSDP rank {r['rank']}: launches {kern}")
+    print(f"train_mesh_phase FSDP: steps {secs(fsum['step_s'])} s, save "
+          f"{fsum['save_s']:.2f} s, train.main {fwall:.2f} s (one "
+          f"process: {one_s:.2f} s)", flush=True)
+    # the round trip: checkpoint-2 of the 2 x 2 run, resumed in one
+    # process and at 2 x 1 for one more step on the first 4 rows
+    ckpt = os.path.join(four, f"checkpoint-{fsteps}")
+    rargv = ["--data_path", subset_data(data, 4, root)] + fargv[2:]
+    next_loss = {}
+    for label, mesh in (("one process", None),
+                        ("2 x 1", ["--mesh_data", "2", "--mesh_model", "1",
+                                   "--dist_backend", "gloo"])):
+        dst = tempfile.mkdtemp(prefix="fsdp_resume_", dir=root)
+        link_checkpoint(ckpt, dst)
+        argv1 = rargv + ["--output_dir", dst]
+        if mesh is None:
+            argv1[argv1.index("--per_device_train_batch_size") + 1] = "2"
+            with depth_cut(MESH_FSDP_LAYERS):
+                got = train.main(argv1)
+        else:
+            got, _, _ = mesh_run(argv1 + mesh, layers=MESH_FSDP_LAYERS)
+        next_loss[label] = got["loss"][0]
+        if got["steps"] != fsteps + 1:
+            failed.append(f"FSDP resume ({label}): {got['steps']} steps")
+        shutil.rmtree(dst, ignore_errors=True)
+    a, b = next_loss["2 x 1"], next_loss["one process"]
+    rel = abs(a - b) / abs(b)
+    readings["fsdp_resume"] = rel
+    print(f"train_mesh_phase FSDP round trip: checkpoint-{fsteps} saved at "
+          f"2 x 2, resumed at 2 x 1: next step's loss {a:.5f}, in one "
+          f"process {b:.5f}, rel {rel:.3e} (limit {MESH_LIMITS['loss']:.3e})",
+          flush=True)
+    if not rel <= MESH_LIMITS["loss"]:
+        failed.append("FSDP round trip: the next step's loss")
+    shutil.rmtree(one, ignore_errors=True)
+    shutil.rmtree(four, ignore_errors=True)
+    if failed:
+        raise AssertionError(f"train_mesh_phase: {failed}")
+    wall = time.perf_counter() - t_phase
+    print(f"train_mesh_phase: {wall:.2f} s; no multi-GPU speed is "
+          f"measured: 4 ranks share one card; {card}", flush=True)
+    results["spatio_temporal_pool"]["sharded"] = {
+        n: max(r["pool"][n]["rel_err"] for r in ranks)
+        for n in ranks[0]["pool"]}
+    return {"wall_s": wall, "readings": readings,
+            "launches": [r["launches"] for r in ranks]}
 
 
 # -- grounding ------------------------------------------------------------
@@ -5492,7 +5927,9 @@ def weight_bytes(module, leaves) -> int:
 
 TP_RANKS = 2
 TP_VOCAB_MULTIPLE = 256
-TP_CONTINUOUS = 4  # requests through the paged continuous engine
+TP_CONTINUOUS = 2  # requests through the paged continuous engine
+TP_TOKENS = 32  # greedy tokens of the 100-frame request
+TP_PAGED_TOKENS = 16  # a paged request's tokens
 # teacher-forced logits, TP against the single-process engine on the same
 # token stream: (max, mean) |err| as fractions of max |logit|, checked on
 # the 100-frame request end to end (TP features into the TP LLM) and on
@@ -5721,11 +6158,11 @@ def tp_padded(tokens, dev):
 
 def tp_requests(engine, feats, ids, lens, texts, new_engine, probe=None):
     """The phase's work on one engine: the 100-frame request (greedy, up
-    to 64 tokens), then the continuous requests through the paged
+    to TP_TOKENS tokens), then the continuous requests through the paged
     engine. Returns (video tokens, the continuous requests' tokens, the
     continuous engine, idle)."""
     tok = engine.tokenizer
-    gen = GenerationConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False,
+    gen = GenerationConfig(max_new_tokens=TP_TOKENS, do_sample=False,
                            temperature=0.0, eos_token_id=tok.eos_token_id,
                            pad_token_id=tok.pad_token_id)
     res = engine.generate_tokens(ids, lens, feats[None], gen, 0, False)
@@ -5737,9 +6174,9 @@ def tp_requests(engine, feats, ids, lens, texts, new_engine, probe=None):
                       num_slots=TP_CONTINUOUS, max_cache_len=1024,
                       prompt_pad=128, paged=True, speculative=False)
     reqs = [SlotRequest(ids[0, :int(lens[0])].tolist(),
-                        max_new_tokens=32, eos_token_id=tok.eos_token_id,
-                        video_features=feats)]
-    reqs += [SlotRequest(t, max_new_tokens=32,
+                        max_new_tokens=TP_PAGED_TOKENS,
+                        eos_token_id=tok.eos_token_id, video_features=feats)]
+    reqs += [SlotRequest(t, max_new_tokens=TP_PAGED_TOKENS,
                          eos_token_id=tok.eos_token_id) for t in texts]
     handles = [ceng.submit(r) for r in reqs]
     for _ in range(500):
@@ -5800,9 +6237,10 @@ def tp_phase(dev, card, model_size: str = "7b") -> dict:
     measurement): the 7B int4 engine (tp_engine) under --mesh_model 2
     --dist_backend gloo, rank 0 this process and rank 1 spawned, both on
     cuda:0, each rank drawing the seeded model whole and keeping its
-    shard. The 100-frame request (bench.py's 224 px frames, 64 greedy
-    tokens) and 4 requests through the paged continuous engine, each
-    held against the single-process engine of the same seed built first
+    shard. The 100-frame request (bench.py's 224 px frames, TP_TOKENS
+    greedy tokens) and TP_CONTINUOUS requests (a video and a text one) through
+    the paged continuous engine, each held against the single-process
+    engine of the same seed built first
     in this run. Teacher-forced logits along the reference's tokens
     within TP_LIMITS: the request end to end (TP's own features into the
     TP LLM, prefill and decode_step on the slot cache) and the paged

@@ -148,6 +148,32 @@ def test_batched_pool_kernel_matches_plain(dev, b, t, s, c, counts,
         assert torch.equal(got[i], one), i
 
 
+@pytest.mark.parametrize("t,s,c,n,denom", [
+    (50, 256, 1024, 50, 100), (50, 256, 1024, 23, 73),
+    (50, 256, 1024, 0, 30), (7, 50, 100, 5, 9), (3, 17, 64, 9, 2),
+])
+def test_pool_kernel_with_a_divisor_matches_plain(dev, t, s, c, n, denom):
+    """Kernel 2 with the spatial sums divided by another count than the
+    valid frames' (one 'data' shard of the frame-sharded pooling: 50 of
+    100 frames, all valid, 23 of 73 valid, none of 30 valid; then odd
+    shapes), f32 out as the sharded form takes it, against
+    pooling.pool_shard_plain within 1e-5; and the same kernel without a
+    divisor is bit for bit the divisor equal to the count."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = _rand(g, t, s, c)
+    got = pooling.spatio_temporal_pool_fused(x, n, t, torch.float32,
+                                             n_denom=denom)
+    want = pooling.pool_shard_plain(x, n, denom, t, torch.float32)
+    assert got.shape == want.shape == (t + s, c)
+    _assert_close(got, want, 1e-5)
+    if n == 0:
+        assert not got.any()
+    same = pooling.spatio_temporal_pool_fused(x, n, t, torch.float32,
+                                              n_denom=n)
+    assert torch.equal(same, pooling.spatio_temporal_pool_fused(
+        x, n, t, torch.float32))
+
+
 def test_pool_kernel_is_deterministic(dev):
     """Kernel 2's sums run in a fixed order (the temporal partials added
     in run order): the same bits on every launch."""

@@ -38,8 +38,8 @@ def test_multihost_single_and_two_ranks(tmp_path):
         make_mesh(1, 2)
     with pytest.raises(ValueError, match="not divisible"):
         make_mesh(2, None, world_size=3)
-    with pytest.raises(NotImplementedError, match="9b"):
-        make_mesh(2, 1, world_size=2)
+    with pytest.raises(ValueError, match="exceeds"):
+        make_mesh(2, 2, world_size=3)
     session = driver.start(None, device="cpu")
     assert (session.rank, session.world_size, session.follower) == (0, 1,
                                                                     False)

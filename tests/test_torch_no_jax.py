@@ -32,9 +32,41 @@ def _run(code: str, *args: str) -> subprocess.CompletedProcess:
     )
 
 
+def _jax_package_paths():
+    """(file, line, text) of every string in the port's modules, other
+    than a docstring, that names the JAX package's directory."""
+    import ast
+    import re
+
+    found = []
+    root = os.path.dirname(video_llava_tpu_torch.__file__)
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            docs = {id(node.body[0].value) for node in ast.walk(tree)
+                    if isinstance(node, (ast.Module, ast.ClassDef,
+                                         ast.FunctionDef,
+                                         ast.AsyncFunctionDef))
+                    and node.body and isinstance(node.body[0], ast.Expr)
+                    and isinstance(node.body[0].value, ast.Constant)}
+            for node in ast.walk(tree):
+                if (isinstance(node, ast.Constant)
+                        and isinstance(node.value, str)
+                        and id(node) not in docs
+                        and re.search(r"(^|[/\\])video_llava_tpu($|[/\\])",
+                                      node.value)):
+                    found.append((path, node.lineno, node.value))
+    return found
+
+
 def test_port_imports_no_jax(tmp_path):
     """Every module of the port, and chip_smoke.py, imports with JAX
-    unimportable, and none pulls JAX in; the chat (with --use_asr and
+    unimportable, and none pulls JAX in, nor names a file of the JAX
+    package (video_llava_tpu/) in its code; the chat (with --use_asr and
     the checkpoint flags), serving, training and eval CLIs' --help run;
     a checkpoint's tokenizer.json and safetensors shards load without
     the tokenizer and safetensors libraries."""
@@ -50,6 +82,9 @@ def test_port_imports_no_jax(tmp_path):
             "'sentencepiece.', 'google.protobuf.'))]\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
+    # and no module of the port names a file of the JAX package (a path
+    # built from 'video_llava_tpu' or written under 'video_llava_tpu/')
+    assert _jax_package_paths() == []
 
     from torch_ckpt_pair import hf_llama, write_shards, write_tokenizer_json
 

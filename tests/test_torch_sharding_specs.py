@@ -10,9 +10,11 @@ stacked leaf's spec without the layer axis; and shard_params keeps on
 each 'model' rank of a (1, 2) mesh exactly the shard JAX's shard_params
 places on that device. Also divisible_spec, batch_spec and the four
 cache specs, and the layouts shard_params refuses: the fused
-wqkv/gate_up, W8A8 CLIP, and an int4 width a rank would hold off the
-128-column tile (wq's 256 / 4 = 64, as gate's 11,008 / 4 is for
-Vicuna-7B). No processes: a rank's slice needs no process group."""
+wqkv/gate_up and an int4 width a rank would hold off the 128-column tile
+(wq's 256 / 4 = 64, as gate's 11,008 / 4 is for Vicuna-7B). A rank's
+slice needs no process group; last, a W8A8 CLIP tower's specs follow
+the JAX rules and its features over a (1, 2) mesh of 2 gloo ranks equal
+one process's exactly."""
 
 import dataclasses
 
@@ -21,7 +23,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from torch_tp_pair import tiny_cfg
+from torch_dp_pair import clip_a8_worker
+from torch_tp_pair import run_ranks, tiny_cfg
 from video_llava_tpu.config import LlamaConfig, VideoLLaVAConfig
 from video_llava_tpu.models import video_llava as jvl
 from video_llava_tpu.ops.quant import quantize_params as jquant8
@@ -78,7 +81,7 @@ def _trees():
     return {"bf16": bf16, "int8": int8, "int4": int4}
 
 
-def test_specs_match_jax():
+def test_specs_match_jax(tmp_path):
     trees = _trees()
     layers = trees["int4"]["llm"]["layers"]
     assert set(layers["wo"]["kernel"]) == {"qvalues_packed", "scales"}
@@ -174,10 +177,24 @@ def test_specs_match_jax():
     with pytest.raises(ValueError, match="fused"):
         psh.shard_params(VideoLLaVA(cfg, device="meta", llm_quant="int8",
                                     llm_fuse=True), Mesh(1, 2))
-    model = params_from_jax(jax.tree.map(np.asarray, trees["bf16"]), cfg)
+    # a W8A8 CLIP tower shards by the JAX rules (qvalues_a8 on 'model'
+    # as the kernel it replaces; the scales of o and fc2 replicate), and
+    # its features over a (1, 2) mesh of 2 gloo ranks equal one
+    # process's: each row-sharded product takes its row scale from the
+    # whole row and adds exact int32 partial sums
+    tree_bf16 = jax.tree.map(np.asarray, trees["bf16"])
+    model = params_from_jax(tree_bf16, cfg)
     quantize_a8_(model.vision, min_size=0)
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        psh.shard_params(model, Mesh(1, 2))
+    specs = psh.module_param_specs(model)
+    assert specs["vision.layers.0.q.kernel.qvalues_a8"] == (None, "model")
+    assert specs["vision.layers.0.q.kernel.scales"] == (None, "model")
+    assert specs["vision.layers.0.fc2.kernel.qvalues_a8"] == ("model", None)
+    assert specs["vision.layers.0.fc2.kernel.scales"] == ()
+    pixels = np.random.default_rng(0).normal(size=(4, 56, 56, 3)).astype(
+        np.float32)
+    got = run_ranks(clip_a8_worker, 2, tmp_path, tree_bf16, cfg, pixels)
+    want = clip_a8_worker(0, 1, tree_bf16, cfg, pixels)
+    np.testing.assert_array_equal(got, want)
     model = params_from_jax(tree, _wide())
     with pytest.raises(ValueError, match="128-column"):
         psh.shard_params(model, Mesh(1, 4, 1))

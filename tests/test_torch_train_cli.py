@@ -37,14 +37,17 @@ def _state(out, step):
                       weights_only=True)
 
 
-def test_train_cli_runs_saves_exports_and_resumes(tmp_path, capsys):
+def test_train_cli_runs_saves_exports_and_resumes(tmp_path, capsys,
+                                                  monkeypatch):
     """8 samples, batch 2, one epoch: 4 steps, checkpoints and projector
     exports at steps 2 and 4, the final mm_projector.bin (the reference
     export's keys) and train_summary.json with finite losses, and a
     torch.profiler trace of step 3. Between the checkpoints the projector
     and embed_tokens moved and a frozen layer did not. A second call
-    resumes from checkpoint-4 and takes steps 5 to 8. Mesh flags above 1
-    and --pretrained_dir raise."""
+    resumes from checkpoint-4 and takes steps 5 to 8. Mesh flags that
+    ask for a grid larger than the world raise ValueError (sharded
+    training itself: tests/test_torch_dp_train_cli.py); --pretrained_dir
+    builds the LLM as the JAX trainer does."""
     data, feats = _write_data(tmp_path)
     out, prof = str(tmp_path / "out"), str(tmp_path / "prof")
     argv = ["--data_path", data, "--video_folder", feats, "--output_dir", out,
@@ -82,9 +85,15 @@ def test_train_cli_runs_saves_exports_and_resumes(tmp_path, capsys):
     assert summary["steps"] == 8 and len(summary["loss"]) == 4
     assert _state(out, 8)["opt_state"]["count"] == 8
 
+    # a grid larger than the world (torchrun's one rank here) raises
+    # before anything runs
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
     for extra in (["--mesh_data", "2"], ["--mesh_model", "2"]):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="exceeds|not divisible"):
             train.main(argv + extra)
+    monkeypatch.delenv("WORLD_SIZE")
+    monkeypatch.delenv("RANK")
 
     # --pretrained_dir: the LLM from an HF LLaMA directory, as the JAX
     # trainer builds it (convert_llama in bf16, then with --llm_weights

@@ -9,8 +9,13 @@
 // for all). For each video, from x_b (t, s, c), in one read:
 //     out[f, :]     = mean_s x[f, s, :]   for f < min(t, n), else 0,
 //                     for f < T (T = max_temporal_tokens, rows zero-padded)
-//     out[T + j, :] = sum_{f < n} x[f, j, :] / max(n, 1)
-// with f32 sums and the result written in the output dtype.
+//     out[T + j, :] = sum_{f < n} x[f, j, :] / max(m, 1)
+// with f32 sums and the result written in the output dtype. The divisor m
+// is the video's own count n, or one host value for every video: the
+// JAX kernel's pair [n_mask, n_denom] (ops/pooling.py:93-101), which
+// differ under its frame-sharded wrapper, where each 'data' rank pools its
+// own frames (n its valid ones) and divides its spatial partial by the
+// global count before the ranks add them.
 //
 // What bounds it on Hopper: device-memory bandwidth (one read of x,
 // (100, 256, 1024) bf16 = 52 MB on the chat path; a few adds a byte). So
@@ -140,7 +145,7 @@ template <typename TOut, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 pool_kernel(const __nv_bfloat16* __restrict__ x, TOut* __restrict__ out,
             float* __restrict__ partial, const int* __restrict__ nvalid,
-            int t, int s, int c, int T, int n) {
+            int t, int s, int c, int T, int n, int denom) {
   extern __shared__ uint4 smem[];
   uint4* ring = smem;  // (kDepth, kThreads): stage f % kDepth holds frame f
   auto tp = reinterpret_cast<float (*)[kRun][kChannels]>(
@@ -149,6 +154,7 @@ pool_kernel(const __nv_bfloat16* __restrict__ x, TOut* __restrict__ out,
   // video blockIdx.z: its count, and its slices of x, out and partial
   const int vid = blockIdx.z;
   if (nvalid != nullptr) n = nvalid[vid];
+  if (denom < 0) denom = n;
   x += (size_t)vid * t * s * c;
   out += (size_t)vid * (T + s) * c;
   partial += (size_t)vid * gridDim.y * t * c;
@@ -215,7 +221,7 @@ pool_kernel(const __nv_bfloat16* __restrict__ x, TOut* __restrict__ out,
   }
 
   if (live) {
-    const float inv = 1.f / fmaxf((float)n, 1.f);
+    const float inv = 1.f / fmaxf((float)denom, 1.f);
     float v[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) v[e] = sp[e] * inv;
@@ -251,7 +257,8 @@ pool_temporal_kernel(const float* __restrict__ partial, TOut* __restrict__ out,
 
 template <typename TOut>
 int launch(const void* x, void* out, void* partial, const int* nvalid,
-           int nb, int t, int s, int c, int T, int n, cudaStream_t stream) {
+           int nb, int t, int s, int c, int T, int n, int denom,
+           cudaStream_t stream) {
   const int runs = (s + kRun - 1) / kRun;
   const dim3 grid((c + kChannels - 1) / kChannels, runs, nb);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
@@ -262,7 +269,7 @@ int launch(const void* x, void* out, void* partial, const int* nvalid,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   kern<<<grid, kThreads, kSmemBytes, stream>>>(xb, o, pt, nvalid, t, s, c, T,
-                                               n);
+                                               n, denom);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 g2((c + kCombineThreads - 1) / kCombineThreads, T, nb);
@@ -276,18 +283,21 @@ int launch(const void* x, void* out, void* partial, const int* nvalid,
 extern "C" int vlt_pool_rows_per_block() { return kRun; }
 
 // x: (nb, t, s, c) bf16, out: (nb, T + s, c). nvalid: nb int32 valid
-// counts on the device, or null for n in every video. out_bf16: 1 for a
-// bf16 output, 0 for f32. partial: (nb, ceil(s /
+// counts on the device, or null for n in every video. denom: the spatial
+// mean's divisor for every video, or -1 for each video's count. out_bf16:
+// 1 for a bf16 output, 0 for f32. partial: (nb, ceil(s /
 // vlt_pool_rows_per_block()), t, c) f32 scratch.
 extern "C" int vlt_spatio_temporal_pool(const void* x, void* out,
                                         void* partial, const void* nvalid,
                                         int nb, int t, int s, int c, int T,
-                                        int n, int out_bf16, void* stream) {
+                                        int n, int denom, int out_bf16,
+                                        void* stream) {
   if (nb < 1 || nb > 65535 || t < 1 || s < 1 || c < 1 || T < t)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int* nv = static_cast<const int*>(nvalid);
   if (out_bf16)
-    return launch<__nv_bfloat16>(x, out, partial, nv, nb, t, s, c, T, n, st);
-  return launch<float>(x, out, partial, nv, nb, t, s, c, T, n, st);
+    return launch<__nv_bfloat16>(x, out, partial, nv, nb, t, s, c, T, n,
+                                 denom, st);
+  return launch<float>(x, out, partial, nv, nb, t, s, c, T, n, denom, st);
 }

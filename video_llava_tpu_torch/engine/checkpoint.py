@@ -7,7 +7,10 @@ dict (the frozen LLM included, as Orbax's does), the optimizer state of
 the trainable parameters and the step. Re-saving a step replaces it (as
 Orbax's force=True). ``export_projector`` writes the keys the reference's
 trainer keeps (``model.mm_projector.*`` and ``model.embed_tokens.weight``,
-f32) to a torch .bin that the JAX package's export also writes.
+f32) to a torch .bin that the JAX package's export also writes. Under a
+mesh (sharded training) every rank calls these: the state is gathered to
+the first rank, which alone writes the one-process format, and a restore
+slices each rank's part out of it, so a checkpoint moves between layouts.
 """
 
 from __future__ import annotations
@@ -18,25 +21,60 @@ import shutil
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+
+from video_llava_tpu_torch.parallel.sharding import (
+    gather_to_first,
+    local_slice,
+)
 
 STATE_FILE = "state.pt"
+
+
+def _sharded(model) -> bool:
+    mesh = getattr(model, "mesh", None)
+    return mesh is not None and mesh.world > 1
+
+
+def _first_rank() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _whole_state(state):
+    """(params, opt_state) of `state` whole: as they are on one process;
+    under a mesh gathered to the first rank (None on the others)."""
+    model = state.model
+    if not _sharded(model):
+        return model.state_dict(), state.opt_state
+    params = {n: gather_to_first(t, n, model)
+              for n, t in model.state_dict().items()}
+    opt = {"count": state.opt_state["count"],
+           **{m: {n: gather_to_first(t, n, model)
+                  for n, t in state.opt_state[m].items()}
+              for m in ("mu", "nu")}}
+    return (params, opt) if _first_rank() else (None, None)
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state) -> str:
     """Write `state` (a train_step.TrainState) under
     {ckpt_dir}/checkpoint-{step}, replacing one of the same step. The
     directory appears whole or not at all (written beside it, then
-    renamed)."""
+    renamed). A sharded state is gathered to the first rank, which
+    alone writes, in the one-process format (every rank calls this; it
+    returns once the file is written)."""
     path = os.path.abspath(os.path.join(ckpt_dir, f"checkpoint-{step}"))
-    tmp = f"{path}.tmp{os.getpid()}"
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    torch.save({"params": state.model.state_dict(),
-                "opt_state": state.opt_state, "step": int(step)},
-               os.path.join(tmp, STATE_FILE))
-    if os.path.isdir(path):
-        shutil.rmtree(path)
-    os.replace(tmp, path)
+    params, opt = _whole_state(state)
+    if _first_rank():
+        tmp = f"{path}.tmp{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save({"params": params, "opt_state": opt, "step": int(step)},
+                   os.path.join(tmp, STATE_FILE))
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+    if _sharded(state.model):
+        dist.barrier()
     return path
 
 
@@ -53,20 +91,28 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 
 def restore_checkpoint(path: str, state):
-    """Load the checkpoint at `path` into `state` (its model's
-    parameters in place; the optimizer state on the parameters' device)
-    and return the restored TrainState."""
+    """Load the checkpoint at `path` (the one-process format, written
+    from any mesh) into `state` (its model's parameters in place, each
+    rank's part of them under a mesh; the optimizer state on the
+    parameters' device, sliced the same way) and return the restored
+    TrainState."""
     saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                        weights_only=True, mmap=True)
     model = state.model
-    model.load_state_dict(saved["params"])
+    if _sharded(model):
+        with torch.no_grad():
+            for name, t in model.state_dict(keep_vars=True).items():
+                t.copy_(local_slice(saved["params"][name], name, model))
+    else:
+        model.load_state_dict(saved["params"])
     params = dict(model.named_parameters())
     opt = saved["opt_state"]
     if set(opt["mu"]) != set(state.opt_state["mu"]):
         raise ValueError(f"{path}: trainable set {sorted(opt['mu'])} != "
                          f"{sorted(state.opt_state['mu'])}")
     opt_state = {"count": int(opt["count"]),
-                 **{m: {n: t.to(params[n].device) for n, t in opt[m].items()}
+                 **{m: {n: local_slice(t, n, model).to(params[n].device)
+                        for n, t in opt[m].items()}
                     for m in ("mu", "nu")}}
     return type(state)(model, opt_state, int(saved["step"]))
 
@@ -76,11 +122,20 @@ def export_projector(model, out_path: str,
     """Write the reference-compatible projector checkpoint: a torch .bin
     of 'model.mm_projector.{weight,bias}' (one linear) or
     'model.mm_projector.{2i}.{weight,bias}' (an MLP), weights (out, in),
-    plus 'model.embed_tokens.weight', all f32 on the CPU."""
+    plus 'model.embed_tokens.weight', all f32 on the CPU. Under a mesh
+    every rank calls it: embed_tokens is gathered whole to the first
+    rank, which alone writes."""
 
     def f32(t):
         return t.detach().float().cpu().contiguous()
 
+    embed = None
+    if include_embeddings:
+        embed = model.llm.embed_tokens.weight
+        if _sharded(model):
+            embed = gather_to_first(embed, "llm.embed_tokens.weight", model)
+    if not _first_rank():
+        return
     sd = {}
     layers = list(model.projector.layers)
     if len(layers) == 1:
@@ -91,6 +146,6 @@ def export_projector(model, out_path: str,
             sd[f"model.mm_projector.{2 * i}.weight"] = f32(layer.kernel.t())
             sd[f"model.mm_projector.{2 * i}.bias"] = f32(layer.bias)
     if include_embeddings:
-        sd["model.embed_tokens.weight"] = f32(model.llm.embed_tokens.weight)
+        sd["model.embed_tokens.weight"] = f32(embed)
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     torch.save(sd, out_path)

@@ -1,10 +1,10 @@
 """Video decode and encode through the repository's native libav library.
 
-Counterpart of video_llava_tpu/media/loader.py: the same committed
-``video_llava_tpu/media/native/libmedia_io.so``, referenced by path and
-bound here with ctypes (importing the JAX package's module would pull
-in JAX). Frames come back as one contiguous (n, h, w, 3) uint8 RGB
-array.
+Counterpart of video_llava_tpu/media/loader.py: the package's own copy
+of the native library, ``media/native/libmedia_io.so`` (built from
+``media/native/media_io.cpp`` with its Makefile against the libav
+development headers), bound here with ctypes. Frames come back as one
+contiguous (n, h, w, 3) uint8 RGB array.
 """
 
 from __future__ import annotations
@@ -18,11 +18,8 @@ import numpy as np
 
 from video_llava_tpu_torch.ops.sampling import get_seq_frames
 
-LIB_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))),
-    "video_llava_tpu", "media", "native", "libmedia_io.so",
-)
+LIB_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "native", "libmedia_io.so")
 
 _lib = None
 _lock = threading.Lock()

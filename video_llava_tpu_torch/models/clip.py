@@ -41,6 +41,7 @@ from video_llava_tpu_torch.models.layers import (
     Linear,
     TreeInit,
     _param,
+    a8_row_sharded,
     dense,
     embed,
     linear,
@@ -97,12 +98,16 @@ class EncoderLayer(nn.Module):
     def _project(proj: Linear, x):
         """proj(x) -> x's dtype. A W8A8 kernel: the int32 sums times the
         row and channel scales, + the bias, all in f32, then one cast
-        (JAX _proj_heads / _unproj_heads)."""
+        (JAX _proj_heads / _unproj_heads); row-sharded under a mesh, the
+        sums added over 'model' first (layers.a8_row_sharded)."""
         kern = proj.kernel
         if not isinstance(kern, Int8A8Kernel):
             return proj(x)
-        y, sx = int8_product(x, kern.qvalues_a8)
-        y = y * sx * kern.scales.float()[0]
+        if proj.tp == "in" and proj.mesh.size > 1:  # o under a mesh
+            y = a8_row_sharded(x, kern, proj.mesh)
+        else:
+            y, sx = int8_product(x, kern.qvalues_a8)
+            y = y * sx * kern.scales.float()[0]
         if proj.bias is not None:
             y = y + proj.bias.float()
         return y.to(x.dtype)

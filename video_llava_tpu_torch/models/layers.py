@@ -23,6 +23,8 @@ from torch import nn
 
 from video_llava_tpu_torch.ops.quant import (
     dot_f32,
+    ieee_div,
+    int8_mm,
     quantized_matmul,
     quantized_matmul_a8,
 )
@@ -138,16 +140,51 @@ def kernel_rows(kernel) -> int:
     return kernel.shape[0]
 
 
+def use_param(mod: nn.Module, name: str):
+    """Parameter `name` of `mod` as a forward uses it: an FSDP leaf
+    (parallel/sharding.shard_params sets `mod.fsdp` {name: dim}) is
+    gathered over 'data' along its dim, with the gradient summed and
+    sliced back in the backward pass (parallel/collectives.gather_param);
+    any other as it is."""
+    t = getattr(mod, name)
+    dim = (mod.fsdp or {}).get(name)
+    if dim is None:
+        return t
+    from video_llava_tpu_torch.parallel import collectives
+
+    return collectives.gather_param(t, mod.mesh, dim)
+
+
+def a8_row_sharded(x, kernel, mesh) -> torch.Tensor:
+    """The f32 W8A8 product (int32 sums times the row and channel
+    scales, not yet rounded) of a kernel whose contraction rows are
+    sharded over 'model' (CLIP's o and fc2 under a mesh), equal to the
+    whole product's: each row's scale from its absmax over every rank's
+    columns of x, the int32 partial sums added over 'model' (exact)."""
+    x32 = x.float()
+    amax = mesh.all_max(x32.abs().amax(dim=-1, keepdim=True))
+    sx = ieee_div(amax.clamp_min(1e-8), 127.0)
+    xq = torch.round(x32 / sx).clamp(-127, 127).to(torch.int8)
+    lead = x.shape[:-1]
+    y = int8_mm(xq.reshape(-1, x.shape[-1]), kernel.qvalues_a8)
+    y = mesh.all_sum(y).float().reshape(*lead, y.shape[-1])
+    return y * sx * kernel.scales.float()[0]
+
+
 class Linear(nn.Module):
-    """A linear layer. Under a tensor-parallel mesh
-    (parallel/sharding.shard_params sets `mesh` and `tp`) it places its
+    """A linear layer. Under a mesh (parallel/sharding.shard_params sets
+    `mesh`, `tp` and, for an FSDP kernel, `fsdp`) it places its
     collectives: a row-sharded kernel (tp "in") sums its partial product
     over 'model' in f32 before the bias; a whole kernel fed a local input
     (the int4 wo/down) gathers the input first; a column-sharded kernel
-    (tp "out") returns this rank's columns."""
+    (tp "out") returns this rank's columns. With grad enabled the
+    collectives are parallel/collectives' autograd Functions (the input
+    of a column-sharded kernel summed over 'model' in the backward
+    pass); an FSDP kernel or bias is gathered over 'data' at use."""
 
     mesh = None
     tp = None
+    fsdp = None
 
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True, *,
                  fmt: Optional[str] = None, n_groups: int = 1,
@@ -159,17 +196,28 @@ class Linear(nn.Module):
 
     def forward(self, x):
         mesh = self.mesh
-        if mesh is None or mesh.size == 1:
+        if mesh is None or mesh.world == 1:
             return linear(x, self.kernel, self.bias)
+        from video_llava_tpu_torch.parallel import collectives
+
+        kernel = use_param(self, "kernel")
+        bias = None if self.bias is None else use_param(self, "bias")
+        if mesh.size == 1:
+            return linear(x, kernel, bias)
         if self.tp == "in":
-            y = mesh.all_sum(linear(x, self.kernel,
-                                    out_dtype=torch.float32))
-            if self.bias is not None:
-                y = y + self.bias.float()
+            if isinstance(kernel, Int8A8Kernel):  # as quantized_matmul_a8
+                y = a8_row_sharded(x, kernel, mesh).to(x.dtype).float()
+            else:
+                y = collectives.reduce_from(
+                    linear(x, kernel, out_dtype=torch.float32), mesh)
+            if bias is not None:
+                y = y + bias.float()
             return y.to(x.dtype)
-        if x.shape[-1] != kernel_rows(self.kernel):
-            x = mesh.gather_last(x)
-        return linear(x, self.kernel, self.bias)
+        if self.tp == "out":
+            x = collectives.copy_to(x, mesh)
+        elif x.shape[-1] != kernel_rows(kernel):
+            x = collectives.gather(x, mesh)
+        return linear(x, kernel, bias)
 
 
 def dense(p, x):
@@ -294,6 +342,12 @@ class LayerNorm(nn.Module):
 
 
 class RMSNorm(nn.Module):
+    """RMSNorm; under FSDP (the LLM's layer norms) the scale is gathered
+    over 'data' at use."""
+
+    mesh = None
+    fsdp = None
+
     def __init__(self, dim: int, eps: float, *, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -301,7 +355,7 @@ class RMSNorm(nn.Module):
         self.scale = _param((dim,), device, dtype)
 
     def forward(self, x):
-        return rms_norm(x, self.scale, self.eps)
+        return rms_norm(x, use_param(self, "scale"), self.eps)
 
 
 # -- activations ------------------------------------------------------------
@@ -336,10 +390,12 @@ class Embedding(nn.Module):
     """An embedding table. Vocab-sharded under a mesh (tp "rows"): each
     rank looks up the ids of its own row range, zeros the others, and the
     ranks' rows are summed over 'model' (exact: one rank holds each
-    id)."""
+    id; with grad enabled through parallel/collectives.reduce_from).
+    An FSDP table (its columns on 'data') is gathered at use."""
 
     mesh = None
     tp = None
+    fsdp = None
 
     def __init__(self, vocab: int, dim: int, *, fmt: Optional[str] = None,
                  device=None, dtype=torch.float32):
@@ -356,14 +412,17 @@ class Embedding(nn.Module):
         return kernel_rows(self.weight)
 
     def forward(self, ids):
-        if self.tp != "rows":
-            return embed(self.weight, ids)
+        weight = use_param(self, "weight")
+        if self.tp != "rows" or self.mesh.size == 1:
+            return embed(weight, ids)
+        from video_llava_tpu_torch.parallel import collectives
+
         rows = self.rows
         local = ids.long() - self.mesh.rank * rows
         valid = (local >= 0) & (local < rows)
-        out = embed(self.weight, local.clamp(0, rows - 1))
+        out = embed(weight, local.clamp(0, rows - 1))
         out = torch.where(valid[..., None], out, out.new_zeros(()))
-        return self.mesh.all_sum(out)
+        return collectives.reduce_from(out, self.mesh)
 
 
 # -- rotary position embedding (LLaMA) ---------------------------------------

@@ -31,8 +31,11 @@ width (its `cfg` is the local one, so caches are created at the local
 head count); wo and down sum their partial products over 'model', or,
 where the int4 rule replicates them, gather their input and run whole
 (layers.Linear); embed_tokens looks up its own vocab rows and sums
-(layers.Embedding); a vocab-sharded lm_head gathers its logits. A
-fused layout does not shard. :func:`pad_vocab` pads the vocab to a
+(layers.Embedding); a vocab-sharded lm_head gathers its logits (with
+grad enabled through parallel/collectives, so the gather has its
+backward pass). Under FSDP every big kernel and the layer norms gather
+their 'data' shards at use (layers.use_param). A fused layout does not
+shard. :func:`pad_vocab` pads the vocab to a
 multiple the mesh divides; :meth:`Llama.logits` masks the padded
 columns to -inf (JAX models/llama.py:468-518, :707-711).
 """
@@ -56,6 +59,7 @@ from video_llava_tpu_torch.models.layers import (
     apply_rope,
     linear,
     rope_cos_sin,
+    use_param,
 )
 from video_llava_tpu_torch.ops.attention import (
     attention_reference,
@@ -65,6 +69,7 @@ from video_llava_tpu_torch.ops.attention import (
     paged_layer_dense,
 )
 from video_llava_tpu_torch.ops.quant import ieee_div, leaf_format
+from video_llava_tpu_torch.parallel import collectives
 
 
 @dataclasses.dataclass
@@ -299,6 +304,15 @@ def layer_layout(cfg: LlamaConfig, quant: Optional[str] = None,
     return layout
 
 
+def _shared_input(x, lin: Linear):
+    """x as the column-sharded linears of a block (lin and its
+    siblings) read it: copied into 'model' once with grad enabled, so
+    its gradient is summed over the ranks once for all of them."""
+    if lin.tp == "out" and lin.mesh.size > 1:
+        return collectives.copy_to(x, lin.mesh)
+    return x
+
+
 class LlamaLayer(nn.Module):
     """One decoder layer with a linear for each entry of `layout`
     (:func:`layer_layout`)."""
@@ -333,6 +347,7 @@ class LlamaLayer(nn.Module):
             q, k, v = self.wqkv(x).split([h * hd, h_kv * hd, h_kv * hd],
                                          dim=-1)
         else:
+            x = _shared_input(x, self.wq)
             q, k, v = self.wq(x), self.wk(x), self.wv(x)
         q = apply_rope(q.reshape(b, s, h, hd), cos, sin)
         k = apply_rope(k.reshape(b, s, h_kv, hd), cos, sin)
@@ -386,6 +401,7 @@ class LlamaLayer(nn.Module):
         if self.fused[1]:
             gate, up = self.gate_up(x).chunk(2, dim=-1)
         else:
+            x = _shared_input(x, self.gate)
             gate, up = self.gate(x), self.up(x)
         return self.down(F.silu(gate) * up)
 
@@ -473,9 +489,13 @@ class Llama(nn.Module):
         head gathers its columns over 'model'; columns at or past
         cfg.vocab_size (pad_vocab's) are -inf."""
         head = self.lm_head
-        logits = linear(hidden, head.kernel, out_dtype=torch.float32)
-        if head.tp == "out":
-            logits = head.mesh.gather_last(logits)
+        sharded = head.tp == "out" and head.mesh.size > 1
+        if sharded:
+            hidden = collectives.copy_to(hidden, head.mesh)
+        logits = linear(hidden, use_param(head, "kernel"),
+                        out_dtype=torch.float32)
+        if sharded:
+            logits = collectives.gather(logits, head.mesh)
         if logits.shape[-1] > self.cfg.vocab_size:
             col = torch.arange(logits.shape[-1], device=logits.device)
             logits = logits.masked_fill(col >= self.cfg.vocab_size,

@@ -20,7 +20,11 @@ from video_llava_tpu_torch.constants import IGNORE_INDEX
 from video_llava_tpu_torch.models.clip import CLIPVisionTower
 from video_llava_tpu_torch.models.llama import KVCache, Llama
 from video_llava_tpu_torch.models.projector import Projector
-from video_llava_tpu_torch.ops.pooling import spatio_temporal_pool_fused
+from video_llava_tpu_torch.ops.pooling import (
+    get_pooling_mesh,
+    spatio_temporal_pool_fused,
+    spatio_temporal_pool_sharded,
+)
 
 
 class PrefillResult(NamedTuple):
@@ -44,18 +48,26 @@ def splice_video_embeddings(token_embeds, input_ids, video_features,
                        token_embeds)
 
 
-def shifted_cross_entropy(logits: torch.Tensor,
-                          labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE of logits[:, :-1] against labels[:, 1:] over the targets
-    that are not IGNORE_INDEX, with an f32 log-softmax (JAX
-    models/video_llava.py:160-169)."""
+def shifted_log_likelihood(logits: torch.Tensor, labels: torch.Tensor):
+    """(the summed f32 log-probability of labels[:, 1:] under
+    logits[:, :-1] over the targets that are not IGNORE_INDEX, their
+    int count): the parts of :func:`shifted_cross_entropy`, which a
+    data-parallel step sums over its ranks before it divides."""
     shift_labels = labels[:, 1:].long()
     valid = shift_labels != IGNORE_INDEX
     safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     token_logp = torch.gather(logp, -1, safe[..., None])[..., 0]
-    n = valid.sum().clamp_min(1)
-    return -torch.where(valid, token_logp, 0.0).sum() / n
+    return torch.where(valid, token_logp, 0.0).sum(), valid.sum()
+
+
+def shifted_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE of logits[:, :-1] against labels[:, 1:] over the targets
+    that are not IGNORE_INDEX, with an f32 log-softmax (JAX
+    models/video_llava.py:160-169)."""
+    logp_sum, n = shifted_log_likelihood(logits, labels)
+    return -logp_sum / n.clamp_min(1)
 
 
 class VideoLLaVA(nn.Module):
@@ -86,8 +98,17 @@ class VideoLLaVA(nn.Module):
                      frame_batch: int = 0) -> torch.Tensor:
         """(t, H, W, 3) normalized frames -> pooled features
         (video_token_len, mm_hidden) in the tower's dtype; frame_batch
-        as in CLIPVisionTower.encode_frames."""
+        as in CLIPVisionTower.encode_frames. Under a registered pooling
+        mesh (ops/pooling.set_pooling_mesh) the pooling is frame-sharded
+        over its 'data' axis, as the JAX package's encode_video does
+        (a (1, m) mesh's one data shard included)."""
         feats = self.vision.encode_frames(pixels, frame_batch)
+        mesh = get_pooling_mesh()
+        if mesh is not None:
+            return spatio_temporal_pool_sharded(
+                feats, num_valid_frames, mesh,
+                max_temporal_tokens=self.cfg.max_temporal_tokens,
+                out_dtype=feats.dtype)
         return spatio_temporal_pool_fused(
             feats, num_valid_frames=num_valid_frames,
             max_temporal_tokens=self.cfg.max_temporal_tokens,

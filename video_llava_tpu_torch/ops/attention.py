@@ -68,15 +68,14 @@ def set_default_impl(impl: str) -> None:
 
 
 def set_attention_mesh(mesh) -> None:
-    """Check the tensor-parallel ('data', 'model') mesh an entry point
-    built (parallel/mesh.py), where the JAX package's set_attention_mesh
+    """Accept the ('data', 'model') mesh an entry point built
+    (parallel/mesh.py), where the JAX package's set_attention_mesh
     registers it to run its Pallas attention per shard. Here each rank
-    is a process holding its own heads, so the kernels run per shard
-    already and nothing is kept. A 'data' axis (batch-sharded attention
-    in training) is the next slice (ROADMAP Queue 1 item 9b)."""
-    if mesh is not None and mesh.shape.get("data", 1) > 1:
-        raise NotImplementedError("attention over a 'data' axis: ROADMAP "
-                                  "Queue 1 item 9b")
+    is a process holding its own heads (the 'model' axis) and its own
+    batch rows (the 'data' axis), so kernels 7 and 8 (and kernel 1 for
+    CLIP) run per shard already, on the rank's rows at its local heads,
+    and nothing is kept."""
+    del mesh
 
 
 def enable_paged_kernel(on: bool = True) -> None:

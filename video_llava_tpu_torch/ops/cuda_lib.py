@@ -46,9 +46,9 @@ _SIGNATURES = {
     # q, k, v, out; bh, s, d, kv_len; scale
     "vlt_flash_bhsd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "vlt_flash_bhsd_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # x, out, partial, nvalid (or null); b, t, s, c, T, n, out_bf16
+    # x, out, partial, nvalid (or null); b, t, s, c, T, n, denom, out_bf16
     "vlt_spatio_temporal_pool": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                 _P),
+                                 _I, _P),
     "vlt_pool_rows_per_block": (),
     # q, k, v, ks, vs, lengths, o, ws, counters; layer, b, L, h, d, int8,
     # chunk, splits; scale

@@ -410,9 +410,13 @@ def start(mesh_model: Optional[int], backend: str = "gloo",
 
 def stop(join_timeout: float = 60.0) -> None:
     """End a tensor-parallel run: rank 0 sends the followers home; every
-    rank leaves the process group; rank 0 waits for the followers it
-    spawned and raises if one failed."""
+    rank leaves the process group and forgets the pooling mesh
+    (runtime/model_init registered it); rank 0 waits for the followers
+    it spawned and raises if one failed."""
+    from video_llava_tpu_torch.ops.pooling import set_pooling_mesh
+
     global _driver
+    set_pooling_mesh(None)
     d = _driver
     if d is None:
         return

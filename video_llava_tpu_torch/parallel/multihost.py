@@ -12,12 +12,15 @@ cards than ranks; 'gloo' runs on the CPU and also lets several ranks
 share one card (it moves CUDA tensors through the host). The rendezvous
 comes from torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK,
 MASTER_ADDR, MASTER_PORT) when it is set, else from `init_method`
-(``tcp://localhost:<port>`` or ``file://<path>``).
+(``tcp://localhost:<port>`` or ``file://<path>``). :func:`start_ranks`
+starts the ranks of an SPMD run (sharded training), where every rank
+runs the whole program: torchrun's, or spawned by rank 0.
 """
 
 from __future__ import annotations
 
 import datetime
+import importlib
 import os
 import pickle
 import socket
@@ -78,6 +81,94 @@ def init_distributed(backend: str = "gloo",
     dist.init_process_group(
         backend, init_method=init_method, world_size=world_size, rank=rank,
         timeout=datetime.timedelta(seconds=TIMEOUT_S))
+
+
+_ENV_RANK, _ENV_WORLD, _ENV_INIT = ("VLT_SPMD_RANK", "VLT_SPMD_WORLD",
+                                    "VLT_SPMD_INIT")
+
+
+def _rank_entry(module: str, fn: str, argv, rank: int, world: int,
+                init_method: str) -> None:
+    os.environ[_ENV_RANK] = str(rank)
+    os.environ[_ENV_WORLD] = str(world)
+    os.environ[_ENV_INIT] = init_method
+    getattr(importlib.import_module(module), fn)(argv)
+
+
+def launched_world() -> Optional[int]:
+    """The world size a launcher gave this process (torchrun, or
+    :func:`start_ranks` spawning it), None when nothing launched it."""
+    for key in (_ENV_WORLD, "WORLD_SIZE"):
+        if key in os.environ:
+            return int(os.environ[key])
+    return None
+
+
+def start_ranks(world: int, backend: str = "gloo",
+                init_method: Optional[str] = None, device="cuda",
+                entry: Optional[tuple] = None, argv=None):
+    """Join the `world` ranks of an SPMD run, where every rank runs the
+    whole program (sharded training): under torchrun with its RANK and
+    WORLD_SIZE; otherwise this process is rank 0 and spawns the other
+    world - 1 (start method spawn), each calling entry = (module,
+    function) with `argv`. Returns (rank, this rank's device, the
+    processes spawned); one rank joins nothing."""
+    if world <= 1:
+        return 0, torch.device(device), []
+    spawn = False
+    if _ENV_RANK in os.environ:  # a rank this function spawned
+        rank, init_method = (int(os.environ[_ENV_RANK]),
+                             os.environ[_ENV_INIT])
+        got = int(os.environ[_ENV_WORLD])
+    elif "WORLD_SIZE" in os.environ:  # torchrun
+        rank, got, init_method = (int(os.environ["RANK"]),
+                                  int(os.environ["WORLD_SIZE"]), "env://")
+    else:
+        rank, got, spawn = 0, world, True
+        if init_method is None:
+            init_method = f"tcp://localhost:{free_localhost_port()}"
+        if entry is None:
+            raise ValueError("spawning ranks needs the entry point")
+    if got != world:
+        raise ValueError(f"a mesh of {world} ranks launched as {got}")
+    dev = rank_device(device, rank, backend, world)  # before any spawn
+    procs = []
+    if spawn:
+        ctx = torch.multiprocessing.get_context("spawn")
+        for r in range(1, world):
+            p = ctx.Process(target=_rank_entry,
+                            args=(entry[0], entry[1], argv, r, world,
+                                  init_method), daemon=True)
+            p.start()
+            procs.append(p)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:  # ranks on one host's CPU split its cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    try:
+        init_distributed(backend, init_method, world, rank)
+    except BaseException:
+        for p in procs:
+            p.terminate()
+        raise
+    return rank, dev, procs
+
+
+def stop_ranks(procs, join_timeout: float = TIMEOUT_S) -> None:
+    """Leave the process group and wait for the ranks this one spawned;
+    raise if one failed (or had to be stopped)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    failed = []
+    for rank, p in enumerate(procs, start=1):
+        p.join(join_timeout)
+        if p.exitcode is None:
+            p.terminate()
+            p.join(5)
+        if p.exitcode != 0:
+            failed.append((rank, p.exitcode))
+    if failed:
+        raise RuntimeError(f"ranks failed: {failed}")
 
 
 def get_world_size() -> int:

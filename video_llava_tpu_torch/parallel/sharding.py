@@ -24,7 +24,14 @@ forwards read to place their collectives:
     over 'model' and the whole product runs on every rank, as GSPMD
     does for that layout;
   * an embedding with ``tp = "rows"``: the rows of this rank's vocab
-    range are looked up, the others masked, then summed over 'model'.
+    range are looked up, the others masked, then summed over 'model';
+  * a module with ``fsdp`` {leaf: dim}: that leaf's 'data' shards are
+    gathered along dim at use (models/layers.use_param), the gradient
+    summed over 'data' and sliced in the backward pass.
+
+With grad enabled the collectives are parallel/collectives' autograd
+Functions. :func:`gather_to_first` and :func:`local_slice` move a
+sharded leaf to and from its whole form (checkpoints).
 
 The KV caches are allocated at the local head count (the attention
 layers' local configuration), so :func:`shard_kv_cache` only checks.
@@ -37,6 +44,8 @@ import re
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from video_llava_tpu_torch.parallel.mesh import AXES
 
 # (regex on '/'-joined path, spec for the *parameter itself* without the
 # stacked-layer axis)
@@ -236,30 +245,101 @@ def _main_leaf(kernel) -> torch.Tensor:
 
 
 def _local_slice(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's part of `t` under `spec`: each sharded dimension cut
+    at the rank's coordinate along its axis. A column-major 2-D tensor
+    (a W8A8 kernel's qvalues_a8) stays column-major."""
+    col_major = t.dim() == 2 and t.stride(0) == 1 and t.stride(1) != 1
     for dim, axis in enumerate(spec):
-        if axis is None:
+        if axis is None or mesh.shape[axis] == 1:
             continue
-        if axis != "model":
-            if mesh.shape[axis] == 1:
-                continue
-            raise NotImplementedError(f"axis {axis!r}: the data axis is "
-                                      "ROADMAP Queue 1 item 9b")
-        n = t.shape[dim] // mesh.size
-        t = t.narrow(dim, mesh.rank * n, n)
-    return t.contiguous()
+        n = t.shape[dim] // mesh.shape[axis]
+        t = t.narrow(dim, mesh.coords[axis] * n, n)
+    return t.t().contiguous().t() if col_major else t.contiguous()
+
+
+def local_slice(t: torch.Tensor, name: str, model) -> torch.Tensor:
+    """This rank's part of a whole tensor `t` of parameter `name` of a
+    sharded `model` (a restored checkpoint's), `t` itself where the
+    model is not sharded."""
+    spec = getattr(model, "param_specs", {}).get(name)
+    return _local_slice(t, spec, model.mesh) if spec else t
+
+
+def sharded_axes(spec: Spec, mesh) -> Tuple[str, ...]:
+    """The mesh axes (of more than one rank) that `spec` shards."""
+    return tuple(a for a in AXES if a in (spec or ())
+                 and mesh.shape[a] > 1)
+
+
+def gather_to_first(t: torch.Tensor, name: str, model):
+    """The whole tensor of parameter (or optimizer leaf) `name` of a
+    sharded `model`, from this rank's part `t`: on the mesh's first rank
+    a CPU tensor, None on the others. Collective: every rank calls it
+    with its part. Only the ranks holding distinct shards send theirs
+    (data row 0 for a 'model'-sharded leaf, model column 0 for a
+    'data'-sharded one, every rank for both), through a gather of CPU
+    tensors to the first rank, as Orbax writes a global array from its
+    shards."""
+    import torch.distributed as dist
+
+    mesh = model.mesh
+    spec = getattr(model, "param_specs", {}).get(name, ())
+    axes = sharded_axes(spec, mesh)
+    first = dist.get_rank() == 0 if dist.is_initialized() else True
+    local = t.detach().to("cpu", copy=True).contiguous()  # a snapshot
+    if not axes:
+        return local if first else None
+    if axes == ("model",):
+        if mesh.coords["data"]:
+            return None
+        group, coords = mesh.groups["model"], [
+            {"data": 0, "model": j} for j in range(mesh.shape["model"])]
+    elif axes == ("data",):
+        if mesh.coords["model"]:
+            return None
+        group, coords = mesh.groups["data"], [
+            {"data": i, "model": 0} for i in range(mesh.shape["data"])]
+    else:
+        group, coords = None, [
+            {"data": r // mesh.shape["model"],
+             "model": r % mesh.shape["model"]} for r in range(mesh.world)]
+    parts = [torch.empty_like(local) for _ in coords] if first else None
+    dist.gather(local, parts, dst=0, group=group)
+    if not first:
+        return None
+    shape = list(local.shape)
+    for dim, axis in enumerate(spec):
+        if axis in axes:
+            shape[dim] *= mesh.shape[axis]
+    full = local.new_empty(shape)
+    for part, at in zip(parts, coords):
+        view = full
+        for dim, axis in enumerate(spec):
+            if axis in axes:
+                n = local.shape[dim]
+                view = view.narrow(dim, at[axis] * n, n)
+        view.copy_(part)
+    return full
 
 
 @torch.no_grad()
-def shard_params(model, mesh, specs: Optional[Dict[str, Spec]] = None):
+def shard_params(model, mesh, specs: Optional[Dict[str, Spec]] = None,
+                 fsdp: bool = False):
     """Keep this rank's part of every parameter of `model` (a
-    VideoLLaVA), in place: each spec made divisible (divisible_spec) and
-    the tensor sliced along its 'model' dims, whole where it replicates.
-    Then every Linear and Embedding learns its layout (module docstring)
-    and the LLM and CLIP layers their local head counts and FFN width.
-    Returns `model`. Raises on the fused wqkv / gate_up layout (the
-    rules do not cover wqkv, and a contiguous split of gate_up would
-    hand one rank all of gate), on W8A8 CLIP kernels, and where a local
-    width breaks a head or an int4 kernel's 128-column tile."""
+    VideoLLaVA), in place: each spec (module_param_specs(model, fsdp)
+    by default) made divisible (divisible_spec) and the tensor sliced
+    along its sharded dims, whole where it replicates. Every Linear and
+    Embedding then learns its 'model' layout (module docstring), every
+    module holding an FSDP leaf (a 'data' dim: the free dim of the big
+    matched kernels, the LLM's layer norms) the dim to gather it along
+    at use (its `fsdp`), and the LLM and CLIP layers their local head
+    counts and FFN width. The local specs are kept as
+    `model.param_specs`. Parameters come back frozen: set the trainable
+    ones afterwards (train_step.trainable_mask). Returns `model`. Raises
+    on the fused wqkv / gate_up layout (the rules do not cover wqkv, and
+    a contiguous split of gate_up would hand one rank all of gate), and
+    where a local width breaks a head or an int4 kernel's 128-column
+    tile."""
     from video_llava_tpu_torch.models.layers import Embedding, Linear
 
     if getattr(model.llm, "fuse", False) or any(
@@ -268,22 +348,22 @@ def shard_params(model, mesh, specs: Optional[Dict[str, Spec]] = None):
         raise ValueError("shard_params: the fused wqkv / gate_up layout "
                          "does not shard; build the model with "
                          "llm_fuse=False under a mesh")
-    if any(type(m.kernel).__name__ == "Int8A8Kernel"
-           for m in model.vision.modules() if isinstance(m, Linear)):
-        raise NotImplementedError("shard_params: a W8A8 CLIP tower under "
-                                  "a mesh is not ported")
-    specs = dict(specs or module_param_specs(model))
-    if mesh.size == 1:
+    specs = dict(specs or module_param_specs(model, fsdp))
+    if mesh.world == 1:
         return model
     local = {}
     for name, p in model.named_parameters():
         spec = divisible_spec(specs[name], p.shape, mesh)
         local[name] = spec
-        if any(a == "model" for a in spec):
-            mod_name, leaf = name.rsplit(".", 1)
-            mod = model.get_submodule(mod_name)
+        mod_name, leaf = name.rsplit(".", 1)
+        mod = model.get_submodule(mod_name)
+        if sharded_axes(spec, mesh):
             setattr(mod, leaf, torch.nn.Parameter(
                 _local_slice(p.data, spec, mesh), requires_grad=False))
+        if "data" in sharded_axes(spec, mesh):
+            mod.fsdp = dict(getattr(mod, "fsdp", None) or {},
+                            **{leaf: spec.index("data")})
+            mod.mesh = mesh
     for name, mod in model.named_modules():
         if isinstance(mod, Linear):
             kernel = mod.kernel
@@ -304,6 +384,7 @@ def shard_params(model, mesh, specs: Optional[Dict[str, Spec]] = None):
     _localize_llm(model.llm, mesh)
     _localize_clip(model.vision, mesh)
     model.mesh = mesh
+    model.param_specs = local
     return model
 
 

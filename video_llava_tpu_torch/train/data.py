@@ -7,9 +7,9 @@ with the patch-token block, ``preprocess_v1`` / ``preprocess_default``
 template the conversation and mask the labels with IGNORE_INDEX (with
 the tokenization-mismatch guard), ``LazySupervisedDataset`` reads
 per-sample features (.pkl, .npy, .npz), ``Collator`` pads to a bucket of
-128 capped at max_len. ``sharded_data_iterator`` is the single-device
-iterator here: it moves each batch to the device, and more than one
-process raises (multi-GPU training is not ported).
+128 capped at max_len. ``sharded_data_iterator`` is the multi-rank
+iterator: each rank loads its 'data' shard of every global batch
+(``host_shard_rows``) and moves it to its device.
 """
 
 from __future__ import annotations
@@ -265,20 +265,44 @@ def data_iterator(dataset, collator, batch_size: int,
         yield collator([dataset[int(r)] for r in rows])
 
 
+def host_shard_rows(global_rows: np.ndarray, process_index: int,
+                    process_count: int) -> np.ndarray:
+    """Contiguous slice `process_index` of `process_count` of a global
+    batch's row indices (JAX train/data.py:296-307). Every rank derives
+    the same shuffled index stream (an identically seeded rng), so the
+    slices partition each global batch with no communication."""
+    per_host = len(global_rows) // process_count
+    if per_host * process_count != len(global_rows):
+        raise ValueError(f"global batch {len(global_rows)} not divisible "
+                         f"by {process_count} hosts")
+    return global_rows[process_index * per_host:
+                       (process_index + 1) * per_host]
+
+
 def sharded_data_iterator(dataset, collator, global_batch_size: int,
-                          rng: np.random.Generator, device, *,
+                          rng: np.random.Generator, device, *, mesh=None,
                           drop_last: bool = True, shuffle: bool = True):
-    """:func:`data_iterator` with each batch moved to `device` as
-    tensors (int32 ids and labels, f32 features): the single-process
-    form of the JAX package's multi-host iterator, which yields the same
-    rows. More than one process raises."""
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "a multi-process data iterator (the 'data' axis of sharded "
-            "training) is the next slice of the port, ROADMAP Queue 1 "
-            "item 9b")
-    for batch in data_iterator(dataset, collator, global_batch_size, rng,
-                               drop_last, shuffle):
+    """One epoch of global batches, each rank loading only its shard of
+    every one (JAX train/data.py:310-357), moved to `device` as tensors
+    (int32 ids and labels, f32 features). The shards are the 'data'
+    coordinates of `mesh` (one shard without one): the rank at data
+    coordinate d of D loads slice d of each global batch's rows
+    (:func:`host_shard_rows`), and the 'model' ranks of one data row load
+    the same rows. With drop_last=False the last partial batch is
+    wrap-padded with the epoch's first indices to a multiple of D, as
+    the JAX iterator pads to its process count."""
+    pid, nproc = ((mesh.coords["data"], mesh.shape["data"])
+                  if mesh is not None else (0, 1))
+    idx = np.arange(len(dataset))
+    if shuffle:
+        rng.shuffle(idx)
+    for start in range(0, len(idx) - (global_batch_size - 1
+                                      if drop_last else 0),
+                       global_batch_size):
+        rows = idx[start:start + global_batch_size]
+        if len(rows) % nproc:
+            rows = np.concatenate([rows, idx[:-len(rows) % nproc]])
+        rows = host_shard_rows(rows, pid, nproc)
+        local = collator([dataset[int(r)] for r in rows])
         yield {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-               for k, v in batch.items()}
+               for k, v in local.items()}

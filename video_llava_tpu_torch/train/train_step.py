@@ -22,6 +22,8 @@ import numpy as np
 import torch
 
 from video_llava_tpu_torch.constants import IGNORE_INDEX
+from video_llava_tpu_torch.models.video_llava import shifted_log_likelihood
+from video_llava_tpu_torch.parallel import collectives
 
 TUNE_MODES = ("projector", "projector+embed", "full")
 
@@ -175,9 +177,36 @@ def loss_fn(model: torch.nn.Module, batch) -> torch.Tensor:
     return loss
 
 
+def log_likelihood(model: torch.nn.Module, batch):
+    """(summed log-likelihood, count of valid targets) of this rank's
+    rows: :func:`loss_fn`'s parts (remat as there)."""
+    logits, _ = model(batch["input_ids"], batch.get("video_features"),
+                      remat=True)
+    return shifted_log_likelihood(logits, batch["labels"])
+
+
 def global_norm(tensors) -> torch.Tensor:
     """optax.global_norm, summed in f32."""
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+def sharded_global_norm(tensors, axes, mesh) -> torch.Tensor:
+    """The global norm of a gradient whose leaves are sharded over
+    `axes` (each leaf's tuple of mesh axes): each leaf's squares summed
+    over the ranks that hold its distinct shards, a replicated leaf
+    counted once. One all_reduce over the mesh: slot i holds the leaves
+    sharded over ('model' in axes) + 2 ('data' in axes), and a rank adds
+    to a slot only at coordinate 0 of each axis the slot replicates."""
+    sq = torch.zeros(4, dtype=torch.float32, device=tensors[0].device)
+    for t, ax in zip(tensors, axes):
+        i = int("model" in ax) + 2 * int("data" in ax)
+        sq[i] += t.float().square().sum()
+    d0, m0 = mesh.coords["data"] == 0, mesh.coords["model"] == 0
+    keep = torch.tensor([d0 and m0, d0, m0, True], dtype=torch.float32,
+                        device=sq.device)
+    sq = sq * keep
+    torch.distributed.all_reduce(sq)
+    return torch.sqrt(sq.sum())
 
 
 def _grad(loss, targets):
@@ -188,7 +217,12 @@ def _grad(loss, targets):
                                materialize_grads=True)
 
 
-def make_train_step(tx: AdamW, grad_accum: int = 1):
+def _sum_data(t: torch.Tensor, mesh) -> torch.Tensor:
+    """t summed over 'data' (parallel/collectives.summed)."""
+    return collectives.summed(t, mesh, "data")
+
+
+def make_train_step(tx: AdamW, grad_accum: int = 1, mesh=None):
     """(state, batch) -> (state, {"loss", "grad_norm"}), the parameters
     updated in place.
 
@@ -196,7 +230,22 @@ def make_train_step(tx: AdamW, grad_accum: int = 1):
     microbatches (row j of microbatch a is row j * grad_accum + a) and
     takes one update on the token-weighted f32 average of their
     gradients (each microbatch's mean-loss gradient weighted by its
-    count of valid targets), which equals the full batch's gradient."""
+    count of valid targets), which equals the full batch's gradient.
+
+    Under a mesh of more than one rank (parallel/sharding.shard_params
+    sharded the model) the batch is this rank's rows, those of its
+    'data' coordinate, and the step is the JAX package's over the global
+    batch: the loss is the mean over the global batch's valid targets,
+    so each rank differentiates its summed log-likelihood divided by the
+    global count (summed over 'data'), and the gradient of every leaf
+    is summed over 'data' (an FSDP leaf's in its gather's backward
+    pass). A mean of the ranks' means would weigh a rank's targets by
+    its own count. The microbatches stride this rank's rows, which is
+    how the JAX package's strided split falls on a data shard. The
+    norm counts every shard once (:func:`sharded_global_norm`) and
+    AdamW updates each rank's shard."""
+    if mesh is not None and mesh.world > 1:
+        return _sharded_step(tx, grad_accum, mesh)
 
     def step(state: TrainState, batch):
         params = dict(state.model.named_parameters())
@@ -230,5 +279,59 @@ def make_train_step(tx: AdamW, grad_accum: int = 1):
                               dict(zip(names, targets)))
         metrics = {"loss": loss, "grad_norm": global_norm(grads)}
         return TrainState(state.model, opt_state, state.step + 1), metrics
+
+    return step
+
+
+def _sharded_step(tx: AdamW, grad_accum: int, mesh):
+    from video_llava_tpu_torch.parallel.sharding import sharded_axes
+
+    def step(state: TrainState, batch):
+        model = state.model
+        params = dict(model.named_parameters())
+        names = state.trainable
+        targets = [params[n] for n in names]
+        specs = getattr(model, "param_specs", {})
+        axes = [sharded_axes(specs.get(n), mesh) for n in names]
+        b = batch["input_ids"].shape[0]
+        if b % grad_accum:
+            raise ValueError(f"batch {b} is not a multiple of "
+                             f"grad_accum {grad_accum}")
+        dev = targets[0].device
+        gacc = [torch.zeros_like(p, dtype=torch.float32) for p in targets]
+        lsum = wsum = torch.zeros((), dtype=torch.float32, device=dev)
+        for a in range(grad_accum):
+            mb = (batch if grad_accum == 1 else
+                  {k: v[a::grad_accum] for k, v in batch.items()})
+            logp, n = log_likelihood(model, mb)
+            # the global batch's count and log-likelihood, summed over
+            # 'data'
+            ntok = mesh.all_sum(n.float().reshape(1), "data")[0]
+            w = ntok.clamp_min(1.0)
+            grads = _grad(-logp / w, targets)
+            total = mesh.all_sum(logp.detach().reshape(1).clone(),
+                                 "data")[0]
+            if grad_accum == 1:
+                gacc = list(grads)
+                lsum, wsum = -total / w, w
+                break
+            for acc, g in zip(gacc, grads):
+                acc.add_(g.float() * ntok)
+            lsum = lsum - total / w * ntok
+            wsum = wsum + ntok
+        # the data-parallel sum of every leaf an FSDP gather did not sum
+        gacc = [g if "data" in ax else _sum_data(g, mesh)
+                for g, ax in zip(gacc, axes)]
+        if grad_accum == 1:
+            grads, loss = gacc, lsum
+        else:
+            w = wsum.clamp_min(1.0)
+            grads = [(g / w).to(p.dtype) for g, p in zip(gacc, targets)]
+            loss = lsum / w
+        opt_state = tx.update(dict(zip(names, grads)), state.opt_state,
+                              dict(zip(names, targets)))
+        metrics = {"loss": loss,
+                   "grad_norm": sharded_global_norm(grads, axes, mesh)}
+        return TrainState(model, opt_state, state.step + 1), metrics
 
     return step
