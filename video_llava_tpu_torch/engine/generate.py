@@ -13,6 +13,16 @@ from the JAX package: stop ids end a row, a finished row emits the pad
 id and keeps its cache length, and keyword stops are checked on the
 host between chunks of ``keyword_check_every`` tokens, which is also
 where the streaming callback of ``generate_with_keywords`` is called.
+
+With the span recorder on (utils/trace_tools), the plain loop records
+``generate.prefill``, from the call's start to the loop's first read of
+``done``, then one ``generate.decode_step`` a decode forward, each ended
+by the next read (which waits for the step's kernels) or, for the last,
+by the loop's return (``generate``) or by the chunk's copy of its tokens
+to the host (``generate_with_keywords``, whose forward between chunks is
+a step of its own; its keyword check lies in no span). A call that
+raises records none of its open spans. The spans add no host
+synchronisation.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import torch
 
 from video_llava_tpu_torch.config import GenerationConfig
 from video_llava_tpu_torch.models.llama import KVCache
+from video_llava_tpu_torch.utils import trace_tools
 
 
 def process_logits(logits: torch.Tensor,
@@ -70,9 +81,12 @@ class GenerateResult(NamedTuple):
 
 def _decode_loop(model, gen: GenerationConfig, first_logits: torch.Tensor,
                  cache: KVCache, generator: Optional[torch.Generator],
-                 max_new_tokens: int) -> GenerateResult:
+                 max_new_tokens: int, span=None):
     """Sample from first_logits, then decode up to max_new_tokens tokens
-    in all; updates `cache` in place."""
+    in all; updates `cache` in place. `span`: the caller's open span
+    (utils/trace_tools), which the first read of `done` ends. Returns
+    the GenerateResult and the span still open (the last step's, else
+    `span`), for the caller to end."""
     device = first_logits.device
     b = first_logits.shape[0]
     stop_ids = torch.tensor((gen.eos_token_id,) + tuple(gen.stop_token_ids),
@@ -86,6 +100,7 @@ def _decode_loop(model, gen: GenerationConfig, first_logits: torch.Tensor,
     lens = torch.ones((b,), dtype=torch.int32, device=device)
     step = 1
     while step < max_new_tokens and not bool(done.all()):
+        span = trace_tools.switch(span, "generate.decode_step")
         old_length = cache.length
         logits, cache = model.llm.decode_step(tok, cache)
         nxt = sample_token(logits, gen, generator, mesh)
@@ -97,9 +112,10 @@ def _decode_loop(model, gen: GenerationConfig, first_logits: torch.Tensor,
         done = done | torch.isin(nxt, stop_ids)
         tok = nxt
         step += 1
-    return GenerateResult(tokens=buf, lengths=lens, cache=cache)
+    return GenerateResult(tokens=buf, lengths=lens, cache=cache), span
 
 
+@trace_tools.unwinding
 def generate(model, gen: GenerationConfig, input_ids: torch.Tensor,
              seq_lens: torch.Tensor, video_features: Optional[torch.Tensor],
              generator: Optional[torch.Generator] = None,
@@ -114,6 +130,7 @@ def generate(model, gen: GenerationConfig, input_ids: torch.Tensor,
     spec_k + 1 more cache rows for the verify forward's overshoot.
     Ignored under a tensor-parallel mesh (`mesh`, else the model's)."""
     speculative = speculative and tp_mesh(model, mesh) is None
+    span = None if speculative else trace_tools.begin("generate.prefill")
     s = input_ids.shape[1]
     slack = spec_k + 1 if speculative else 0
     if max_cache_len is None:
@@ -134,10 +151,13 @@ def generate(model, gen: GenerationConfig, input_ids: torch.Tensor,
                                      ctx, seq_lens, generator,
                                      gen.max_new_tokens, spec_ngram, spec_k)
         return out
-    return _decode_loop(model, gen, res.logits_last, res.cache, generator,
-                        gen.max_new_tokens)
+    out, span = _decode_loop(model, gen, res.logits_last, res.cache,
+                             generator, gen.max_new_tokens, span)
+    trace_tools.end(span)
+    return out
 
 
+@trace_tools.unwinding
 def generate_with_keywords(
     model,
     gen: GenerationConfig,
@@ -178,6 +198,7 @@ def generate_with_keywords(
     if input_ids.shape[0] != 1:
         raise ValueError("keyword stopping is per-conversation (batch 1)")
     speculative = speculative and tp_mesh(model, mesh) is None
+    span = None if speculative else trace_tools.begin("generate.prefill")
     s = input_ids.shape[1]
     if max_cache_len is None:
         max_cache_len = s + gen.max_new_tokens + (
@@ -217,9 +238,12 @@ def generate_with_keywords(
                 model, gen, logits, cache, ctx, ctx_len, generator, chunk,
                 spec_ngram, spec_k)
         else:
-            out = _decode_loop(model, gen, logits, cache, generator, chunk)
-        # one device-to-host copy of the chunk's tokens
+            out, span = _decode_loop(model, gen, logits, cache, generator,
+                                     chunk, span)
+        # one device-to-host copy of the chunk's tokens, which waits for
+        # its last step: the step's span ends here
         toks_all = out.tokens[0].cpu()
+        trace_tools.end(span)
         n = int(out.lengths[0])
         toks = toks_all[:n].tolist()
         pieces.extend(toks)
@@ -237,6 +261,8 @@ def generate_with_keywords(
         # continue from the chunk's last token (the JAX version also takes
         # this step after the last chunk, where nothing reads its logits)
         cache = out.cache
+        if not speculative:  # its span ends in the next chunk's loop
+            span = trace_tools.begin("generate.decode_step")
         logits, cache = model.llm.decode_step(out.tokens[:, n - 1], cache)
 
     final = (postprocess or str.strip)(text)

@@ -9,7 +9,11 @@ projector, plus embed_tokens in 'projector+embed', everything in
 The optimizer is optax.adamw as the JAX package builds it (b1 0.9, b2
 0.999, eps 1e-8, decoupled weight decay, a warmup-cosine schedule read
 at the update count before the update), computed in each parameter's
-dtype as optax does, and applied in place.
+dtype as optax does, and applied in place. With the span recorder on
+(utils/trace_tools), a step records ``train.loss_and_grad`` and then
+``train.update`` (the optimizer and the gradient norm). They mark where
+the host is, not the device: the first ends once the backward is
+queued, and the update's first host-to-device copies wait for it.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from video_llava_tpu_torch.constants import IGNORE_INDEX
 from video_llava_tpu_torch.models.video_llava import shifted_log_likelihood
 from video_llava_tpu_torch.parallel import collectives
+from video_llava_tpu_torch.utils import trace_tools
 
 TUNE_MODES = ("projector", "projector+embed", "full")
 
@@ -247,7 +252,9 @@ def make_train_step(tx: AdamW, grad_accum: int = 1, mesh=None):
     if mesh is not None and mesh.world > 1:
         return _sharded_step(tx, grad_accum, mesh)
 
+    @trace_tools.unwinding
     def step(state: TrainState, batch):
+        span = trace_tools.begin("train.loss_and_grad")
         params = dict(state.model.named_parameters())
         names = state.trainable
         targets = [params[n] for n in names]
@@ -275,9 +282,11 @@ def make_train_step(tx: AdamW, grad_accum: int = 1, mesh=None):
             w = wsum.clamp_min(1.0)
             grads = [(acc / w).to(p.dtype) for acc, p in zip(gacc, targets)]
             loss = lsum / w
+        span = trace_tools.switch(span, "train.update")
         opt_state = tx.update(dict(zip(names, grads)), state.opt_state,
                               dict(zip(names, targets)))
         metrics = {"loss": loss, "grad_norm": global_norm(grads)}
+        trace_tools.end(span)
         return TrainState(state.model, opt_state, state.step + 1), metrics
 
     return step
@@ -286,7 +295,9 @@ def make_train_step(tx: AdamW, grad_accum: int = 1, mesh=None):
 def _sharded_step(tx: AdamW, grad_accum: int, mesh):
     from video_llava_tpu_torch.parallel.sharding import sharded_axes
 
+    @trace_tools.unwinding
     def step(state: TrainState, batch):
+        span = trace_tools.begin("train.loss_and_grad")
         model = state.model
         params = dict(model.named_parameters())
         names = state.trainable
@@ -328,10 +339,12 @@ def _sharded_step(tx: AdamW, grad_accum: int, mesh):
             w = wsum.clamp_min(1.0)
             grads = [(g / w).to(p.dtype) for g, p in zip(gacc, targets)]
             loss = lsum / w
+        span = trace_tools.switch(span, "train.update")
         opt_state = tx.update(dict(zip(names, grads)), state.opt_state,
                               dict(zip(names, targets)))
         metrics = {"loss": loss,
                    "grad_norm": sharded_global_norm(grads, axes, mesh)}
+        trace_tools.end(span)
         return TrainState(model, opt_state, state.step + 1), metrics
 
     return step
